@@ -161,11 +161,16 @@ def phase_kernels(gpu: str) -> dict:
         worst = max(worst, err / max(scale, 1e-30))
         if name == "serving block":
             ms = cuda_ms(lambda: spectral_apply_fused(xf, w, trunc, t_out=t_out))
+            # the same inputs in contiguous layout: what reading cuFFT's
+            # permuted spectrum through its strides costs the kernel
+            xc = xf.contiguous()
+            contiguous_ms = cuda_ms(lambda: spectral_apply_fused(xc, w, trunc, t_out=t_out))
+            del xc
             plain_ms = cuda_ms(lambda: spectral_apply_fused_ref(xf, w, trunc, t_out), iters=5)
             bound_ms, bound_by = _fused_bound_ms(b, ci, co, ext, kept, t_in, t_out, False)
             print(
-                f"[kernel] serving block: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {bound_ms:.3f} ms ({bound_by}); {gpu}"
+                f"[kernel] serving block: kernel {ms:.3f} ms ({contiguous_ms:.3f} ms on a "
+                f"contiguous x), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); {gpu}"
             )
             record = {
                 "name": "spectral_fused",
