@@ -18,6 +18,9 @@ Phases, each failing hard:
   5. the serving CLI on a small checkpoint written by the port, with
      ``--verify``, as a subprocess.
 
+Each served run (phase 3, both passes of phase 4, phase 5) must launch the
+spectral kernel exactly once per FNO block per forward.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without a result when there is no CUDA device.
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -191,15 +195,23 @@ def phase_kernels(gpu: str) -> dict:
     return record
 
 
-SMOKE_GRID = (128, 64, 32, 88)  # half the paper's 256x128x64 per spatial dim, same nt
-
-
 def _serving_cfg(in_channels: int = 1):
     import dataclasses
 
-    from repro_torch.configs.fno_sleipner import CONFIG
+    from repro_torch.configs.fno_sleipner import CONFIG, ONE_CARD_GRID
 
-    return dataclasses.replace(CONFIG, grid=SMOKE_GRID, in_channels=in_channels)
+    return dataclasses.replace(CONFIG, grid=ONE_CARD_GRID, in_channels=in_channels)
+
+
+def _check_launches(tag: str, launches: int, n_blocks: int, forwards: int, gpu: str) -> int:
+    """Every forward of a served run launches the spectral kernel once per
+    FNO block; fail otherwise."""
+    print(f"[{tag}] spectral_fused launches: {launches} over {forwards} forwards "
+          f"x {n_blocks} blocks; {gpu}")
+    if forwards == 0 or launches != n_blocks * forwards:
+        raise SystemExit(f"[{tag}] expected {n_blocks} x {forwards} spectral kernel "
+                         f"launches, counted {launches}")
+    return launches
 
 
 def _report_serving(tag, done, dt, runner):
@@ -233,6 +245,7 @@ def phase_serving(gpu: str) -> int:
     spectral kernel's launch count over the served run."""
     import torch
 
+    from repro_torch.configs.fno_sleipner import ONE_CARD_SLOTS
     from repro_torch.core.fno import init_params
     from repro_torch.kernels.spectral_conv import spectral_fused_cuda
     from repro_torch.launch.serve_pde import build_scenarios, check_served, serve, verify
@@ -246,26 +259,26 @@ def phase_serving(gpu: str) -> int:
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     nbytes = sum(t.numel() * t.element_size() for g in params.values() for t in g.values())
     print(f"[serve] weights on the card: {nbytes / 1e9:.2f} GB")
-    runner = FNORunner(cfg, params, device=dev, max_slots=2)
+    runner = FNORunner(cfg, params, device=dev, max_slots=ONE_CARD_SLOTS)
     print(f"[serve] warmup of buckets {runner.buckets}: {runner.warmup():.2f}s")
     requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=2)
     spectral_fused_cuda.launches = 0
-    done, dt, sched = serve(runner, requests, 2)
+    done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
     launches = spectral_fused_cuda.launches
     check_served(done, requests, sched.failed)
     _report_serving("serve", done, dt, runner)
-    print(f"[serve] spectral_fused launches: {launches} over {runner.batched_steps} forwards; {gpu}")
-    if launches == 0:
-        raise SystemExit("[serve] the served run never launched the spectral kernel")
+    _check_launches("serve", launches, cfg.n_blocks, runner.batched_steps, gpu)
     worst = verify(runner, done, 2)
     print(f"[serve] verify OK vs the unfused plain forward (max abs diff {worst:.3e})")
     return launches
 
 
-def phase_ensemble(gpu: str) -> None:
-    """The same size as a UQ ensemble through the deep-split geomodel cache."""
+def phase_ensemble(gpu: str) -> dict:
+    """The same size as a UQ ensemble through the deep-split geomodel cache;
+    returns the spectral kernel's launch count of each pass."""
     import torch
 
+    from repro_torch.configs.fno_sleipner import ONE_CARD_SLOTS
     from repro_torch.core.fno import init_params
     from repro_torch.kernels.spectral_conv import spectral_fused_cuda
     from repro_torch.launch.serve_pde import build_scenarios, check_served, serve, verify
@@ -275,18 +288,20 @@ def phase_ensemble(gpu: str) -> None:
     dev = torch.device("cuda")
     _free_cuda()
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    runner = FNORunner(cfg, params, device=dev, max_slots=2, n_static=1,
+    runner = FNORunner(cfg, params, device=dev, max_slots=ONE_CARD_SLOTS, n_static=1,
                        cache_level="deep", cache_bytes=16 << 30)
     print(f"[ensemble] warmup of buckets {runner.buckets}: {runner.warmup():.2f}s")
-    passes = []
+    passes, launches = [], {}
     for tag in ("cold", "warm"):
         requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=2, n_static=1)
+        forwards = runner.batched_steps
         spectral_fused_cuda.launches = 0
-        done, dt, sched = serve(runner, requests, 2)
+        done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
+        launches[f"ensemble_{tag}"] = spectral_fused_cuda.launches
         check_served(done, requests, sched.failed)
         _report_serving(f"ensemble {tag}", done, dt, runner)
-        if spectral_fused_cuda.launches == 0:
-            raise SystemExit("[ensemble] the served run never launched the spectral kernel")
+        _check_launches(f"ensemble {tag}", launches[f"ensemble_{tag}"], cfg.n_blocks,
+                        runner.batched_steps - forwards, gpu)
         passes.append(sorted(done, key=lambda r: r.rid))
     stats = runner.cache.stats
     print(f"[ensemble] cache hit-rate {stats['hit_rate']:.3f} ({stats['hits']} hits / {stats['misses']} misses); {gpu}")
@@ -299,10 +314,12 @@ def phase_ensemble(gpu: str) -> None:
     print("[ensemble] cold == warm bitwise")
     worst = verify(runner, passes[0], 2)
     print(f"[ensemble] verify OK vs the unfused plain forward (max abs diff {worst:.3e})")
+    return launches
 
 
-def phase_cli() -> None:
-    """The serving CLI on a small checkpoint the port writes, with --verify."""
+def phase_cli(gpu: str) -> int:
+    """The serving CLI on a small checkpoint the port writes, with --verify;
+    returns the spectral kernel's launch count of its served run."""
     import tempfile
 
     import torch
@@ -333,6 +350,10 @@ def phase_cli() -> None:
     if out.returncode != 0:
         print(out.stderr[-4000:], file=sys.stderr)
         raise SystemExit(f"[cli] serve_pde exited {out.returncode}")
+    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", out.stdout)
+    if m is None:
+        raise SystemExit("[cli] serve_pde printed no spectral kernel launch count")
+    return _check_launches("cli", int(m.group(1)), cfg.n_blocks, int(m.group(2)), gpu)
 
 
 def main() -> int:
@@ -349,8 +370,9 @@ def main() -> int:
     phase_build()
     record = phase_kernels(gpu)
     record["launches"] = phase_serving(gpu)
-    phase_ensemble(gpu)
-    phase_cli()
+    record["launches_by_path"] = {
+        "serve": record["launches"], **phase_ensemble(gpu), "cli": phase_cli(gpu),
+    }
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [record]}))

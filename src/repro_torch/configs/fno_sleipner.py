@@ -17,6 +17,14 @@ CONFIG = FNOConfig(
     decoder_dim=128,
 )
 
+# What one 80 GB card serves at the paper's width: half the paper grid per
+# spatial dim, same nt and modes (at the paper grid one float32 activation
+# at batch 1 is 29.5 GB, and a block needs several), in batch buckets of up
+# to ONE_CARD_SLOTS scenarios. chip_smoke.py and launch/profile_forward.py
+# both serve this shape.
+ONE_CARD_GRID = (128, 64, 32, 88)
+ONE_CARD_SLOTS = 2
+
 SHAPES = (
     ("train_b32", 32, "train"),
     ("infer_b32", 32, "infer"),

@@ -40,7 +40,7 @@ def load_library() -> ctypes.CDLL:
     )
     lib = ctypes.CDLL(path)
     lib.spectral_fused_launch.argtypes = (
-        [_c_ptr] * 4 + [_c_int] * 15 + [ctypes.POINTER(ctypes.c_longlong), _c_ptr]
+        [_c_ptr] * 4 + [_c_int] * 14 + [ctypes.POINTER(ctypes.c_longlong), _c_ptr]
     )
     lib.spectral_fused_launch.restype = _c_int
     lib.spectral_fused_error_string.argtypes = [_c_int]

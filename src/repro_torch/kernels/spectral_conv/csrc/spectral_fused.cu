@@ -46,7 +46,7 @@ constexpr int kBatchChunk = 4;
 
 struct Dims {
   int B, CI, CO;
-  int E1, E2, E3, Tin;
+  int E1, E2, E3;
   int K1, K2, K3, KT;
   int Tout;
   int N1, N2, N3;
@@ -142,11 +142,11 @@ spectral_fused_kernel(const float2* __restrict__ x,
 // launch (0 on success).
 extern "C" int spectral_fused_launch(const void* x, const void* w,
                                      const void* add, void* y, int B, int CI,
-                                     int CO, int E1, int E2, int E3, int Tin,
-                                     int K1, int K2, int K3, int KT, int Tout,
+                                     int CO, int E1, int E2, int E3, int K1,
+                                     int K2, int K3, int KT, int Tout,
                                      int N1, int N2, int N3,
                                      const long long* xs, void* stream) {
-  const Dims d{B,  CI, CO, E1, E2, E3, Tin, K1,   K2,   K3,   KT,   Tout,
+  const Dims d{B,  CI, CO, E1, E2, E3, K1, K2, K3, KT, Tout,
                N1, N2, N3, {xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]}};
   const long long S = static_cast<long long>(E1) * E2 * E3 * Tout;
   if (B == 0 || CO == 0 || S == 0) return 0;

@@ -90,7 +90,7 @@ def spectral_fused_cuda(xf, w, trunc, t_out=None, add=None) -> torch.Tensor:
     counts the launches, so a run can show its main path went through the
     kernel.
     """
-    b, ci, e1, e2, e3, tin = xf.shape
+    b, ci, e1, e2, e3 = xf.shape[:5]
     co, k1, k2, k3, kt = w.shape[1:]
     tout = kt if t_out is None else int(t_out)
     y = torch.empty((b, co, e1, e2, e3, tout), dtype=torch.complex64, device=xf.device)
@@ -102,7 +102,7 @@ def spectral_fused_cuda(xf, w, trunc, t_out=None, add=None) -> torch.Tensor:
         err = lib.spectral_fused_launch(
             xf.data_ptr(), w.data_ptr(),
             None if add is None else add.data_ptr(), y.data_ptr(),
-            b, ci, co, e1, e2, e3, tin, k1, k2, k3, kt, tout, *n, strides, stream,
+            b, ci, co, e1, e2, e3, k1, k2, k3, kt, tout, *n, strides, stream,
         )
     if err:
         raise RuntimeError(

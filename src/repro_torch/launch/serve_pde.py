@@ -167,6 +167,7 @@ def main(argv=None):
                     "runs on the CPU)")
     args = ap.parse_args(argv)
 
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
     from repro_torch.serve import FNORunner
 
     n_static = args.static_channels if args.ensemble else 0
@@ -193,7 +194,9 @@ def main(argv=None):
         cfg, args.scenarios, args.wells, args.seed, args.rollout_steps,
         n_static=n_static, dup=args.dup,
     )
+    spectral_fused_cuda.launches = 0
     done, dt, sched = serve(runner, requests, args.max_batch)
+    launches = spectral_fused_cuda.launches
     check_served(done, requests, sched.failed)
     lat = sorted(r.finished_s - r.submitted_s for r in done)
     n = len(done)
@@ -204,6 +207,9 @@ def main(argv=None):
         f"latency p50 {lat[n // 2] * 1e3:.1f}ms p95 "
         f"{lat[min(n - 1, int(n * 0.95))] * 1e3:.1f}ms"
     )
+    if runner.device.type == "cuda":
+        print(f"spectral kernel launches: {launches} over "
+              f"{runner.batched_steps} forwards")
     if runner.cache is not None:
         s = runner.cache.stats
         lv = s["level_bytes"]
