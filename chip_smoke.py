@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one H100 and hold its kernel to its plain version.
+"""Drive the PyTorch/CUDA port on one H100 and hold its kernels to their plain versions.
 
     python3 chip_smoke.py
 
 Phases, each failing hard:
   1. build the CUDA kernel library from the repository's sources;
-  2. hold the CUDA spectral kernel against its plain PyTorch version
+  2. hold the fused spectral kernel against its plain PyTorch version
      (``spectral_apply_fused_ref`` + ``pad_kept_ref``) over the trunc
      patterns, t tails, ``add`` and the full-width serving block shape,
-     and time both with CUDA events;
+     and time both with CUDA events; then the weight-cotangent kernel
+     against ``spectral_fused_dw_ref`` over the trunc patterns, t tails
+     and the layouts that rfftn and the irfftn backward hand it, and the
+     fused op's autograd backward (dx on the fused kernel, dW on the
+     cotangent kernel) against plain autograd; both backward kernels are
+     timed at the training block shape;
   3. serve the Sleipner FNO (width 40, modes (24,16,8,10), 4 blocks) on
      grid (128,64,32,88) through ``FNORunner`` and the ``Scheduler``,
      checking every output against the plain unfused forward;
@@ -16,10 +21,18 @@ Phases, each failing hard:
      through the deep-split cache: hit-rate > 0, cold == warm bitwise,
      verified likewise;
   5. the serving CLI on a small checkpoint written by the port, with
-     ``--verify``, as a subprocess.
+     ``--verify``, as a subprocess;
+  6. train the same model at full width on grid (64,32,32,88): every
+     leaf's gradient through the fused path against the unfused forward's,
+     then 4 steps of ``make_train_step`` (batch 2 as 2 micro-batches,
+     remat on) fed by ``ShardedDatasetLoader``;
+  7. the training CLI on the card with an injected fault (restored from
+     its checkpoint), then the serving CLI with ``--verify`` on the
+     checkpoint it wrote.
 
-Each served run (phase 3, both passes of phase 4, phase 5) must launch the
-spectral kernel exactly once per FNO block per forward.
+Each served run must launch the fused kernel exactly once per FNO block
+per forward; each training step, per micro-batch and block, three times
+(forward, remat recompute, dx) and the cotangent kernel once.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -47,6 +60,8 @@ TOL_REL, TOL_ABS = 1e-4, 1e-6
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:217"
+DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused_dw.cu"
+DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:307"
 
 
 def gpu_line() -> str:
@@ -86,19 +101,30 @@ def phase_build() -> float:
     return dt
 
 
-def _fused_bound_ms(b, ci, co, ext, kept, t_in, t_out, with_add) -> tuple:
-    """(bound_ms, bound_by): bytes the function must move (w once, the kept
-    part of x once, add once, the full output once) over HBM bandwidth vs
-    its float32 operations over the FP32 peak."""
-    k1, k2, k3, kt = kept
-    n_kept = k1 * k2 * k3 * kt
-    out_elems = b * co * ext[0] * ext[1] * ext[2] * t_out
-    nbytes = 8 * (ci * co * n_kept + b * ci * n_kept + out_elems
-                  + (b * co * n_kept if with_add else 0))
-    flops = 8 * b * ci * co * n_kept
+def _bound_ms(nbytes, flops) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the float32 operations over the FP32 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fused_bound_ms(b, ci, co, ext, kept, t_in, t_out, with_add) -> tuple:
+    """Bound of the fused op: w once, the kept part of x once, add once,
+    the full output once; 8 flops per complex multiply-add."""
+    n_kept = int(np.prod(kept))
+    out_elems = b * co * ext[0] * ext[1] * ext[2] * t_out
+    nbytes = 8 * (ci * co * n_kept + b * ci * n_kept + out_elems
+                  + (b * co * n_kept if with_add else 0))
+    return _bound_ms(nbytes, 8 * b * ci * co * n_kept)
+
+
+def _dw_bound_ms(b, ci, co, kept) -> tuple:
+    """Bound of the weight cotangent: the kept parts of x and g once, the
+    weight gradient once; 8 flops per complex multiply-add."""
+    n_kept = int(np.prod(kept))
+    nbytes = 8 * (b * ci * n_kept + b * co * n_kept + ci * co * n_kept)
+    return _bound_ms(nbytes, 8 * b * ci * co * n_kept)
 
 
 def phase_kernels(gpu: str) -> dict:
@@ -193,6 +219,155 @@ def phase_kernels(gpu: str) -> dict:
         torch.cuda.empty_cache()
     print(f"[kernel] worst relative error over all cases: {worst:.3e}")
     return record
+
+
+def _irfftn_cotangent(shape, dev, gen):
+    """A cotangent g of the fused op's output as the training path hands it
+    over: the gradient that the irfftn backward produces for its input."""
+    import torch
+
+    nt = 2 * (shape[-1] - 1)
+    yf = torch.zeros(shape, dtype=torch.complex64, device=dev, requires_grad=True)
+    y = torch.fft.irfftn(yf, s=tuple(shape[2:5]) + (nt,), dim=(2, 3, 4, 5))
+    y.backward(torch.randn(y.shape, device=dev, generator=gen))
+    return yf.grad
+
+
+def _gate(tag, got, ref) -> float:
+    """Fail unless max|got - ref| <= 1e-4 max|ref| + 1e-6; returns the error."""
+    if tuple(got.shape) != tuple(ref.shape):
+        raise SystemExit(f"[{tag}] shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    gate = TOL_REL * scale + TOL_ABS
+    print(f"[{tag}] max|d|={err:.3e} (gate {gate:.3e}, max|ref|={scale:.3e})")
+    if not err <= gate:
+        raise SystemExit(f"[{tag}] disagrees with its plain version")
+    return err
+
+
+def phase_backward_kernels(gpu: str) -> tuple:
+    """The weight-cotangent kernel and the fused op's backward vs their
+    plain versions; both backward kernels timed at the training block
+    shape. Returns (dx timing record, dW kernel record)."""
+    import torch
+
+    from repro_torch.configs.fno_sleipner import CONFIG, ONE_CARD_TRAIN_BATCH, ONE_CARD_TRAIN_ACCUM
+    from repro_torch.configs.fno_sleipner import ONE_CARD_TRAIN_GRID
+    from repro_torch.kernels.spectral_conv import (
+        pad_kept_ref, spectral_apply_fused, spectral_apply_fused_add,
+        spectral_apply_fused_ref, spectral_fused_dw, spectral_fused_dw_ref,
+        spectral_fused_dx,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+
+    def spectrum(shape):
+        nt = 2 * (shape[-1] - 1)
+        real = torch.randn(shape[:-1] + (nt,), device=dev, generator=gen)
+        return torch.fft.rfftn(real, dim=(2, 3, 4, 5))
+
+    # (name, b, ci, co, dims [(N or None, K)], t_x, t_g, kt, layouts from the FFTs)
+    cases = [
+        ("dw NNN, t tails", 2, 3, 5, [(16, 6), (12, 4), (8, 4)], 9, 7, 3, False),
+        ("dw NNN, FFT layouts", 3, 4, 3, [(12, 4), (10, 6), (8, 2)], 7, 7, 3, True),
+        ("dw N--, t tail", 2, 3, 5, [(16, 6), (None, 4), (None, 3)], 5, 3, 3, False),
+        ("dw N-N, t tails", 5, 2, 4, [(10, 4), (None, 4), (8, 2)], 4, 6, 3, False),
+    ]
+    for name, b, ci, co, dims, t_x, t_g, kt, from_fft in cases:
+        trunc = tuple(n for n, _ in dims)
+        ext = tuple(k if n is None else n for n, k in dims)
+        kept = tuple(k for _, k in dims) + (kt,)
+        if from_fft:
+            xf = spectrum((b, ci) + ext + (t_x,))
+            g = _irfftn_cotangent((b, co) + ext + (t_g,), dev, gen)
+        else:
+            xf, g = rand((b, ci) + ext + (t_x,)), rand((b, co) + ext + (t_g,))
+        got = spectral_fused_dw(xf, g, trunc, kept)
+        torch.cuda.synchronize()
+        _gate(f"kernel {name}", got, spectral_fused_dw_ref(xf, g, trunc, kept))
+        print(f"[kernel] {name}: x strides {xf.stride()}, g strides {g.stride()}")
+
+    # the autograd Function vs plain autograd on the same inputs
+    for name, dims, t_in, kt, t_out, with_add in (
+        ("backward NNN, t tail", [(16, 6), (12, 4), (8, 4)], 9, 3, 9, False),
+        ("backward N-N, add", [(10, 4), (None, 4), (8, 2)], 4, 3, 6, True),
+    ):
+        trunc = tuple(n for n, _ in dims)
+        ext = tuple(k if n is None else n for n, k in dims)
+        kept = tuple(k for _, k in dims) + (kt,)
+        inputs = [spectrum((2, 3) + ext + (t_in,)), rand((3, 4) + kept)]
+        if with_add:
+            inputs.append(rand((2, 4) + kept))
+        a = torch.randn((2, 4) + ext + (t_out,), device=dev, generator=gen)
+
+        def grads(plain):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            if plain:
+                y = spectral_apply_fused_ref(leaves[0], leaves[1], trunc, t_out)
+                if with_add:
+                    y = y + pad_kept_ref(leaves[2], trunc, t_out)
+            elif with_add:
+                y = spectral_apply_fused_add(*leaves, trunc, t_out=t_out)
+            else:
+                y = spectral_apply_fused(*leaves, trunc, t_out=t_out)
+            (y.real * a - y.imag * a).sum().backward()
+            return [t.grad for t in leaves]
+
+        for i, (got, ref) in enumerate(zip(grads(False), grads(True))):
+            _gate(f"kernel {name}, grad of input {i}", got, ref)
+
+    # the training block: micro-batch of the main path, layouts of its FFTs
+    b = ONE_CARD_TRAIN_BATCH // ONE_CARD_TRAIN_ACCUM
+    ci = co = CONFIG.width
+    ext = ONE_CARD_TRAIN_GRID[:3]
+    t_bins = ONE_CARD_TRAIN_GRID[3] // 2 + 1
+    kept = CONFIG.mode_shape
+    trunc = ext
+    xf = spectrum((b, ci) + ext + (t_bins,))
+    g = _irfftn_cotangent((b, co) + ext + (t_bins,), dev, gen)
+    w = rand((ci, co) + kept)
+    print(f"[kernel] training block b={b} ci={ci} co={co} E={ext} T={t_bins} K={kept}: "
+          f"x strides {xf.stride()} (rfftn), g strides {g.stride()} (irfftn backward)")
+    dw_err = _gate("kernel training block dW", spectral_fused_dw(xf, g, trunc, kept),
+                   spectral_fused_dw_ref(xf, g, trunc, kept))
+    wt = w.transpose(0, 1).conj()
+    dx_err = _gate("kernel training block dx",
+                   spectral_fused_dx(g, w, trunc, t_bins),
+                   spectral_apply_fused_ref(g, wt, trunc, t_bins))
+    torch.cuda.empty_cache()
+    dw_ms = cuda_ms(lambda: spectral_fused_dw(xf, g, trunc, kept))
+    dw_plain = cuda_ms(lambda: spectral_fused_dw_ref(xf, g, trunc, kept), iters=5)
+    dx_ms = cuda_ms(lambda: spectral_fused_dx(g, w, trunc, t_bins))
+    dx_plain = cuda_ms(lambda: spectral_apply_fused_ref(g, wt, trunc, t_bins), iters=5)
+    dw_bound, dw_by = _dw_bound_ms(b, ci, co, kept)
+    dx_bound, dx_by = _fused_bound_ms(b, co, ci, ext, kept, t_bins, t_bins, False)
+    print(f"[kernel] training block dW: kernel {dw_ms:.3f} ms, plain {dw_plain:.3f} ms, "
+          f"bound {dw_bound:.3f} ms ({dw_by}); {gpu}")
+    print(f"[kernel] training block dx (fused kernel on conj(W^T)): kernel {dx_ms:.3f} ms, "
+          f"plain {dx_plain:.3f} ms, bound {dx_bound:.3f} ms ({dx_by}); {gpu}")
+    del xf, g, w, wt
+    torch.cuda.empty_cache()
+    dx = {"train_dx_ms": dx_ms, "train_dx_plain_ms": dx_plain, "train_dx_bound_ms": dx_bound,
+          "train_dx_max_abs_err": dx_err}
+    record = {
+        "name": "spectral_fused_dw",
+        "route": "cuda",
+        "source": DW_SOURCE,
+        "replaces": DW_REPLACES,
+        "launches": None,
+        "max_abs_err": dw_err,
+        "ms": dw_ms,
+        "plain_ms": dw_plain,
+        "bound_ms": dw_bound,
+        "bound_by": dw_by,
+        "library_ms": None,
+    }
+    return dx, record
 
 
 def _serving_cfg(in_channels: int = 1):
@@ -356,6 +531,137 @@ def phase_cli(gpu: str) -> int:
     return _check_launches("cli", int(m.group(1)), cfg.n_blocks, int(m.group(2)), gpu)
 
 
+def _train_cfg():
+    import dataclasses
+
+    from repro_torch.configs.fno_sleipner import CONFIG, ONE_CARD_TRAIN_GRID
+
+    return dataclasses.replace(CONFIG, grid=ONE_CARD_TRAIN_GRID)
+
+
+def phase_train(gpu: str) -> dict:
+    """Full-width training on one card: every leaf's gradient through the
+    fused path against the unfused forward's, then 4 steps of the train
+    step. Returns each kernel's launch count over the 4 steps."""
+    import torch
+
+    from repro_torch.configs.fno_sleipner import ONE_CARD_TRAIN_ACCUM, ONE_CARD_TRAIN_BATCH
+    from repro_torch.core.fno import fno_forward, fno_forward_unfused, init_params, mse_loss
+    from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda, spectral_fused_dw_cuda
+    from repro_torch.launch.train import synthetic_fno_data
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.train.train_loop import accumulate_grads, make_train_step, zeros_like_tree
+
+    cfg = _train_cfg()
+    steps, accum = 4, ONE_CARD_TRAIN_ACCUM
+    print("reduced: grid 256x128x64 -> 64x32x32")
+    print(f"[train] config {cfg}; batch {ONE_CARD_TRAIN_BATCH} as {accum} micro-batches")
+    dev = torch.device("cuda")
+    _free_cuda()
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    x_all, y_all = synthetic_fno_data(cfg, 4, seed=0)
+    loader = ShardedDatasetLoader({"x": NdArraySource(x_all), "y": NdArraySource(y_all)},
+                                  ONE_CARD_TRAIN_BATCH, device=dev, seed=0)
+    try:
+        def loss_of(forward):
+            return lambda p, b: (mse_loss(forward(p, b["x"], cfg), b["y"]), {})
+
+        def sum_sq_of(forward):
+            # the squared error summed, not averaged: the same gradients
+            # times the grid's 5.8M points, so the gate's relative term
+            # rules and not its 1e-6 floor
+            return lambda p, b: (mse_loss(forward(p, b["x"], cfg), b["y"]) * b["y"].numel(), {})
+
+        micro = {k: v[: ONE_CARD_TRAIN_BATCH // accum] for k, v in loader.batch(0).items()}
+        grads = {}
+        for tag, forward in (("fused", fno_forward), ("unfused", fno_forward_unfused)):
+            grads[tag] = zeros_like_tree(params)
+            t0 = time.perf_counter()
+            accumulate_grads(sum_sq_of(forward), params, micro, grads[tag])
+            torch.cuda.synchronize()
+            print(f"[train] {tag} forward + backward at micro-batch 1: "
+                  f"{time.perf_counter() - t0:.3f}s; {gpu}")
+        for group, leaves in grads["unfused"].items():
+            for name, ref in leaves.items():
+                _gate(f"train grad {group}.{name} fused vs unfused", grads["fused"][group][name], ref)
+        del grads, micro
+        _free_cuda()
+
+        opt = init_opt_state(params)
+        step = make_train_step(loss_of(fno_forward),
+                               AdamWConfig(lr=warmup_cosine(1e-3, 10, steps)), grad_accum=accum)
+        spectral_fused_cuda.launches = spectral_fused_dw_cuda.launches = 0
+        times, metrics = [], []
+        for i in range(steps):
+            batch = loader.batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = {"fused": spectral_fused_cuda.launches, "dw": spectral_fused_dw_cuda.launches}
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        print(f"[train] step {i}: loss {m['loss']:.6e} grad_norm {m['grad_norm']:.6e} "
+              f"lr {m['lr']:.3e} in {t:.3f}s")
+    print(f"[train] {steps} steps: mean step {np.mean(times[1:]):.3f}s after the first "
+          f"({times[0]:.3f}s); max_memory_allocated {peak:.2f} GiB; {gpu}")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        raise SystemExit("[train] a loss or grad norm is not finite")
+    want = {"fused": steps * cfg.n_blocks * 3 * accum, "dw": steps * cfg.n_blocks * accum}
+    print(f"[train] launches over {steps} steps: fused {launches['fused']} (want {want['fused']}: "
+          f"forward, remat recompute, dx), dw {launches['dw']} (want {want['dw']}); {gpu}")
+    if launches != want:
+        raise SystemExit("[train] the training steps did not launch the kernels as expected")
+    del params, opt
+    return launches
+
+
+def phase_train_cli(gpu: str) -> dict:
+    """The training CLI on the card with an injected fault, then the serving
+    CLI with --verify on its checkpoint; returns the launch counts of both."""
+    import tempfile
+
+    _free_cuda()  # the subprocesses need the memory this process has cached
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "fno",
+               "--steps", "6", "--save-every", "2", "--inject-fault", "3", "--width", "8",
+               "--n-data", "8", "--use-pallas", "--ckpt-dir", d]
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        print("\n".join("[train_cli] " + line for line in out.stdout.strip().splitlines()))
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"[train_cli] train exited {out.returncode}")
+        if "failures=1 restores=1" not in out.stdout:
+            raise SystemExit("[train_cli] the injected fault was not restored from a checkpoint")
+        m = re.search(r"spectral kernel launches: fused (\d+), dw (\d+) over (\d+) train steps "
+                      r"x (\d+) blocks x (\d+) micro-batches", out.stdout)
+        if m is None:
+            raise SystemExit("[train_cli] train printed no kernel launch counts")
+        fused, dw, n_steps, n_blocks, accum = map(int, m.groups())
+        if n_steps == 0 or fused != n_steps * n_blocks * 3 * accum or dw != n_steps * n_blocks * accum:
+            raise SystemExit(f"[train_cli] launches fused {fused}, dw {dw} do not match "
+                             f"{n_steps} steps x {n_blocks} blocks x {accum} micro-batches")
+        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
+                     "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2", "--verify"]
+        srv = subprocess.run(serve_cmd, capture_output=True, text=True, env=env, timeout=600)
+    print("\n".join("[train_cli] " + line for line in srv.stdout.strip().splitlines()))
+    if srv.returncode != 0 or "verify OK" not in srv.stdout:
+        print(srv.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"[train_cli] serve_pde exited {srv.returncode} without verify OK")
+    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", srv.stdout)
+    if m is None:
+        raise SystemExit("[train_cli] serve_pde printed no spectral kernel launch count")
+    served = _check_launches("train_cli serve", int(m.group(1)), n_blocks, int(m.group(2)), gpu)
+    print(f"[train_cli] train launches fused {fused}, dw {dw} over {n_steps} steps; {gpu}")
+    return {"fused": fused, "dw": dw, "serve": served}
+
+
 def main() -> int:
     import torch
 
@@ -368,14 +674,22 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}; {gpu}")
     t0 = time.perf_counter()
     phase_build()
-    record = phase_kernels(gpu)
-    record["launches"] = phase_serving(gpu)
-    record["launches_by_path"] = {
-        "serve": record["launches"], **phase_ensemble(gpu), "cli": phase_cli(gpu),
+    fused = phase_kernels(gpu)
+    dx, dw = phase_backward_kernels(gpu)
+    fused.update(dx)
+    served = {"serve": phase_serving(gpu), **phase_ensemble(gpu), "cli": phase_cli(gpu)}
+    train = phase_train(gpu)
+    train_cli = phase_train_cli(gpu)
+    fused["launches"] = train["fused"]
+    fused["launches_by_path"] = {
+        **served, "train": train["fused"], "train_cli": train_cli["fused"],
+        "train_cli_serve": train_cli["serve"],
     }
+    dw["launches"] = train["dw"]
+    dw["launches_by_path"] = {"train": train["dw"], "train_cli": train_cli["dw"]}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [fused, dw]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Fourier Neural Operator — serial forward for serving (paper Alg. 1).
+"""Fourier Neural Operator — serial forward and training (paper Alg. 1).
 
 Port of the serial half of ``repro.core.fno``. Parameters are a nested dict
 of tensors with the reference's leaf names (``encoder.w/b``,
@@ -14,6 +14,16 @@ unfused oracle (truncate, einsum, pad as three steps) that serving's
 ``--verify`` replays through. The 1x1 convs and the FFTs stay library
 calls (``torch.matmul``, ``torch.fft``), as the reference leaves them to XLA.
 
+Every forward is differentiable: the fused op's backward runs on the
+kernels too (``kernels/spectral_conv/ops.py``), and with ``cfg.remat``
+each block is recomputed in the backward instead of keeping its
+intermediates (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``). A trainer may hand the forwards a params tree whose
+``blocks`` leaves are lists of per-block tensors instead of stacked
+tensors (``train/train_loop.py`` does, so that no gradient of a stacked
+leaf is ever formed per block); every forward indexes blocks the same way
+in both.
+
 Every GELU is the tanh form, as ``jax.nn.gelu``'s default: the exact erf
 form differs by up to ~2e-4, outside the 1e-4 parity gate. TF32 stays off:
 the 1x1 convs are float32 matrix products at full precision.
@@ -26,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core import dfft
@@ -53,6 +64,7 @@ class FNOConfig:
     decoder_dim: int = 128
     # Compute dtype for pointwise/conv ops; the FFT path is always float32.
     dtype: torch.dtype = torch.float32
+    remat: bool = True  # recompute each FNO block in the backward
 
     @property
     def mode_shape(self) -> Tuple[int, int, int, int]:
@@ -240,10 +252,17 @@ def _fno_block_unfused(x, w_spec, w_b, b_b, cfg: FNOConfig):
 
 def _run_blocks(params: dict, h: torch.Tensor, cfg: FNOConfig, block_apply, first: int = 0):
     """Shared tail of every forward: the FNO blocks from ``first`` on, then
-    the decoder. ``block_apply(h, blk)`` applies one block's params."""
+    the decoder. ``block_apply(h, blk)`` applies one block's params. Under
+    autograd with ``cfg.remat`` each block keeps only its input and is run
+    again in the backward; serving (grad off) never checkpoints."""
     blocks = params["blocks"]
-    for i in range(first, blocks["w_spec"].shape[0]):
-        h = block_apply(h, _block_slice(blocks, i))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(first, len(blocks["w_spec"])):
+        blk = _block_slice(blocks, i)
+        if remat:
+            h = checkpoint(block_apply, h, blk, use_reentrant=False)
+        else:
+            h = block_apply(h, blk)
     return _decoder(params, h, cfg)
 
 
@@ -338,3 +357,7 @@ def fno_forward_deep_split(
     )
     del h_rem, h_full
     return _run_blocks(params, h, cfg, _fused_block(cfg), first=1)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(pred.to(torch.float32) - target.to(torch.float32)))

@@ -1,12 +1,41 @@
-"""Per-channel normalization from persisted store stats.
+"""Training batches from chunked stores, and per-channel normalization.
 
-The port's copy of ``Normalizer`` and ``NORMALIZER_KINDS`` from
-``repro.data.loader`` (pure numpy there too, but that module imports JAX).
-The sharded dataset loader itself belongs to a later slice.
+The port's copy of ``repro.data.loader`` for one device (that module
+imports JAX): ``NdArraySource``, ``Normalizer``, the background
+``_Prefetcher`` and a ``ShardedDatasetLoader`` whose whole batch lies on
+one device. The sample schedule (``sample_ids``: per-epoch permutations
+seeded by ``(seed, epoch)``), the normalization of ``"x"`` from the store's
+``meta.json`` stats and the prefetch are the reference's, so both loaders
+give the same batches from the same store; the port's are torch tensors on
+the loader's device. Per-shard reads for a model-parallel mesh come with
+the model-parallel slice, and ``StreamingSchedule`` (online training) with
+the datagen slice.
 """
 from __future__ import annotations
 
+import threading
+from typing import Dict, Optional, Sequence
+
 import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+
+
+class NdArraySource:
+    """In-memory stand-in for an ArrayStore (synthetic-data path): exposes
+    the same ``shape`` / ``read_slice`` / ``meta`` surface over an ndarray,
+    so the loader's assembly and prefetch are exercised identically
+    whether samples come from blob storage or RAM."""
+
+    def __init__(self, array: np.ndarray, stats: Optional[dict] = None):
+        self.array = np.asarray(array)
+        self.shape = self.array.shape
+        self.meta = {"stats": stats} if stats else {}
+
+    def read_slice(self, slices: Sequence[slice]) -> np.ndarray:
+        return self.array[tuple(slices)]
+
 
 NORMALIZER_KINDS = ("meanstd", "absmax")
 
@@ -54,8 +83,237 @@ class Normalizer:
             )
         return cls(mean, scale)
 
+    @classmethod
+    def from_source(cls, source) -> "Normalizer":
+        meta = getattr(source, "meta", None) or {}
+        return cls.from_stats(
+            meta.get("stats"),
+            meta.get("normalizer", "meanstd"),
+            len(source.shape),
+        )
+
     def encode(self, x: np.ndarray) -> np.ndarray:
         return np.asarray((x - self.mean) / self.scale, np.float32)
 
     def decode(self, y: np.ndarray) -> np.ndarray:
         return np.asarray(y * self.scale + self.mean, np.float32)
+
+
+def _norm_params(source):
+    """(mean, scale) broadcastable over [b, c, ...] or None, honoring the
+    store's persisted ``normalizer`` kind."""
+    n = Normalizer.from_source(source)
+    return None if n.identity else (n.mean, n.scale)
+
+
+class _Prefetcher:
+    """Background producer of ``fetch(step)`` results, double-buffered.
+
+    The producer runs ``depth`` steps ahead of the consumer. ``get(step)``
+    normally pops a ready result; a non-sequential request (restart from a
+    checkpointed step) resets the pipeline and computes synchronously once.
+
+    One change from the reference's copy: a request counts as sequential
+    only if the producer will really deliver it — it is the step in flight
+    under the current generation, or the next step with room for it beside
+    the step in flight. The reference's test (``step == _next - 1``, or
+    ``step == _next`` with fewer than ``depth`` results ready) waits
+    forever on a forward jump past ready results while one is in flight,
+    and on a repeat of a step it just fetched synchronously after a reset.
+    """
+
+    def __init__(self, fetch, depth: int = 2):
+        self._fetch = fetch
+        self._depth = max(1, depth)
+        self._lock = threading.Lock()
+        self._ready: Dict[int, object] = {}
+        self._cv = threading.Condition(self._lock)
+        self._next = 0          # next step the producer should fetch
+        self._gen = 0           # bumped on reset; stale results are dropped
+        self._inflight = None   # step the producer fetches for this generation
+        self._stopped = False
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._stopped and len(self._ready) >= self._depth:
+                    self._cv.wait()
+                if self._stopped:
+                    return
+                step, gen = self._next, self._gen
+                self._next += 1
+                self._inflight = step
+            try:
+                data = self._fetch(step)
+            except BaseException as e:  # surface IO errors to the consumer
+                with self._cv:
+                    self._error = e
+                    self._stopped = True
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                if gen == self._gen:  # drop results from before a reset
+                    self._ready[step] = data
+                    self._inflight = None
+                    self._cv.notify_all()
+
+    def _restart(self, step: int):
+        """Reset the pipeline to produce step+1 onwards (lock held). Clears
+        a dead producer's error so one bad background fetch never poisons
+        later steps — the caller fetches ``step`` synchronously, which
+        re-raises with correct attribution if THIS step is the broken one."""
+        self._gen += 1
+        self._ready.clear()
+        self._error = None
+        self._next = step + 1
+        self._inflight = None
+        self._cv.notify_all()
+        if self._stopped:
+            self._stopped = False
+            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread.start()
+
+    def get(self, step: int):
+        with self._cv:
+            if step in self._ready:
+                data = self._ready.pop(step)
+                self._cv.notify_all()
+                return data
+            # sequential requests keep the pipeline: the producer is either
+            # computing this step or about to claim it (step == _next with
+            # queue space beside the step in flight); anything else — an
+            # out-of-order replay after restore, a forward jump, or a dead
+            # producer — resets and fetches synchronously once.
+            busy = len(self._ready) + (self._inflight is not None)
+            sequential = (
+                self._error is None
+                and not self._stopped
+                and (
+                    step == self._inflight
+                    or (step == self._next and busy < self._depth)
+                )
+            )
+            if not sequential:
+                self._restart(step)
+        if not sequential:
+            return self._fetch(step)
+        with self._cv:
+            while (
+                step not in self._ready
+                and not self._stopped
+                and self._error is None
+            ):
+                self._cv.wait()
+            if step in self._ready:
+                data = self._ready.pop(step)
+                self._cv.notify_all()
+                return data
+            self._restart(step)
+        return self._fetch(step)
+
+    def stop(self):
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+
+
+class ShardedDatasetLoader:
+    """Training batches from chunked stores, on one device.
+
+    ``sources`` maps batch keys to ArrayStore-like objects whose layout is
+    ``[n_samples, channels, *spatial]``. ``batch(step)`` reads the samples
+    of ``sample_ids(step)`` on the host (prefetched on a background thread),
+    normalizes the keys in ``normalize``, and returns float32 tensors on
+    ``device``. With one device the reference's shard plan is the whole
+    batch, so each sample is one read of its full extent.
+    """
+
+    def __init__(
+        self,
+        sources: Dict[str, object],
+        batch_size: int,
+        *,
+        device=None,
+        seed: int = 0,
+        shuffle: bool = True,
+        normalize: Sequence[str] = ("x",),
+        prefetch: int = 2,
+    ):
+        self.sources = dict(sources)
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.seed = seed
+        self.shuffle = shuffle
+        self._norm = {
+            k: _norm_params(self.sources[k]) if k in tuple(normalize) else None
+            for k in self.sources
+        }
+        ns = {s.shape[0] for s in self.sources.values()}
+        if len(ns) != 1:
+            raise ValueError(f"sources disagree on sample count: {ns}")
+        self.n_samples = ns.pop()
+        if self.n_samples < 1:
+            raise ValueError("empty dataset")
+        self._prefetcher = (
+            _Prefetcher(self._read_host_batch, depth=prefetch) if prefetch else None
+        )
+
+    def sample_ids(self, step: int) -> np.ndarray:
+        """Sample ids of batch ``step``: a pure function of (seed, step)."""
+        n, b = self.n_samples, self.batch_size
+        positions = np.arange(step * b, (step + 1) * b)
+        epochs, offsets = positions // n, positions % n
+        ids = np.empty(b, np.int64)
+        for e in np.unique(epochs):
+            if self.shuffle:
+                perm = np.random.default_rng(
+                    np.random.SeedSequence([self.seed, int(e)])
+                ).permutation(n)
+            else:
+                perm = np.arange(n)
+            sel = epochs == e
+            ids[sel] = perm[offsets[sel]]
+        return ids
+
+    def _read(self, key: str, ids: np.ndarray) -> np.ndarray:
+        source = self.sources[key]
+        out = np.empty((len(ids),) + tuple(source.shape[1:]), np.float32)
+        full = tuple(slice(0, d) for d in source.shape[1:])
+        for j, sample in enumerate(ids):
+            out[j] = source.read_slice((slice(int(sample), int(sample) + 1),) + full)[0]
+        norm = self._norm.get(key)
+        if norm is not None:
+            mean, std = norm
+            out = (out - mean) / std
+        return np.ascontiguousarray(out, np.float32)
+
+    def _read_host_batch(self, step: int):
+        """Host arrays of batch ``step`` (IO thread)."""
+        ids = self.sample_ids(step)
+        return {"ids": ids, "blocks": {k: self._read(k, ids) for k in self.sources}}
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """Batch ``step`` on the loader's device (deterministic, prefetched)."""
+        host = (
+            self._prefetcher.get(step)
+            if self._prefetcher is not None
+            else self._read_host_batch(step)
+        )
+        return {
+            k: torch.from_numpy(v).to(self.device) for k, v in host["blocks"].items()
+        }
+
+    def close(self):
+        if self._prefetcher is not None:
+            self._prefetcher.stop()
+            self._prefetcher = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

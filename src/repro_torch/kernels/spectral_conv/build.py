@@ -1,10 +1,14 @@
 """Build the spectral kernel library from the repository's CUDA sources.
 
-The library is compiled at first use, on the machine with the card, by
+Two kernels, one library: the fused truncate + mix + pad
+(``csrc/spectral_fused.cu``, forward and the backward's dx) and its
+weight cotangent (``csrc/spectral_fused_dw.cu``). The library is compiled
+at first use, on the machine with the card, by
 ``torch.utils.cpp_extension.load`` into ``build/torch_ext/`` at the
 repository root (listed in ``.gitignore``), and loaded with ``ctypes``. The
-source has a plain C interface and includes no PyTorch header, so ``nvcc``
-takes seconds rather than minutes; ``load`` caches by content, so a second
+sources have a plain C interface and include no PyTorch header, so ``nvcc``
+takes seconds rather than minutes (``load`` compiles the sources in
+parallel through ninja); ``load`` caches by content, so a second
 process reuses the build. A failed build raises.
 """
 from __future__ import annotations
@@ -14,7 +18,10 @@ import functools
 import os
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "csrc", "spectral_fused.cu"),)
+SOURCES = (
+    os.path.join(_HERE, "csrc", "spectral_fused.cu"),
+    os.path.join(_HERE, "csrc", "spectral_fused_dw.cu"),
+)
 BUILD_DIR = os.path.abspath(
     os.path.join(_HERE, "..", "..", "..", "..", "build", "torch_ext")
 )
@@ -39,10 +46,16 @@ def load_library() -> ctypes.CDLL:
         verbose=False,
     )
     lib = ctypes.CDLL(path)
+    strides = ctypes.POINTER(ctypes.c_longlong)
     lib.spectral_fused_launch.argtypes = (
-        [_c_ptr] * 4 + [_c_int] * 14 + [ctypes.POINTER(ctypes.c_longlong), _c_ptr]
+        [_c_ptr] * 4 + [_c_int] * 14
+        + [strides, ctypes.c_longlong, ctypes.c_longlong, _c_int, _c_ptr]
     )
     lib.spectral_fused_launch.restype = _c_int
+    lib.spectral_fused_dw_launch.argtypes = (
+        [_c_ptr] * 3 + [_c_int] * 10 + [strides, strides, _c_ptr]
+    )
+    lib.spectral_fused_dw_launch.restype = _c_int
     lib.spectral_fused_error_string.argtypes = [_c_int]
     lib.spectral_fused_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,7 +7,10 @@
 //   x   [B, CI, E1, E2, E3, Tin]  complex64, any strides (the full or partly
 //                                 pre-truncated spectrum; cuFFT's 4-D rfftn
 //                                 returns it permuted, so it is read in place)
-//   w   [CI, CO, K1, K2, K3, KT]  complex64, kept-mode weights
+//   w   [CI, CO, K1, K2, K3, KT]  complex64, kept-mode weights, addressed
+//                                 through two channel strides so that the
+//                                 backward's dx runs on conj(W^T) without
+//                                 a copy (see below)
 //   add [B, CO, K1, K2, K3, KT]   complex64, optional kept-mode term summed
 //                                 on kept positions (spectral_apply_fused_add)
 //   y   [B, CO, E1, E2, E3, Tout] complex64, written in full, zeros included
@@ -33,6 +36,14 @@
 //     deterministic run to run.
 // Shared-memory tiling over co, TMA and skipping the zero region are left
 // for later work.
+//
+// Training reuses this kernel for the input cotangent of the fused op:
+// dx = S^T (conj(W)^T .) S (g), i.e. the same truncate + mix + pad run on
+// the output cotangent g with ci and co swapped and the weights
+// conjugated (torch's .grad convention; JAX's plain transpose is the
+// conjugate of it). The wrapper passes the weight's channel strides
+// swapped and conj_w = 1 instead of materialising conj(W^T), which at the
+// training shape would be a 3.15 GB copy per block per backward.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +62,9 @@ struct Dims {
   int Tout;
   int N1, N2, N3;
   long long xs[6];  // strides of x, in complex elements
+  long long w_in;   // weight stride of the contracted channel (ci)
+  long long w_out;  // weight stride of the output channel (co)
+  int conj_w;       // 1: multiply by conj(w)
 };
 
 // Full-spectrum position -> kept index, or -1 for a position not kept.
@@ -95,15 +109,17 @@ spectral_fused_kernel(const float2* __restrict__ x,
   const long long kidx =
       ((static_cast<long long>(k1) * d.K2 + k2) * d.K3 + k3) * d.KT + t;
   const long long xidx = e1 * d.xs[2] + e2 * d.xs[3] + e3 * d.xs[4] + t * d.xs[5];
-  const float2* wp = w + static_cast<long long>(co) * K + kidx;
-  const long long w_ci_stride = static_cast<long long>(d.CO) * K;
+  const float2* wp = w + co * d.w_out + kidx;
+  const long long w_ci_stride = d.w_in;
+  const float w_im_sign = d.conj_w ? -1.f : 1.f;
 
   for (int b0 = 0; b0 < d.B; b0 += kBatchChunk) {
     float2 acc[kBatchChunk];
 #pragma unroll
     for (int j = 0; j < kBatchChunk; ++j) acc[j] = make_float2(0.f, 0.f);
     for (int ci = 0; ci < d.CI; ++ci) {
-      const float2 wv = __ldg(wp + ci * w_ci_stride);
+      float2 wv = __ldg(wp + ci * w_ci_stride);
+      wv.y *= w_im_sign;
 #pragma unroll
       for (int j = 0; j < kBatchChunk; ++j) {
         if (b0 + j < d.B) {
@@ -136,18 +152,24 @@ spectral_fused_kernel(const float2* __restrict__ x,
 }  // namespace
 
 // C interface, bound from Python with ctypes (ops.py). Pointers are device
-// pointers of complex64 tensors: `w`, `add` and `y` contiguous, `x` with the
-// strides `xs` (in elements); `add` may be null. Launches on
-// `stream` without synchronising and returns cudaGetLastError() after the
-// launch (0 on success).
+// pointers of complex64 tensors: `add` and `y` contiguous, `x` with the
+// strides `xs` (in elements), `w` a contiguous [*, *, K1, K2, K3, KT]
+// tensor whose contracted channel has stride `w_in` and whose output
+// channel has stride `w_out` (in elements; CO*K and K for the forward,
+// swapped for the backward's dx); `add` may be null. Launches on `stream`
+// without synchronising and returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int spectral_fused_launch(const void* x, const void* w,
                                      const void* add, void* y, int B, int CI,
                                      int CO, int E1, int E2, int E3, int K1,
                                      int K2, int K3, int KT, int Tout,
                                      int N1, int N2, int N3,
-                                     const long long* xs, void* stream) {
+                                     const long long* xs, long long w_in,
+                                     long long w_out, int conj_w,
+                                     void* stream) {
   const Dims d{B,  CI, CO, E1, E2, E3, K1, K2, K3, KT, Tout,
-               N1, N2, N3, {xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]}};
+               N1, N2, N3, {xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]},
+               w_in, w_out, conj_w};
   const long long S = static_cast<long long>(E1) * E2 * E3 * Tout;
   if (B == 0 || CO == 0 || S == 0) return 0;
   const long long n_tiles = (S + kThreads - 1) / kThreads;

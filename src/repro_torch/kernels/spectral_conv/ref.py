@@ -57,3 +57,36 @@ def spectral_apply_fused_ref(
             xf = truncate_full(xf, 2 + d, w.shape[2 + d] // 2)
     xf = xf.narrow(-1, 0, kt)
     return pad_kept_ref(spectral_apply_ref(xf, w), trunc, t_out)
+
+
+def gather_kept_ref(xf: torch.Tensor, trunc, kept) -> torch.Tensor:
+    """S: the kept positions of a (partly) full spectrum [b, c, E1, E2, E3,
+    T] as [b, c, K1, K2, K3, KT]: ``[:m]`` and ``[N-m:]`` on a truncated
+    dim (``trunc[d]`` = N), the identity on a pre-truncated one (None), and
+    the first KT bins of the trailing dim. The adjoint of ``pad_kept_ref``."""
+    for d, n in enumerate(tuple(trunc)):
+        if n is not None:
+            xf = truncate_full(xf, 2 + d, kept[d] // 2)
+    return xf.narrow(-1, 0, kept[3])
+
+
+def spectral_fused_dw_ref(
+    xf: torch.Tensor, g: torch.Tensor, trunc, kept
+) -> torch.Tensor:
+    """Weight cotangent of the fused op in torch's convention, the plain
+    version of ``csrc/spectral_fused_dw.cu``:
+
+        w_bar[ci, co, k] = sum_b conj(S(x))[b, ci, k] * S(g)[b, co, k]
+
+    xf: [b, ci, E1, E2, E3, Tx] the spectrum the forward consumed; g: [b,
+    co, E1, E2, E3, Tg] the cotangent of its output; ``kept`` = (K1, K2,
+    K3, KT). JAX's ``spectral_fused_dw`` takes the plain transpose (no
+    conjugation) on JAX's cotangent, which is the conjugate of torch's
+    ``.grad``: fed ``conj(g)``, it returns the conjugate of this.
+    """
+    kept = tuple(int(k) for k in kept)
+    if xf.shape[5] < kept[3] or g.shape[5] < kept[3]:
+        raise ValueError(f"time bins {xf.shape[5]}/{g.shape[5]} < kt={kept[3]}")
+    sx = gather_kept_ref(xf, trunc, kept)
+    sg = gather_kept_ref(g, trunc, kept)
+    return torch.einsum("bistuv,bostuv->iostuv", sx.conj(), sg)

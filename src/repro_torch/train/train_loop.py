@@ -1,0 +1,103 @@
+"""Train-step factory: gradients + AdamW + optional gradient accumulation.
+
+Port of ``repro.train.train_loop.make_train_step`` for one device
+(``shard_train_step`` comes with the model-parallel slice). PyTorch runs
+eagerly, so there is nothing to jit: the step differentiates ``loss_fn``
+with autograd, sums the micro-batches' gradients in preallocated buffers,
+divides by ``grad_accum`` and updates params and optimizer state in place.
+
+The gradient buffers are the one subtle part. The FNO stacks its blocks'
+weights in one leaf (``blocks.w_spec`` is 12.6 GB at the paper's width),
+and indexing a leaf per block makes autograd's select-backward form a
+zero-filled gradient of the whole leaf for every block. So the step hands
+``loss_fn`` a params tree of fresh leaf views instead: each leaf of
+``params["blocks"]`` becomes a list of per-block views, every view's
+``.grad`` is bound to the matching slice of one preallocated buffer, and
+autograd accumulates into those slices in place.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.common.tree import tree_map
+from repro_torch.train.optimizer import AdamWConfig, adamw_update
+
+
+def zeros_like_tree(params: dict) -> dict:
+    return tree_map(torch.zeros_like, params)
+
+
+def _grad_views(params: dict, grads: dict) -> dict:
+    """A params tree of leaves that share the params' memory, require grad
+    and accumulate their gradients into ``grads`` (same tree, same shapes).
+    Leaves under ``"blocks"`` are split into per-block views along dim 0."""
+
+    def leaf(p, g):
+        v = p.detach().requires_grad_()
+        v.grad = g
+        return v
+
+    def per_block(p, g):
+        return [leaf(p[i], g[i]) for i in range(p.shape[0])]
+
+    return {
+        k: tree_map(per_block if k == "blocks" else leaf, params[k], grads[k])
+        for k in params
+    }
+
+
+def accumulate_grads(loss_fn: Callable, params: dict, batch, grads: dict):
+    """Add d loss / d params (torch's ``.grad`` convention) into ``grads``;
+    returns ``(loss, metrics)`` detached."""
+    loss, metrics = loss_fn(_grad_views(params, grads), batch)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, grad_accum: int = 1):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``loss_fn(params, batch) -> (loss, metrics)``.
+
+    With ``grad_accum > 1`` the batch's leading dim is split into that many
+    micro-batches, run one after the other; their gradients are summed and
+    divided by ``grad_accum``, and the loss and metrics averaged, as in the
+    reference. Params and optimizer state are updated in place and
+    returned.
+    """
+    buffers = {}
+
+    def train_step(params, opt_state, batch):
+        grads = buffers.get("grads")
+        if grads is None:
+            grads = buffers["grads"] = zeros_like_tree(params)
+        else:
+            tree_map(torch.Tensor.zero_, grads)
+        if grad_accum == 1:
+            loss, metrics = accumulate_grads(loss_fn, params, batch, grads)
+        else:
+            micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
+            if any(len(v) != grad_accum or v[0].shape[0] * grad_accum != batch[k].shape[0]
+                   for k, v in micro.items()):
+                raise ValueError(
+                    f"batch of {next(iter(batch.values())).shape[0]} does not "
+                    f"split into grad_accum={grad_accum} equal micro-batches"
+                )
+            losses, per_micro = [], []
+            for i in range(grad_accum):
+                loss, metrics = accumulate_grads(
+                    loss_fn, params, {k: v[i] for k, v in micro.items()}, grads
+                )
+                losses.append(loss)
+                per_micro.append(metrics)
+            with torch.no_grad():
+                tree_map(lambda g: g.div_(grad_accum), grads)
+            loss = torch.stack(losses).sum() / grad_accum
+            metrics = {
+                k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]
+            }
+        params, opt_state, stats = adamw_update(grads, opt_state, params, opt_cfg)
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+
+    return train_step

@@ -1,27 +1,33 @@
 """The port's fused spectral op vs the JAX reference, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both sides. The JAX
-side runs the Pallas kernel ``spectral_fused_pallas`` in interpret mode and
-its unfused oracle ``spectral_apply_fused_ref``; the port's CPU path is its
-plain version. Gate: rtol=1e-4, atol=1e-5 (float32 sums in another order).
-The CUDA kernel itself runs only on the card
-(``tests/test_torch_cuda_kernels.py``).
+side runs the Pallas kernels ``spectral_fused_pallas`` and
+``spectral_fused_dw`` in interpret mode and its unfused oracle
+``spectral_apply_fused_ref``; the port's CPU path is its plain version.
+Gradients are compared in torch's convention: JAX's cotangent of a complex
+input is the conjugate of torch's ``.grad``. Gate: rtol=1e-4, atol=1e-5
+(float32 sums in another order). The CUDA kernels themselves run only on
+the card (``tests/test_torch_cuda_kernels.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.spectral_conv import (
+    spectral_apply_fused as jax_fused,
     spectral_apply_fused_add as jax_fused_add,
     spectral_apply_fused_ref as jax_fused_ref,
     spectral_static_contribution as jax_static_contribution,
 )
+from repro.kernels.spectral_conv.kernel import spectral_fused_dw as jax_fused_dw
 from repro.kernels.spectral_conv.kernel import spectral_fused_pallas
 from repro_torch.kernels.spectral_conv import (
     pad_kept_ref,
     spectral_apply_fused,
     spectral_apply_fused_add,
+    spectral_fused_dw,
     spectral_static_contribution,
 )
 
@@ -145,3 +151,89 @@ def test_no_silent_fallback():
         spectral_apply_fused(xf.to(torch.complex128), w.to(torch.complex128), (4, 4, 4))
     with pytest.raises(ValueError, match="add shape"):
         spectral_apply_fused_add(xf, w, torch.zeros((1, 2, 2, 2, 2, 2), dtype=torch.complex64), (4, 4, 4))
+
+
+# (name, dims, x time bins, g time bins, kt): the three trunc patterns, with
+# and without t tails on either operand
+DW_CASES = [
+    ("NNN-tails", [(6, 4), (4, 2), (4, 4)], 5, 4, 3),
+    ("NNN-no-tail", [(5, 2), (6, 4), (3, 2)], 2, 2, 2),
+    ("N--", [(8, 4), (None, 3), (None, 2)], 4, 2, 2),
+    ("N-N-tail", [(6, 4), (None, 3), (4, 2)], 3, 5, 3),
+]
+
+
+@pytest.mark.parametrize("name,dims,t_x,t_g,kt", DW_CASES, ids=[c[0] for c in DW_CASES])
+def test_fused_dw_matches_jax_conjugated(name, dims, t_x, t_g, kt):
+    """The port's weight cotangent (torch's convention) is the conjugate of
+    JAX's Pallas ``spectral_fused_dw`` fed the conjugate cotangent."""
+    rng = np.random.default_rng(len(name) + 50)
+    trunc = tuple(n for n, _ in dims)
+    ext = tuple(k if n is None else n for n, k in dims)
+    kept = tuple(k for _, k in dims) + (kt,)
+    xf = _cplx(rng, (3, 2) + ext + (t_x,))
+    g = _cplx(rng, (3, 4) + ext + (t_g,))
+    got = spectral_fused_dw(torch.from_numpy(xf), torch.from_numpy(g), trunc, kept).numpy()
+    gc = np.conj(g)
+    wr, wi = jax_fused_dw(
+        jnp.asarray(xf.real), jnp.asarray(xf.imag),
+        jnp.asarray(gc.real), jnp.asarray(gc.imag),
+        trunc=trunc, kept=kept, interpret=True,
+    )
+    assert got.shape == (2, 4) + kept and got.dtype == np.complex64
+    np.testing.assert_allclose(
+        got, np.conj(np.asarray(wr) + 1j * np.asarray(wi)), rtol=RTOL, atol=ATOL
+    )
+
+
+def test_fused_dw_time_bins_error_matches_jax():
+    xf = np.zeros((1, 2, 4, 4, 4, 2), np.complex64)
+    g = np.zeros((1, 2, 4, 4, 4, 3), np.complex64)
+    kept, trunc = (2, 2, 2, 3), (4, 4, 4)
+    with pytest.raises(ValueError) as jax_err:
+        jax_fused_dw(
+            jnp.asarray(xf.real), jnp.asarray(xf.imag),
+            jnp.asarray(g.real), jnp.asarray(g.imag),
+            trunc=trunc, kept=kept, interpret=True,
+        )
+    with pytest.raises(ValueError) as port_err:
+        spectral_fused_dw(torch.from_numpy(xf), torch.from_numpy(g), trunc, kept)
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="must match x"):
+        spectral_fused_dw(torch.zeros((1, 2, 4, 4, 4, 3), dtype=torch.complex64),
+                          torch.zeros((2, 2, 4, 4, 4, 3), dtype=torch.complex64),
+                          trunc, kept)
+
+
+@pytest.mark.parametrize("name,dims,t_in,kt,t_out,with_add", CASES, ids=[c[0] for c in CASES])
+def test_fused_grads_match_jax_vjp(name, dims, t_in, kt, t_out, with_add):
+    """dx, dW (and d add) of the port's autograd Function against
+    ``jax.grad`` through the reference's custom_vjp on the Pallas kernels,
+    compared through the same real loss sum(a*Re y + c*Im y)."""
+    xf, w, add, trunc = _problem(len(name) + 7, 2, 3, 4, dims, t_in, kt, with_add)
+    rng = np.random.default_rng(len(name))
+    y_shape = np.asarray(jax_fused_ref(jnp.asarray(xf), jnp.asarray(w), trunc, t_out)).shape
+    a = rng.standard_normal(y_shape).astype(np.float32)
+    c = rng.standard_normal(y_shape).astype(np.float32)
+
+    def jloss(x, w_, add_):
+        if add_ is None:
+            y = jax_fused(x, w_, trunc, t_out=t_out, use_pallas=True, interpret=True)
+        else:
+            y = jax_fused_add(x, w_, add_, trunc, t_out=t_out, use_pallas=True, interpret=True)
+        return jnp.sum(jnp.real(y) * a + jnp.imag(y) * c)
+
+    jargs = (jnp.asarray(xf), jnp.asarray(w), None if add is None else jnp.asarray(add))
+    argnums = (0, 1, 2) if with_add else (0, 1)
+    jgrads = jax.grad(jloss, argnums=argnums)(*jargs)
+
+    targs = [torch.from_numpy(v).requires_grad_() for v in (xf, w, add) if v is not None]
+    if with_add:
+        y = spectral_apply_fused_add(targs[0], targs[1], targs[2], trunc, t_out=t_out)
+    else:
+        y = spectral_apply_fused(targs[0], targs[1], trunc, t_out=t_out)
+    (y.real * torch.from_numpy(a) + y.imag * torch.from_numpy(c)).sum().backward()
+    for t, jg in zip(targs, jgrads):
+        np.testing.assert_allclose(
+            t.grad.numpy(), np.conj(np.asarray(jg)), rtol=RTOL, atol=ATOL
+        )
