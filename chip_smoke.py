@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each failing hard:
-  1. build the CUDA kernel library from the repository's sources;
+  1. build the three CUDA kernel libraries (spectral, RMSNorm, flash
+     attention) from the repository's sources, all three at once;
   2. hold the fused spectral kernel against its plain PyTorch version
      (``spectral_apply_fused_ref`` + ``pad_kept_ref``) over the trunc
      patterns, t tails, ``add`` and the full-width serving block shape,
@@ -28,11 +29,27 @@ Phases, each failing hard:
      remat on) fed by ``ShardedDatasetLoader``;
   7. the training CLI on the card with an injected fault (restored from
      its checkpoint), then the serving CLI with ``--verify`` on the
-     checkpoint it wrote.
+     checkpoint it wrote;
+  8. hold the RMSNorm and flash-attention kernels against their plain
+     versions (``rmsnorm_ref``, ``flash_attention_ref``) over bf16 and f32,
+     ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
+     16-256 and the serving path's shapes in bf16 and f32 (gemma-7b,
+     chatglm3-6b and minitron-8b prefills, prefill and decode norms), with
+     bf16 held to one rounding of the output, and time each
+     against its bound, its plain version and one PyTorch call
+     (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick;
+  9. serve gemma-7b at full width (28 layers, d_model 3072, random
+     weights) through ``Engine``: 8 requests of 200-1000 prompt tokens on 4
+     slots, 16 tokens each; then, for 2 of the prompts, the prefill's
+     last-token logits and the first decode step's logits through the
+     kernels against the same through the plain versions;
+ 10. the LM serving CLI on the card, as a subprocess.
 
 Each served run must launch the fused kernel exactly once per FNO block
 per forward; each training step, per micro-batch and block, three times
-(forward, remat recompute, dx) and the cotangent kernel once.
+(forward, remat recompute, dx) and the cotangent kernel once. Each LM
+prefill must launch flash attention once per layer, and each LM forward
+(prefill or decode step) the RMSNorm kernel 2 L + 1 times.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -40,6 +57,7 @@ without a result when there is no CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -56,12 +74,27 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # rate outside the tensor cores. Bounds are computed against these.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 TOL_REL, TOL_ABS = 1e-4, 1e-6
+# LM kernels vs their plain versions, elementwise; both compute in f32 and
+# cast once. f32: |d| <= 1e-5 + 1e-5 |ref| (sums in another order). bf16:
+# one rounding of the output apart, |d| <= 2^-7 |ref|, plus 1e-3 max|ref|
+# for values near zero, whose f32 sums carry the error of the larger terms.
+LM_F32_TOL = 1e-5
+LM_BF16_REL, LM_BF16_ABS_OF_MAX = 2.0 ** -7, 1e-3
+# full-width served logits through the kernels vs through the plain
+# versions: 28 layers of bf16 activations, where one rounding flip of an
+# activation propagates through every later layer
+LM_LOGIT_GATE = 3e-2
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:217"
 DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused_dw.cu"
 DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:307"
+RMSNORM_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+RMSNORM_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:24"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:82"
 
 
 def gpu_line() -> str:
@@ -91,13 +124,73 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def cuda_loop_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Time per call of ``fn`` in milliseconds, from CUDA events around ``n``
+    back-to-back calls (median of ``reps``): for kernels of microseconds,
+    where events around a single launch would time the launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` in milliseconds: the union of its
+    kernels' spans in a ``torch.profiler`` trace of ``n`` calls, over ``n``.
+    For a kernel of microseconds the host's launch overhead outlasts the
+    kernel, so CUDA events around back-to-back calls time the host; the
+    trace times the device alone. A trace that holds no kernel (the
+    profiler can lose its events) is taken again; after two such, the
+    time comes from CUDA events around back-to-back calls, an upper bound,
+    and the script says so."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_forward import busy_ms
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            busy = busy_ms(trace, ("kernel",))
+        if busy > 0:
+            return busy / n
+    print("[timing] two profiler traces held no kernel; timed by CUDA events instead")
+    return cuda_loop_ms(fn, n=n)
+
+
 def phase_build() -> float:
-    from repro_torch.kernels.spectral_conv.build import load_library
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels.build import build
+    from repro_torch.kernels.spectral_conv import build as spectral_build
 
     t0 = time.perf_counter()
-    load_library()
+    paths = build([spectral_build.LIBRARY, rmsnorm.LIBRARY, flash_attention.LIBRARY])
+    spectral_build.load_library()
+    rmsnorm.ops.load_library()
+    flash_attention.ops.load_library()
     dt = time.perf_counter() - t0
-    print(f"[build] spectral kernel library built/loaded in {dt:.1f}s")
+    print(f"[build] {len(paths)} kernel libraries built/loaded in {dt:.1f}s: "
+          + ", ".join(os.path.basename(p) for p in paths))
     return dt
 
 
@@ -662,6 +755,314 @@ def phase_train_cli(gpu: str) -> dict:
     return {"fused": fused, "dw": dw, "serve": served}
 
 
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def _lm_check(tag, got, ref) -> float:
+    """Fail unless got is within the gate of its dtype (``LM_F32_TOL``,
+    ``LM_BF16_*``) of ref everywhere; returns max|d|."""
+    if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+        raise SystemExit(f"[{tag}] {tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} {ref.dtype}")
+    import torch
+
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    err, top = float(d.max()), float(r.abs().max())
+    if got.dtype == torch.float32:
+        rel, absolute = LM_F32_TOL, LM_F32_TOL
+    else:
+        rel, absolute = LM_BF16_REL, LM_BF16_ABS_OF_MAX * top
+    excess = float((d - (absolute + rel * r.abs())).max())
+    print(f"[{tag}] max|d|={err:.3e} (gate {absolute:.3g} + {rel:.3g}|ref|, max|ref|={top:.3e})")
+    if not excess <= 0 or not _finite(g):
+        raise SystemExit(f"[{tag}] kernel disagrees with its plain version")
+    return err
+
+
+def _rmsnorm_bound_ms(rows, d, nbytes_el) -> tuple:
+    """x read once, w once, y written once; 4 f32 flops per element."""
+    nbytes = 2 * rows * d * nbytes_el + 4 * d
+    return _bound_ms(nbytes, 4 * rows * d)
+
+
+def _flash_bound_ms(b, h, kvh, sq, sk, d, causal, nbytes_el) -> tuple:
+    """q, k, v read once, o written once; 4 d flops per visible (query, key)
+    pair (the causal cut counted for these lengths), against the
+    tensor-core rate for bf16 operands (whose products are exact in f32)
+    and the f32 rate for f32."""
+    if causal:
+        pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+    else:
+        pairs = sq * sk
+    nbytes = nbytes_el * d * (2 * b * h * sq + 2 * b * kvh * sk)
+    flops = 4 * d * b * h * pairs
+    rate = BF16_FLOP_PER_S if nbytes_el == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lm_kernels(gpu: str) -> tuple:
+    """RMSNorm and flash attention vs their plain versions on the card, then
+    timed at the serving path's shapes; returns their two records."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(types[dtype])
+
+    # rmsnorm: (rows, d, dtype); the last two are a gemma-7b prefill of
+    # 1000 tokens and a decode step over 4 slots
+    rms_cases = [(1, 8, "float32"), (37, 96, "bfloat16"), (256, 96, "float32"),
+                 (300, 8, "bfloat16"), (300, 3072, "float32"), (300, 3072, "bfloat16"),
+                 (1000, 3072, "float32"), (4, 3072, "float32"),
+                 (1000, 3072, "bfloat16"), (4, 3072, "bfloat16")]
+    rms = {}
+    for rows, d, dtype in rms_cases:
+        x = randn((rows, d), dtype, 3.0)
+        w = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+        got = rmsnorm(x, w)
+        torch.cuda.synchronize()
+        err = _lm_check(f"rmsnorm {rows}x{d} {dtype}", got, rmsnorm_ref(x, w))
+        if d == 3072 and dtype == "bfloat16" and rows in (1000, 4):
+            ms = device_ms(lambda: rmsnorm(x, w))
+            plain = device_ms(lambda: rmsnorm_ref(x, w))
+            lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
+            call = cuda_loop_ms(lambda: rmsnorm(x, w))
+            bound, by = _rmsnorm_bound_ms(rows, d, 2)
+            print(f"[rmsnorm] {rows}x{d} bf16, device time: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain * 1e3:.2f} us, F.rms_norm {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                  f"({by}); back-to-back calls of the wrapper {call * 1e3:.2f} us each; {gpu}")
+            rms[rows] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by, call_ms=call)
+    rms_record = {
+        "name": "rmsnorm", "route": "cuda", "source": RMSNORM_SOURCE,
+        "replaces": RMSNORM_REPLACES, "launches": None, **rms[1000],
+        "shape": "x [1000, 3072] bf16 (a 1000-token prefill)",
+        "decode_shape": "x [4, 3072] bf16", "decode_ms": rms[4]["ms"], "decode_call_ms": rms[4]["call_ms"],
+        "decode_plain_ms": rms[4]["plain_ms"], "decode_library_ms": rms[4]["library_ms"],
+        "decode_bound_ms": rms[4]["bound_ms"],
+    }
+
+    # flash: (name, b, h, kvh, sq, sk, d, causal, dtype, timed)
+    flash_cases = [
+        ("mha causal", 2, 4, 4, 100, 100, 32, True, "float32", False),
+        ("gqa ragged", 1, 8, 2, 130, 130, 64, True, "bfloat16", False),
+        ("mqa sq<sk", 1, 4, 1, 50, 200, 16, True, "float32", False),
+        ("non-causal cross", 2, 2, 2, 64, 192, 128, False, "float32", False),
+        ("d256 causal", 1, 2, 2, 140, 140, 256, True, "bfloat16", False),
+        ("d256 gqa sq<sk", 1, 4, 2, 33, 129, 256, True, "float32", False),
+        ("mqa non-causal", 1, 4, 1, 70, 70, 128, False, "bfloat16", False),
+        # the path shapes in f32 too, where the gate holds the arithmetic tight
+        ("gemma-7b prefill f32", 1, 16, 16, 1000, 1000, 256, True, "float32", False),
+        ("chatglm3-6b gqa prefill f32", 1, 32, 2, 777, 777, 128, True, "float32", False),
+        ("minitron-8b prefill f32", 1, 32, 8, 1000, 1000, 128, True, "float32", False),
+        ("gemma-7b prefill", 1, 16, 16, 1000, 1000, 256, True, "bfloat16", True),
+        ("chatglm3-6b gqa prefill", 1, 32, 2, 777, 777, 128, True, "bfloat16", True),
+        ("minitron-8b prefill", 1, 32, 8, 1000, 1000, 128, True, "bfloat16", True),
+    ]
+    flash = {}
+    for name, b, h, kvh, sq, sk, d, causal, dtype, timed in flash_cases:
+        # [b, s, heads, d] swapped to [b, heads, s, d]: the layer's strided views
+        q = randn((b, sq, h, d), dtype).transpose(1, 2)
+        k = randn((b, sk, kvh, d), dtype).transpose(1, 2)
+        v = randn((b, sk, kvh, d), dtype).transpose(1, 2)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _lm_check(f"flash {name} b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d} {dtype}", got,
+                        flash_attention_ref(q, k, v, causal=causal))
+        if not timed:
+            continue
+        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
+        plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal), n=5)
+        mask = causal_lower_right(sq, sk)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), n=10)
+        bound, by = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2)
+        print(f"[flash] {name}, device time: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
+              f"{lib:.3f} ms, bound {bound * 1e3:.2f} us ({by}); {gpu}")
+        flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound, bound_by=by)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    flash_record = {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": None, **flash["gemma-7b prefill"],
+        "shape": "q/k/v [1, 16, 1000, 256] bf16 causal (a gemma-7b prefill layer)",
+        "other_shapes": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                             "library_ms": v["library_ms"], "bound_ms": v["bound_ms"]}
+                         for k, v in flash.items() if k != "gemma-7b prefill"},
+    }
+    return rms_record, flash_record
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, the LM layers call the kernels' plain versions on
+    CUDA tensors; for checking the served path, never on it."""
+    import repro_torch.kernels.flash_attention as flash_pkg
+    import repro_torch.kernels.rmsnorm as rms_pkg
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+
+    saved = rms_pkg.rmsnorm, flash_pkg.flash_attention
+    rms_pkg.rmsnorm = lambda x, w, eps=1e-6: rmsnorm_ref(x, w, eps)
+    flash_pkg.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        rms_pkg.rmsnorm, flash_pkg.flash_attention = saved
+
+
+LM_ARCH, LM_SLOTS, LM_REQUESTS, LM_MAX_TOKENS, LM_MAX_LEN = "gemma-7b", 4, 8, 16, 1040
+
+
+def phase_lm_serving(gpu: str) -> dict:
+    """Full-width gemma-7b through Engine, then 2 prompts' logits through the
+    kernels vs the plain versions; returns the kernels' launch counts."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import init_lm_params, lm_decode_step, lm_prefill
+    from repro_torch.models.transformer import norms_per_forward
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_arch(LM_ARCH)
+    print(f"[lm] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.approx_params() / 1e9:.2f} B params; random weights (seed 0)")
+    dev = torch.device("cuda")
+    _free_cuda()
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = Engine(cfg, params, max_len=LM_MAX_LEN, max_batch=LM_SLOTS, device=dev)
+    del params  # the f32 masters; the runner holds bf16 matmul weights
+    gc.collect()
+    torch.cuda.synchronize()
+    runner = engine.runner
+    held = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
+    cache = sum(t.numel() * t.element_size() for t in runner.cache["layers"].values())
+    print(f"[lm] weights set up in {time.perf_counter() - t0:.1f}s; peak while casting the f32 "
+          f"masters {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the runner holds "
+          f"{held / 1e9:.2f} GB of weights and a {cache / 1e9:.2f} GB bf16 KV cache")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(200, 1001, size=LM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist() for n in lengths]
+    print(f"[lm] {LM_REQUESTS} requests, prompt lengths {lengths.tolist()}, max_tokens "
+          f"{LM_MAX_TOKENS}, max_len {LM_MAX_LEN}, {LM_SLOTS} slots")
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=prompt, max_tokens=LM_MAX_TOKENS))
+    rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run_until_done()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
+    if engine.failed:
+        raise SystemExit(f"[lm] {len(engine.failed)} requests failed: {engine.failed[0].error!r}")
+    if len(done) != LM_REQUESTS or any(
+            len(r.output) != LM_MAX_TOKENS or not all(0 <= t < cfg.vocab for t in r.output)
+            for r in done):
+        raise SystemExit("[lm] a request did not return max_tokens valid token ids")
+    prefills, steps = len(runner.prefill_s), len(runner.decode_s)
+    tokens = sum(len(r.output) for r in done)
+    print(f"[lm] served {len(done)} requests, {tokens} tokens in {dt:.3f}s: "
+          f"{tokens / dt:.1f} tok/s; {prefills} prefills, mean {np.mean(runner.prefill_s) * 1e3:.1f} ms "
+          f"(prompt mean {lengths.mean():.0f} tokens); {steps} decode steps, mean "
+          f"{np.mean(runner.decode_s) * 1e3:.2f} ms, median {np.median(runner.decode_s) * 1e3:.2f} ms; "
+          f"max_memory_allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {gpu}")
+    for r in sorted(done, key=lambda r: r.rid)[:2]:
+        print(f"[lm]   req {r.rid}: {len(r.prompt)} prompt tokens -> {r.output}")
+    want = {"rmsnorm": norms_per_forward(cfg) * (prefills + steps), "flash": cfg.n_layers * prefills}
+    print(f"[lm] launches: rmsnorm {launches['rmsnorm']} (want {norms_per_forward(cfg)} x "
+          f"({prefills} prefills + {steps} decode steps) = {want['rmsnorm']}), flash "
+          f"{launches['flash']} (want {cfg.n_layers} x {prefills} = {want['flash']}); {gpu}")
+    if prefills != LM_REQUESTS or launches != want:
+        raise SystemExit("[lm] the served run did not launch the kernels as expected")
+
+    # 2 prompts through the kernels and through the plain versions
+    first = {r.rid: r.output[0] for r in done}
+    params = runner.params
+    for rid in (0, 1):
+        prompt = torch.tensor([prompts[rid]], dtype=torch.long, device=dev)
+        n = prompt.shape[1]
+        out = {}
+        for tag in ("kernels", "plain"):
+            with torch.inference_mode(), (plain_kernels() if tag == "plain" else contextlib.nullcontext()):
+                before = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
+                logits, cache = lm_prefill(params, prompt, cfg, max_len=n + 1)
+                tok = torch.argmax(logits, -1)[:, None]
+                step, _ = lm_decode_step(params, tok, cache, n, cfg)
+                moved = (rmsnorm_cuda.launches, flash_attention_cuda.launches) != before
+                if moved != (tag == "kernels"):
+                    raise SystemExit(f"[lm] the {tag} check did not run through the {tag}")
+                out[tag] = (logits.float(), step.float(), int(tok))
+                del cache
+        if out["kernels"][2] != first[rid]:
+            raise SystemExit(f"[lm] req {rid}: prefill's greedy token {out['kernels'][2]} != the "
+                             f"engine's {first[rid]}")
+        for i, what in enumerate(("prefill last-token", "first decode step")):
+            got, ref = out["kernels"][i], out["plain"][i]
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            print(f"[lm] req {rid} ({n} tokens) {what} logits, kernels vs plain: max|d|={err:.3e} "
+                  f"(gate {LM_LOGIT_GATE} x max|ref|={scale:.3e}); greedy tokens "
+                  f"{int(got.argmax())} / {int(ref.argmax())}")
+            if not (err <= LM_LOGIT_GATE * scale and _finite(got)):
+                raise SystemExit(f"[lm] req {rid}: {what} logits disagree with the plain path")
+    del engine, runner, params
+    _free_cuda()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def phase_lm_cli(gpu: str) -> dict:
+    """The LM serving CLI (reduced gemma-7b) on the card; returns its counts."""
+    _free_cuda()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH]
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    print("\n".join("[lm_cli] " + line for line in out.stdout.strip().splitlines()))
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"[lm_cli] serve exited {out.returncode}")
+    m = re.search(r"kernel launches: rmsnorm (\d+) over (\d+) prefills \+ (\d+) decode steps "
+                  r"x (\d+) norms; flash_attention (\d+) over (\d+) prefills x (\d+) layers",
+                  out.stdout)
+    if m is None:
+        raise SystemExit("[lm_cli] serve printed no kernel launch counts")
+    rms, prefills, steps, norms, flash, prefills2, n_layers = map(int, m.groups())
+    if prefills == 0 or rms != norms * (prefills + steps) or flash != n_layers * prefills2 \
+            or prefills2 != prefills:
+        raise SystemExit(f"[lm_cli] launches rmsnorm {rms}, flash {flash} do not match "
+                         f"{prefills} prefills + {steps} decode steps")
+    print(f"[lm_cli] launches rmsnorm {rms}, flash {flash}; {gpu}")
+    return {"rmsnorm": rms, "flash": flash}
+
+
 def main() -> int:
     import torch
 
@@ -670,6 +1071,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     gpu = gpu_line()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}; {gpu}")
     t0 = time.perf_counter()
@@ -678,8 +1080,11 @@ def main() -> int:
     dx, dw = phase_backward_kernels(gpu)
     fused.update(dx)
     served = {"serve": phase_serving(gpu), **phase_ensemble(gpu), "cli": phase_cli(gpu)}
+    rms, flash = phase_lm_kernels(gpu)
     train = phase_train(gpu)
     train_cli = phase_train_cli(gpu)
+    lm = phase_lm_serving(gpu)
+    lm_cli = phase_lm_cli(gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -687,9 +1092,13 @@ def main() -> int:
     }
     dw["launches"] = train["dw"]
     dw["launches_by_path"] = {"train": train["dw"], "train_cli": train_cli["dw"]}
+    rms["launches"] = lm["rmsnorm"]
+    rms["launches_by_path"] = {"lm_serve": lm["rmsnorm"], "lm_cli": lm_cli["rmsnorm"]}
+    flash["launches"] = lm["flash"]
+    flash["launches_by_path"] = {"lm_serve": lm["flash"], "lm_cli": lm_cli["flash"]}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
-    print(json.dumps({"kernels": [fused, dw]}))
+    print(json.dumps({"kernels": [fused, dw, rms, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,11 @@
+"""Flash attention (forward): the CUDA kernel, its plain version and the wrapper."""
+from repro_torch.kernels.flash_attention.ops import (
+    HEAD_DIMS,
+    LIBRARY,
+    flash_attention,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = ["HEAD_DIMS", "LIBRARY", "flash_attention", "flash_attention_cuda",
+           "flash_attention_ref"]

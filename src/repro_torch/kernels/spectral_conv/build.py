@@ -1,15 +1,9 @@
-"""Build the spectral kernel library from the repository's CUDA sources.
+"""The spectral kernel library: its sources and its C interface.
 
 Two kernels, one library: the fused truncate + mix + pad
 (``csrc/spectral_fused.cu``, forward and the backward's dx) and its
-weight cotangent (``csrc/spectral_fused_dw.cu``). The library is compiled
-at first use, on the machine with the card, by
-``torch.utils.cpp_extension.load`` into ``build/torch_ext/`` at the
-repository root (listed in ``.gitignore``), and loaded with ``ctypes``. The
-sources have a plain C interface and include no PyTorch header, so ``nvcc``
-takes seconds rather than minutes (``load`` compiles the sources in
-parallel through ninja); ``load`` caches by content, so a second
-process reuses the build. A failed build raises.
+weight cotangent (``csrc/spectral_fused_dw.cu``). ``kernels.build``
+compiles it at first use; a failed build raises.
 """
 from __future__ import annotations
 
@@ -17,35 +11,21 @@ import ctypes
 import functools
 import os
 
+from repro_torch.kernels.build import KernelLibrary, load
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (
+LIBRARY = KernelLibrary("repro_torch_spectral_conv", (
     os.path.join(_HERE, "csrc", "spectral_fused.cu"),
     os.path.join(_HERE, "csrc", "spectral_fused_dw.cu"),
-)
-BUILD_DIR = os.path.abspath(
-    os.path.join(_HERE, "..", "..", "..", "..", "build", "torch_ext")
-)
-LIB_NAME = "repro_torch_spectral_conv"
-CUDA_CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+))
 
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
-    from torch.utils.cpp_extension import load
-
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = load(
-        name=LIB_NAME,
-        sources=list(SOURCES),
-        build_directory=BUILD_DIR,
-        extra_cuda_cflags=CUDA_CFLAGS,
-        is_python_module=False,
-        verbose=False,
-    )
-    lib = ctypes.CDLL(path)
+    """Build (once per source content) and load the kernel library."""
+    lib = load(LIBRARY)
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.spectral_fused_launch.argtypes = (
         [_c_ptr] * 4 + [_c_int] * 14

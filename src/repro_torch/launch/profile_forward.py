@@ -2,6 +2,7 @@
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_forward --out profile.txt
+    PYTHONPATH=src python -m repro_torch.launch.profile_forward --lm --out lm.txt
 
 Serves the Sleipner config (width 40, modes (24,16,8,10), 4 blocks) with
 random weights at the shape ``chip_smoke.py`` serves (``ONE_CARD_GRID``,
@@ -14,6 +15,16 @@ trains (``ONE_CARD_TRAIN_GRID``, batch ``ONE_CARD_TRAIN_BATCH`` as
 after a warm-up step. For each trace it prints the wall time, the device's
 busy time (the union of its kernel, copy and memset intervals), the idle
 share, and the ops with the most device time. Needs a card.
+
+With ``--lm`` it profiles the LM serving path instead: gemma-7b at full
+width with random weights through ``TransformerRunner`` (4 slots, max_len
+1040, as ``chip_smoke.py`` serves it). After warm-up admissions into three
+slots and a warm-up decode step, it traces one prefill of a 1000-token
+prompt and then one decode step over the 4 active slots, and prints for
+each the wall time, device busy time, idle share, the number of kernel
+launches and of top-level host operations, device time by kernel group
+(flash attention, RMSNorm, GEMMs, the rest) and the kernels with the most
+device time.
 """
 from __future__ import annotations
 
@@ -46,6 +57,10 @@ from repro_torch.train.train_loop import make_train_step
 
 ITERS, ROWS = 3, 25
 DEVICE_SPANS = ("kernel", "gpu_memcpy", "gpu_memset")
+LM_PROMPTS = (1000, 800, 600, 400)  # the traced prefill's, then the warm slots'
+# kernel groups of the LM report, by substring of the kernel's name
+LM_GROUPS = (("flash attention", ("flash_kernel",)), ("rmsnorm", ("rmsnorm_kernel",)),
+             ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")))
 
 
 def busy_ms(trace_path: str, cats=DEVICE_SPANS) -> float:
@@ -66,12 +81,99 @@ def busy_ms(trace_path: str, cats=DEVICE_SPANS) -> float:
     return busy / 1e3
 
 
-def _traced(prof) -> tuple:
-    """(busy_ms, kernel_ms) of a finished profile."""
+def kernel_ms_by_name(trace_path: str) -> dict:
+    """Device milliseconds and launches of each kernel name in a Chrome
+    trace: {name: (ms, launches)}."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            ms, n = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    return out
+
+
+def host_ops(prof) -> int:
+    """Top-level host operations of a finished profile: PyTorch operators
+    and the runtime calls made outside any of them (a ctypes launch)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events()
+               if e.cpu_parent is None and e.device_type == DeviceType.CPU)
+
+
+def _traced(prof, by_name=False) -> tuple:
+    """(busy_ms, kernel_ms) of a finished profile, and with ``by_name`` the
+    device ms and launches of each kernel name."""
     with tempfile.TemporaryDirectory() as d:
         trace = os.path.join(d, "trace.json")
         prof.export_chrome_trace(trace)
-        return busy_ms(trace), busy_ms(trace, ("kernel",))
+        out = (busy_ms(trace), busy_ms(trace, ("kernel",)))
+        return out + (kernel_ms_by_name(trace),) if by_name else out
+
+
+def group_kernel_ms(by_name: dict) -> dict:
+    """Kernel ms summed into ``LM_GROUPS`` (first match wins), the rest last."""
+    groups = {name: 0.0 for name, _ in LM_GROUPS}
+    groups["other"] = 0.0
+    for kernel, (ms, _) in by_name.items():
+        low = kernel.lower()
+        group = next((g for g, keys in LM_GROUPS if any(k.lower() in low for k in keys)), "other")
+        groups[group] += ms
+    return groups
+
+
+def _lm_report(tag, prof, wall_ms, gpu) -> str:
+    busy, kernels, by_name = _traced(prof, by_name=True)
+    launches = sum(n for _, n in by_name.values())
+    lines = [f"{tag}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms (kernels alone "
+             f"{kernels:.2f} ms), idle share {1 - busy / wall_ms:.3f} (traced); "
+             f"{launches} kernel launches, {host_ops(prof)} top-level host operations; {gpu}"]
+    for group, ms in group_kernel_ms(by_name).items():
+        lines.append(f"  {group}: {ms:.3f} ms ({ms / max(kernels, 1e-9):.1%} of kernel time)")
+    lines.append("  kernels with the most device time (ms, launches):")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        lines.append(f"    {ms:9.3f} ms {n:5d}x  {name[:100]}")
+    return "\n".join(lines)
+
+
+def _profile_lm(dev, gpu) -> str:
+    """Trace one full-width gemma-7b prefill and one 4-slot decode step."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm_params
+    from repro_torch.serve import Request, TransformerRunner
+
+    cfg = get_arch("gemma-7b")
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    runner = TransformerRunner(cfg, params, max_len=1040, max_slots=len(LM_PROMPTS), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=n).tolist(), max_tokens=64)
+            for i, n in enumerate(LM_PROMPTS)]
+    slots = [None] + reqs[1:]
+    for slot in range(1, len(reqs)):
+        runner.admit(slot, reqs[slot])
+    runner.step(slots, list(range(1, len(reqs))))
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        runner.admit(0, reqs[0])
+        wall_p = (time.perf_counter() - t0) * 1e3
+    report = _lm_report(f"gemma-7b prefill of {LM_PROMPTS[0]} tokens", prof, wall_p, gpu)
+    slots[0] = reqs[0]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        runner.step(slots, list(range(len(reqs))))
+        wall_d = (time.perf_counter() - t0) * 1e3
+    lengths = [runner._lengths[i] for i in range(len(reqs))]
+    report += "\n" + _lm_report(f"gemma-7b decode step, {len(reqs)} slots at lengths {lengths}",
+                                prof, wall_d, gpu)
+    return report
 
 
 def _profile_train_step(dev) -> tuple:
@@ -105,16 +207,26 @@ def _profile_train_step(dev) -> tuple:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the report here")
+    ap.add_argument("--lm", action="store_true", help="profile the LM serving path instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(CONFIG, grid=ONE_CARD_GRID)
-    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    if args.lm:
+        # bf16 GEMMs accumulate in f32 and round once, as the reference's XLA ones
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        report = _profile_lm(dev, gpu)
+        print(report)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(report + "\n")
+        return
+    cfg = dataclasses.replace(CONFIG, grid=ONE_CARD_GRID)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
 
     x = torch.randn((ONE_CARD_SLOTS, cfg.in_channels) + cfg.grid, device=dev)
     with torch.inference_mode():

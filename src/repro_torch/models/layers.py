@@ -1,0 +1,94 @@
+"""Shared LM layers: RMSNorm, RoPE, embeddings, MLPs, last-token logits.
+
+Port of ``repro.models.layers`` (``layers.py:16-138`` less the chunked
+cross-entropy, which only training uses). Weights are cast to the
+activation dtype at each matmul as in the reference (``.to(x.dtype)``,
+a no-op when the serving runner already holds them in that dtype).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import NOT_PORTED
+from repro_torch.kernels import rmsnorm as rmsnorm_ops
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, *, eps=1e-6):
+    """RMSNorm through the fused kernel (its plain version for CPU tensors)."""
+    return rmsnorm_ops.rmsnorm(x, w, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (GPT-NeoX half-split convention; optional
+# partial fraction as in ChatGLM's scheme, which rotates half the head dim).
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, fraction: float = 1.0, device=None):
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exponents = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    inv = 1.0 / (theta ** exponents)
+    return inv, rot
+
+
+def apply_rope(x, positions, *, theta=10000.0, fraction=1.0):
+    """x: [b, s, h, d]; positions: [s] or [b, s] token positions."""
+    d = x.shape[-1]
+    inv, rot = rope_frequencies(d, theta, fraction, device=x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * inv  # [b, s, rot/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = torch.chunk(xr, 2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(table, tokens, *, scale_by_sqrt_dim=False):
+    """table: [V, D]; tokens: int [b, s] -> [b, s, D] in the table's dtype."""
+    x = table[tokens]
+    if scale_by_sqrt_dim:
+        x = x * torch.tensor(table.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def glu_mlp(x, w_gate, w_up, w_down, *, act: str = "swiglu"):
+    """Gated MLP: swiglu (silu gate) or geglu (tanh-gelu gate, gemma)."""
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    if act == "swiglu":
+        g = F.silu(g)
+    elif act == "geglu":
+        g = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return (g * u) @ w_down.to(x.dtype)
+
+
+def gelu_mlp(x, w1, b1, w2, b2, *, act: str = "relu2"):
+    """Biased two-matrix MLP; only minitron's squared ReLU is ported (the
+    reference's plain-gelu variant serves whisper, ROADMAP Queue 1 item 5)."""
+    if act != "relu2":
+        raise NotImplementedError(f"mlp act {act!r}: {NOT_PORTED}")
+    h = torch.square(F.relu(x @ w1.to(x.dtype) + b1.to(x.dtype)))
+    return h @ w2.to(x.dtype) + b2.to(x.dtype)
+
+
+def logits_last(h_last, lm_head):
+    """Decode-time logits for the last position only. h_last: [b, d]."""
+    return (h_last @ lm_head.to(h_last.dtype)).float()
