@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each failing hard:
-  1. build the three CUDA kernel libraries (spectral, RMSNorm, flash
-     attention) from the repository's sources, all three at once;
+  1. build the three CUDA kernel libraries (spectral, with its four
+     kernels; RMSNorm; flash attention) from the repository's sources, all
+     three at once;
   2. hold the fused spectral kernel against its plain PyTorch version
      (``spectral_apply_fused_ref`` + ``pad_kept_ref``) over the trunc
      patterns, t tails, ``add`` and the full-width serving block shape,
@@ -15,6 +16,18 @@ Phases, each failing hard:
      fused op's autograd backward (dx on the fused kernel, dW on the
      cotangent kernel) against plain autograd; both backward kernels are
      timed at the training block shape;
+ 2b. the flattened-K op ``spectral_apply``: its mix kernel (forward and
+     dx on conj(W^T)) and weight-cotangent kernel against
+     ``spectral_apply_ref`` / ``spectral_dw_ref`` over 1-4 mode dims,
+     ragged K, ci != co, b = 1-6 and permuted batch/channel strides; its
+     autograd backward against plain autograd; the mix kernel against the
+     fused kernel on pre-truncated modes; one forward + backward through
+     the op at the Sleipner FNO's full kept-mode width (ci = co = 40,
+     modes (48,32,16,10), b = 2) with exact launch counts; both kernels
+     timed there at b = 2 and b = 1 and at the 1-D model-parallel shard
+     (48,8,16,10), against their bound, the plain version (one
+     ``torch.einsum``, also the library call) and ``torch.bmm`` on the
+     K-leading layout;
   3. serve the Sleipner FNO (width 40, modes (24,16,8,10), 4 blocks) on
      grid (128,64,32,88) through ``FNORunner`` and the ``Scheduler``,
      checking every output against the plain unfused forward;
@@ -45,7 +58,9 @@ Phases, each failing hard:
      kernels against the same through the plain versions;
  10. the LM serving CLI on the card, as a subprocess.
 
-Each served run must launch the fused kernel exactly once per FNO block
+One forward + backward through ``spectral_apply`` must launch its mix
+kernel twice (forward, dx), its weight-cotangent kernel once, and no other
+kernel. Each served run must launch the fused kernel exactly once per FNO block
 per forward; each training step, per micro-batch and block, three times
 (forward, remat recompute, dx) and the cotangent kernel once. Each LM
 prefill must launch flash attention once per layer, and each LM forward
@@ -95,6 +110,10 @@ RMSNORM_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
 RMSNORM_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:24"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:82"
+FLAT_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_apply.cu"
+FLAT_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:101"
+FLAT_DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_dw.cu"
+FLAT_DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:140"
 
 
 def gpu_line() -> str:
@@ -461,6 +480,183 @@ def phase_backward_kernels(gpu: str) -> tuple:
         "library_ms": None,
     }
     return dx, record
+
+
+def _flat_bound_ms(b, ci, co, k) -> tuple:
+    """Bound of the flattened-K mix (and of its weight cotangent, which
+    moves the same bytes): x [b, ci, K] and w [ci, co, K] read once, y [b,
+    co, K] written once; 8 flops per complex multiply-add."""
+    return _bound_ms(8 * k * (b * ci + ci * co + b * co), 8 * b * ci * co * k)
+
+
+def _all_launch_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.spectral_conv import (
+        spectral_apply_cuda, spectral_dw_cuda, spectral_fused_cuda, spectral_fused_dw_cuda,
+    )
+
+    return {"spectral_fused": spectral_fused_cuda, "spectral_fused_dw": spectral_fused_dw_cuda,
+            "spectral_apply": spectral_apply_cuda, "spectral_dw": spectral_dw_cuda,
+            "rmsnorm": rmsnorm_cuda, "flash_attention": flash_attention_cuda}
+
+
+def phase_flat_kernels(gpu: str) -> tuple:
+    """The flattened-K op ``spectral_apply``: both kernels and its autograd
+    backward vs their plain versions, the mix kernel vs the fused kernel on
+    pre-truncated modes, one forward + backward through the op at the
+    Sleipner FNO's full kept-mode width with exact launch counts, and the
+    kernels timed at the full-width and model-parallel shard shapes.
+    Returns the two kernels' records."""
+    import torch
+
+    from repro_torch.configs.fno_sleipner import CONFIG
+    from repro_torch.kernels.spectral_conv import (
+        spectral_apply, spectral_apply_cuda, spectral_apply_dw, spectral_apply_dx,
+        spectral_apply_fused, spectral_apply_ref, spectral_dw_cuda, spectral_dw_ref,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+
+    def channels_outermost(z):
+        return z.transpose(0, 1).contiguous().transpose(0, 1)
+
+    # (name, b, ci, co, modes, channels outermost): 2-4 mode dims, K not a
+    # multiple of 32 or 128, ci != co, b = 1-3 and past the batch chunk of 4
+    cases = [
+        ("2 modes K=133", 1, 3, 5, (7, 19), False),
+        ("3 modes K=165 permuted", 2, 9, 10, (3, 5, 11), True),
+        ("4 modes K=210", 3, 4, 17, (2, 3, 5, 7), False),
+        ("2 modes K=99 b=3 permuted", 3, 11, 9, (3, 33), True),
+        ("4 modes K=1000 permuted", 2, 6, 13, (5, 4, 5, 10), True),
+        ("1 mode K=300 b=6", 6, 5, 3, (300,), False),
+    ]
+    for name, b, ci, co, modes, permuted in cases:
+        x, w, g = rand((b, ci) + modes), rand((ci, co) + modes), rand((b, co) + modes)
+        if permuted:
+            x, w, g = channels_outermost(x), channels_outermost(w), channels_outermost(g)
+        _gate(f"flat {name} forward", spectral_apply(x, w), spectral_apply_ref(x, w))
+        _gate(f"flat {name} dx", spectral_apply_dx(g, w),
+              spectral_apply_ref(g, w.transpose(0, 1).conj()))
+        _gate(f"flat {name} dW", spectral_apply_dw(x, g), spectral_dw_ref(x, g))
+        print(f"[flat] {name}: x strides {x.stride()}, w strides {w.stride()}")
+
+    def grads(op, inputs, a):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y = op(*leaves)
+        (y.real * a - y.imag * a).sum().backward()
+        return y.detach(), [t.grad for t in leaves]
+
+    # the autograd Function vs plain autograd, with exact launch counts
+    for name, b, ci, co, modes, permuted in cases[1:3]:
+        inputs = [rand((b, ci) + modes), rand((ci, co) + modes)]
+        if permuted:
+            inputs = [channels_outermost(t) for t in inputs]
+        a = torch.randn((b, co) + modes, device=dev, generator=gen)
+        before = (spectral_apply_cuda.launches, spectral_dw_cuda.launches)
+        _, got = grads(spectral_apply, inputs, a)
+        torch.cuda.synchronize()
+        moved = (spectral_apply_cuda.launches - before[0], spectral_dw_cuda.launches - before[1])
+        if moved != (2, 1):
+            raise SystemExit(f"[flat] backward {name}: launches {moved}, want (2, 1)")
+        for i, (gk, gp) in enumerate(zip(got, grads(spectral_apply_ref, inputs, a)[1])):
+            _gate(f"flat backward {name}, grad of input {i}", gk, gp)
+
+    # the Sleipner FNO's full kept-mode width, and its 1-D model-parallel shard
+    ci = co = CONFIG.width
+    full = tuple(CONFIG.mode_shape)
+    shard = (full[0], full[1] // 4, full[2], full[3])
+    xs = rand((2, ci) + full)
+    w = rand((ci, co) + full)
+    w_part = w[:4, :5].contiguous()
+    cross = spectral_apply_fused(xs[:1, :4], w_part, (None, None, None))
+    _gate("flat vs fused kernel, pre-truncated 4 modes", spectral_apply(xs[:1, :4], w_part), cross)
+    cross = spectral_apply_fused(xs, w, (None, None, None))
+    _gate("flat vs fused kernel at full width b=2", spectral_apply(xs, w), cross)
+    del cross
+
+    # the op's main path: one forward and backward at full width, b=2,
+    # every kernel's count set to 0 just before and read just after
+    a = torch.randn((2, co) + full, device=dev, generator=gen)
+    counters = _all_launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    y, got = grads(spectral_apply, [xs, w], a)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: {"spectral_apply": 2, "spectral_dw": 1}.get(k, 0) for k in counters}
+    print(f"[flat] full width b=2, K={int(np.prod(full))}: one forward + backward through "
+          f"spectral_apply launched {launches}; {gpu}")
+    if launches != want:
+        raise SystemExit(f"[flat] the op's forward + backward launched {launches}, want {want}")
+    if tuple(y.shape) != (2, co) + full or not bool(torch.isfinite(y).all()):
+        raise SystemExit("[flat] full-width output has a wrong shape or non-finite values")
+    y_ref, want_grads = grads(spectral_apply_ref, [xs, w], a)
+    errs = {"forward": _gate("flat full width b=2 forward", y, y_ref)}
+    for tag, gk, gp in zip(("dx", "dW"), got, want_grads):
+        errs[tag] = _gate(f"flat full width b=2 {tag} (autograd vs plain autograd)", gk, gp)
+    del y, y_ref, got, want_grads, a
+    torch.cuda.empty_cache()
+
+    # timings: kernel, plain version (one torch.einsum, also the library
+    # call), and torch.bmm on the K-leading layout of the TPU wrapper
+    timed = {}
+    for tag, b, modes in (("full b=2", 2, full), ("full b=1", 1, full), ("shard P=4 b=2", 2, shard)):
+        k = int(np.prod(modes))
+        x = xs[:b] if modes == full else rand((b, ci) + modes)
+        wt = w if modes == full else rand((ci, co) + modes)
+        g = rand((b, co) + modes)
+        fwd = cuda_ms(lambda: spectral_apply(x, wt))
+        dx = cuda_ms(lambda: spectral_apply_dx(g, wt))
+        dw = cuda_ms(lambda: spectral_apply_dw(x, g))
+        plain_fwd = cuda_ms(lambda: spectral_apply_ref(x, wt))
+        plain_dw = cuda_ms(lambda: spectral_dw_ref(x, g))
+        x2 = x.reshape(b, ci, k).permute(2, 0, 1).contiguous()
+        w2 = wt.reshape(ci, co, k).permute(2, 0, 1).contiguous()
+        g2 = g.reshape(b, co, k).permute(2, 0, 1).contiguous()
+        x2h = x2.conj().resolve_conj().transpose(1, 2)
+        bmm_fwd = cuda_ms(lambda: torch.bmm(x2, w2))
+        bmm_dw = cuda_ms(lambda: torch.bmm(x2h, g2))
+        del x2, w2, g2, x2h
+        torch.cuda.empty_cache()
+        bound, by = _flat_bound_ms(b, ci, co, k)
+        timed[tag] = dict(shape=f"x [{b}, {ci}, {', '.join(map(str, modes))}], w [{ci}, {co}, ...], "
+                                f"K={k}, complex64",
+                          ms=fwd, dx_ms=dx, dw_ms=dw, plain_ms=plain_fwd, dw_plain_ms=plain_dw,
+                          bmm_ms=bmm_fwd, dw_bmm_ms=bmm_dw, bound_ms=bound, bound_by=by)
+        print(f"[flat] {tag} K={k}: mix kernel {fwd:.3f} ms, dx {dx:.3f} ms, dW kernel {dw:.3f} ms; "
+              f"plain (torch.einsum) {plain_fwd:.3f} / dW {plain_dw:.3f} ms; torch.bmm on the "
+              f"K-leading layout {bmm_fwd:.3f} / dW {bmm_dw:.3f} ms; bound {bound:.3f} ms ({by}); {gpu}")
+        del x, wt, g
+    del xs, w
+    torch.cuda.empty_cache()
+
+    def record(name, source, replaces, prefix, err, n):
+        t = timed["full b=2"]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n, "max_abs_err": err, "ms": t[prefix + "ms"],
+            "plain_ms": t[prefix + "plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t[prefix + "plain_ms"],
+            "library_call": "torch.einsum, the plain version itself",
+            "bmm_ms": t[prefix + "bmm_ms"], "shape": t["shape"],
+            "other_shapes": {tag: {key: v[prefix + key] for key in ("ms", "plain_ms", "bmm_ms")}
+                             | {"bound_ms": v["bound_ms"], "shape": v["shape"]}
+                             for tag, v in timed.items() if tag != "full b=2"},
+            "launches_by_path": {"spectral_apply forward + backward": n},
+        }
+
+    flat = record("spectral_apply", FLAT_SOURCE, FLAT_REPLACES, "", errs["forward"],
+                  launches["spectral_apply"])
+    flat["dx_ms"] = {tag: v["dx_ms"] for tag, v in timed.items()}
+    flat["dx_max_abs_err"] = errs["dx"]
+    flat_dw = record("spectral_dw", FLAT_DW_SOURCE, FLAT_DW_REPLACES, "dw_", errs["dW"],
+                     launches["spectral_dw"])
+    return flat, flat_dw
 
 
 def _serving_cfg(in_channels: int = 1):
@@ -1079,6 +1275,7 @@ def main() -> int:
     fused = phase_kernels(gpu)
     dx, dw = phase_backward_kernels(gpu)
     fused.update(dx)
+    flat, flat_dw = phase_flat_kernels(gpu)
     served = {"serve": phase_serving(gpu), **phase_ensemble(gpu), "cli": phase_cli(gpu)}
     rms, flash = phase_lm_kernels(gpu)
     train = phase_train(gpu)
@@ -1098,7 +1295,7 @@ def main() -> int:
     flash["launches_by_path"] = {"lm_serve": lm["flash"], "lm_cli": lm_cli["flash"]}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
-    print(json.dumps({"kernels": [fused, dw, rms, flash]}))
+    print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

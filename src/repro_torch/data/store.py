@@ -4,7 +4,10 @@ The port's own copy of ``repro.data.store`` (importing that module runs
 ``repro/data/__init__.py``, which imports JAX). It differs in one place:
 without the ``zstandard`` package, chunks are written raw, and reading a
 compressed chunk raises a clear error instead of returning its compressed
-bytes as data.
+bytes as data. It also keeps one zstd context per thread: a zstandard
+compressor or decompressor must not be used by two threads at once, and
+``read_slice`` decompresses on a pool of threads (the reference's shared
+decompressor corrupts chunks or crashes there).
 
 The paper writes each simulated training pair to blob storage with Zarr and
 has every GPU read only its spatial chunk during training. This store
@@ -48,14 +51,17 @@ _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 try:
     import zstandard as zstd
 
-    _C = zstd.ZstdCompressor(level=3)
-    _D = zstd.ZstdDecompressor()
+    _ZSTD = threading.local()
 
     def _compress(b):
-        return _C.compress(b)
+        if not hasattr(_ZSTD, "c"):
+            _ZSTD.c = zstd.ZstdCompressor(level=3)
+        return _ZSTD.c.compress(b)
 
     def _decompress(b, nbytes, path):
-        return _D.decompress(b)
+        if not hasattr(_ZSTD, "d"):
+            _ZSTD.d = zstd.ZstdDecompressor()
+        return _ZSTD.d.decompress(b)
 
 except ImportError:
     def _compress(b):

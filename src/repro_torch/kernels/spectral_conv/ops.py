@@ -1,12 +1,13 @@
-"""Public wrappers of the fused spectral convolution and its gradient.
+"""Public wrappers of the spectral convolution and its gradient.
 
-Port of ``repro.kernels.spectral_conv.ops`` (fused path). The path is
-chosen by where the tensors lie, and by nothing else: CUDA tensors go to
-the hand-written kernels (``csrc/spectral_fused.cu``,
-``csrc/spectral_fused_dw.cu``), CPU tensors — which only a caller that
-asked for the CPU has — to the plain versions in ``ref``. There is no
-fallback from a kernel to its plain version: a failed build or launch
-raises.
+Port of ``repro.kernels.spectral_conv.ops``: the fused path
+(``spectral_apply_fused``) and the flattened-K path (``spectral_apply``).
+The path is chosen by where the tensors lie, and by nothing else: CUDA
+tensors go to the hand-written kernels (``csrc/spectral_fused.cu``,
+``csrc/spectral_fused_dw.cu``, ``csrc/spectral_apply.cu``,
+``csrc/spectral_dw.cu``), CPU tensors — which only a caller that asked
+for the CPU has — to the plain versions in ``ref``. There is no fallback
+from a kernel to its plain version: a failed build or launch raises.
 
 The fused op is differentiable (``_FusedSpectral``, the counterpart of the
 reference's ``custom_vjp`` in ``_fused_vjp``), in torch's ``.grad``
@@ -25,6 +26,7 @@ here: they exist there only because the TPU kernels take float32 planes.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,6 +36,7 @@ from repro_torch.kernels.spectral_conv.ref import (
     pad_kept_ref,
     spectral_apply_fused_ref,
     spectral_apply_ref,
+    spectral_dw_ref,
     spectral_fused_dw_ref,
 )
 
@@ -303,3 +306,169 @@ def spectral_static_contribution(sf: torch.Tensor, w: torch.Tensor) -> torch.Ten
     y = spectral_apply_ref(sf, w)
     return y[0] if unbatched else y
 
+
+# ---------------------------------------------------------------------------
+# Flattened-K path: the mode dims are pre-truncated upstream.
+# ---------------------------------------------------------------------------
+
+def _mode_run_contiguous(t: torch.Tensor) -> bool:
+    """Whether the mode dims (all but the first two) form one contiguous run."""
+    return t.as_strided(t.shape[2:], t.stride()[2:]).is_contiguous()
+
+
+def _check_flat(named):
+    """Checks the flattened-K kernels need of their two operands
+    [*, *, *modes]: one rank >= 3, the same mode extents, complex64 on one
+    device (CPU or CUDA), and a contiguous run of modes (the first two dims
+    may have any strides). Returns the device."""
+    (a_name, a), (b_name, b) = named
+    if a.ndim < 3 or b.ndim != a.ndim:
+        raise ValueError(
+            f"{a_name} {tuple(a.shape)} and {b_name} {tuple(b.shape)} must have "
+            f"the same rank >= 3 (two leading dims, then the modes)"
+        )
+    if tuple(a.shape[2:]) != tuple(b.shape[2:]):
+        raise ValueError(
+            f"{b_name} modes {tuple(b.shape[2:])} != {a_name} modes {tuple(a.shape[2:])}"
+        )
+    device = _check_operands(named, strided=(a_name, b_name))
+    for name, t in named:
+        if not _mode_run_contiguous(t):
+            raise ValueError(
+                f"{name} strides {t.stride()}: its mode dims must form one contiguous run"
+            )
+    return device
+
+
+def spectral_apply_cuda(xf, w, *, conj_transpose=False) -> torch.Tensor:
+    """Launch the flattened-K mix kernel on PyTorch's current stream (no
+    synchronise): y[b, co, K] = sum_ci xf[b, ci, K] w[ci, co, K].
+
+    ``conj_transpose=True`` runs it on conj(W^T) without forming it: ``w``
+    stays the forward's [ci, co, *modes] tensor, ``xf`` has co channels and
+    the result ci (the backward's dx). Operands are validated by the caller.
+    ``spectral_apply_cuda.launches`` counts the launches.
+    """
+    xf, w = _raw(xf), _raw(w)
+    b, modes = xf.shape[0], tuple(xf.shape[2:])
+    if conj_transpose:
+        co, ci = w.shape[:2]
+        w_in, w_out = w.stride(1), w.stride(0)
+    else:
+        ci, co = w.shape[:2]
+        w_in, w_out = w.stride(0), w.stride(1)
+    y = torch.empty((b, co) + modes, dtype=torch.complex64, device=xf.device)
+    lib = load_library()
+    with torch.cuda.device(xf.device):
+        stream = torch.cuda.current_stream(xf.device).cuda_stream
+        err = lib.spectral_apply_launch(
+            xf.data_ptr(), w.data_ptr(), y.data_ptr(), b, ci, co, math.prod(modes),
+            xf.stride(0), xf.stride(1), w_in, w_out, int(conj_transpose), stream,
+        )
+    _raise_on(lib, "spectral_apply", err)
+    spectral_apply_cuda.launches += 1
+    return y
+
+
+spectral_apply_cuda.launches = 0
+
+
+def spectral_dw_cuda(xf, g) -> torch.Tensor:
+    """Launch the flattened-K weight-cotangent kernel on PyTorch's current
+    stream (no synchronise): w_bar[ci, co, K] = sum_b conj(xf[b, ci, K])
+    g[b, co, K]. Operands validated by the caller. Counts its launches on
+    ``spectral_dw_cuda.launches``."""
+    xf, g = _raw(xf), _raw(g)
+    b, ci, modes = xf.shape[0], xf.shape[1], tuple(xf.shape[2:])
+    co = g.shape[1]
+    w = torch.empty((ci, co) + modes, dtype=torch.complex64, device=xf.device)
+    lib = load_library()
+    with torch.cuda.device(xf.device):
+        stream = torch.cuda.current_stream(xf.device).cuda_stream
+        err = lib.spectral_dw_launch(
+            xf.data_ptr(), g.data_ptr(), w.data_ptr(), b, ci, co, math.prod(modes),
+            xf.stride(0), xf.stride(1), g.stride(0), g.stride(1), stream,
+        )
+    _raise_on(lib, "spectral_dw", err)
+    spectral_dw_cuda.launches += 1
+    return w
+
+
+spectral_dw_cuda.launches = 0
+
+
+def _flat_mix(xf, w, conj_transpose=False):
+    """The flattened-K mix (or, with ``conj_transpose``, its input
+    cotangent) on the kernel or the plain version, by where the tensors lie."""
+    device = _check_flat([("xf", xf), ("w", w)])
+    contracted = 1 if conj_transpose else 0
+    if w.shape[contracted] != xf.shape[1]:
+        raise ValueError(
+            f"w dim {contracted} = {w.shape[contracted]} != xf channels {xf.shape[1]}"
+        )
+    if device.type == "cuda":
+        return spectral_apply_cuda(xf, w, conj_transpose=conj_transpose)
+    if conj_transpose:
+        w = w.transpose(0, 1).conj()
+    return spectral_apply_ref(xf, w)
+
+
+def spectral_apply_dx(g, w) -> torch.Tensor:
+    """Input cotangent of the flattened-K mix in torch's convention:
+    dx[b, ci, *modes] = sum_co g[b, co, *modes] conj(w[ci, co, *modes]), the
+    mix run on ``g`` with conj(W^T) (``w`` stays [ci, co, *modes])."""
+    return _flat_mix(g, w, conj_transpose=True)
+
+
+def spectral_apply_dw(xf, g) -> torch.Tensor:
+    """Weight cotangent of the flattened-K mix in torch's convention:
+    ``w_bar[ci, co, *modes] = sum_b conj(xf[b, ci, *modes]) g[b, co, *modes]``.
+    xf: [b, ci, *modes]; g: [b, co, *modes]. Returns [ci, co, *modes]."""
+    device = _check_flat([("xf", xf), ("g", g)])
+    if g.shape[0] != xf.shape[0]:
+        raise ValueError(f"g batch {g.shape[0]} != xf batch {xf.shape[0]}")
+    if device.type == "cuda":
+        return spectral_dw_cuda(xf, g)
+    return spectral_dw_ref(xf, g)
+
+
+class _FlatSpectral(torch.autograd.Function):
+    """The flattened-K mix with its backward on the kernels: dx on the mix
+    kernel with conj(W^T), dW on the weight-cotangent kernel. The
+    counterpart of the reference's ``custom_vjp`` in ``_flat_vjp``."""
+
+    @staticmethod
+    def forward(ctx, xf, w):
+        ctx.save_for_backward(xf, w)
+        return _flat_mix(xf, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, w = ctx.saved_tensors
+        if not _mode_run_contiguous(g):  # e.g. the expanded cotangent of a sum
+            g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = spectral_apply_dx(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = spectral_apply_dw(xf, g)
+        return dx, dw
+
+
+def spectral_apply(xf, w) -> torch.Tensor:
+    """Per-mode complex channel mix on pre-truncated modes.
+
+    xf: [b, ci, *modes] complex64; w: [ci, co, *modes] complex64, any
+    number of mode dims, which must form one contiguous run in memory (the
+    batch and channel dims may have any strides). Returns [b, co, *modes]
+    complex64. Differentiable in ``xf`` and ``w``.
+
+    The reference's ``use_pallas``, ``block_k`` and ``interpret`` have no
+    counterpart: the device of the tensors picks the kernel or the plain
+    version, and the kernel has no block size to choose (it keeps K
+    innermost and masks its ragged tail instead of padding it). Nor does
+    the ``(wr, wi)`` planes tuple: the kernels read complex64 in place.
+    """
+    if torch.is_grad_enabled() and (xf.requires_grad or w.requires_grad):
+        return _FlatSpectral.apply(xf, w)
+    return _flat_mix(xf, w)

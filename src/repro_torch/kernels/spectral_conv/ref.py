@@ -23,6 +23,22 @@ def spectral_apply_ref(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum(f"bi{mode_axes},io{mode_axes}->bo{mode_axes}", xf, w)
 
 
+def spectral_dw_ref(xf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight cotangent of ``spectral_apply_ref`` in torch's ``.grad``
+    convention, the plain version of ``csrc/spectral_dw.cu``:
+
+        w_bar[ci, co, *modes] = sum_b conj(xf[b, ci, *modes]) * g[b, co, *modes]
+
+    xf: [b, ci, *modes]; g: [b, co, *modes]. JAX's ``spectral_dw_pallas``
+    takes the plain transpose (no conjugation) on JAX's cotangent, which is
+    the conjugate of torch's: fed ``conj(g)``, it returns the conjugate of
+    this.
+    """
+    n_modes = xf.ndim - 2
+    mode_axes = "".join(chr(ord("s") + i) for i in range(n_modes))
+    return torch.einsum(f"bi{mode_axes},bo{mode_axes}->io{mode_axes}", xf.conj(), g)
+
+
 def pad_kept_ref(yk: torch.Tensor, trunc, t_out: int | None = None) -> torch.Tensor:
     """Zero-pad a kept-mode tensor [b, co, K1, K2, K3, KT] back to the fused
     output layout: full size ``trunc[d]`` on each spatial dim where trunc[d]

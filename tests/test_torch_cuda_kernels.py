@@ -5,9 +5,9 @@ machine with one they run with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-They import no JAX: each kernel, and the fused op's backward, is held
-against its plain PyTorch version (plain autograd for the backward) on the
-same inputs. Gate: rtol=1e-4, atol=1e-5.
+They import no JAX: each kernel, and the backward of the fused and the
+flattened-K op, is held against its plain PyTorch version (plain autograd
+for the backward) on the same inputs. Gate: rtol=1e-4, atol=1e-5.
 """
 import numpy as np
 import pytest
@@ -16,9 +16,16 @@ import torch
 from repro_torch.core import fno
 from repro_torch.kernels.spectral_conv import (
     pad_kept_ref,
+    spectral_apply,
+    spectral_apply_cuda,
+    spectral_apply_dw,
+    spectral_apply_dx,
     spectral_apply_fused,
     spectral_apply_fused_add,
     spectral_apply_fused_ref,
+    spectral_apply_ref,
+    spectral_dw_cuda,
+    spectral_dw_ref,
     spectral_fused_cuda,
     spectral_fused_dw,
     spectral_fused_dw_cuda,
@@ -180,3 +187,80 @@ def test_fno_gradients_on_card_match_unfused(cuda):
     for k, v in out[1][0].items():
         for n, want in v.items():
             torch.testing.assert_close(out[0][0][k][n], want, rtol=RTOL, atol=ATOL)
+
+
+# (b, ci, co, modes, channels outermost): 2-4 mode dims, K not a multiple of
+# 32 or 128, ragged channel tiles, b past the kernels' batch chunk of 4
+FLAT_CASES = [
+    (1, 3, 5, (7, 19), False),
+    (2, 9, 10, (3, 5, 11), True),
+    (3, 4, 17, (2, 3, 5, 7), False),
+    (6, 11, 9, (3, 33), True),
+    (2, 40, 40, (6, 4, 4, 10), True),
+]
+
+
+def _channels_outermost(z):
+    return z.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,co,modes,permuted", FLAT_CASES)
+def test_flat_kernels_match_plain(cuda, b, ci, co, modes, permuted):
+    """The mix kernel (forward and dx on conj(W^T)) and the weight-cotangent
+    kernel vs their plain versions; repeated dW runs agree bitwise."""
+    rng = np.random.default_rng(sum(modes) + b)
+    x = _cplx(rng, (b, ci) + modes, cuda)
+    w = _cplx(rng, (ci, co) + modes, cuda)
+    g = _cplx(rng, (b, co) + modes, cuda)
+    if permuted:
+        x, w, g = _channels_outermost(x), _channels_outermost(w), _channels_outermost(g)
+    before = (spectral_apply_cuda.launches, spectral_dw_cuda.launches)
+    y = spectral_apply(x, w)
+    dx = spectral_apply_dx(g, w)
+    dw = spectral_apply_dw(x, g)
+    dw_again = spectral_apply_dw(x, g)
+    torch.cuda.synchronize()
+    assert (spectral_apply_cuda.launches, spectral_dw_cuda.launches) == (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(y, spectral_apply_ref(x, w), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dx, spectral_apply_ref(g, w.transpose(0, 1).conj()), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(dw, spectral_dw_ref(x, g), rtol=RTOL, atol=ATOL)
+    assert torch.equal(dw, dw_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,co,modes,permuted", FLAT_CASES[:3])
+def test_flat_backward_matches_plain_autograd(cuda, b, ci, co, modes, permuted):
+    """dx and dW of the flattened-K op's autograd Function on the kernels vs
+    autograd through the plain version, through the same real loss; one
+    launch of the mix kernel per forward, one more and one of the dW kernel
+    per backward."""
+    rng = np.random.default_rng(sum(modes) + b + 40)
+    inputs = [_cplx(rng, (b, ci) + modes, cuda), _cplx(rng, (ci, co) + modes, cuda)]
+    if permuted:
+        inputs = [_channels_outermost(t) for t in inputs]
+    a = torch.from_numpy(rng.standard_normal((b, co) + modes).astype(np.float32)).to(cuda)
+
+    def grads(plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y = (spectral_apply_ref if plain else spectral_apply)(*leaves)
+        (y.real * a - y.imag * a).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = (spectral_apply_cuda.launches, spectral_dw_cuda.launches)
+    got = grads(plain=False)
+    torch.cuda.synchronize()
+    assert (spectral_apply_cuda.launches, spectral_dw_cuda.launches) == (before[0] + 2, before[1] + 1)
+    for g, w in zip(got, grads(plain=True)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_flat_kernel_matches_fused_kernel_on_pretruncated_modes(cuda):
+    """At 4 mode dims the mix kernel and the fused kernel with every dim
+    pre-truncated and no t padding compute the same function."""
+    rng = np.random.default_rng(7)
+    x = _cplx(rng, (2, 5, 6, 4, 3, 5), cuda)
+    w = _cplx(rng, (5, 7, 6, 4, 3, 5), cuda)
+    torch.testing.assert_close(spectral_apply(x, w), spectral_apply_fused(x, w, (None, None, None)),
+                               rtol=RTOL, atol=ATOL)

@@ -281,6 +281,19 @@ def test_store_without_zstandard_raises_on_a_compressed_chunk(tmp_path):
     assert "zstd-compressed" in out.stderr and "'zstandard' package" in out.stderr
 
 
+def test_store_reads_many_chunks_in_parallel_exactly(tmp_path):
+    """read_slice decompresses 32 chunks a read on its thread pool; 20 reads
+    come back bit-identical (one zstd context shared across the pool's
+    threads corrupts chunks or crashes here)."""
+    x = np.random.default_rng(0).normal(size=(2, 64, 64, 64)).astype(np.float32)
+    st = ArrayStore.create(str(tmp_path / "x"), x.shape, "f4", (1, 16, 16, 64))
+    for i in range(2):
+        st.write_sample(i, x[i])
+    whole = (slice(0, 2), slice(0, 64), slice(0, 64), slice(0, 64))
+    for _ in range(20):
+        np.testing.assert_array_equal(st.read_slice(whole), x)
+
+
 def _train_state(jcfg, params):
     """A JAX training state one AdamW step in, so every moment is nonzero."""
     p = jax.tree.map(jnp.asarray, params)
