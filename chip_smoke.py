@@ -6,7 +6,9 @@
 Phases, each failing hard:
   1. build the three CUDA kernel libraries (spectral, with its four
      kernels; RMSNorm; flash attention) from the repository's sources, all
-     three at once;
+     three at once, and beside them compile the sources redesigned for the
+     H100 (``REPORTED_SOURCES``) once more with ``-Xptxas -v`` to print each
+     kernel's registers, shared memory and spills;
   2. hold the fused spectral kernel against its plain PyTorch version
      (``spectral_apply_fused_ref`` + ``pad_kept_ref``) over the trunc
      patterns, t tails, ``add`` and the full-width serving block shape,
@@ -114,6 +116,8 @@ FLAT_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_apply.cu"
 FLAT_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:101"
 FLAT_DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_dw.cu"
 FLAT_DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:140"
+# sources whose ptxas report (registers, shared memory, spills) phase 1 prints
+REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE)
 
 
 def gpu_line() -> str:
@@ -197,17 +201,72 @@ def device_ms(fn, n: int = 20) -> float:
     return cuda_loop_ms(fn, n=n)
 
 
+def _ptxas_reports(tmp: str) -> list:
+    """Start one ``nvcc -Xptxas -v`` compile of each of ``REPORTED_SOURCES``
+    (the build's target flags, object into ``tmp``); returns the processes."""
+    from torch.utils import cpp_extension
+
+    from repro_torch.kernels.build import CUDA_CFLAGS
+
+    if cpp_extension.CUDA_HOME is None:
+        raise SystemExit("[ptxas] no CUDA toolkit with nvcc was found (set CUDA_HOME)")
+    nvcc = os.path.join(cpp_extension.CUDA_HOME, "bin", "nvcc")
+    return [(src, subprocess.Popen(
+        [nvcc, *CUDA_CFLAGS, "-std=c++17", "-Xptxas", "-v", "-c", os.path.join(ROOT, src),
+         "-o", os.path.join(tmp, f"{i}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for i, src in enumerate(REPORTED_SOURCES)]
+
+
+def _ptxas_summary(out: str) -> list:
+    """One line per kernel of an ``-Xptxas -v`` report: its name (demangled
+    where ``c++filt`` exists), registers, spills and static shared memory
+    (dynamic shared memory is set at launch, so ptxas cannot report it)."""
+    kernels, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels.append((name, f"{regs.group(1) if regs else '?'} registers; {spills}; "
+                                  f"{smem.group(1) if smem else 0} bytes static smem"))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(k for k, _ in kernels),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(kernels):
+        names = [k for k, _ in kernels]
+    return [f"{n}: {info}" for n, (_, info) in zip(names, kernels)]
+
+
 def phase_build() -> float:
+    import tempfile
+
     from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.kernels.build import build
     from repro_torch.kernels.spectral_conv import build as spectral_build
 
     t0 = time.perf_counter()
-    paths = build([spectral_build.LIBRARY, rmsnorm.LIBRARY, flash_attention.LIBRARY])
-    spectral_build.load_library()
-    rmsnorm.ops.load_library()
-    flash_attention.ops.load_library()
-    dt = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        reports = _ptxas_reports(tmp)
+        paths = build([spectral_build.LIBRARY, rmsnorm.LIBRARY, flash_attention.LIBRARY])
+        spectral_build.load_library()
+        rmsnorm.ops.load_library()
+        flash_attention.ops.load_library()
+        dt = time.perf_counter() - t0
+        for src, proc in reports:
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                print(out[-4000:], file=sys.stderr)
+                raise SystemExit(f"[ptxas] nvcc -Xptxas -v of {src} exited {proc.returncode}")
+            for line in _ptxas_summary(out):
+                print(f"[ptxas] {os.path.basename(src)}: {line}")
     print(f"[build] {len(paths)} kernel libraries built/loaded in {dt:.1f}s: "
           + ", ".join(os.path.basename(p) for p in paths))
     return dt
@@ -1086,7 +1145,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
             q, k, v, attn_mask=mask, enable_gqa=True), n=10)
         bound, by = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2)
         print(f"[flash] {name}, device time: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
-              f"{lib:.3f} ms, bound {bound * 1e3:.2f} us ({by}); {gpu}")
+              f"{lib:.3f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us ({by}); {gpu}")
         flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=bound, bound_by=by)
         del q, k, v, got

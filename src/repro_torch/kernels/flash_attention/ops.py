@@ -8,7 +8,9 @@ for the CPU has — to the plain version in ``ref``. A failed build or launch
 raises; there is no fallback. Unlike the TPU wrapper nothing is padded: the
 kernel reads q, k and v through their (b, h, s) strides, so the strided
 views that the attention layer hands over are read in place, and it masks
-the ragged tails itself.
+the ragged tails itself. The operands' dtype picks the kernel: bf16 runs on
+the tensor cores with TMA loads, which need 16-byte aligned base pointers
+and strides (``tma_alignment_error``); f32 runs the FFMA kernel.
 """
 from __future__ import annotations
 
@@ -66,6 +68,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float) -> torch.Tensor
 flash_attention_cuda.launches = 0
 
 
+def tma_alignment_error(name: str, t: torch.Tensor) -> Optional[str]:
+    """Why the bf16 kernel's TMA loads cannot read ``t`` ([b, heads, s, d],
+    unit stride along d), or None: its base address and the byte strides of
+    its b, heads and s dims must be multiples of 16. A dim of extent 1 is
+    never stepped over, so its stride does not count."""
+    if t.data_ptr() % 16:
+        return f"{name}'s base address is not 16-byte aligned"
+    for dim in range(3):
+        if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+            return (f"{name}'s stride along dim {dim} is {t.stride(dim) * t.element_size()} "
+                    f"bytes, not a multiple of 16")
+    return None
+
+
 def _validate(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be 4-D")
@@ -98,8 +114,9 @@ def flash_attention(
 
     f32 arithmetic inside; causal offset ``sk - sq`` on the true lengths;
     GQA maps query head i to kv head i // (h // kvh); ``scale`` defaults
-    to d**-0.5. On the card d must be one of ``HEAD_DIMS`` and each operand
-    must have unit stride along d."""
+    to d**-0.5. On the card d must be one of ``HEAD_DIMS``, each operand
+    must have unit stride along d, and bf16 operands must pass
+    ``tma_alignment_error``."""
     _validate(q, k, v, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -111,6 +128,11 @@ def flash_attention(
         raise ValueError(f"head dim {q.shape[-1]} is not one of {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            reason = tma_alignment_error(name, t)
+            if reason is not None:
+                raise ValueError(f"the bf16 kernel's TMA loads need 16-byte alignment: {reason}")
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)

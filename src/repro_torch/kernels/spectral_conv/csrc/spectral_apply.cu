@@ -25,7 +25,9 @@
 //     threads take neighbouring k, so every load of w and x and every store
 //     of y is coalesced along the contiguous mode run;
 //   * the batch loop sits inside the thread (the accumulators of a batch
-//     chunk stay in registers), so each weight element is loaded once;
+//     chunk stay in registers), so each weight element is loaded once; the
+//     loop over ci is `spectral_mix::mix` (mix.cuh), which the fused
+//     kernel's kept modes share;
 //   * the co tile is the fastest block index, so the CO/kCoTile blocks that
 //     re-read the same x tile run together and find it in L2;
 //   * no atomics and a fixed summation order over ci: results are
@@ -46,10 +48,12 @@
 #include <climits>
 #include <cstdint>
 
+#include "mix.cuh"
+
 namespace {
 
+using spectral_mix::kCoTile;  // output channels per thread
 constexpr int kThreads = 128;  // consecutive k per block
-constexpr int kCoTile = 8;     // output channels per thread
 constexpr int kBatchChunk = 4;
 
 struct ApplyDims {
@@ -73,40 +77,12 @@ spectral_apply_kernel(const float2* __restrict__ x,
   if (k >= d.K) return;
   const int n_co = min(kCoTile, d.CO - co0);
   const float w_im_sign = d.conj_w ? -1.f : 1.f;
-  const float2* wk = w + co0 * d.w_out + k;
 
   for (int b0 = 0; b0 < d.B; b0 += BC) {
     const int nb = min(BC, d.B - b0);
-    const float2* xk = x + b0 * d.xs_b + k;
     float2 acc[BC][kCoTile];
-#pragma unroll
-    for (int j = 0; j < BC; ++j)
-#pragma unroll
-      for (int c = 0; c < kCoTile; ++c) acc[j][c] = make_float2(0.f, 0.f);
-
-    for (int ci = 0; ci < d.CI; ++ci) {
-      float2 xv[BC];
-#pragma unroll
-      for (int j = 0; j < BC; ++j)
-        xv[j] = j < nb ? __ldg(xk + j * d.xs_b + ci * d.xs_c)
-                       : make_float2(0.f, 0.f);
-      const float2* wc = wk + ci * d.w_in;
-#pragma unroll
-      for (int c = 0; c < kCoTile; ++c) {
-        if (c < n_co) {
-          float2 wv = __ldg(wc + c * d.w_out);
-          wv.y *= w_im_sign;
-#pragma unroll
-          for (int j = 0; j < BC; ++j) {
-            acc[j][c].x = fmaf(xv[j].x, wv.x, acc[j][c].x);
-            acc[j][c].x = fmaf(-xv[j].y, wv.y, acc[j][c].x);
-            acc[j][c].y = fmaf(xv[j].x, wv.y, acc[j][c].y);
-            acc[j][c].y = fmaf(xv[j].y, wv.x, acc[j][c].y);
-          }
-        }
-      }
-    }
-
+    spectral_mix::mix<BC>(x + b0 * d.xs_b + k, d.xs_b, d.xs_c, nb, w + co0 * d.w_out + k,
+                          d.w_in, d.w_out, n_co, d.CI, w_im_sign, acc);
 #pragma unroll
     for (int j = 0; j < BC; ++j) {
       if (j < nb) {

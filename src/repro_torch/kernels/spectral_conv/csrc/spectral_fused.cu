@@ -23,19 +23,34 @@
 // What bounds it on an H100: bytes. At the serving block shape (B=2,
 // CI=CO=40, E=(128,64,32), Tout=45, K=(48,32,16,10)) it reads w once
 // (3.15 GB) and the kept part of x (0.16 GB) and writes the padded output
-// (7.55 GB): 10.9 GB against 6.3 GFLOP. The design keeps each operand's
-// HBM traffic at one pass:
-//   * one thread per output element (co, e1, e2, e3, t), t fastest, so
-//     loads of w and the store of y are coalesced along t and e3 (x is
-//     read through its strides; its kept part is the smallest operand);
-//   * the batch loop sits inside the thread, so each weight element is
-//     read once for up to kBatchChunk batch rows;
-//   * co is the fastest block index, so the CO blocks that re-read the same
-//     x tile run together and find it in L2;
-//   * no atomics and a fixed summation order over ci: results are
-//     deterministic run to run.
-// Shared-memory tiling over co, TMA and skipping the zero region are left
-// for later work.
+// (7.55 GB, 98% of it zeros): 10.9 GB against 6.3 GFLOP. The first version
+// ran one thread per output element, t fastest, so in a kept row only the
+// KT of Tout lanes of a warp that hold kept bins did the mix while the
+// others had written their zero and waited, and their w loads came in
+// 80-byte runs. This one splits the two kinds of work inside one launch:
+//   * mix blocks (the first n_mix of the grid): one thread per flattened
+//     kept mode k = (k1, k2, k3, kt) and tile of kCoTile output channels,
+//     neighbouring threads on neighbouring k, so every lane computes and
+//     every load of w (contiguous in k) coalesces; the loop over ci is
+//     `spectral_mix::mix` (mix.cuh), shared with the flattened-K kernel:
+//     one x load feeds the channel tile, the batch loop sits inside the
+//     thread so w is read once per batch chunk, and ci is summed in a fixed
+//     order without atomics (results are the same run to run). x is
+//     gathered at the kept positions through its strides, y (and `add`)
+//     scattered to them. The co tile is the fastest block index, so the
+//     blocks that re-read one x tile run together and find it in L2;
+//   * zero blocks (the rest): one warp per run of E3 * Tout elements of y
+//     (fixed b, co, e1, e2), a pure streaming write in 16-byte stores where
+//     the run is even; in the runs whose (e1, e2) are kept the lanes skip
+//     the kept bins, which the mix blocks write.
+// Offsets are 64-bit (w passes 2^31 elements at full width). On an NVIDIA
+// H100 80GB HBM3 at a 700 W power limit (chip_smoke.py phases 2 and the
+// backward's, CUDA events) it takes 4.90 ms at the serving block against
+// its 3.24 ms bound (the first version: 11.96 ms) and 2.03 ms for the
+// training dx (B=1) against 1.24 ms (first: 7.33 ms). Left for later work:
+// the mix blocks keep the flattened-K kernel's loads in flight, no more; x
+// is gathered through cuFFT's permuted strides (t outermost), so a warp's
+// x loads touch about one sector per kept bin; TMA stores of the zeros.
 //
 // Training reuses this kernel for the input cotangent of the fused op:
 // dx = S^T (conj(W)^T .) S (g), i.e. the same truncate + mix + pad run on
@@ -50,10 +65,14 @@
 #include <climits>
 #include <cstdint>
 
+#include "mix.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using spectral_mix::kCoTile;  // output channels per mix thread
+constexpr int kThreads = 128;
 constexpr int kBatchChunk = 4;
+constexpr int kZeroRows = kThreads / 32;  // y runs per zero block, a warp each
 
 struct Dims {
   int B, CI, CO;
@@ -65,6 +84,9 @@ struct Dims {
   long long w_in;   // weight stride of the contracted channel (ci)
   long long w_out;  // weight stride of the output channel (co)
   int conj_w;       // 1: multiply by conj(w)
+  long long K;      // kept modes, K1 * K2 * K3 * KT
+  long long n_mix;  // mix blocks; the zero blocks follow
+  long long rows;   // y runs of E3 * Tout elements, B * CO * E1 * E2
 };
 
 // Full-spectrum position -> kept index, or -1 for a position not kept.
@@ -76,77 +98,93 @@ __device__ __forceinline__ int kept_index(int e, int n, int k) {
   return -1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-spectral_fused_kernel(const float2* __restrict__ x,
-                      const float2* __restrict__ w,
-                      const float2* __restrict__ add,
-                      float2* __restrict__ y, Dims d) {
-  const int co = static_cast<int>(blockIdx.x % static_cast<unsigned>(d.CO));
-  const long long tile = blockIdx.x / static_cast<unsigned>(d.CO);
+// Kept index -> full-spectrum position.
+__device__ __forceinline__ int full_index(int kk, int n, int k) {
+  return n < 0 || kk < (k >> 1) ? kk : kk + (n - k);
+}
+
+template <int BC>
+__device__ void mix_block(const float2* __restrict__ x, const float2* __restrict__ w,
+                          const float2* __restrict__ add, float2* __restrict__ y,
+                          const Dims& d) {
+  const unsigned n_co_tiles = (d.CO + kCoTile - 1) / kCoTile;
+  const int co0 = static_cast<int>(blockIdx.x % n_co_tiles) * kCoTile;
+  const long long k =
+      static_cast<long long>(blockIdx.x / n_co_tiles) * kThreads + threadIdx.x;
+  if (k >= d.K) return;
+  const int n_co = min(kCoTile, d.CO - co0);
+
+  const int kt = static_cast<int>(k % d.KT);
+  long long r = k / d.KT;
+  const int k3 = static_cast<int>(r % d.K3);
+  r /= d.K3;
+  const int k2 = static_cast<int>(r % d.K2);
+  const int k1 = static_cast<int>(r / d.K2);
+  const int e1 = full_index(k1, d.N1, d.K1);
+  const int e2 = full_index(k2, d.N2, d.K2);
+  const int e3 = full_index(k3, d.N3, d.K3);
+  const long long xoff = e1 * d.xs[2] + e2 * d.xs[3] + e3 * d.xs[4] + kt * d.xs[5];
   const long long S = static_cast<long long>(d.E1) * d.E2 * d.E3 * d.Tout;
-  const long long s = tile * kThreads + threadIdx.x;
-  if (s >= S) return;
-
-  const int t = static_cast<int>(s % d.Tout);
-  long long r = s / d.Tout;
-  const int e3 = static_cast<int>(r % d.E3);
-  r /= d.E3;
-  const int e2 = static_cast<int>(r % d.E2);
-  const int e1 = static_cast<int>(r / d.E2);
-
-  const long long y_bstride = static_cast<long long>(d.CO) * S;
-  float2* yp = y + static_cast<long long>(co) * S + s;
-
-  const int k1 = kept_index(e1, d.N1, d.K1);
-  const int k2 = kept_index(e2, d.N2, d.K2);
-  const int k3 = kept_index(e3, d.N3, d.K3);
-  if (k1 < 0 || k2 < 0 || k3 < 0 || t >= d.KT) {
-    for (int b = 0; b < d.B; ++b) yp[b * y_bstride] = make_float2(0.f, 0.f);
-    return;
-  }
-
-  const long long K = static_cast<long long>(d.K1) * d.K2 * d.K3 * d.KT;
-  const long long kidx =
-      ((static_cast<long long>(k1) * d.K2 + k2) * d.K3 + k3) * d.KT + t;
-  const long long xidx = e1 * d.xs[2] + e2 * d.xs[3] + e3 * d.xs[4] + t * d.xs[5];
-  const float2* wp = w + co * d.w_out + kidx;
-  const long long w_ci_stride = d.w_in;
+  const long long yoff =
+      ((static_cast<long long>(e1) * d.E2 + e2) * d.E3 + e3) * d.Tout + kt;
   const float w_im_sign = d.conj_w ? -1.f : 1.f;
 
-  for (int b0 = 0; b0 < d.B; b0 += kBatchChunk) {
-    float2 acc[kBatchChunk];
+  for (int b0 = 0; b0 < d.B; b0 += BC) {
+    const int nb = min(BC, d.B - b0);
+    float2 acc[BC][kCoTile];
+    spectral_mix::mix<BC>(x + b0 * d.xs[0] + xoff, d.xs[0], d.xs[1], nb,
+                          w + co0 * d.w_out + k, d.w_in, d.w_out, n_co, d.CI, w_im_sign, acc);
 #pragma unroll
-    for (int j = 0; j < kBatchChunk; ++j) acc[j] = make_float2(0.f, 0.f);
-    for (int ci = 0; ci < d.CI; ++ci) {
-      float2 wv = __ldg(wp + ci * w_ci_stride);
-      wv.y *= w_im_sign;
+    for (int j = 0; j < BC; ++j) {
+      if (j < nb) {
+        const long long bco = static_cast<long long>(b0 + j) * d.CO + co0;
 #pragma unroll
-      for (int j = 0; j < kBatchChunk; ++j) {
-        if (b0 + j < d.B) {
-          const float2 xv =
-              __ldg(x + (b0 + j) * d.xs[0] + ci * d.xs[1] + xidx);
-          acc[j].x = fmaf(xv.x, wv.x, acc[j].x);
-          acc[j].x = fmaf(-xv.y, wv.y, acc[j].x);
-          acc[j].y = fmaf(xv.x, wv.y, acc[j].y);
-          acc[j].y = fmaf(xv.y, wv.x, acc[j].y);
+        for (int c = 0; c < kCoTile; ++c) {
+          if (c < n_co) {
+            float2 v = acc[j][c];
+            if (add != nullptr) {
+              const float2 a = __ldg(add + (bco + c) * d.K + k);
+              v.x += a.x;
+              v.y += a.y;
+            }
+            y[(bco + c) * S + yoff] = v;
+          }
         }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBatchChunk; ++j) {
-      const int b = b0 + j;
-      if (b < d.B) {
-        float2 v = acc[j];
-        if (add != nullptr) {
-          const float2 a =
-              __ldg(add + (static_cast<long long>(b) * d.CO + co) * K + kidx);
-          v.x += a.x;
-          v.y += a.y;
-        }
-        yp[b * y_bstride] = v;
       }
     }
   }
+}
+
+__device__ void zero_block(float2* __restrict__ y, const Dims& d) {
+  const long long row = (blockIdx.x - d.n_mix) * kZeroRows + threadIdx.x / 32;
+  if (row >= d.rows) return;
+  const int lane = threadIdx.x % 32;
+  const int e2 = static_cast<int>(row % d.E2);
+  const int e1 = static_cast<int>((row / d.E2) % d.E1);
+  const int run = d.E3 * d.Tout;
+  float2* yr = y + row * run;
+  if (kept_index(e1, d.N1, d.K1) >= 0 && kept_index(e2, d.N2, d.K2) >= 0) {
+    for (int i = lane; i < run; i += 32) {
+      const int e3 = i / d.Tout;
+      if (i - e3 * d.Tout >= d.KT || kept_index(e3, d.N3, d.K3) < 0)
+        yr[i] = make_float2(0.f, 0.f);
+    }
+  } else if (run % 2 == 0) {  // the run starts 16-byte aligned
+    float4* yr4 = reinterpret_cast<float4*>(yr);
+    for (int i = lane; i < run / 2; i += 32) yr4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = lane; i < run; i += 32) yr[i] = make_float2(0.f, 0.f);
+  }
+}
+
+template <int BC>
+__global__ void __launch_bounds__(kThreads)
+spectral_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ w,
+                      const float2* __restrict__ add, float2* __restrict__ y, Dims d) {
+  if (blockIdx.x < d.n_mix)
+    mix_block<BC>(x, w, add, y, d);
+  else
+    zero_block(y, d);
 }
 
 }  // namespace
@@ -167,18 +205,28 @@ extern "C" int spectral_fused_launch(const void* x, const void* w,
                                      const long long* xs, long long w_in,
                                      long long w_out, int conj_w,
                                      void* stream) {
-  const Dims d{B,  CI, CO, E1, E2, E3, K1, K2, K3, KT, Tout,
-               N1, N2, N3, {xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]},
-               w_in, w_out, conj_w};
   const long long S = static_cast<long long>(E1) * E2 * E3 * Tout;
   if (B == 0 || CO == 0 || S == 0) return 0;
-  const long long n_tiles = (S + kThreads - 1) / kThreads;
-  const long long n_blocks = n_tiles * CO;
+  const long long K = static_cast<long long>(K1) * K2 * K3 * KT;
+  const long long n_mix = (K + kThreads - 1) / kThreads * ((CO + kCoTile - 1) / kCoTile);
+  const long long rows = static_cast<long long>(B) * CO * E1 * E2;
+  const long long n_blocks = n_mix + (rows + kZeroRows - 1) / kZeroRows;
   if (n_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  spectral_fused_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(w),
-      static_cast<const float2*>(add), static_cast<float2*>(y), d);
+  const Dims d{B,  CI, CO, E1, E2, E3, K1, K2, K3, KT, Tout,
+               N1, N2, N3, {xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]},
+               w_in, w_out, conj_w, K, n_mix, rows};
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* xp = static_cast<const float2*>(x);
+  const float2* wp = static_cast<const float2*>(w);
+  const float2* ap = static_cast<const float2*>(add);
+  float2* yp = static_cast<float2*>(y);
+  if (B == 1)
+    spectral_fused_kernel<1><<<grid, kThreads, 0, s>>>(xp, wp, ap, yp, d);
+  else if (B == 2)
+    spectral_fused_kernel<2><<<grid, kThreads, 0, s>>>(xp, wp, ap, yp, d);
+  else
+    spectral_fused_kernel<kBatchChunk><<<grid, kThreads, 0, s>>>(xp, wp, ap, yp, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,6 +30,7 @@ from repro_torch.kernels.spectral_conv import (
     spectral_fused_dw,
     spectral_fused_dw_cuda,
     spectral_fused_dw_ref,
+    spectral_fused_dx,
 )
 from repro_torch.train.train_loop import accumulate_grads
 
@@ -264,3 +265,81 @@ def test_flat_kernel_matches_fused_kernel_on_pretruncated_modes(cuda):
     w = _cplx(rng, (5, 7, 6, 4, 3, 5), cuda)
     torch.testing.assert_close(spectral_apply(x, w), spectral_apply_fused(x, w, (None, None, None)),
                                rtol=RTOL, atol=ATOL)
+
+
+# the fused kernel's edges: kept-mode counts around its 128-thread mix
+# blocks (126, 128, 144, 258, 260) and ragged 8-channel tiles; every trunc
+# pattern, t tails, add, b = 1-5, x in the layout cuFFT's rfftn returns.
+# (name, b, ci, co, dims [(N or None, K)], t_in, kt, t_out, add, x from rfftn)
+FUSED_EDGES = [
+    ("K=128 NNN co=8", 1, 3, 8, [(8, 4), (8, 4), (4, 2)], 9, 4, 9, False, False),
+    ("K=126 N-- co=9", 2, 5, 9, [(6, 2), (None, 1), (None, 63)], 3, 1, 3, False, False),
+    ("K=260 N-N tail add", 3, 4, 17, [(10, 2), (None, 65), (4, 2)], 6, 1, 8, True, False),
+    ("K=258 N-- b=5 rfftn", 5, 6, 7, [(6, 2), (None, 129), (None, 1)], 6, 1, 6, False, True),
+    ("K=144 NNN b=4 add rfftn", 4, 9, 16, [(12, 4), (10, 6), (8, 2)], 7, 3, 7, True, True),
+]
+
+
+def _fused_inputs(rng, b, ci, co, dims, t_in, kt, with_add, from_fft, dev):
+    ext = tuple(k if n is None else n for n, k in dims)
+    kept = tuple(k for _, k in dims) + (kt,)
+    if from_fft:  # cuFFT returns the spectrum with permuted strides
+        real = rng.standard_normal((b, ci) + ext + (2 * (t_in - 1),)).astype(np.float32)
+        xf = torch.fft.rfftn(torch.from_numpy(real).to(dev), dim=(2, 3, 4, 5))
+    else:
+        xf = _cplx(rng, (b, ci) + ext + (t_in,), dev)
+    add = _cplx(rng, (b, co) + kept, dev) if with_add else None
+    return xf, _cplx(rng, (ci, co) + kept, dev), add
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,ci,co,dims,t_in,kt,t_out,with_add,from_fft", FUSED_EDGES,
+                         ids=[c[0] for c in FUSED_EDGES])
+def test_fused_kernel_at_tile_edges(cuda, name, b, ci, co, dims, t_in, kt, t_out, with_add,
+                                    from_fft):
+    """One launch per call, the plain version's result, and the same bits
+    on a second run (fixed-order sums, no atomics)."""
+    rng = np.random.default_rng(len(name) + 50)
+    trunc = tuple(n for n, _ in dims)
+    xf, w, add = _fused_inputs(rng, b, ci, co, dims, t_in, kt, with_add, from_fft, cuda)
+
+    def run():
+        if with_add:
+            return spectral_apply_fused_add(xf, w, add, trunc, t_out=t_out)
+        return spectral_apply_fused(xf, w, trunc, t_out=t_out)
+
+    before = spectral_fused_cuda.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert spectral_fused_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    ref = spectral_apply_fused_ref(xf, w, trunc, t_out)
+    if with_add:
+        ref = ref + pad_kept_ref(add, trunc, t_out)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("name,dims,t_g,kt,t_x", [
+    ("NNN", [(8, 4), (6, 2), (4, 4)], 5, 3, 7),
+    ("N--", [(8, 2), (None, 5), (None, 3)], 4, 2, 4),
+    ("N-N", [(6, 4), (None, 3), (10, 2)], 6, 3, 6),
+], ids=["NNN", "N--", "N-N"])
+def test_fused_dx_on_conj_transpose(cuda, b, name, dims, t_g, kt, t_x):
+    """dx: the fused kernel on the cotangent g (in the layout the irfftn
+    backward hands over) with conj(W^T) read through swapped strides,
+    padded to x's t extent; 9 output channels, so one tile is ragged."""
+    rng = np.random.default_rng(b + len(name) + 60)
+    trunc = tuple(n for n, _ in dims)
+    ext = tuple(k if n is None else n for n, k in dims)
+    kept = tuple(k for _, k in dims) + (kt,)
+    g = _permuted(_cplx(rng, (b, 5) + ext + (t_g,), cuda))
+    w = _cplx(rng, (9, 5) + kept, cuda)
+    before = spectral_fused_cuda.launches
+    got, again = spectral_fused_dx(g, w, trunc, t_x), spectral_fused_dx(g, w, trunc, t_x)
+    torch.cuda.synchronize()
+    assert spectral_fused_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    want = spectral_apply_fused_ref(g, w.transpose(0, 1).conj(), trunc, t_x)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

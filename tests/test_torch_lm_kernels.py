@@ -28,10 +28,12 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS,
     flash_attention,
     flash_attention_cuda,
     flash_attention_ref,
 )
+from repro_torch.kernels.flash_attention.ops import tma_alignment_error
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -154,6 +156,22 @@ def test_flash_rejects_what_it_cannot_compute(shapes, causal, match):
         flash_attention(torch.zeros(qs), torch.zeros(ks), torch.zeros(ks), causal=causal)
 
 
+def test_tma_alignment_error_names_what_the_bf16_kernel_cannot_load():
+    """The bf16 kernel's TMA loads need 16-byte aligned base pointers and
+    (b, heads, s) strides; a dim of extent 1 does not count. The check is
+    pure index arithmetic, so it is held here on CPU tensors."""
+    base = torch.zeros(2, 3, 8, 72, dtype=torch.bfloat16)
+    assert tma_alignment_error("q", base[..., :64]) is None  # rows of 144 bytes
+    assert tma_alignment_error("q", base.transpose(1, 2)) is None
+    assert "base address" in tma_alignment_error("q", base[..., 1:65])
+    odd = torch.zeros(2, 3, 8, 68, dtype=torch.bfloat16)[..., :64]  # rows of 136 bytes
+    assert "dim 2" in tma_alignment_error("k", odd)
+    one_row = torch.zeros(2 * 3 * 64, dtype=torch.bfloat16).as_strided((2, 3, 1, 64), (192, 64, 3, 1))
+    assert tma_alignment_error("v", one_row) is None  # the row stride is never stepped
+    # f32 operands and CPU tensors never reach the bf16 kernel
+    assert flash_attention(base[..., 1:17], base[..., 1:17], base[..., 1:17]).shape == (2, 3, 8, 16)
+
+
 def test_flash_rejects_mixed_dtypes():
     q = torch.zeros(1, 2, 4, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dtypes"):
@@ -173,6 +191,19 @@ def test_each_library_builds_in_its_own_directory():
     dirs = {lib.build_directory for lib in libs}
     assert len(dirs) == 3 and all(os.path.dirname(d) == build.BUILD_DIR for d in dirs)
     assert all(os.path.isfile(src) and src.endswith(".cu") for lib in libs for src in lib.sources)
+
+
+def test_flash_variants_of_the_ab_tool_apply_to_the_source():
+    """``launch/ab_flash.py`` builds its variants by textual substitution in
+    ``flash_attention.cu``; each substitution must still find its text."""
+    from repro_torch.kernels.flash_attention.ops import LIBRARY as FLASH
+    from repro_torch.launch.ab_flash import VARIANTS
+
+    with open(FLASH.sources[0]) as f:
+        text = f.read()
+    for name, subs in VARIANTS.items():
+        for old, _ in subs:
+            assert text.count(old) == 1, (name, old)
 
 
 def test_build_without_a_compiler_raises(monkeypatch):
@@ -246,3 +277,70 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+
+
+# the bf16 kernel's edges: q tiles of 64 rows and K/V tiles of 64 keys
+# (sq, sk, causal): both lengths at 1, 63, 64, 65, 127, 129 and 1000,
+# causal with sq < sk, non-causal with sq > sk
+BF16_EDGES = [(n, n, True) for n in (1, 63, 64, 65, 127, 129, 1000)] + [
+    (1, 64, True), (63, 129, True), (65, 1000, True), (127, 129, False), (1000, 63, False),
+    (64, 1, False), (129, 65, False)]
+
+
+def _bf16_qkv(rng, b, h, kvh, sq, sk, d, dev):
+    """[b, s, heads, d] bf16 tensors swapped to [b, heads, s, d], as the
+    attention layer hands them over."""
+    return [_torch(_np(rng, (b, s, n, d), "bfloat16")).to(dev).transpose(1, 2)
+            for s, n in ((sq, h), (sk, kvh), (sk, kvh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal", BF16_EDGES)
+def test_flash_bf16_kernel_at_tile_edges(cuda, sq, sk, causal):
+    rng = np.random.default_rng(sq * 7 + sk)
+    q, k, v = _bf16_qkv(rng, 2, 4, 2, sq, sk, 128, cuda)
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    _close_to_plain(got, flash_attention_ref(q, k, v, causal=causal), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_every_head_dim(cuda, d, causal):
+    rng = np.random.default_rng(d + causal)
+    q, k, v = _bf16_qkv(rng, 1, 4, 2, 130, 193, d, cuda)
+    if causal:
+        q = q[:, :, :97]
+    _close_to_plain(flash_attention(q, k, v, causal=causal),
+                    flash_attention_ref(q, k, v, causal=causal), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_gqa_group_16_and_repeatable(cuda):
+    """chatglm3-6b's grouping (32 query heads on 2 kv heads); two runs agree
+    bitwise (no atomics, no split over keys)."""
+    rng = np.random.default_rng(16)
+    q, k, v = _bf16_qkv(rng, 1, 32, 2, 777, 777, 128, cuda)
+    got = flash_attention(q, k, v, causal=True)
+    again = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_to_plain(got, flash_attention_ref(q, k, v, causal=True), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rejects_misaligned_views(cuda):
+    base = torch.zeros(1, 2, 8, 72, dtype=torch.bfloat16, device=cuda)
+    ok = base[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(base[..., 1:65], ok, ok)
+    odd = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(ok, odd, ok)
+    before = flash_attention_cuda.launches
+    flash_attention(ok, ok, ok)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
