@@ -17,7 +17,9 @@ Phases, each failing hard:
      and the layouts that rfftn and the irfftn backward hand it, and the
      fused op's autograd backward (dx on the fused kernel, dW on the
      cotangent kernel) against plain autograd; both backward kernels are
-     timed at the training block shape;
+     timed at the training block shape, the dW kernel on the FFT layouts
+     and on contiguous operands (both held to the gate, two launches held
+     bitwise equal) beside ``zero_()`` of a w-sized tensor, its store floor;
  2b. the flattened-K op ``spectral_apply``: its mix kernel (forward and
      dx on conj(W^T)) and weight-cotangent kernel against
      ``spectral_apply_ref`` / ``spectral_dw_ref`` over 1-4 mode dims,
@@ -117,7 +119,7 @@ FLAT_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:101"
 FLAT_DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_dw.cu"
 FLAT_DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:140"
 # sources whose ptxas report (registers, shared memory, spills) phase 1 prints
-REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE)
+REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE, DW_SOURCE)
 
 
 def gpu_line() -> str:
@@ -504,20 +506,36 @@ def phase_backward_kernels(gpu: str) -> tuple:
     w = rand((ci, co) + kept)
     print(f"[kernel] training block b={b} ci={ci} co={co} E={ext} T={t_bins} K={kept}: "
           f"x strides {xf.stride()} (rfftn), g strides {g.stride()} (irfftn backward)")
-    dw_err = _gate("kernel training block dW", spectral_fused_dw(xf, g, trunc, kept),
-                   spectral_fused_dw_ref(xf, g, trunc, kept))
+    dw_ref = spectral_fused_dw_ref(xf, g, trunc, kept)
+    dw_got = spectral_fused_dw(xf, g, trunc, kept)
+    dw_err = _gate("kernel training block dW", dw_got, dw_ref)
+    if not torch.equal(dw_got, spectral_fused_dw(xf, g, trunc, kept)):
+        raise SystemExit("[kernel] training block dW: two launches on the same inputs differ")
+    del dw_got
+    # the same values in contiguous layout
+    xc, gc = xf.contiguous(), g.contiguous()
+    _gate("kernel training block dW, contiguous operands",
+          spectral_fused_dw(xc, gc, trunc, kept), dw_ref)
+    del dw_ref
     wt = w.transpose(0, 1).conj()
     dx_err = _gate("kernel training block dx",
                    spectral_fused_dx(g, w, trunc, t_bins),
                    spectral_apply_fused_ref(g, wt, trunc, t_bins))
     torch.cuda.empty_cache()
     dw_ms = cuda_ms(lambda: spectral_fused_dw(xf, g, trunc, kept))
+    dw_contiguous_ms = cuda_ms(lambda: spectral_fused_dw(xc, gc, trunc, kept))
+    # the store floor: writing a tensor of w's size, and nothing else
+    store_floor_ms = cuda_ms(lambda: torch.empty((ci, co) + kept, dtype=torch.complex64,
+                                                 device=dev).zero_())
+    del xc, gc
     dw_plain = cuda_ms(lambda: spectral_fused_dw_ref(xf, g, trunc, kept), iters=5)
     dx_ms = cuda_ms(lambda: spectral_fused_dx(g, w, trunc, t_bins))
     dx_plain = cuda_ms(lambda: spectral_apply_fused_ref(g, wt, trunc, t_bins), iters=5)
     dw_bound, dw_by = _dw_bound_ms(b, ci, co, kept)
     dx_bound, dx_by = _fused_bound_ms(b, co, ci, ext, kept, t_bins, t_bins, False)
-    print(f"[kernel] training block dW: kernel {dw_ms:.3f} ms, plain {dw_plain:.3f} ms, "
+    print(f"[kernel] training block dW: kernel {dw_ms:.3f} ms on the FFT layouts, "
+          f"{dw_contiguous_ms:.3f} ms on contiguous operands; zero_() of a w-sized tensor "
+          f"{store_floor_ms:.3f} ms (the store floor); plain {dw_plain:.3f} ms, "
           f"bound {dw_bound:.3f} ms ({dw_by}); {gpu}")
     print(f"[kernel] training block dx (fused kernel on conj(W^T)): kernel {dx_ms:.3f} ms, "
           f"plain {dx_plain:.3f} ms, bound {dx_bound:.3f} ms ({dx_by}); {gpu}")
@@ -537,6 +555,7 @@ def phase_backward_kernels(gpu: str) -> tuple:
         "bound_ms": dw_bound,
         "bound_by": dw_by,
         "library_ms": None,
+        "store_floor_ms": store_floor_ms,
     }
     return dx, record
 

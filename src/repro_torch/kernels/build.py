@@ -60,6 +60,30 @@ def build(libraries: Sequence[KernelLibrary]) -> list:
         return list(pool.map(_compile, libraries))
 
 
+def build_variants(source: str, variants: dict, prefix: str) -> dict:
+    """Build textual variants of one source, each a library of its own, all
+    at once; returns their paths by variant name. ``variants`` maps a name
+    to (old, new) substitutions; one whose text is missing raises. The A/B
+    tools under ``launch/`` time such variants; they are not kernels of the
+    port."""
+    with open(source) as f:
+        text = f.read()
+    libraries = []
+    for i, subs in enumerate(variants.values()):
+        variant = text
+        for old, new in subs:
+            if old not in variant:
+                raise ValueError(f"variant substitution not found in {source}: {old!r}")
+            variant = variant.replace(old, new)
+        src_dir = os.path.join(BUILD_DIR, f"{prefix}_src", str(i))
+        os.makedirs(src_dir, exist_ok=True)
+        path = os.path.join(src_dir, os.path.basename(source))
+        with open(path, "w") as f:
+            f.write(variant)
+        libraries.append(KernelLibrary(f"{prefix}_{i}", (path,)))
+    return dict(zip(variants, build(libraries)))
+
+
 def load(library: KernelLibrary) -> ctypes.CDLL:
     """The library, built first if need be, loaded (each family's
     ``load_library`` keeps the handle)."""

@@ -21,7 +21,7 @@ import tempfile
 
 import torch
 
-from repro_torch.kernels.build import BUILD_DIR, KernelLibrary, load
+from repro_torch.kernels.build import build_variants
 from repro_torch.kernels.flash_attention import LIBRARY, flash_attention_ref
 from repro_torch.launch.profile_forward import busy_ms
 
@@ -36,22 +36,16 @@ SHAPES = [("gemma-7b", 1, 16, 16, 1000, 256), ("chatglm3-6b", 1, 32, 2, 777, 128
           ("minitron-8b", 1, 32, 8, 1000, 128)]
 
 
-def build_variant(i: int, subs) -> ctypes.CDLL:
-    text = open(LIBRARY.sources[0]).read()
-    for old, new in subs:
-        if old not in text:
-            raise SystemExit(f"variant substitution not found in the source: {old!r}")
-        text = text.replace(old, new)
-    src_dir = os.path.join(BUILD_DIR, "ab_flash_src", str(i))
-    os.makedirs(src_dir, exist_ok=True)
-    path = os.path.join(src_dir, "flash_attention.cu")
-    with open(path, "w") as f:
-        f.write(text)
-    lib = load(KernelLibrary(f"ab_flash_{i}", (path,)))
-    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    return lib
+def load_variants() -> dict:
+    """Every variant, built at once and loaded, by name."""
+    libs = {}
+    for name, path in build_variants(LIBRARY.sources[0], VARIANTS, "ab_flash").items():
+        lib = ctypes.CDLL(path)
+        lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        libs[name] = lib
+    return libs
 
 
 def launch(lib, q, k, v) -> torch.Tensor:
@@ -95,7 +89,7 @@ def main() -> None:
         raise SystemExit("ab_flash needs a CUDA card")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    libs = {name: build_variant(i, subs) for i, (name, subs) in enumerate(VARIANTS.items())}
+    libs = load_variants()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for tag, b, h, kvh, s, d in SHAPES:
         q, k, v = (torch.randn((b, s, n, d), device="cuda", generator=gen).bfloat16().transpose(1, 2)

@@ -94,13 +94,27 @@ def test_fused_forward_matches_unfused_on_card(cuda):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
-# (name, dims, x time bins, g time bins, kt, permuted): permuted operands
-# have t outermost, as cuFFT's rfftn hands x over
+# (name, b, ci, co, dims, x time bins, g time bins, kt, layout). Layouts:
+# "contiguous"; "permuted", both operands t outermost; "fft", x from rfftn
+# and g from the irfftn backward, as training hands them over. The kernel
+# tiles 40 ci x 40 co x a box of kept modes that is one run of w: whole
+# (k3, kt) planes of a few (k1, k2) rows, else a run of k3, else of kt.
 DW_CASES = [
-    ("NNN-tails", [(6, 4), (4, 2), (4, 4)], 5, 4, 3, False),
-    ("NNN-permuted", [(6, 4), (4, 2), (4, 4)], 3, 5, 3, True),
-    ("N--", [(8, 4), (None, 3), (None, 2)], 4, 2, 2, False),
-    ("N-N-permuted", [(6, 4), (None, 3), (4, 2)], 3, 5, 3, True),
+    ("NNN-tails", 5, 3, 4, [(6, 4), (4, 2), (4, 4)], 5, 4, 3, "contiguous"),
+    ("NNN-permuted", 5, 3, 4, [(6, 4), (4, 2), (4, 4)], 3, 5, 3, "permuted"),
+    ("N--", 5, 3, 4, [(8, 4), (None, 3), (None, 2)], 4, 2, 2, "contiguous"),
+    ("N-N-permuted", 5, 3, 4, [(6, 4), (None, 3), (4, 2)], 3, 5, 3, "permuted"),
+    ("NNN-fft-channels-41x45-b1", 1, 41, 45, [(8, 4), (6, 2), (6, 4)], 4, 4, 3, "fft"),
+    ("N---fft-K3-7-kt5-b6", 6, 3, 4, [(8, 4), (None, 3), (None, 7)], 6, 5, 5, "fft"),
+    ("N--permuted-K3-5-kt1-b6", 6, 5, 3, [(6, 4), (None, 2), (None, 5)], 3, 2, 1, "permuted"),
+    ("N-N-fft-kt1-b1", 1, 5, 3, [(6, 4), (None, 3), (8, 2)], 3, 5, 1, "fft"),
+    ("N-N-fft-kt3-b6", 6, 7, 9, [(10, 6), (None, 3), (6, 4)], 6, 6, 3, "fft"),
+    ("N---fft-40x40-k3-runs-b2", 2, 40, 40, [(12, 4), (None, 4), (None, 16)], 11, 11, 10, "fft"),
+    ("N--permuted-k3-runs-ragged", 1, 3, 2, [(4, 2), (None, 2), (None, 60)], 10, 10, 10, "permuted"),
+    ("N--contiguous-kt-runs", 1, 3, 2, [(4, 2), (None, 2), (None, 2)], 600, 600, 600, "contiguous"),
+    ("---permuted-odd-K", 3, 3, 5, [(None, 3), (None, 5), (None, 3)], 5, 6, 5, "permuted"),
+    # 768 tiles: more than the card holds blocks, so each block walks several
+    ("NNN-fft-40x40-b6-many-tiles", 6, 40, 40, [(16, 16), (16, 16), (8, 8)], 8, 8, 8, "fft"),
 ]
 
 
@@ -109,23 +123,53 @@ def _permuted(z):
     return z.permute(5, 0, 1, 2, 3, 4).contiguous().permute(1, 2, 3, 4, 5, 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,dims,t_x,t_g,kt,permuted", DW_CASES, ids=[c[0] for c in DW_CASES])
-def test_dw_kernel_matches_plain(cuda, name, dims, t_x, t_g, kt, permuted):
+def _dw_inputs(rng, b, ci, co, ext, t_x, t_g, layout, dev):
+    if layout != "fft":
+        xf, g = _cplx(rng, (b, ci) + ext + (t_x,), dev), _cplx(rng, (b, co) + ext + (t_g,), dev)
+        return (_permuted(xf), _permuted(g)) if layout == "permuted" else (xf, g)
+    real = rng.standard_normal((b, ci) + ext + (2 * (t_x - 1),)).astype(np.float32)
+    xf = torch.fft.rfftn(torch.from_numpy(real).to(dev), dim=(2, 3, 4, 5))
+    yf = torch.zeros((b, co) + ext + (t_g,), dtype=torch.complex64, device=dev,
+                     requires_grad=True)
+    y = torch.fft.irfftn(yf, s=ext + (2 * (t_g - 1),), dim=(2, 3, 4, 5))
+    y.backward(torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32)).to(dev))
+    return xf, yf.grad
+
+
+def _dw_case(case, dev):
+    name, b, ci, co, dims, t_x, t_g, kt, layout = case
     rng = np.random.default_rng(len(name) + 20)
     trunc = tuple(n for n, _ in dims)
     ext = tuple(k if n is None else n for n, k in dims)
     kept = tuple(k for _, k in dims) + (kt,)
-    xf = _cplx(rng, (5, 3) + ext + (t_x,), cuda)
-    g = _cplx(rng, (5, 4) + ext + (t_g,), cuda)
-    if permuted:
-        xf, g = _permuted(xf), _permuted(g)
+    xf, g = _dw_inputs(rng, b, ci, co, ext, t_x, t_g, layout, dev)
+    if layout == "permuted":
         assert not xf.is_contiguous()
+    return xf, g, trunc, kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES, ids=[c[0] for c in DW_CASES])
+def test_dw_kernel_matches_plain(cuda, case):
+    xf, g, trunc, kept = _dw_case(case, cuda)
     before = spectral_fused_dw_cuda.launches
     got = spectral_fused_dw(xf, g, trunc, kept)
     torch.cuda.synchronize()
     assert spectral_fused_dw_cuda.launches == before + 1
     torch.testing.assert_close(got, spectral_fused_dw_ref(xf, g, trunc, kept), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [DW_CASES[9], DW_CASES[13]], ids=[DW_CASES[9][0], DW_CASES[13][0]])
+def test_dw_kernel_is_bitwise_repeatable(cuda, case):
+    """Fixed-order batch sums and no atomics: two launches on the same
+    inputs give the same bits."""
+    xf, g, trunc, kept = _dw_case(case, cuda)
+    before = spectral_fused_dw_cuda.launches
+    got, again = spectral_fused_dw(xf, g, trunc, kept), spectral_fused_dw(xf, g, trunc, kept)
+    torch.cuda.synchronize()
+    assert spectral_fused_dw_cuda.launches == before + 2
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

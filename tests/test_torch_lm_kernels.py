@@ -206,6 +206,16 @@ def test_flash_variants_of_the_ab_tool_apply_to_the_source():
             assert text.count(old) == 1, (name, old)
 
 
+def test_a_variant_whose_substitution_is_missing_raises_before_building():
+    """``kernels.build.build_variants`` (the A/B tools' builder) checks every
+    substitution against the source before it writes or compiles anything."""
+    from repro_torch.kernels.spectral_conv.build import LIBRARY as SPECTRAL
+
+    with pytest.raises(ValueError, match="not found"):
+        build.build_variants(SPECTRAL.sources[0], {"bad": [("no such text", "")]}, "never_built")
+    assert not os.path.exists(os.path.join(build.BUILD_DIR, "never_built_src"))
+
+
 def test_build_without_a_compiler_raises(monkeypatch):
     import torch.utils.cpp_extension as cpp
 

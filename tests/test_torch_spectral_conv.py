@@ -9,6 +9,8 @@ input is the conjugate of torch's ``.grad``. Gate: rtol=1e-4, atol=1e-5
 (float32 sums in another order). The CUDA kernels themselves run only on
 the card (``tests/test_torch_cuda_kernels.py``).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +205,19 @@ def test_fused_dw_time_bins_error_matches_jax():
         spectral_fused_dw(torch.zeros((1, 2, 4, 4, 4, 3), dtype=torch.complex64),
                           torch.zeros((2, 2, 4, 4, 4, 3), dtype=torch.complex64),
                           trunc, kept)
+
+
+def test_dw_variants_of_the_ab_tool_apply_to_the_source():
+    """``launch/ab_dw.py`` builds its variants by textual substitution in
+    ``spectral_fused_dw.cu``; each substitution must still find its text."""
+    from repro_torch.launch.ab_dw import SOURCE, VARIANTS
+
+    with open(SOURCE) as f:
+        text = f.read()
+    assert os.path.basename(SOURCE) == "spectral_fused_dw.cu"
+    for name, subs in VARIANTS.items():
+        for old, _ in subs:
+            assert old in text, (name, old)
 
 
 @pytest.mark.parametrize("name,dims,t_in,kt,t_out,with_add", CASES, ids=[c[0] for c in CASES])
