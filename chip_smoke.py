@@ -47,6 +47,19 @@ Phases, each failing hard:
   7. the training CLI on the card with an injected fault (restored from
      its checkpoint), then the serving CLI with ``--verify`` on the
      checkpoint it wrote;
+ 7b. dist: the 1-D domain-decomposed FNO (paper Alg. 2, ``make_dist_forward``)
+     on 4 gloo ranks sharing the card (NCCL refuses two ranks on one
+     device), started by ``launch_ranks`` after this process has built the
+     kernels (the ranks only load them). First the fused kernel (forward
+     and dx) and the dW kernel at the P = 4 shard shapes of the served and
+     training grids, in this process alone, against their plain versions
+     and timed beside their bounds; then the paper schedule at full width
+     on the served grid (128,64,32,88), batch 2, against the serial fused
+     forward, with each rank's peak memory and one block's split (FFTs,
+     all-to-alls, the fused kernel); then on the training grid, batch 1,
+     the eager and Grady-31 schedules and ``comm_chunks=2`` against the
+     serial forward, and one paper forward + backward whose every leaf's
+     gradient is held against the serial gradient on the card;
   8. hold the RMSNorm and flash-attention kernels against their plain
      versions (``rmsnorm_ref``, ``flash_attention_ref``) over bf16 and f32,
      ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
@@ -66,7 +79,9 @@ One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
 kernel. Each served run must launch the fused kernel exactly once per FNO block
 per forward; each training step, per micro-batch and block, three times
-(forward, remat recompute, dx) and the cotangent kernel once. Each LM
+(forward, remat recompute, dx) and the cotangent kernel once; each dist
+forward, on every rank, the fused kernel once per block, and the dist
+backward 3 times per block and the cotangent kernel once. Each LM
 prefill must launch flash attention once per layer, and each LM forward
 (prefill or decode step) the RMSNorm kernel 2 L + 1 times.
 
@@ -1029,6 +1044,438 @@ def phase_train_cli(gpu: str) -> dict:
     return {"fused": fused, "dw": dw, "serve": served}
 
 
+# ---------------------------------------------------------------------------
+# Phase dist: the 1-D domain-decomposed FNO, P = 4 gloo ranks on one card.
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_SERVE_BATCH, DIST_TRAIN_BATCH = 2, 1
+DIST_SEED = 11
+DIST_TIMEOUT_S = 600
+DIST_FWD_TOL = (1e-4, 1e-5)    # rtol, atol: the reference's gate for the forwards
+DIST_CHUNK_TOL = (1e-6, 1e-7)  # comm_chunks=2 vs unchunked
+DIST_GRAD_TOL = (5e-3, 5e-5)   # tests/distributed_checks.py:86-91
+# The reference's loss is a mean over 32,768 outputs, this one's over 5.8M,
+# so its gradients are ~100x smaller than there and an atol of 5e-5 would
+# pass anything. Each atol is at most this share of its scale: a
+# replicated leaf's max|ref|, and for w_spec each kept mode's max|ref| over
+# (ci, co), as the mean's DC mode is ~1e3x the others and would swamp a
+# per-leaf scale.
+DIST_GRAD_LEAF_ATOL = 1e-3
+# (tag, variant, comm_chunks) of the forwards run at the training grid
+DIST_TRAIN_FORWARDS = (("dist_paper_train", "paper", 1), ("dist_eager", "eager", 1),
+                       ("dist_grady31", "grady31", 1), ("dist_paper_chunks2", "paper", 2))
+
+
+def _dist_input(cfg, batch: int, seed: int, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.in_channels) + cfg.grid, device=device, generator=gen)
+
+
+def _dist_params(cfg, seed: int, device):
+    import torch
+
+    from repro_torch.core.fno import init_params
+
+    return init_params(cfg, generator=torch.Generator(device=device).manual_seed(seed), device=device)
+
+
+def _close(got, ref, tol) -> tuple:
+    """(passed, max|d|, max|ref|) of the elementwise gate |d| <= atol + rtol |ref|."""
+    rtol, atol = tol
+    d = (got - ref).abs()
+    passed = bool((d <= atol + rtol * ref.abs()).all())
+    return passed, float(d.max()), float(ref.abs().max())
+
+
+def _dist_kernel_times(gpu: str) -> dict:
+    """The fused kernel (forward, dx) and the dW kernel at the P = 4 shard
+    shapes of the 1-D schedules, in this process alone: each held to its
+    plain version, two launches bitwise equal, timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels.spectral_conv import (
+        spectral_apply_fused, spectral_apply_fused_ref, spectral_fused_dw,
+        spectral_fused_dw_ref, spectral_fused_dx,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = DIST_RANKS
+    records = {}
+    for tag, cfg, b in (("serve", _serving_cfg(), DIST_SERVE_BATCH),
+                        ("train", _train_cfg(), DIST_TRAIN_BATCH)):
+        nx, ny, nz, nt = cfg.grid
+        k1, k2, k3, kt = cfg.mode_shape
+        kept = (k1, k2 // p, k3, kt)
+        ci = co = cfg.width
+        w = torch.randn((ci, co) + kept, dtype=torch.complex64, device=dev, generator=gen)
+
+        def spectrum(c, ext, t):
+            z = torch.randn((b, c) + ext + (t,), dtype=torch.complex64, device=dev, generator=gen)
+            return torch.fft.fft(z, dim=2)  # the layout the block's x FFT leaves
+
+        # (name, op, trunc, x extents, x time bins, t_out)
+        cases = [(f"{tag} paper/eager shard forward", "forward", (nx, None, None),
+                  (nx, kept[1], k3), kt, None),
+                 (f"{tag} paper shard dx", "dx", (nx, None, None), (nx, kept[1], k3), kt, None),
+                 (f"{tag} paper shard dW", "dw", (nx, None, None), (nx, kept[1], k3), kt, None)]
+        if tag == "serve":
+            cases.insert(1, (f"{tag} grady31 shard forward", "forward", (nx, None, nz),
+                             (nx, kept[1], nz), nt // 2 + 1, nt // 2 + 1))
+        for name, op, trunc, ext, t_x, t_out in cases:
+            t_y = kt if t_out is None else t_out
+            if op == "forward":
+                xf = spectrum(ci, ext, t_x)
+                run = lambda: spectral_apply_fused(xf, w, trunc, t_out=t_out)
+                plain = lambda: spectral_apply_fused_ref(xf, w, trunc, t_out)
+                bound = _fused_bound_ms(b, ci, co, ext, kept, t_x, t_y, False)
+            elif op == "dx":
+                g = spectrum(co, ext, t_y)
+                wt = w.transpose(0, 1).conj()
+                run = lambda: spectral_fused_dx(g, w, trunc, t_x)
+                plain = lambda: spectral_apply_fused_ref(g, wt, trunc, t_x)
+                bound = _fused_bound_ms(b, co, ci, ext, kept, t_y, t_x, False)
+            else:
+                xf, g = spectrum(ci, ext, t_x), spectrum(co, ext, t_y)
+                run = lambda: spectral_fused_dw(xf, g, trunc, kept)
+                plain = lambda: spectral_fused_dw_ref(xf, g, trunc, kept)
+                bound = _dw_bound_ms(b, ci, co, kept)
+            got = run()
+            if not torch.equal(got, run()):
+                raise SystemExit(f"[dist kernel] {name}: two launches on the same inputs differ")
+            err = _gate(f"dist kernel {name}", got, plain())
+            del got
+            torch.cuda.empty_cache()
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5)
+            records[name] = {"b": b, "trunc": list(trunc), "x_extents": list(ext), "kept": list(kept),
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                             "bound_by": bound[1], "max_abs_err": err}
+            print(f"[dist kernel] {name}: b={b} E={ext} K={kept} trunc {trunc}: kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}); {gpu}")
+            xf = g = wt = run = plain = None
+            torch.cuda.empty_cache()
+        del w
+    torch.cuda.empty_cache()
+    return records
+
+
+def _block_split(local, x_local, cfg, group) -> dict:
+    """CUDA-event times of one paper block's parts on this rank, the other
+    ranks running the same at once: the forward transform (FFTs and the
+    all-to-all), the all-to-all alone on a tensor of the shape it moves,
+    the fused kernel, the inverse transform and its all-to-all."""
+    import torch
+
+    from repro_torch.core import dfft
+    from repro_torch.core.repartition import repartition
+    from repro_torch.kernels.spectral_conv import spectral_apply_fused
+
+    nx = cfg.grid[0]
+    w = local["blocks"]["w_spec"][0]
+    ms = {}
+    with torch.inference_mode():
+        h = torch.randn((x_local.shape[0], cfg.width) + tuple(x_local.shape[2:]),
+                        device=x_local.device)
+        ms["forward transform"] = cuda_ms(
+            lambda: dfft.dist_forward(h, cfg.modes, group, trunc_x=False), iters=3, warmup=1)
+        xf = dfft.dist_forward(h, cfg.modes, group, trunc_x=False)
+        pre = repartition(xf, dfft.YDIM, dfft.XDIM, group)  # what R_{x->y} takes
+        ms["all_to_all x->y"] = cuda_ms(
+            lambda: repartition(pre, dfft.XDIM, dfft.YDIM, group), iters=3, warmup=1)
+        ms["fused kernel"] = cuda_ms(lambda: spectral_apply_fused(xf, w, (nx, None, None)),
+                                     iters=3, warmup=1)
+        yf = spectral_apply_fused(xf, w, (nx, None, None))
+        ms["inverse transform"] = cuda_ms(
+            lambda: dfft.dist_adjoint(yf, cfg.grid, group, pad_x=False), iters=3, warmup=1)
+        ms["all_to_all y->x"] = cuda_ms(
+            lambda: repartition(yf, dfft.YDIM, dfft.XDIM, group), iters=3, warmup=1)
+    ms["FFTs, truncation and padding"] = (ms["forward transform"] + ms["inverse transform"]
+                                         - ms["all_to_all x->y"] - ms["all_to_all y->x"])
+    return ms
+
+
+def _dist_setup(world_size: int, device) -> tuple:
+    """A rank's start: the parent's float32 settings, the kernel library the
+    parent built (found up to date, never compiled here) and the (data,
+    model) groups of one model group over every rank."""
+    import torch
+
+    from repro_torch.kernels.spectral_conv import build
+    from repro_torch.launch.mesh import build_fno_groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.load_library()
+    load_s = time.perf_counter() - t0
+    data_group, model_group, _ = build_fno_groups(world_size, [world_size])
+    return load_s, {"data": data_group, "model": model_group}
+
+
+def _dist_local(cfg, batch: int, seed: int, groups: dict, device) -> tuple:
+    """This rank's k_y slice of the seeded weights and x slice of the
+    seeded input. The ranks generate the full weights in turn, so that one
+    12.6 GB copy exists at a time."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fno import input_spec, shard_params
+    from repro_torch.core.partition import shard
+
+    group = groups["model"]
+    local = None
+    for turn in range(dist.get_world_size(group)):
+        if turn == dist.get_rank(group):
+            local = shard_params(_dist_params(cfg, seed, device), group)
+            torch.cuda.empty_cache()
+        dist.barrier(group=group)
+    x_local = shard(_dist_input(cfg, batch, seed, device), input_spec("data", "model"), groups)
+    return local, x_local
+
+
+def _counted(fn) -> tuple:
+    """fn()'s result and its wall time and kernel launches, counted from 0."""
+    import torch
+
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda, spectral_fused_dw_cuda
+
+    spectral_fused_cuda.launches = spectral_fused_dw_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, {"s": time.perf_counter() - t, "fused": spectral_fused_cuda.launches,
+               "dw": spectral_fused_dw_cuda.launches}
+
+
+def _dist_rank_serve(rank, world_size, device, job):
+    """A rank of the served-grid run: the paper forward at full width, its
+    peak memory and one block's split."""
+    import torch
+
+    from repro_torch.core.fno import make_dist_forward
+
+    load_s, groups = _dist_setup(world_size, device)
+    cfg = _serving_cfg()
+    local, x_local = _dist_local(cfg, DIST_SERVE_BATCH, job["seed"], groups, device)
+    fwd = make_dist_forward(cfg, groups["model"], variant="paper")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        y, run = _counted(lambda: fwd(local, x_local))
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["y"] = y.cpu()
+    del y
+    return {"load_s": load_s, "dist_paper": run,
+            "split": _block_split(local, x_local, cfg, groups["model"])}
+
+
+def _dist_rank_train(rank, world_size, device, job):
+    """A rank of the training-grid run: the eager, Grady-31 and chunked
+    forwards, and one paper forward + backward whose gradient this rank
+    holds against the serial one (``job["grad_ref"]``, shared from the
+    parent's card)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fno import make_dist_forward
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    load_s, groups = _dist_setup(world_size, device)
+    model_group = groups["model"]
+    cfg = _train_cfg()
+    local, x_local = _dist_local(cfg, DIST_TRAIN_BATCH, job["seed"], groups, device)
+    out = {"load_s": load_s}
+    for tag, variant, chunks in DIST_TRAIN_FORWARDS:
+        fwd = make_dist_forward(dataclasses.replace(cfg, comm_chunks=chunks), model_group,
+                                variant=variant)
+        with torch.inference_mode():
+            y, out[tag] = _counted(lambda: fwd(local, x_local))
+        out[tag]["y"] = y.cpu()
+    fwd = make_dist_forward(cfg, model_group, variant="paper")
+    n_out = DIST_TRAIN_BATCH * cfg.out_channels * int(np.prod(cfg.grid))
+    grads = zeros_like_tree(local)
+    _, out["dist_backward"] = _counted(lambda: accumulate_grads(
+        lambda prm, b: (fwd(prm, b["x"]).square().sum() / n_out, {}), local, {"x": x_local}, grads))
+    # the global gradient: replicated leaves summed over the model group;
+    # w_spec's k_y shards held against the matching slices of the serial
+    # one. Popped from the job so the shared tensors are released when done
+    ref, checked = job.pop("grad_ref"), {}
+    p, me = dist.get_world_size(model_group), dist.get_rank(model_group)
+    for group_name, leaves in grads.items():
+        for name, g in leaves.items():
+            r, scale = ref[group_name][name], job["grad_max"][f"{group_name}.{name}"]
+            rtol, atol = DIST_GRAD_TOL
+            if name == "w_spec":
+                k = g.shape[4]
+                mine, other = r.narrow(4, me * k, k), r.narrow(4, (me + 1) % p * k, k)
+                # (ref, atol) of each block: each kept mode's own atol
+                refs = [(m, (DIST_GRAD_LEAF_ATOL * m.abs().amax(dim=(0, 1), keepdim=True))
+                         .clamp(max=atol)) for m in mine]
+                # what the gate must refuse: the neighbouring rank's k_y
+                # shard, ci and co swapped (a mis-strided dW), and zeros
+                got = {"gradient": [g[i] for i in range(g.shape[0])],
+                       "neighbouring k_y shard": [other[i] for i in range(g.shape[0])],
+                       "ci/co swapped": [g[i].transpose(0, 1) for i in range(g.shape[0])],
+                       "zeros": [torch.zeros((), dtype=g.dtype, device=g.device).expand_as(g[i])
+                                 for i in range(g.shape[0])]}
+                atols = (min(float(a.min()) for _, a in refs), max(float(a.max()) for _, a in refs))
+            else:
+                dist.all_reduce(g, group=model_group)
+                refs = [(r, min(atol, DIST_GRAD_LEAF_ATOL * scale))]
+                got = {"gradient": [g], "zeros": [torch.zeros_like(g)]}
+                atols = (refs[0][1], refs[0][1])
+            gated = {what: [_close(a, b, (rtol, t)) for a, (b, t) in zip(tensors, refs)]
+                     for what, tensors in got.items()}
+            checked[f"{group_name}.{name}"] = {
+                "ok": all(c[0] for c in gated["gradient"]),
+                "max_d": max(c[1] for c in gated["gradient"]), "max_ref": scale, "atol": atols,
+                "passed_wrong": [what for what, cs in gated.items()
+                                 if what != "gradient" and all(c[0] for c in cs)]}
+    out["grads"] = checked
+    del ref, r, mine, other, refs, got
+    return out
+
+
+def phase_dist(gpu: str) -> dict:
+    """The 1-D domain-decomposed FNO (paper Alg. 2) on P = 4 gloo ranks
+    sharing this card, in two launches of the ranks: the served grid's
+    paper forward, then the training grid's other schedules and paper
+    backward. Before each, this process computes the serial reference and
+    frees the card of all but what the ranks read (the served forward's
+    output goes to the host; the training gradient stays on the card and
+    is shared with the ranks). Returns the kernel timings at the shard
+    shapes and each path's launches per rank."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.fno import fno_forward
+    from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    _free_cuda()
+    timed = _dist_kernel_times(gpu)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    serve_cfg, train_cfg = _serving_cfg(), _train_cfg()
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[dist] {DIST_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} (NCCL refuses "
+          f"two ranks on one device); served grid {serve_cfg.grid} batch {DIST_SERVE_BATCH}, "
+          f"training grid {train_cfg.grid} batch {DIST_TRAIN_BATCH}, width {serve_cfg.width}, "
+          f"modes {serve_cfg.modes}, {serve_cfg.n_blocks} blocks")
+
+    def launch(fn, job, what):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ranks = launch_ranks(fn, DIST_RANKS, d, args=(job,), timeout_s=DIST_TIMEOUT_S)
+        print(f"[dist] {what}: {DIST_RANKS} ranks spawned, ran and joined in "
+              f"{time.perf_counter() - t:.1f}s")
+        return ranks
+
+    def gate(tag, got, ref, tol):
+        ok, err, scale = _close(got, ref, tol)
+        print(f"[dist] {tag}: max|d|={err:.3e} (max|ref|={scale:.3e}, rtol {tol[0]:g}, "
+              f"atol {tol[1]:g}); {gpu}")
+        if not ok:
+            raise SystemExit(f"[dist] {tag}: outside the gate")
+
+    def gathered(ranks, tag):
+        return torch.cat([r[tag]["y"] for r in ranks], dim=2)  # x is dim 2
+
+    # the served grid: the paper schedule at full width
+    params = _dist_params(serve_cfg, DIST_SEED, dev)
+    with torch.inference_mode():
+        y_serve = fno_forward(params, _dist_input(serve_cfg, DIST_SERVE_BATCH, DIST_SEED, dev),
+                              serve_cfg).cpu()
+    del params
+    _free_cuda()
+    served = launch(_dist_rank_serve, {"seed": DIST_SEED}, "served grid")
+    gate(f"paper forward, grid {serve_cfg.grid}, vs the serial fused forward",
+         gathered(served, "dist_paper"), y_serve, DIST_FWD_TOL)
+    del y_serve
+    peaks = [res["dist_paper"]["peak_gib"] for res in served]
+    for r, res in enumerate(served):
+        split = ", ".join(f"{k} {v:.3f} ms" for k, v in res["split"].items())
+        print(f"[dist] rank {r}: kernels loaded in {res['load_s']:.2f}s; paper forward "
+              f"{res['dist_paper']['s']:.3f}s, max_memory_allocated {peaks[r]:.2f} GiB; {gpu}")
+        print(f"[dist] rank {r}: one paper block at the served grid: {split}; {gpu}")
+    print(f"[dist] the ranks' max_memory_allocated at the served grid sum to {sum(peaks):.2f} "
+          f"of {total_gib:.2f} GiB ({total_gib - sum(peaks):.2f} GiB left); per-shard times on "
+          f"one card, not a scaling result; {gpu}")
+
+    # the training grid: the serial gradient, then the other schedules and
+    # the paper backward
+    params = _dist_params(train_cfg, DIST_SEED + 1, dev)
+    x = _dist_input(train_cfg, DIST_TRAIN_BATCH, DIST_SEED + 1, dev)
+    grad_ref, y_train = zeros_like_tree(params), {}
+
+    def loss(prm, b):
+        y_train["y"] = fno_forward(prm, b["x"], train_cfg)
+        return y_train["y"].square().mean(), {}
+
+    accumulate_grads(loss, params, {"x": x}, grad_ref)
+    y_train = y_train["y"].detach().cpu()
+    # each leaf's max|ref|, which scales its gate (block by block: w_spec's
+    # gradient is 12.6 GB)
+    grad_max = {f"{group_name}.{name}": max(float(t.abs().max()) for t in g)
+                for group_name, leaves in grad_ref.items() for name, g in leaves.items()}
+    del params, x
+    _free_cuda()
+    trained = launch(_dist_rank_train, {"seed": DIST_SEED + 1, "grad_ref": grad_ref,
+                                        "grad_max": grad_max}, "training grid")
+    del grad_ref
+    torch.cuda.ipc_collect()
+    _free_cuda()
+    for tag, variant, chunks in DIST_TRAIN_FORWARDS:
+        gate(f"{variant} forward (comm_chunks={chunks}), grid {train_cfg.grid}, vs the serial "
+             f"fused forward", gathered(trained, tag), y_train, DIST_FWD_TOL)
+    gate("paper comm_chunks=2 vs comm_chunks=1", gathered(trained, "dist_paper_chunks2"),
+         gathered(trained, "dist_paper_train"), DIST_CHUNK_TOL)
+    for r, res in enumerate(trained):
+        for leaf, c in res["grads"].items():
+            if not c["ok"]:
+                raise SystemExit(f"[dist] rank {r}: gradient of {leaf} outside the gate "
+                                 f"(max|d|={c['max_d']:.3e}, max|ref|={c['max_ref']:.3e}, "
+                                 f"atol {c['atol'][0]:.3e} to {c['atol'][1]:.3e})")
+            if c["passed_wrong"]:
+                raise SystemExit(f"[dist] rank {r}: the gate of {leaf} also passes a wrong "
+                                 f"gradient: {', '.join(c['passed_wrong'])}")
+    for leaf, c in trained[0]["grads"].items():
+        worst = max(res["grads"][leaf]["max_d"] for res in trained)
+        lo = min(res["grads"][leaf]["atol"][0] for res in trained)
+        hi = max(res["grads"][leaf]["atol"][1] for res in trained)
+        print(f"[dist] paper backward, gradient of {leaf}: max|ref|={c['max_ref']:.3e}, worst "
+              f"max|d| over the ranks {worst:.3e}, gate rtol {DIST_GRAD_TOL[0]:g} atol "
+              f"{lo:.3e} to {hi:.3e}; {gpu}")
+    print(f"[dist] paper backward: every leaf's gradient on every rank within its gate, and "
+          f"every gate refuses zeros (w_spec also the neighbouring k_y shard and ci/co "
+          f"swapped); {gpu}")
+
+    # exact launches per rank on every path
+    n_blocks = serve_cfg.n_blocks
+    want = {"dist_paper": {"fused": n_blocks, "dw": 0}}
+    want.update({tag: {"fused": n_blocks, "dw": 0} for tag, _, _ in DIST_TRAIN_FORWARDS})
+    want["dist_backward"] = {"fused": 3 * n_blocks, "dw": n_blocks}
+    counted = []
+    for r, (res_s, res_t) in enumerate(zip(served, trained)):
+        res = {**res_s, **res_t}
+        got = {tag: {"fused": res[tag]["fused"], "dw": res[tag]["dw"]} for tag in want}
+        counts = ", ".join(f"{tag} {n['fused']}/{n['dw']}" for tag, n in got.items())
+        times = ", ".join(f"{tag} {res[tag]['s']:.3f}s" for tag in want)
+        print(f"[dist] rank {r}: wall {times}; launches fused/dW {counts}; {gpu}")
+        if got != want:
+            raise SystemExit(f"[dist] rank {r}: launches {got}, want {want}")
+        counted.append(got)
+    print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s")
+    return {"timed": timed, "launches": counted[0]}
+
+
 def _finite(t) -> bool:
     import torch
 
@@ -1358,6 +1805,7 @@ def main() -> int:
     rms, flash = phase_lm_kernels(gpu)
     train = phase_train(gpu)
     train_cli = phase_train_cli(gpu)
+    dist = phase_dist(gpu)
     lm = phase_lm_serving(gpu)
     lm_cli = phase_lm_cli(gpu)
     fused["launches"] = train["fused"]
@@ -1367,6 +1815,13 @@ def main() -> int:
     }
     dw["launches"] = train["dw"]
     dw["launches_by_path"] = {"train": train["dw"], "train_cli": train_cli["dw"]}
+    # the dist paths' launches as counted on rank 0 (every rank's were checked equal)
+    for record, key in ((fused, "fused"), (dw, "dw")):
+        record["launches_by_path"].update(
+            {tag: n[key] for tag, n in dist["launches"].items() if n[key]})
+        record["dist_ranks"] = DIST_RANKS
+    fused["dist_shapes"] = {k: v for k, v in dist["timed"].items() if not k.endswith("dW")}
+    dw["dist_shapes"] = {k: v for k, v in dist["timed"].items() if k.endswith("dW")}
     rms["launches"] = lm["rmsnorm"]
     rms["launches_by_path"] = {"lm_serve": lm["rmsnorm"], "lm_cli": lm_cli["rmsnorm"]}
     flash["launches"] = lm["flash"]

@@ -1,6 +1,7 @@
-"""4-D FFT with frequency truncation (S ∘ F and its adjoint), serial half.
+"""4-D FFT with frequency truncation (S ∘ F and its adjoint): the serial
+oracle and the 1-D distributed schedules of the paper's Algorithm 2.
 
-Port of ``repro.core.dfft``'s serial oracle. Conventions match it exactly:
+Port of ``repro.core.dfft``. Conventions match it exactly:
 
   * data layout X[b, c, x, y, z, t], real input;
   * rFFT along the trailing time dim (keep the first m_t bins);
@@ -10,13 +11,26 @@ Port of ``repro.core.dfft``'s serial oracle. Conventions match it exactly:
 
 The JAX package composes a 1-D rFFT and a 3-D FFT because XLA lowers FFTs
 of rank <= 3 only; ``torch.fft.rfftn``/``irfftn`` over dims (2, 3, 4, 5)
-compute the same transforms in one call (cuFFT on the card).
+compute the same transforms in one call (cuFFT on the card). The
+distributed schedules cannot: each truncates some dims before the
+all-to-all and transforms the others after it, so they keep the
+reference's separate per-dim FFTs in its order.
+
+The distributed half takes an explicit process group where the reference
+takes a mesh-axis name (call it on every rank of the group, x sharded
+along XDIM): the paper schedule, the eager schedule and Grady et al.'s
+[31] untruncated schedule, each with ``comm_chunks``. The 2-D pencil
+schedules are ROADMAP Queue 1 item 2b, not ported yet.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.partition import gather_dim, local_slice
+from repro_torch.core.repartition import apply_chunked, repartition
 
 # Dim indices in the canonical [b, c, x, y, z, t] layout.
 BDIM, CDIM, XDIM, YDIM, ZDIM, TDIM = range(6)
@@ -108,3 +122,256 @@ def serial_adjoint(
     full = xf if pre_padded else pad_modes(xf, (nx, ny, nz, nt // 2 + 1))
     y = torch.fft.irfftn(full, s=(nx, ny, nz, nt), dim=SPATIAL_DIMS)
     return y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Communication/compute overlap: every op of the distributed pipelines (FFTs
+# over spatial/time dims, truncate/pad slices, all-to-alls) treats the
+# channel dim as a batch dim, so running the whole pipeline per channel
+# slice and concatenating is bit-identical to the unchunked call.
+# ---------------------------------------------------------------------------
+
+def _chunk_channels(fn, x: torch.Tensor, chunks: int) -> torch.Tensor:
+    return apply_chunked(fn, x, chunks, CDIM)
+
+
+def _rfft_t(x: torch.Tensor) -> torch.Tensor:
+    return torch.fft.rfft(x.to(torch.float32), dim=TDIM)
+
+
+def _irfft_t(xf: torch.Tensor, nt: int, out_dtype) -> torch.Tensor:
+    return torch.fft.irfft(xf, n=nt, dim=TDIM).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paper Algorithm 2 (x sharded along XDIM over ``group``).
+# ---------------------------------------------------------------------------
+
+def dist_forward(
+    x: torch.Tensor, modes: Sequence[int], group, *, trunc_x: bool = True, comm_chunks: int = 1
+) -> torch.Tensor:
+    """Paper Alg. 2 forward transform: S_x F_x R_{x->y} S_{yzt} F_{yzt}.
+
+    In: local real [b, c, nx/P, ny, nz, nt].
+    Out: local complex [b, c, 2mx, 2my/P, 2mz, mt] (``trunc_x=False`` skips
+    the final S_x, which the fused kernel does, leaving x at full size nx).
+
+    Truncation along y/z/t happens BEFORE the repartition: the paper's
+    communication optimization.
+    """
+    mx, my, mz, mt = modes
+
+    def body(x):
+        xf = _rfft_t(x)
+        xf = torch.fft.fft(xf, dim=YDIM)
+        xf = torch.fft.fft(xf, dim=ZDIM)
+        xf = truncate_full(xf, YDIM, my)
+        xf = truncate_full(xf, ZDIM, mz)
+        xf = truncate_rfft(xf, TDIM, mt)
+        xf = repartition(xf, XDIM, YDIM, group)
+        xf = torch.fft.fft(xf, dim=XDIM)
+        return truncate_full(xf, XDIM, mx) if trunc_x else xf
+
+    return _chunk_channels(body, x, comm_chunks)
+
+
+def dist_adjoint(
+    xf: torch.Tensor,
+    grid: Sequence[int],
+    group,
+    out_dtype: torch.dtype = torch.float32,
+    *,
+    pad_x: bool = True,
+    comm_chunks: int = 1,
+) -> torch.Tensor:
+    """Paper Alg. 2 inverse: F_{yzt}^T S_{yzt}^T R^T F_x^T S_x^T.
+
+    In: local complex [b, c, 2mx, 2my/P, 2mz, mt] (x already full size when
+    ``pad_x=False``: the fused kernel zero-filled S_x^T). Out: local real
+    [b, c, nx/P, ny, nz, nt].
+    """
+    nx, ny, nz, nt = grid
+
+    def body(xf):
+        xf = pad_full(xf, XDIM, nx) if pad_x else xf
+        xf = torch.fft.ifft(xf, dim=XDIM)
+        xf = repartition(xf, YDIM, XDIM, group)
+        xf = pad_full(xf, YDIM, ny)
+        xf = pad_full(xf, ZDIM, nz)
+        xf = pad_rfft(xf, TDIM, nt // 2 + 1)
+        xf = torch.fft.ifft(xf, dim=YDIM)
+        xf = torch.fft.ifft(xf, dim=ZDIM)
+        return _irfft_t(xf, nt, out_dtype)
+
+    return _chunk_channels(body, xf, comm_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Eager truncation (beyond the paper): each dim is truncated right after its
+# own FFT, so later FFTs run on already-truncated tensors. Truncation along
+# one dim commutes with an FFT along another, so this equals Alg. 2 with
+# fewer FFT flops; the all-to-all moves the same tensor.
+# ---------------------------------------------------------------------------
+
+def dist_forward_eager(
+    x: torch.Tensor, modes: Sequence[int], group, *, trunc_x: bool = True, comm_chunks: int = 1
+) -> torch.Tensor:
+    """Like dist_forward, with per-dim eager truncation."""
+    mx, my, mz, mt = modes
+
+    def body(x):
+        xf = truncate_rfft(_rfft_t(x), TDIM, mt)
+        xf = truncate_full(torch.fft.fft(xf, dim=ZDIM), ZDIM, mz)
+        xf = truncate_full(torch.fft.fft(xf, dim=YDIM), YDIM, my)
+        xf = repartition(xf, XDIM, YDIM, group)
+        xf = torch.fft.fft(xf, dim=XDIM)
+        return truncate_full(xf, XDIM, mx) if trunc_x else xf
+
+    return _chunk_channels(body, x, comm_chunks)
+
+
+def dist_adjoint_eager(
+    xf: torch.Tensor,
+    grid: Sequence[int],
+    group,
+    out_dtype: torch.dtype = torch.float32,
+    *,
+    pad_x: bool = True,
+    comm_chunks: int = 1,
+) -> torch.Tensor:
+    """Adjoint of the eager schedule: each pad right before its own iFFT."""
+    nx, ny, nz, nt = grid
+
+    def body(xf):
+        xf = pad_full(xf, XDIM, nx) if pad_x else xf
+        xf = torch.fft.ifft(xf, dim=XDIM)
+        xf = repartition(xf, YDIM, XDIM, group)
+        xf = torch.fft.ifft(pad_full(xf, YDIM, ny), dim=YDIM)
+        xf = torch.fft.ifft(pad_full(xf, ZDIM, nz), dim=ZDIM)
+        return _irfft_t(pad_rfft(xf, TDIM, nt // 2 + 1), nt, out_dtype)
+
+    return _chunk_channels(body, xf, comm_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Grady et al. [31] baseline: repartition FIRST, truncate AFTER. Moves the
+# spectrum untruncated along y/z/t: the paper's comparison point for its
+# communication reduction.
+# ---------------------------------------------------------------------------
+
+def _truncate_y(xf: torch.Tensor, my: int, group) -> torch.Tensor:
+    kept = truncate_full(gather_dim(xf, YDIM, group), YDIM, my)
+    return local_slice(kept, YDIM, group).contiguous()
+
+
+def _pad_y(xf: torch.Tensor, ny: int, group) -> torch.Tensor:
+    padded = pad_full(gather_dim(xf, YDIM, group), YDIM, ny)
+    return local_slice(padded, YDIM, group).contiguous()
+
+
+class _TruncateY(torch.autograd.Function):
+    """S_y on a y-sharded spectrum; its adjoint S_y^T is ``_pad_y``."""
+
+    @staticmethod
+    def forward(ctx, xf, my, group):
+        ctx.ny, ctx.group = xf.shape[YDIM] * dist.get_world_size(group), group
+        return _truncate_y(xf, my, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pad_y(g, ctx.ny, ctx.group), None, None
+
+
+class _PadY(torch.autograd.Function):
+    """S_y^T on a y-sharded kept spectrum; its adjoint S_y is ``_truncate_y``."""
+
+    @staticmethod
+    def forward(ctx, xf, ny, group):
+        ctx.my, ctx.group = xf.shape[YDIM] * dist.get_world_size(group) // 2, group
+        return _pad_y(xf, ny, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _truncate_y(g, ctx.my, ctx.group), None, None
+
+
+def truncate_y_local(xf: torch.Tensor, my: int, group) -> torch.Tensor:
+    """Truncate the (sharded) y dim to this rank's slice of the kept modes.
+
+    With y sharded P ways, the kept modes [:my] + [-my:] live on the first
+    and last shards, so each rank gathers the whole y extent
+    (``dist.all_gather_into_tensor``), truncates, and keeps its slice, at
+    ``dist.get_rank(group)``. Only the [31] baseline uses it.
+    Differentiable: its backward is ``pad_y_local``'s forward.
+    """
+    if torch.is_grad_enabled() and xf.requires_grad:
+        return _TruncateY.apply(xf, my, group)
+    return _truncate_y(xf, my, group)
+
+
+def pad_y_local(xf: torch.Tensor, ny: int, group) -> torch.Tensor:
+    """Adjoint of ``truncate_y_local``: gather the kept y modes, zero-fill
+    the middle back to ``ny``, keep this rank's slice."""
+    if torch.is_grad_enabled() and xf.requires_grad:
+        return _PadY.apply(xf, ny, group)
+    return _pad_y(xf, ny, group)
+
+
+def dist_forward_untruncated(
+    x: torch.Tensor, modes: Sequence[int], group, *, trunc_xzt: bool = True, comm_chunks: int = 1
+) -> torch.Tensor:
+    """[31]-style forward: F_{yzt}, R_{x->y} (full tensor), F_x, then S.
+
+    ``trunc_xzt=False`` leaves x/z/t untruncated for the fused kernel; the
+    sharded y dim is still truncated here (it needs the collective, and
+    truncation along y commutes with the kernel's x/z/t truncation).
+    """
+    mx, my, mz, mt = modes
+
+    def body(x):
+        xf = _rfft_t(x)
+        xf = torch.fft.fft(xf, dim=YDIM)
+        xf = torch.fft.fft(xf, dim=ZDIM)
+        xf = repartition(xf, XDIM, YDIM, group)
+        xf = torch.fft.fft(xf, dim=XDIM)
+        if not trunc_xzt:
+            return truncate_y_local(xf, my, group)
+        xf = truncate_full(xf, XDIM, mx)  # before the y gather: less data
+        xf = truncate_y_local(xf, my, group)
+        xf = truncate_full(xf, ZDIM, mz)
+        return truncate_rfft(xf, TDIM, mt)
+
+    return _chunk_channels(body, x, comm_chunks)
+
+
+def dist_adjoint_untruncated(
+    xf: torch.Tensor,
+    grid: Sequence[int],
+    group,
+    out_dtype: torch.dtype = torch.float32,
+    *,
+    pad_xzt: bool = True,
+    comm_chunks: int = 1,
+) -> torch.Tensor:
+    """[31]-style inverse: pad everything first, repartition the full tensor.
+
+    ``pad_xzt=False`` means x/z/t arrive full size (the fused kernel
+    zero-filled them); only the sharded y dim still needs its collective pad.
+    """
+    nx, ny, nz, nt = grid
+
+    def body(xf):
+        if pad_xzt:
+            xf = pad_full(xf, XDIM, nx)
+            xf = pad_y_local(xf, ny, group)
+            xf = pad_full(xf, ZDIM, nz)
+            xf = pad_rfft(xf, TDIM, nt // 2 + 1)
+        else:
+            xf = pad_y_local(xf, ny, group)
+        xf = torch.fft.ifft(xf, dim=XDIM)
+        xf = repartition(xf, YDIM, XDIM, group)
+        xf = torch.fft.ifft(xf, dim=YDIM)
+        xf = torch.fft.ifft(xf, dim=ZDIM)
+        return _irfft_t(xf, nt, out_dtype)
+
+    return _chunk_channels(body, xf, comm_chunks)

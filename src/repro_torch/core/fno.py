@@ -1,6 +1,8 @@
-"""Fourier Neural Operator — serial forward and training (paper Alg. 1).
+"""Fourier Neural Operator — serial and 1-D model-parallel forward and
+training (paper Alg. 1 and 2).
 
-Port of the serial half of ``repro.core.fno``. Parameters are a nested dict
+Port of ``repro.core.fno``: the serial forwards and the 1-D
+domain-decomposed ones. Parameters are a nested dict
 of tensors with the reference's leaf names (``encoder.w/b``,
 ``blocks.w_spec`` complex64 ``[n_blocks, w, w, 2mx, 2my, 2mz, mt]``,
 ``blocks.w_bypass/b_bypass``, ``decoder.w1/b1/w2/b2``), so weights carry
@@ -24,6 +26,15 @@ tensors (``train/train_loop.py`` does, so that no gradient of a stacked
 leaf is ever formed per block); every forward indexes blocks the same way
 in both.
 
+The model-parallel forwards (``make_dist_forward``) run on every rank of
+a ``torch.distributed`` process group, the reference's mesh axis: x is
+sharded along the solution's x dim over the group and the spectral weights
+along k_y (``shard_params``); everything else is replicated. Every block
+runs the same fused op at its shard's shapes, after the paper's schedule,
+the eager schedule or Grady et al.'s [31] (``core/dfft.py``). The 2-D
+pencil schedules are ROADMAP Queue 1 item 2b, distributed training 2c and
+model-parallel split serving 2d; none is ported yet.
+
 Every GELU is the tanh form, as ``jax.nn.gelu``'s default: the exact erf
 form differs by up to ~2e-4, outside the 1e-4 parity gate. TF32 stays off:
 the 1x1 convs are float32 matrix products at full precision.
@@ -31,15 +42,18 @@ the 1x1 convs are float32 matrix products at full precision.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core import dfft
+from repro_torch.core.partition import PENCILS, CartPartition, gather, shard
 from repro_torch.kernels.spectral_conv import (
     spectral_apply_fused,
     spectral_apply_fused_add,
@@ -64,12 +78,32 @@ class FNOConfig:
     decoder_dim: int = 128
     # Compute dtype for pointwise/conv ops; the FFT path is always float32.
     dtype: torch.dtype = torch.float32
+    # Channel-chunk the distributed FFT pipelines: one all-to-all per chunk
+    # (bit-identical to one for all channels).
+    comm_chunks: int = 1
     remat: bool = True  # recompute each FNO block in the backward
 
     @property
     def mode_shape(self) -> Tuple[int, int, int, int]:
         mx, my, mz, mt = self.modes
         return (2 * mx, 2 * my, 2 * mz, mt)
+
+    def validate_for_parallelism(self, n_shards: int) -> None:
+        """x sharded n_shards ways; the repartition moves the shard onto the
+        truncated y dim, hence 2my too."""
+        nx = self.grid[0]
+        two_my = 2 * self.modes[1]
+        if nx % n_shards:
+            raise ValueError(f"nx={nx} not divisible by {n_shards} shards")
+        if two_my % n_shards:
+            raise ValueError(f"2*my={two_my} not divisible by {n_shards} shards")
+        self._validate_modes_fit()
+
+    def _validate_modes_fit(self) -> None:
+        mx, my, mz, mt = self.modes
+        nx, ny, nz, nt = self.grid
+        if 2 * mx > nx or 2 * my > ny or 2 * mz > nz or mt > nt // 2 + 1:
+            raise ValueError(f"modes {self.modes} exceed grid {self.grid}")
 
 
 def _tree_map(fn, tree):
@@ -361,3 +395,111 @@ def fno_forward_deep_split(
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(pred.to(torch.float32) - target.to(torch.float32)))
+
+
+# ---------------------------------------------------------------------------
+# Distributed forward (paper Algorithm 1 + 2). Every rank of ``group`` calls
+# it on its local slices: x [b_local, c, nx/P, ny, nz, nt] and w_spec
+# [n_blocks, ci, co, 2mx, 2my/P, 2mz, mt] (``shard_params``); everything
+# else replicated.
+# ---------------------------------------------------------------------------
+
+# [n_blocks, ci, co, kx, ky, kz, kt]: k_y sharded over the model group
+W_SPEC_PARTITION = CartPartition((None, None, None, None, "model", None, None))
+
+
+def shard_params(params: dict, group) -> dict:
+    """This rank's parameters: ``blocks.w_spec`` sliced along k_y into the
+    rank's 2my/P run (a copy), every other leaf the same tensor (replicated,
+    the paper's broadcast B). The counterpart of the reference's
+    ``param_specs``."""
+    blocks = dict(params["blocks"])
+    blocks["w_spec"] = shard(blocks["w_spec"], W_SPEC_PARTITION, {"model": group})
+    return {**params, "blocks": blocks}
+
+
+def gather_params(params: dict, group) -> dict:
+    """Inverse of ``shard_params`` (a collective over ``group``): the global
+    ``w_spec`` from every rank's k_y slice; the other leaves as they are."""
+    blocks = dict(params["blocks"])
+    blocks["w_spec"] = gather(blocks["w_spec"], W_SPEC_PARTITION, {"model": group})
+    return {**params, "blocks": blocks}
+
+
+def input_spec(data_axis: Optional[str] = "data", model_axis="model") -> CartPartition:
+    """Partition of the solution tensor [b, c, x, y, z, t]: batch over the
+    data group, x over the model group (``model_axis=None``: batch only).
+    The layout ``make_dist_forward`` takes and returns."""
+    if isinstance(model_axis, (tuple, list)):
+        raise ValueError(f"model axes {tuple(model_axis)}: {PENCILS}")
+    return CartPartition((data_axis, None, model_axis, None, None, None))
+
+
+# variant: (forward transform, its adjoint, whether z and t reach the fused
+# op untruncated). Every transform leaves x full size: the fused op
+# truncates it and pads it back.
+_SCHEDULES = {
+    # paper Alg. 2: local F/S over yzt, R_{x->y}, F over x
+    "paper": (partial(dfft.dist_forward, trunc_x=False),
+              partial(dfft.dist_adjoint, pad_x=False), False),
+    # per-dim eager truncation (beyond the paper; Alg. 2 with cheaper FFTs)
+    "eager": (partial(dfft.dist_forward_eager, trunc_x=False),
+              partial(dfft.dist_adjoint_eager, pad_x=False), False),
+    # Grady et al. [31]: repartition the spectrum untruncated along y/z/t
+    "grady31": (partial(dfft.dist_forward_untruncated, trunc_xzt=False),
+                partial(dfft.dist_adjoint_untruncated, pad_xzt=False), True),
+}
+
+
+def fno_block_dist(x, w_spec, w_b, b_b, cfg: FNOConfig, group, variant: str = "paper"):
+    """One FNO block on this rank's x slice under ``variant``'s schedule:
+    the forward transform, the fused op (S_x, or S_xzt for Grady-31, the
+    per-mode mix with k_y-sharded weights, and its zero fill), the adjoint
+    transform, the bypass and the GELU."""
+    forward, adjoint, full_zt = _SCHEDULES[variant]
+    nx, _, nz, nt = cfg.grid
+    trunc, t_out = ((nx, None, nz), nt // 2 + 1) if full_zt else ((nx, None, None), None)
+    xf = forward(x, cfg.modes, group, comm_chunks=cfg.comm_chunks)
+    yf = spectral_apply_fused(xf, w_spec, trunc, t_out=t_out)
+    del xf
+    y = adjoint(yf, cfg.grid, group, out_dtype=cfg.dtype, comm_chunks=cfg.comm_chunks)
+    del yf
+    y += _conv1x1(x, w_b, b_b)
+    return _gelu(y)
+
+
+def fno_forward_dist(params, x, cfg: FNOConfig, group, variant: str = "paper"):
+    # The encoder, bypass and decoder contract channels only, so they run
+    # on the local x slice with replicated weights (paper Alg. 1).
+    return _run_blocks(
+        params, _encoder(params, x, cfg), cfg,
+        lambda h, blk: fno_block_dist(h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg,
+                                      group, variant),
+    )
+
+
+def make_dist_forward(cfg: FNOConfig, model_group, *, variant: str = "paper"):
+    """The 1-D domain-decomposed forward over ``model_group``:
+    ``fwd(local_params, local_x) -> local_y``, every rank of the group
+    calling it. ``local_params`` from ``shard_params``; ``local_x`` and
+    ``local_y`` laid out by ``input_spec`` (``partition.shard``/``gather``).
+    Differentiable; runs where the tensors lie.
+
+    variant: "paper" (truncate, then repartition), "eager" (per-dim eager
+    truncation) or "grady31" (the [31] baseline: repartition, then
+    truncate). A pair of model groups (the 2-D pencils) raises, and so does
+    None, which ``torch.distributed`` reads as every rank.
+    """
+    if isinstance(model_group, (tuple, list)):
+        raise ValueError(f"a pair of model groups: {PENCILS}")
+    if model_group is None:
+        raise ValueError("model_group is None, which torch.distributed reads as every rank; "
+                         "pass the model group build_fno_groups returns")
+    if variant not in _SCHEDULES:
+        raise ValueError(f"unknown variant {variant!r}; pick from {sorted(_SCHEDULES)}")
+    cfg.validate_for_parallelism(dist.get_world_size(model_group))
+
+    def forward(local_params: dict, local_x: torch.Tensor) -> torch.Tensor:
+        return fno_forward_dist(local_params, local_x, cfg, model_group, variant)
+
+    return forward

@@ -387,3 +387,79 @@ def test_fused_dx_on_conj_transpose(cuda, b, name, dims, t_g, kt, t_x):
     assert torch.equal(got, again)
     want = spectral_apply_fused_ref(g, w.transpose(0, 1).conj(), trunc, t_x)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+# The 1-D model-parallel blocks' operands at the P = 4 shard (width 40,
+# modes (24,16,8,10)) of the served grid 128x64x32x88 (b = 2; eager also at
+# a training micro-batch, b = 1) and of the training grid 64x32x32x88
+# (b = 1): paper and eager hand the kernel x at full size and y/z/t
+# pre-truncated to (8, 16, 10); Grady-31 hands it y pre-truncated only,
+# x/z/t full, and pads t to 45.
+# (name, b, trunc, x extents, x time bins, t_out)
+DIST_SHARDS = [
+    ("paper-serve", 2, (128, None, None), (128, 8, 16), 10, None),
+    ("eager-serve-b1", 1, (128, None, None), (128, 8, 16), 10, None),
+    ("grady31-serve", 2, (128, None, 32), (128, 8, 32), 45, 45),
+    ("paper-train", 1, (64, None, None), (64, 8, 16), 10, None),
+]
+DIST_IDS = [c[0] for c in DIST_SHARDS]
+DIST_KEPT = (48, 8, 16, 10)
+
+
+def _gate(got, ref):
+    """The smoke's gate: max|got - ref| <= 1e-4 max|ref| + 1e-6."""
+    assert got.shape == ref.shape
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= 1e-4 * scale + 1e-6, f"max|d|={err:.3e}, max|ref|={scale:.3e}"
+
+
+def _shard_spectrum(gen, shape, dev):
+    """A spectrum in the layout the block's x FFT leaves it in."""
+    z = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    return torch.fft.fft(z, dim=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,trunc,ext,t_x,t_out", DIST_SHARDS, ids=DIST_IDS)
+def test_fused_kernel_at_dist_shard_shapes(cuda, name, b, trunc, ext, t_x, t_out):
+    gen = torch.Generator(device=cuda).manual_seed(DIST_IDS.index(name))
+    xf = _shard_spectrum(gen, (b, 40) + ext + (t_x,), cuda)
+    w = torch.randn((40, 40) + DIST_KEPT, dtype=torch.complex64, device=cuda, generator=gen)
+    before = spectral_fused_cuda.launches
+    got = spectral_apply_fused(xf, w, trunc, t_out=t_out)
+    again = spectral_apply_fused(xf, w, trunc, t_out=t_out)
+    torch.cuda.synchronize()
+    assert spectral_fused_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    _gate(got, spectral_apply_fused_ref(xf, w, trunc, t_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,trunc,ext,t_x,t_out", DIST_SHARDS, ids=DIST_IDS)
+def test_fused_dx_at_dist_shard_shapes(cuda, name, b, trunc, ext, t_x, t_out):
+    gen = torch.Generator(device=cuda).manual_seed(10 + DIST_IDS.index(name))
+    t_g = DIST_KEPT[3] if t_out is None else t_out
+    g = _shard_spectrum(gen, (b, 40) + ext + (t_g,), cuda)
+    w = torch.randn((40, 40) + DIST_KEPT, dtype=torch.complex64, device=cuda, generator=gen)
+    before = spectral_fused_cuda.launches
+    got, again = spectral_fused_dx(g, w, trunc, t_x), spectral_fused_dx(g, w, trunc, t_x)
+    torch.cuda.synchronize()
+    assert spectral_fused_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    _gate(got, spectral_apply_fused_ref(g, w.transpose(0, 1).conj(), trunc, t_x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,trunc,ext,t_x,t_out", DIST_SHARDS, ids=DIST_IDS)
+def test_dw_kernel_at_dist_shard_shapes(cuda, name, b, trunc, ext, t_x, t_out):
+    gen = torch.Generator(device=cuda).manual_seed(20 + DIST_IDS.index(name))
+    t_g = DIST_KEPT[3] if t_out is None else t_out
+    xf = _shard_spectrum(gen, (b, 40) + ext + (t_x,), cuda)
+    g = _shard_spectrum(gen, (b, 40) + ext + (t_g,), cuda)
+    before = spectral_fused_dw_cuda.launches
+    got = spectral_fused_dw(xf, g, trunc, DIST_KEPT)
+    again = spectral_fused_dw(xf, g, trunc, DIST_KEPT)
+    torch.cuda.synchronize()
+    assert spectral_fused_dw_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    _gate(got, spectral_fused_dw_ref(xf, g, trunc, DIST_KEPT))
