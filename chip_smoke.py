@@ -47,19 +47,28 @@ Phases, each failing hard:
   7. the training CLI on the card with an injected fault (restored from
      its checkpoint), then the serving CLI with ``--verify`` on the
      checkpoint it wrote;
- 7b. dist: the 1-D domain-decomposed FNO (paper Alg. 2, ``make_dist_forward``)
-     on 4 gloo ranks sharing the card (NCCL refuses two ranks on one
-     device), started by ``launch_ranks`` after this process has built the
-     kernels (the ranks only load them). First the fused kernel (forward
-     and dx) and the dW kernel at the P = 4 shard shapes of the served and
+ 7b. dist: the domain-decomposed FNO (``make_dist_forward``) on 4 gloo
+     ranks sharing the card (NCCL refuses two ranks on one device), 1-D
+     (paper Alg. 2, x over P = 4) and 2-D pencils (x and y over 2 x 2),
+     started by ``launch_ranks`` after this process has built the kernels
+     (the ranks only load them). First the fused kernel (forward and dx)
+     and the dW kernel at the 1-D and 2-D shard shapes of the served and
      training grids, in this process alone, against their plain versions
-     and timed beside their bounds; then the paper schedule at full width
+     and timed beside their bounds; then the paper schedules at full width
      on the served grid (128,64,32,88), batch 2, against the serial fused
      forward, with each rank's peak memory and one block's split (FFTs,
      all-to-alls, the fused kernel); then on the training grid, batch 1,
-     the eager and Grady-31 schedules and ``comm_chunks=2`` against the
-     serial forward, and one paper forward + backward whose every leaf's
-     gradient is held against the serial gradient on the card;
+     the eager, Grady-31 (1-D) and ``comm_chunks=2`` schedules against the
+     serial forward, and one paper forward + backward of each layout whose
+     every leaf's gradient is held against the serial gradient on the card;
+ 7c. dist_train: the distributed train step (ZeRO-1, per-rank shard
+     reads) on 4 ranks at full width on the training grid, (1 data x 2x2
+     pencils) for 3 steps and (2 data x 2 model) with 2 blocks for 2,
+     each against the serial train step on the card: every step's loss and
+     grad norm, and every param after the last step on every rank; then
+     the training CLI on 4 ranks (``--devices 4 --model-shards 2 2``)
+     through an injected fault, and the serving CLI with ``--verify`` on
+     its checkpoint;
   8. hold the RMSNorm and flash-attention kernels against their plain
      versions (``rmsnorm_ref``, ``flash_attention_ref``) over bf16 and f32,
      ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
@@ -81,11 +90,13 @@ kernel. Each served run must launch the fused kernel exactly once per FNO block
 per forward; each training step, per micro-batch and block, three times
 (forward, remat recompute, dx) and the cotangent kernel once; each dist
 forward, on every rank, the fused kernel once per block, and the dist
-backward 3 times per block and the cotangent kernel once. Each LM
+backward 3 times per block and the cotangent kernel once; each dist train
+step, on every rank, as a training step on its micro-batches. Each LM
 prefill must launch flash attention once per layer, and each LM forward
 (prefill or decode step) the RMSNorm kernel 2 L + 1 times.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+Prints each phase's seconds, the card's name and power limit, one
+``{"kernels": [...]}`` line,
 and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without a result when there is no CUDA device.
 """
@@ -1045,10 +1056,12 @@ def phase_train_cli(gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase dist: the 1-D domain-decomposed FNO, P = 4 gloo ranks on one card.
+# Phase dist: the domain-decomposed FNO, 1-D (P = 4) and 2-D pencils
+# (PX = PY = 2), 4 gloo ranks on one card.
 # ---------------------------------------------------------------------------
 
 DIST_RANKS = 4
+DIST_PENCILS = (2, 2)  # --model-shards PX PY of the 2-D runs
 DIST_SERVE_BATCH, DIST_TRAIN_BATCH = 2, 1
 DIST_SEED = 11
 DIST_TIMEOUT_S = 600
@@ -1062,9 +1075,15 @@ DIST_GRAD_TOL = (5e-3, 5e-5)   # tests/distributed_checks.py:86-91
 # (ci, co), as the mean's DC mode is ~1e3x the others and would swamp a
 # per-leaf scale.
 DIST_GRAD_LEAF_ATOL = 1e-3
-# (tag, variant, comm_chunks) of the forwards run at the training grid
+# (tag, variant, comm_chunks) of the forwards run at the training grid:
+# 1-D over P = 4, then 2-D over the pencils
 DIST_TRAIN_FORWARDS = (("dist_paper_train", "paper", 1), ("dist_eager", "eager", 1),
                        ("dist_grady31", "grady31", 1), ("dist_paper_chunks2", "paper", 2))
+DIST2D_TRAIN_FORWARDS = (("dist2d_paper_train", "paper", 1), ("dist2d_eager", "eager", 1),
+                         ("dist2d_paper_chunks2", "paper", 2))
+# Grady-31's forward runs at this depth, to keep the script's time: it
+# moves the spectrum untruncated, 9.7-16.6 s a forward at 4 blocks
+DIST_GRADY31_BLOCKS = 1
 
 
 def _dist_input(cfg, batch: int, seed: int, device):
@@ -1091,9 +1110,11 @@ def _close(got, ref, tol) -> tuple:
 
 
 def _dist_kernel_times(gpu: str) -> dict:
-    """The fused kernel (forward, dx) and the dW kernel at the P = 4 shard
-    shapes of the 1-D schedules, in this process alone: each held to its
-    plain version, two launches bitwise equal, timed beside its bound."""
+    """The fused kernel (forward, dx) and the dW kernel at every shard shape
+    the dist paths give them: the 1-D schedules' (P = 4), the 2-D pencils'
+    (2 x 2) and each of ``DIST_TRAIN_RUNS``' shards at its micro-batch, in
+    this process alone: each held to its plain version, two launches
+    bitwise equal, timed beside its bound."""
     import torch
 
     from repro_torch.kernels.spectral_conv import (
@@ -1103,43 +1124,56 @@ def _dist_kernel_times(gpu: str) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
-    p = DIST_RANKS
     records = {}
     for tag, cfg, b in (("serve", _serving_cfg(), DIST_SERVE_BATCH),
                         ("train", _train_cfg(), DIST_TRAIN_BATCH)):
         nx, ny, nz, nt = cfg.grid
         k1, k2, k3, kt = cfg.mode_shape
-        kept = (k1, k2 // p, k3, kt)
         ci = co = cfg.width
-        w = torch.randn((ci, co) + kept, dtype=torch.complex64, device=dev, generator=gen)
 
-        def spectrum(c, ext, t):
+        def spectrum(c, ext, t, b):
             z = torch.randn((b, c) + ext + (t,), dtype=torch.complex64, device=dev, generator=gen)
             return torch.fft.fft(z, dim=2)  # the layout the block's x FFT leaves
 
-        # (name, op, trunc, x extents, x time bins, t_out)
-        cases = [(f"{tag} paper/eager shard forward", "forward", (nx, None, None),
-                  (nx, kept[1], k3), kt, None),
-                 (f"{tag} paper shard dx", "dx", (nx, None, None), (nx, kept[1], k3), kt, None),
-                 (f"{tag} paper shard dW", "dw", (nx, None, None), (nx, kept[1], k3), kt, None)]
+        def kept_of(shards):  # a model shard's kept modes: k_y over P or PX, k_z over PY
+            return (k1, k2 // shards[0], k3 // (shards[1] if len(shards) == 2 else 1), kt)
+
+        # (label, batch, kept modes) of each layout's shard; the train runs'
+        # batch is a data rank's micro-batch
+        layouts = [("paper", b, kept_of((DIST_RANKS,))), ("pencil", b, kept_of(DIST_PENCILS))]
+        if tag == "train":
+            for run, shards, _, batch, accum, _ in DIST_TRAIN_RUNS:
+                mb = batch // (DIST_RANKS // int(np.prod(shards))) // accum
+                if (mb, kept_of(shards)) not in {(bb, kk) for _, bb, kk in layouts}:
+                    layouts.append((f"{run} P={'x'.join(map(str, shards))}", mb, kept_of(shards)))
+        # (name, op, trunc, x extents, x time bins, t_out, kept, batch): the
+        # served grid runs forwards only, the training grid forward, dx and dW
+        cases = []
+        for label, bb, kept in layouts:
+            ext = (nx, kept[1], kept[2])
+            ops = ("forward",) if tag == "serve" else ("forward", "dx", "dW")
+            cases += [(f"{tag} {label} shard {op}", op, (nx, None, None), ext, kt, None, kept, bb)
+                      for op in ops]
         if tag == "serve":
+            kept1 = kept_of((DIST_RANKS,))
             cases.insert(1, (f"{tag} grady31 shard forward", "forward", (nx, None, nz),
-                             (nx, kept[1], nz), nt // 2 + 1, nt // 2 + 1))
-        for name, op, trunc, ext, t_x, t_out in cases:
+                             (nx, kept1[1], nz), nt // 2 + 1, nt // 2 + 1, kept1, b))
+        for name, op, trunc, ext, t_x, t_out, kept, b in cases:
+            w = torch.randn((ci, co) + kept, dtype=torch.complex64, device=dev, generator=gen)
             t_y = kt if t_out is None else t_out
             if op == "forward":
-                xf = spectrum(ci, ext, t_x)
+                xf = spectrum(ci, ext, t_x, b)
                 run = lambda: spectral_apply_fused(xf, w, trunc, t_out=t_out)
                 plain = lambda: spectral_apply_fused_ref(xf, w, trunc, t_out)
                 bound = _fused_bound_ms(b, ci, co, ext, kept, t_x, t_y, False)
             elif op == "dx":
-                g = spectrum(co, ext, t_y)
+                g = spectrum(co, ext, t_y, b)
                 wt = w.transpose(0, 1).conj()
                 run = lambda: spectral_fused_dx(g, w, trunc, t_x)
                 plain = lambda: spectral_apply_fused_ref(g, wt, trunc, t_x)
                 bound = _fused_bound_ms(b, co, ci, ext, kept, t_y, t_x, False)
             else:
-                xf, g = spectrum(ci, ext, t_x), spectrum(co, ext, t_y)
+                xf, g = spectrum(ci, ext, t_x, b), spectrum(co, ext, t_y, b)
                 run = lambda: spectral_fused_dw(xf, g, trunc, kept)
                 plain = lambda: spectral_fused_dw_ref(xf, g, trunc, kept)
                 bound = _dw_bound_ms(b, ci, co, kept)
@@ -1155,9 +1189,8 @@ def _dist_kernel_times(gpu: str) -> dict:
                              "bound_by": bound[1], "max_abs_err": err}
             print(f"[dist kernel] {name}: b={b} E={ext} K={kept} trunc {trunc}: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}); {gpu}")
-            xf = g = wt = run = plain = None
+            xf = g = wt = w = run = plain = None
             torch.cuda.empty_cache()
-        del w
     torch.cuda.empty_cache()
     return records
 
@@ -1197,12 +1230,54 @@ def _block_split(local, x_local, cfg, group) -> dict:
     return ms
 
 
-def _dist_setup(world_size: int, device) -> tuple:
-    """A rank's start: the parent's float32 settings, the kernel library the
-    parent built (found up to date, never compiled here) and the (data,
-    model) groups of one model group over every rank."""
+def _block_split_2d(local, x_local, cfg, pair) -> dict:
+    """CUDA-event times of one 2-D paper block's parts on this rank, the
+    other ranks running the same at once: the forward transform (FFTs and
+    the two all-to-alls), each all-to-all alone on a tensor of the shape it
+    moves, the fused kernel and the inverse transform."""
     import torch
 
+    from repro_torch.core import dfft
+    from repro_torch.core.repartition import repartition
+    from repro_torch.kernels.spectral_conv import spectral_apply_fused
+
+    g_x, g_y = pair
+    nx, mz, mt = cfg.grid[0], cfg.modes[2], cfg.modes[3]
+    w = local["blocks"]["w_spec"][0]
+    ms = {}
+    with torch.inference_mode():
+        h = torch.randn((x_local.shape[0], cfg.width) + tuple(x_local.shape[2:]),
+                        device=x_local.device)
+        ms["forward transform"] = cuda_ms(
+            lambda: dfft.dist_forward_2d(h, cfg.modes, pair, trunc_x=False), iters=3, warmup=1)
+        # what R^{my}_{y->z} and R^{mx}_{x->y} take: the local z/t-truncated
+        # pencil, and the y-truncated one after the first move
+        zt = torch.zeros(tuple(h.shape[:4]) + (2 * mz, mt), dtype=torch.complex64, device=h.device)
+        ms["all_to_all y->z (my)"] = cuda_ms(
+            lambda: repartition(zt, dfft.YDIM, dfft.ZDIM, g_y), iters=3, warmup=1)
+        yz = dfft.truncate_full(repartition(zt, dfft.YDIM, dfft.ZDIM, g_y), dfft.YDIM, cfg.modes[1])
+        ms["all_to_all x->y (mx)"] = cuda_ms(
+            lambda: repartition(yz, dfft.XDIM, dfft.YDIM, g_x), iters=3, warmup=1)
+        xf = dfft.dist_forward_2d(h, cfg.modes, pair, trunc_x=False)
+        ms["fused kernel"] = cuda_ms(lambda: spectral_apply_fused(xf, w, (nx, None, None)),
+                                     iters=3, warmup=1)
+        yf = spectral_apply_fused(xf, w, (nx, None, None))
+        ms["inverse transform"] = cuda_ms(
+            lambda: dfft.dist_adjoint_2d(yf, cfg.grid, pair, pad_x=False), iters=3, warmup=1)
+    ms["FFTs, truncation and padding"] = (ms["forward transform"] + ms["inverse transform"]
+                                         - 2 * ms["all_to_all y->z (my)"]
+                                         - 2 * ms["all_to_all x->y (mx)"])
+    return ms
+
+
+def _dist_setup(world_size: int, device) -> tuple:
+    """A rank's start: the parent's float32 settings, the kernel library the
+    parent built (found up to date, never compiled here) and the groups of
+    the two layouts, by the names their partitions use: "1d" (one model
+    group of every rank) and "2d" (the 2 x 2 pencils)."""
+    import torch
+
+    from repro_torch.core.fno import group_names
     from repro_torch.kernels.spectral_conv import build
     from repro_torch.launch.mesh import build_fno_groups
 
@@ -1211,29 +1286,31 @@ def _dist_setup(world_size: int, device) -> tuple:
     t0 = time.perf_counter()
     build.load_library()
     load_s = time.perf_counter() - t0
-    data_group, model_group, _ = build_fno_groups(world_size, [world_size])
-    return load_s, {"data": data_group, "model": model_group}
+    layouts = {}
+    for name, shards in (("1d", [world_size]), ("2d", list(DIST_PENCILS))):
+        data_group, model, _ = build_fno_groups(world_size, shards)
+        layouts[name] = (model, group_names(data_group, model))
+    return load_s, layouts
 
 
-def _dist_local(cfg, batch: int, seed: int, groups: dict, device) -> tuple:
-    """This rank's k_y slice of the seeded weights and x slice of the
-    seeded input. The ranks generate the full weights in turn, so that one
-    12.6 GB copy exists at a time."""
+def _dist_local(cfg, batch: int, seed: int, model, groups: dict, device) -> tuple:
+    """This rank's shard of the seeded weights and input under one layout.
+    The ranks generate the full weights in turn, so that one 12.6 GB copy
+    exists at a time."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.fno import input_spec, shard_params
+    from repro_torch.core.fno import input_spec, model_axes, shard_params
     from repro_torch.core.partition import shard
 
-    group = groups["model"]
     local = None
-    for turn in range(dist.get_world_size(group)):
-        if turn == dist.get_rank(group):
-            local = shard_params(_dist_params(cfg, seed, device), group)
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            local = shard_params(_dist_params(cfg, seed, device), model)
             torch.cuda.empty_cache()
-        dist.barrier(group=group)
-    x_local = shard(_dist_input(cfg, batch, seed, device), input_spec("data", "model"), groups)
-    return local, x_local
+        dist.barrier()
+    x = _dist_input(cfg, batch, seed, device)
+    return local, shard(x, input_spec("data", model_axes(model)), groups)
 
 
 def _counted(fn) -> tuple:
@@ -1251,106 +1328,204 @@ def _counted(fn) -> tuple:
                "dw": spectral_fused_dw_cuda.launches}
 
 
-def _dist_rank_serve(rank, world_size, device, job):
-    """A rank of the served-grid run: the paper forward at full width, its
-    peak memory and one block's split."""
+def _dist_serve_part(layouts: dict, job: dict, device) -> dict:
+    """The served grid on this rank: the 1-D and the 2-D paper forward at
+    full width, each one's peak memory and one block's split."""
     import torch
 
     from repro_torch.core.fno import make_dist_forward
 
-    load_s, groups = _dist_setup(world_size, device)
     cfg = _serving_cfg()
-    local, x_local = _dist_local(cfg, DIST_SERVE_BATCH, job["seed"], groups, device)
-    fwd = make_dist_forward(cfg, groups["model"], variant="paper")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        y, run = _counted(lambda: fwd(local, x_local))
-    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    run["y"] = y.cpu()
-    del y
-    return {"load_s": load_s, "dist_paper": run,
-            "split": _block_split(local, x_local, cfg, groups["model"])}
+    out = {"split": {}}
+    for name, tag in (("1d", "dist_paper"), ("2d", "dist2d_paper")):
+        model, groups = layouts[name]
+        local, x_local = _dist_local(cfg, DIST_SERVE_BATCH, job["seed"], model, groups, device)
+        fwd = make_dist_forward(cfg, model, variant="paper")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            y, out[tag] = _counted(lambda: fwd(local, x_local))
+        out[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[tag]["y"] = y.cpu()
+        del y
+        torch.cuda.empty_cache()
+        split = _block_split if name == "1d" else _block_split_2d
+        out["split"][name] = split(local, x_local, cfg, model)
+        del local, x_local
+        torch.cuda.empty_cache()
+    return out
 
 
-def _dist_rank_train(rank, world_size, device, job):
-    """A rank of the training-grid run: the eager, Grady-31 and chunked
-    forwards, and one paper forward + backward whose gradient this rank
-    holds against the serial one (``job["grad_ref"]``, shared from the
-    parent's card)."""
-    import dataclasses
+def _model_names(groups: dict) -> list:
+    return [n for n in groups if n != "data"]
 
+
+def _narrowed(ref, part, groups: dict, shape, shift_dim=None):
+    """``ref``, a global tensor, cut along every dim ``part`` shards to
+    this rank's run of length ``shape[dim]`` (along ``shift_dim``, to the
+    run of the next rank of that dim's group)."""
+    import torch.distributed as dist
+
+    for dim, name in enumerate(part.dims):
+        if name is not None:
+            me, n, k = dist.get_rank(groups[name]), dist.get_world_size(groups[name]), shape[dim]
+            ref = ref.narrow(dim, ((me + 1) % n if dim == shift_dim else me) * k, k)
+    return ref
+
+
+def _gate_leaf(g, ref, part, groups, tol, scale) -> dict:
+    """One leaf of this rank against the matching slice of the global
+    reference. A replicated leaf (``ref`` a tensor on the card) whole, at
+    atol min(tol's, LEAF_ATOL * scale); a sharded, stacked ``w_spec``
+    block by block (``ref(i)``: the global block i on the card), each kept
+    mode at atol min(tol's, LEAF_ATOL * its max|ref| over (ci, co)). The
+    same gate must refuse zeros and, for ``w_spec``, ci/co swapped and the
+    neighbouring shard along every sharded dim (the next rank of that
+    dim's group)."""
+    import torch
+
+    from repro_torch.core.partition import CartPartition
+
+    rtol, atol = tol
+    results = {}  # what -> [(passed, max|d|, max|ref|)], one per block
+
+    def gate(what, got, want, t):
+        results.setdefault(what, []).append(_close(got, want, (rtol, t)))
+
+    if part is None:
+        t = min(atol, DIST_GRAD_LEAF_ATOL * scale)
+        gate("value", g, ref, t)
+        gate("zeros", torch.zeros_like(g), ref, t)
+        atols = (t, t)
+    else:
+        block_part, lo, hi = CartPartition(part.dims[1:]), [], []
+        for i in range(g.shape[0]):
+            full = ref(i)
+            want = _narrowed(full, block_part, groups, g.shape[1:])
+            t = (DIST_GRAD_LEAF_ATOL * want.abs().amax(dim=(0, 1), keepdim=True)).clamp(max=atol)
+            lo.append(float(t.min()))
+            hi.append(float(t.max()))
+            gate("value", g[i], want, t)
+            gate("ci/co swapped", g[i].transpose(0, 1), want, t)
+            gate("zeros", torch.zeros((), dtype=g.dtype, device=g.device).expand_as(g[i]), want, t)
+            for dim, name in enumerate(block_part.dims):
+                if name is not None:
+                    gate(f"neighbouring shard along dim {dim + 1}",
+                         _narrowed(full, block_part, groups, g.shape[1:], dim), want, t)
+            del full, want, t
+        atols = (min(lo), max(hi))
+    value = results.pop("value")
+    return {"ok": all(c[0] for c in value), "max_d": max(c[1] for c in value), "max_ref": scale,
+            "atol": atols,
+            "passed_wrong": [what for what, cs in results.items() if all(c[0] for c in cs)]}
+
+
+def _dist_grad_check(fwd, local, x_local, groups, part_w, job, cfg) -> tuple:
+    """One forward + backward of the mean squared output on this rank's
+    shards; every leaf's global gradient held against the serial one
+    (``job["grad_ref"]``: the replicated leaves on the host, ``w_spec`` in
+    the file ``job["grad_w_spec_path"]``, read a block at a time) by
+    ``_gate_leaf``. Returns (launch record, gate results)."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.fno import make_dist_forward
     from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
 
-    load_s, groups = _dist_setup(world_size, device)
-    model_group = groups["model"]
-    cfg = _train_cfg()
-    local, x_local = _dist_local(cfg, DIST_TRAIN_BATCH, job["seed"], groups, device)
-    out = {"load_s": load_s}
-    for tag, variant, chunks in DIST_TRAIN_FORWARDS:
-        fwd = make_dist_forward(dataclasses.replace(cfg, comm_chunks=chunks), model_group,
-                                variant=variant)
-        with torch.inference_mode():
-            y, out[tag] = _counted(lambda: fwd(local, x_local))
-        out[tag]["y"] = y.cpu()
-    fwd = make_dist_forward(cfg, model_group, variant="paper")
     n_out = DIST_TRAIN_BATCH * cfg.out_channels * int(np.prod(cfg.grid))
     grads = zeros_like_tree(local)
-    _, out["dist_backward"] = _counted(lambda: accumulate_grads(
+    _, run = _counted(lambda: accumulate_grads(
         lambda prm, b: (fwd(prm, b["x"]).square().sum() / n_out, {}), local, {"x": x_local}, grads))
-    # the global gradient: replicated leaves summed over the model group;
-    # w_spec's k_y shards held against the matching slices of the serial
-    # one. Popped from the job so the shared tensors are released when done
-    ref, checked = job.pop("grad_ref"), {}
-    p, me = dist.get_world_size(model_group), dist.get_rank(model_group)
+    checked, w_ref = {}, np.load(job["grad_w_spec_path"], mmap_mode="r")
     for group_name, leaves in grads.items():
         for name, g in leaves.items():
-            r, scale = ref[group_name][name], job["grad_max"][f"{group_name}.{name}"]
-            rtol, atol = DIST_GRAD_TOL
             if name == "w_spec":
-                k = g.shape[4]
-                mine, other = r.narrow(4, me * k, k), r.narrow(4, (me + 1) % p * k, k)
-                # (ref, atol) of each block: each kept mode's own atol
-                refs = [(m, (DIST_GRAD_LEAF_ATOL * m.abs().amax(dim=(0, 1), keepdim=True))
-                         .clamp(max=atol)) for m in mine]
-                # what the gate must refuse: the neighbouring rank's k_y
-                # shard, ci and co swapped (a mis-strided dW), and zeros
-                got = {"gradient": [g[i] for i in range(g.shape[0])],
-                       "neighbouring k_y shard": [other[i] for i in range(g.shape[0])],
-                       "ci/co swapped": [g[i].transpose(0, 1) for i in range(g.shape[0])],
-                       "zeros": [torch.zeros((), dtype=g.dtype, device=g.device).expand_as(g[i])
-                                 for i in range(g.shape[0])]}
-                atols = (min(float(a.min()) for _, a in refs), max(float(a.max()) for _, a in refs))
-            else:
-                dist.all_reduce(g, group=model_group)
-                refs = [(r, min(atol, DIST_GRAD_LEAF_ATOL * scale))]
-                got = {"gradient": [g], "zeros": [torch.zeros_like(g)]}
-                atols = (refs[0][1], refs[0][1])
-            gated = {what: [_close(a, b, (rtol, t)) for a, (b, t) in zip(tensors, refs)]
-                     for what, tensors in got.items()}
-            checked[f"{group_name}.{name}"] = {
-                "ok": all(c[0] for c in gated["gradient"]),
-                "max_d": max(c[1] for c in gated["gradient"]), "max_ref": scale, "atol": atols,
-                "passed_wrong": [what for what, cs in gated.items()
-                                 if what != "gradient" and all(c[0] for c in cs)]}
-    out["grads"] = checked
-    del ref, r, mine, other, refs, got
+                part = part_w
+                ref = lambda i: torch.from_numpy(np.array(w_ref[i])).to(g.device)
+            else:  # replicated: the model groups' shares summed
+                part, ref = None, job["grad_ref"][group_name][name].to(g.device)
+                for n in _model_names(groups):
+                    dist.all_reduce(g, group=groups[n])
+            checked[f"{group_name}.{name}"] = _gate_leaf(
+                g, ref, part, groups, DIST_GRAD_TOL, job["grad_max"][f"{group_name}.{name}"])
+    return run, checked
+
+
+def _first_blocks(params: dict, n: int) -> dict:
+    """``params`` cut to its first ``n`` FNO blocks (views)."""
+    return {**params, "blocks": {k: v[:n] for k, v in params["blocks"].items()}}
+
+
+def _dist_train_grid_part(layouts: dict, job: dict, device) -> dict:
+    """The training grid on this rank: the 1-D eager, Grady-31 (at
+    ``DIST_GRADY31_BLOCKS`` blocks) and chunked forwards and the 2-D
+    paper, eager and chunked ones, and one paper forward + backward of
+    each layout whose gradient this rank holds against the serial one
+    (``job["grad_ref"]``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.fno import make_dist_forward, param_partitions
+
+    cfg = _train_cfg()
+    out = {"grads": {}}
+    for name, forwards, back in (("1d", DIST_TRAIN_FORWARDS, "dist_backward"),
+                                 ("2d", DIST2D_TRAIN_FORWARDS, "dist2d_backward")):
+        model, groups = layouts[name]
+        local, x_local = _dist_local(cfg, DIST_TRAIN_BATCH, job["seed"] + 1, model, groups, device)
+        for tag, variant, chunks in forwards:
+            blocks = DIST_GRADY31_BLOCKS if variant == "grady31" else cfg.n_blocks
+            fwd = make_dist_forward(dataclasses.replace(cfg, comm_chunks=chunks, n_blocks=blocks),
+                                    model, variant=variant)
+            with torch.inference_mode():
+                y, out[tag] = _counted(lambda: fwd(_first_blocks(local, blocks), x_local))
+            out[tag]["y"] = y.cpu()
+        fwd = make_dist_forward(cfg, model, variant="paper")
+        part_w = param_partitions(model)["blocks"]["w_spec"]
+        out[back], out["grads"][name] = _dist_grad_check(fwd, local, x_local, groups, part_w,
+                                                         job, cfg)
+        del local, x_local
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_rank(rank, world_size, device, job):
+    """One rank of the dist phases' single launch (one start-up of the
+    ranks' processes and their CUDA libraries for all of them): the served
+    grid's forwards, the training grid's forwards and backwards, then the
+    distributed train step of each of ``DIST_TRAIN_RUNS``."""
+    import torch
+
+    load_s, layouts = _dist_setup(world_size, device)
+    out = {"load_s": load_s}
+    for part, run in (("serve", lambda: _dist_serve_part(layouts, job, device)),
+                      ("train_grid", lambda: _dist_train_grid_part(layouts, job, device))):
+        t = time.perf_counter()
+        out[part] = run()
+        out[part]["wall_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    out["dist_train"] = {}
+    for run in job["train_runs"]:
+        t = time.perf_counter()
+        out["dist_train"][run["tag"]] = _dist_train_run(rank, world_size, device, run)
+        out["dist_train"][run["tag"]]["wall_s"] = time.perf_counter() - t
     return out
 
 
 def phase_dist(gpu: str) -> dict:
-    """The 1-D domain-decomposed FNO (paper Alg. 2) on P = 4 gloo ranks
-    sharing this card, in two launches of the ranks: the served grid's
-    paper forward, then the training grid's other schedules and paper
-    backward. Before each, this process computes the serial reference and
-    frees the card of all but what the ranks read (the served forward's
-    output goes to the host; the training gradient stays on the card and
-    is shared with the ranks). Returns the kernel timings at the shard
-    shapes and each path's launches per rank."""
+    """The domain-decomposed FNO on 4 gloo ranks sharing this card, 1-D
+    (paper Alg. 2, P = 4) and 2-D pencils (2 x 2), and its distributed
+    training, in one launch of the ranks (``_dist_rank``): the served
+    grid's paper forwards, the training grid's other schedules and a paper
+    backward of each layout, then ``DIST_TRAIN_RUNS``. Before it, this
+    process computes every serial reference and frees the card: the
+    forwards' outputs, the training gradient and the train runs' params go
+    to the host (``w_spec`` to files the ranks read a block at a time).
+    Gates the
+    forwards and backwards here (``phase_dist_train`` gates the train
+    runs); returns the kernel timings at the shard shapes, each path's
+    launches per rank, and the train runs' results and references."""
+    import dataclasses
     import tempfile
 
     import torch
@@ -1366,17 +1541,12 @@ def phase_dist(gpu: str) -> dict:
     serve_cfg, train_cfg = _serving_cfg(), _train_cfg()
     total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
     print(f"[dist] {DIST_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} (NCCL refuses "
-          f"two ranks on one device); served grid {serve_cfg.grid} batch {DIST_SERVE_BATCH}, "
-          f"training grid {train_cfg.grid} batch {DIST_TRAIN_BATCH}, width {serve_cfg.width}, "
-          f"modes {serve_cfg.modes}, {serve_cfg.n_blocks} blocks")
-
-    def launch(fn, job, what):
-        t = time.perf_counter()
-        with tempfile.TemporaryDirectory() as d:
-            ranks = launch_ranks(fn, DIST_RANKS, d, args=(job,), timeout_s=DIST_TIMEOUT_S)
-        print(f"[dist] {what}: {DIST_RANKS} ranks spawned, ran and joined in "
-              f"{time.perf_counter() - t:.1f}s")
-        return ranks
+          f"two ranks on one device), as 1 x {DIST_RANKS} (x sharded) and 1 x "
+          f"{DIST_PENCILS[0]}x{DIST_PENCILS[1]} (x and y pencils); served grid {serve_cfg.grid} "
+          f"batch {DIST_SERVE_BATCH}, training grid {train_cfg.grid} batch {DIST_TRAIN_BATCH}, "
+          f"width {serve_cfg.width}, modes {serve_cfg.modes}, {serve_cfg.n_blocks} blocks")
+    print(f"reduced: dist_grady31 n_blocks {train_cfg.n_blocks} -> {DIST_GRADY31_BLOCKS} "
+          f"(the script's time; full width)")
 
     def gate(tag, got, ref, tol):
         ok, err, scale = _close(got, ref, tol)
@@ -1385,32 +1555,23 @@ def phase_dist(gpu: str) -> dict:
         if not ok:
             raise SystemExit(f"[dist] {tag}: outside the gate")
 
-    def gathered(ranks, tag):
-        return torch.cat([r[tag]["y"] for r in ranks], dim=2)  # x is dim 2
+    def gathered(ranks, part, tag):
+        if not tag.startswith("dist2d"):
+            return torch.cat([r[part][tag]["y"] for r in ranks], dim=2)  # x is dim 2
+        px, py = DIST_PENCILS  # rank i * py + j holds x shard i, y shard j
+        rows = [torch.cat([ranks[i * py + j][part][tag]["y"] for j in range(py)], dim=3)
+                for i in range(px)]
+        return torch.cat(rows, dim=2)
 
-    # the served grid: the paper schedule at full width
+    # the served grid's reference
     params = _dist_params(serve_cfg, DIST_SEED, dev)
     with torch.inference_mode():
         y_serve = fno_forward(params, _dist_input(serve_cfg, DIST_SERVE_BATCH, DIST_SEED, dev),
                               serve_cfg).cpu()
     del params
     _free_cuda()
-    served = launch(_dist_rank_serve, {"seed": DIST_SEED}, "served grid")
-    gate(f"paper forward, grid {serve_cfg.grid}, vs the serial fused forward",
-         gathered(served, "dist_paper"), y_serve, DIST_FWD_TOL)
-    del y_serve
-    peaks = [res["dist_paper"]["peak_gib"] for res in served]
-    for r, res in enumerate(served):
-        split = ", ".join(f"{k} {v:.3f} ms" for k, v in res["split"].items())
-        print(f"[dist] rank {r}: kernels loaded in {res['load_s']:.2f}s; paper forward "
-              f"{res['dist_paper']['s']:.3f}s, max_memory_allocated {peaks[r]:.2f} GiB; {gpu}")
-        print(f"[dist] rank {r}: one paper block at the served grid: {split}; {gpu}")
-    print(f"[dist] the ranks' max_memory_allocated at the served grid sum to {sum(peaks):.2f} "
-          f"of {total_gib:.2f} GiB ({total_gib - sum(peaks):.2f} GiB left); per-shard times on "
-          f"one card, not a scaling result; {gpu}")
-
-    # the training grid: the serial gradient, then the other schedules and
-    # the paper backward
+    # the training grid's (seeded one further): the serial gradient, the
+    # forward, and Grady-31's forward at its depth
     params = _dist_params(train_cfg, DIST_SEED + 1, dev)
     x = _dist_input(train_cfg, DIST_TRAIN_BATCH, DIST_SEED + 1, dev)
     grad_ref, y_train = zeros_like_tree(params), {}
@@ -1421,50 +1582,98 @@ def phase_dist(gpu: str) -> dict:
 
     accumulate_grads(loss, params, {"x": x}, grad_ref)
     y_train = y_train["y"].detach().cpu()
+    with torch.inference_mode():
+        y_grady31 = fno_forward(_first_blocks(params, DIST_GRADY31_BLOCKS), x, dataclasses.replace(
+            train_cfg, n_blocks=DIST_GRADY31_BLOCKS)).cpu()
     # each leaf's max|ref|, which scales its gate (block by block: w_spec's
     # gradient is 12.6 GB)
     grad_max = {f"{group_name}.{name}": max(float(t.abs().max()) for t in g)
                 for group_name, leaves in grad_ref.items() for name, g in leaves.items()}
     del params, x
-    _free_cuda()
-    trained = launch(_dist_rank_train, {"seed": DIST_SEED + 1, "grad_ref": grad_ref,
-                                        "grad_max": grad_max}, "training grid")
-    del grad_ref
-    torch.cuda.ipc_collect()
-    _free_cuda()
-    for tag, variant, chunks in DIST_TRAIN_FORWARDS:
-        gate(f"{variant} forward (comm_chunks={chunks}), grid {train_cfg.grid}, vs the serial "
-             f"fused forward", gathered(trained, tag), y_train, DIST_FWD_TOL)
-    gate("paper comm_chunks=2 vs comm_chunks=1", gathered(trained, "dist_paper_chunks2"),
-         gathered(trained, "dist_paper_train"), DIST_CHUNK_TOL)
-    for r, res in enumerate(trained):
-        for leaf, c in res["grads"].items():
-            if not c["ok"]:
-                raise SystemExit(f"[dist] rank {r}: gradient of {leaf} outside the gate "
-                                 f"(max|d|={c['max_d']:.3e}, max|ref|={c['max_ref']:.3e}, "
-                                 f"atol {c['atol'][0]:.3e} to {c['atol'][1]:.3e})")
-            if c["passed_wrong"]:
-                raise SystemExit(f"[dist] rank {r}: the gate of {leaf} also passes a wrong "
-                                 f"gradient: {', '.join(c['passed_wrong'])}")
-    for leaf, c in trained[0]["grads"].items():
-        worst = max(res["grads"][leaf]["max_d"] for res in trained)
-        lo = min(res["grads"][leaf]["atol"][0] for res in trained)
-        hi = max(res["grads"][leaf]["atol"][1] for res in trained)
-        print(f"[dist] paper backward, gradient of {leaf}: max|ref|={c['max_ref']:.3e}, worst "
-              f"max|d| over the ranks {worst:.3e}, gate rtol {DIST_GRAD_TOL[0]:g} atol "
-              f"{lo:.3e} to {hi:.3e}; {gpu}")
-    print(f"[dist] paper backward: every leaf's gradient on every rank within its gate, and "
-          f"every gate refuses zeros (w_spec also the neighbouring k_y shard and ci/co "
-          f"swapped); {gpu}")
+    with tempfile.TemporaryDirectory() as d:
+        # the references leave the card: w_spec's to a file, the rest to the host
+        grad_w_spec_path = os.path.join(d, "grad_w_spec.npy")
+        _to_file(grad_ref["blocks"].pop("w_spec"), grad_w_spec_path)
+        grad_ref = {g: {n: v.cpu() for n, v in leaves.items()} for g, leaves in grad_ref.items()}
+        _free_cuda()
+        train_refs, train_runs = {}, []
+        for tag, shards, n_blocks, batch, accum, steps in DIST_TRAIN_RUNS:
+            path = os.path.join(d, f"{tag}_w_spec.npy")
+            ref = _serial_train_reference(tag, _dist_train_cfg(n_blocks), batch, accum, steps,
+                                          gpu, path)
+            train_refs[tag] = ref
+            train_runs.append({"tag": tag, "shards": shards, "n_blocks": n_blocks,
+                               "batch": batch, "accum": accum, "steps": steps,
+                               "ref": ref["ref"], "param_max": ref["param_max"],
+                               "w_spec_path": path})
+        t = time.perf_counter()
+        ranks = launch_ranks(_dist_rank, DIST_RANKS, d,
+                             args=({"seed": DIST_SEED, "grad_ref": grad_ref, "grad_max": grad_max,
+                                    "grad_w_spec_path": grad_w_spec_path,
+                                    "train_runs": train_runs},),
+                             timeout_s=DIST_TIMEOUT_S)
+        print(f"[dist] {DIST_RANKS} ranks spawned, ran and joined in "
+              f"{time.perf_counter() - t:.1f}s: served grid "
+              + ", ".join(f"{r['serve']['wall_s']:.1f}" for r in ranks) + "s, training grid "
+              + ", ".join(f"{r['train_grid']['wall_s']:.1f}" for r in ranks) + "s a rank")
+    for tag, what in (("dist_paper", "paper forward"), ("dist2d_paper", "2-D paper forward")):
+        gate(f"{what}, grid {serve_cfg.grid}, vs the serial fused forward",
+             gathered(ranks, "serve", tag), y_serve, DIST_FWD_TOL)
+    del y_serve
+    for tag, what in (("dist_paper", "1-D"), ("dist2d_paper", "2-D")):
+        peaks = [res["serve"][tag]["peak_gib"] for res in ranks]
+        for r, res in enumerate(ranks):
+            print(f"[dist] rank {r}: kernels loaded in {res['load_s']:.2f}s; {what} paper forward "
+                  f"{res['serve'][tag]['s']:.3f}s, max_memory_allocated {peaks[r]:.2f} GiB; {gpu}")
+        print(f"[dist] the ranks' max_memory_allocated at the served grid, {what}, sum to "
+              f"{sum(peaks):.2f} of {total_gib:.2f} GiB ({total_gib - sum(peaks):.2f} GiB left); "
+              f"per-shard times on one card, not a scaling result; {gpu}")
+    for r, res in enumerate(ranks):
+        for name, split in res["serve"]["split"].items():
+            parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            print(f"[dist] rank {r}: one {name} paper block at the served grid: {parts}; {gpu}")
+
+    for tag, variant, chunks in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS:
+        what = "2-D " if tag.startswith("dist2d") else ""
+        ref = y_grady31 if variant == "grady31" else y_train
+        depth = f", {DIST_GRADY31_BLOCKS} block(s)" if variant == "grady31" else ""
+        gate(f"{what}{variant} forward (comm_chunks={chunks}{depth}), grid {train_cfg.grid}, vs "
+             f"the serial fused forward", gathered(ranks, "train_grid", tag), ref, DIST_FWD_TOL)
+    for tag, ref, what in (("dist_paper_chunks2", "dist_paper_train", ""),
+                           ("dist2d_paper_chunks2", "dist2d_paper_train", "2-D ")):
+        gate(f"{what}paper comm_chunks=2 vs comm_chunks=1", gathered(ranks, "train_grid", tag),
+             gathered(ranks, "train_grid", ref), DIST_CHUNK_TOL)
+    for name in ("1d", "2d"):
+        for r, res in enumerate(ranks):
+            for leaf, c in res["train_grid"]["grads"][name].items():
+                if not c["ok"]:
+                    raise SystemExit(f"[dist] rank {r}: {name} gradient of {leaf} outside the "
+                                     f"gate (max|d|={c['max_d']:.3e}, max|ref|={c['max_ref']:.3e}, "
+                                     f"atol {c['atol'][0]:.3e} to {c['atol'][1]:.3e})")
+                if c["passed_wrong"]:
+                    raise SystemExit(f"[dist] rank {r}: the gate of the {name} gradient of {leaf} "
+                                     f"also passes: {', '.join(c['passed_wrong'])}")
+        for leaf, c in ranks[0]["train_grid"]["grads"][name].items():
+            worst = max(res["train_grid"]["grads"][name][leaf]["max_d"] for res in ranks)
+            lo = min(res["train_grid"]["grads"][name][leaf]["atol"][0] for res in ranks)
+            hi = max(res["train_grid"]["grads"][name][leaf]["atol"][1] for res in ranks)
+            print(f"[dist] {name} paper backward, gradient of {leaf}: max|ref|={c['max_ref']:.3e}, "
+                  f"worst max|d| over the ranks {worst:.3e}, gate rtol {DIST_GRAD_TOL[0]:g} atol "
+                  f"{lo:.3e} to {hi:.3e}; {gpu}")
+        print(f"[dist] {name} paper backward: every leaf's gradient on every rank within its "
+              f"gate, and every gate refuses zeros (w_spec also ci/co swapped and the "
+              f"neighbouring shard along each sharded dim); {gpu}")
 
     # exact launches per rank on every path
     n_blocks = serve_cfg.n_blocks
-    want = {"dist_paper": {"fused": n_blocks, "dw": 0}}
-    want.update({tag: {"fused": n_blocks, "dw": 0} for tag, _, _ in DIST_TRAIN_FORWARDS})
-    want["dist_backward"] = {"fused": 3 * n_blocks, "dw": n_blocks}
+    want = {tag: {"fused": n_blocks, "dw": 0}
+            for tag in ("dist_paper", "dist2d_paper")
+            + tuple(t for t, _, _ in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS)}
+    want["dist_grady31"] = {"fused": DIST_GRADY31_BLOCKS, "dw": 0}
+    want["dist_backward"] = want["dist2d_backward"] = {"fused": 3 * n_blocks, "dw": n_blocks}
     counted = []
-    for r, (res_s, res_t) in enumerate(zip(served, trained)):
-        res = {**res_s, **res_t}
+    for r, res in enumerate(ranks):
+        res = {**res["serve"], **res["train_grid"]}
         got = {tag: {"fused": res[tag]["fused"], "dw": res[tag]["dw"]} for tag in want}
         counts = ", ".join(f"{tag} {n['fused']}/{n['dw']}" for tag, n in got.items())
         times = ", ".join(f"{tag} {res[tag]['s']:.3f}s" for tag in want)
@@ -1472,8 +1681,269 @@ def phase_dist(gpu: str) -> dict:
         if got != want:
             raise SystemExit(f"[dist] rank {r}: launches {got}, want {want}")
         counted.append(got)
-    print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s")
-    return {"timed": timed, "launches": counted[0]}
+    print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s (the train runs' share of the "
+          f"launch is printed by dist_train)")
+    return {"timed": timed, "launches": counted[0],
+            "train_runs": [r["dist_train"] for r in ranks], "train_refs": train_refs}
+
+
+# ---------------------------------------------------------------------------
+# Phase dist_train: the distributed train step on 4 gloo ranks sharing the
+# card (run in phase dist's launch of the ranks), against the serial train
+# step on it.
+# ---------------------------------------------------------------------------
+
+DIST_TRAIN_SEED = 13
+DIST_TRAIN_TOL = (1e-4, 1e-5)  # rtol, atol of losses, grad norms and params
+# (tag, --model-shards, n_blocks, global batch, micro-batches, steps)
+DIST_TRAIN_RUNS = (
+    ("dist_train_pencils", [2, 2], 4, 2, 2, 3),  # 1 data x 2x2 pencils
+    # 2 data x 2 model (1-D), ZeRO-1, n_blocks 4 -> 2: at 4 blocks a rank's
+    # state (w_spec shard 6.3 GB, its gradient 6.3, half of mu 3.15 and of
+    # nu 1.6) is 17.3 GB, 69 GB for four ranks before any activation
+    ("dist_train_dp2", [2], 2, 2, 1, 2),
+)
+
+
+def _dist_train_cfg(n_blocks: int):
+    import dataclasses
+
+    return dataclasses.replace(_train_cfg(), n_blocks=n_blocks)
+
+
+def _dist_train_run(rank, world_size, device, job) -> dict:
+    """One distributed training run on this rank: the trainer's pieces
+    (``forward_and_specs``, ``state_layout`` with ZeRO-1, the per-rank
+    loader, ``make_train_step`` with the layout) for ``job["steps"]``
+    steps from the seeded params, each step split into its gradient
+    reduction, its AdamW update and the rest; then every param leaf held
+    against the matching slice of the serial run's by ``_gate_leaf``
+    (``w_spec`` read block by block from the serial run's file)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fno import (
+        forward_and_specs, group_names, init_params, mse_loss, param_shapes,
+    )
+    from repro_torch.core.partition import shard_tree
+    from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader
+    from repro_torch.launch.mesh import build_fno_groups
+    from repro_torch.launch.train import synthetic_fno_data
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, state_layout, warmup_cosine
+
+    events = {}
+
+    def mark(name):  # the step's hook: a CUDA event where its parts meet
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    cfg = _dist_train_cfg(job["n_blocks"])
+    data_group, model, _ = build_fno_groups(world_size, job["shards"])
+    groups = group_names(data_group, model)
+    forward, x_part, p_parts = forward_and_specs(cfg, model)
+    layout = state_layout(groups, p_parts, param_shapes(cfg), zero1=True)
+    for turn in range(world_size):  # one full copy of the weights at a time
+        if turn == rank:
+            gen = torch.Generator(device=device).manual_seed(DIST_TRAIN_SEED)
+            params = shard_tree(init_params(cfg, generator=gen, device=device), p_parts, groups)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    opt = init_opt_state(params, layout)
+    x_all, y_all = synthetic_fno_data(cfg, 4, seed=0)
+    step = train_loop.make_train_step(lambda p, b: (mse_loss(forward(p, b["x"]), b["y"]), {}),
+                                      AdamWConfig(lr=warmup_cosine(1e-3, 10, job["steps"])),
+                                      grad_accum=job["accum"], layout=layout, mark=mark)
+    loader = ShardedDatasetLoader({"x": NdArraySource(x_all), "y": NdArraySource(y_all)},
+                                  job["batch"], device=device, seed=0, part=x_part, groups=groups)
+    out = {"steps": []}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(job["steps"]):
+            batch = loader.batch(i)
+            (params, opt, m), run = _counted(lambda: step(params, opt, batch))
+            # the step's split from its CUDA events (``_counted`` synchronised):
+            # the gradient reduction and the sharded AdamW update, in seconds
+            split = {"reduce_grads": events["backward"].elapsed_time(events["reduced"]) / 1e3,
+                     "adamw_update": events["reduced"].elapsed_time(events["updated"]) / 1e3}
+            out["steps"].append({**{k: float(v) for k, v in m.items()}, **run, **split})
+    finally:
+        loader.close()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["mu_gb"] = sum(t.numel() * t.element_size() for t in _leaves(opt["mu"])) / 1e9
+    del opt, step
+    torch.cuda.empty_cache()
+    w_ref = np.load(job["w_spec_path"], mmap_mode="r")
+    checked = {}
+    for group_name, leaves in params.items():
+        for name, p in leaves.items():
+            part = p_parts[group_name][name]
+            ref = (job["ref"][group_name][name].to(device) if part is None else
+                   lambda i: torch.from_numpy(np.array(w_ref[i])).to(device))
+            checked[f"{group_name}.{name}"] = _gate_leaf(
+                p, ref, part, groups, DIST_TRAIN_TOL, job["param_max"][f"{group_name}.{name}"])
+    out["params"] = checked
+    return out
+
+
+def _to_file(w, path: str) -> None:
+    """A stacked complex64 tensor on the card into a .npy file, block by
+    block through the host, for ranks to read a block at a time."""
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.complex64, shape=tuple(w.shape))
+    for i in range(w.shape[0]):
+        out[i] = w[i].cpu().numpy()
+    out.flush()
+
+
+def _serial_train_reference(tag, cfg, batch, accum, steps, gpu, w_spec_path) -> dict:
+    """The serial train step on the card from the same seeded params and
+    the same loader: each step's loss and grad norm, and the final params
+    (w_spec saved to ``w_spec_path``, the other leaves on the host)."""
+    import torch
+
+    from repro_torch.core.fno import fno_forward, init_params, mse_loss
+    from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader
+    from repro_torch.launch.train import synthetic_fno_data
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(DIST_TRAIN_SEED)
+    params = init_params(cfg, generator=gen, device=dev)
+    opt = init_opt_state(params)
+    x_all, y_all = synthetic_fno_data(cfg, 4, seed=0)
+    step = make_train_step(lambda p, b: (mse_loss(fno_forward(p, b["x"], cfg), b["y"]), {}),
+                           AdamWConfig(lr=warmup_cosine(1e-3, 10, steps)), grad_accum=accum)
+    metrics = []
+    with ShardedDatasetLoader({"x": NdArraySource(x_all), "y": NdArraySource(y_all)}, batch,
+                              device=dev, seed=0) as loader:
+        for i in range(steps):
+            b = loader.batch(i)
+            (params, opt, m), run = _counted(lambda: step(params, opt, b))
+            metrics.append({**{k: float(v) for k, v in m.items()}, **run})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] serial reference: {steps} steps, max_memory_allocated {peak:.2f} GiB; "
+          f"{gpu}")
+    del opt, step
+    param_max = {f"{g}.{n}": max(float(t.abs().max()) for t in v) if g == "blocks"
+                 else float(v.abs().max())
+                 for g, leaves in params.items() for n, v in leaves.items()}
+    _to_file(params["blocks"].pop("w_spec"), w_spec_path)
+    ref = {g: {n: v.cpu() for n, v in leaves.items()} for g, leaves in params.items()}
+    del params
+    _free_cuda()
+    return {"metrics": metrics, "ref": ref, "param_max": param_max, "peak_gib": peak}
+
+
+def phase_dist_train(gpu: str, dist_out: dict) -> dict:
+    """The distributed train runs of phase dist's launch (``DIST_TRAIN_RUNS``),
+    each gated on every step's loss and grad norm against the serial run's,
+    every param leaf after the last step against the matching slice of the
+    serial params (``_gate_leaf``, its wrong controls refused on every
+    rank), and exact launches a rank. Returns each run's launches per rank
+    (rank 0's, all checked equal)."""
+    launches = {}
+    rtol, atol = DIST_TRAIN_TOL
+    for tag, shards, n_blocks, batch, accum, steps in DIST_TRAIN_RUNS:
+        ranks = [r[tag] for r in dist_out["train_runs"]]
+        ref = dist_out["train_refs"][tag]
+        n_dp = DIST_RANKS // int(np.prod(shards))
+        print(f"[{tag}] {n_dp} data x {' x '.join(map(str, shards))} model on {DIST_RANKS} gloo "
+              f"ranks sharing the card; grid {_train_cfg().grid}, width {_train_cfg().width}, "
+              f"{n_blocks} blocks, batch {batch}, {accum} micro-batch(es) a data rank, {steps} "
+              f"steps, ZeRO-1 over the data group; the run took "
+              + ", ".join(f"{r['wall_s']:.1f}" for r in ranks) + "s a rank")
+        if n_blocks != _train_cfg().n_blocks:
+            print(f"reduced: n_blocks {_train_cfg().n_blocks} -> {n_blocks} ({tag})")
+        for i, want in enumerate(ref["metrics"]):
+            for key in ("loss", "grad_norm"):
+                for r, res in enumerate(ranks):
+                    got = res["steps"][i][key]
+                    if not abs(got - want[key]) <= atol + rtol * abs(want[key]):
+                        raise SystemExit(f"[{tag}] rank {r} step {i}: {key} {got:.9e} vs the "
+                                         f"serial {want[key]:.9e}, outside rtol {rtol:g}")
+            print(f"[{tag}] step {i}: loss {ranks[0]['steps'][i]['loss']:.6e} (serial "
+                  f"{want['loss']:.6e}), grad_norm {ranks[0]['steps'][i]['grad_norm']:.6e} "
+                  f"(serial {want['grad_norm']:.6e}); wall a rank "
+                  + ", ".join(f"{res['steps'][i]['s']:.3f}s (gradient reduction "
+                              f"{res['steps'][i]['reduce_grads']:.3f}s, AdamW "
+                              f"{res['steps'][i]['adamw_update']:.3f}s)" for res in ranks)
+                  + f"; serial {want['s']:.3f}s; {gpu}")
+        for r, res in enumerate(ranks):
+            for leaf, c in res["params"].items():
+                if not c["ok"]:
+                    raise SystemExit(f"[{tag}] rank {r}: param {leaf} outside the gate "
+                                     f"(max|d|={c['max_d']:.3e}, max|ref|={c['max_ref']:.3e}, "
+                                     f"atol {c['atol'][0]:.3e} to {c['atol'][1]:.3e})")
+                if c["passed_wrong"]:
+                    raise SystemExit(f"[{tag}] rank {r}: the gate of param {leaf} also passes: "
+                                     f"{', '.join(c['passed_wrong'])}")
+        for leaf, c in ranks[0]["params"].items():
+            worst = max(res["params"][leaf]["max_d"] for res in ranks)
+            print(f"[{tag}] param {leaf} after step {steps - 1}: max|ref|={c['max_ref']:.3e}, "
+                  f"worst max|d| over the ranks {worst:.3e}; {gpu}")
+        print(f"[{tag}] every param leaf on every rank within its gate (rtol {rtol:g}, atol at "
+              f"most {atol:g} and {DIST_GRAD_LEAF_ATOL:g} of its scale), and every gate refuses "
+              f"zeros (w_spec also ci/co swapped and the neighbouring shard along each sharded "
+              f"dim); {gpu}")
+        want = {"fused": steps * n_blocks * 3 * accum, "dw": steps * n_blocks * accum}
+        for r, res in enumerate(ranks):
+            got = {k: sum(s[k] for s in res["steps"]) for k in ("fused", "dw")}
+            print(f"[{tag}] rank {r}: launches fused {got['fused']}, dw {got['dw']} (want "
+                  f"{want['fused']}, {want['dw']}); max_memory_allocated {res['peak_gib']:.2f} "
+                  f"GiB; AdamW moments mu {res['mu_gb']:.2f} GB; {gpu}")
+            if got != want:
+                raise SystemExit(f"[{tag}] rank {r}: launches {got}, want {want}")
+        launches[tag] = {k: sum(s[k] for s in ranks[0]["steps"]) for k in ("fused", "dw")}
+    return launches
+
+
+def phase_dist_train_cli(gpu: str) -> dict:
+    """The training CLI on 4 ranks (1 data x 2x2 pencils) through an
+    injected fault, then the serving CLI with --verify on its checkpoint;
+    returns rank 0's launches and the served run's."""
+    import tempfile
+
+    _free_cuda()  # the subprocesses need the memory this process has cached
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    tag = "dist_train_cli"
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--devices", str(DIST_RANKS),
+               "--model-shards", *map(str, DIST_PENCILS), "--steps", "6", "--save-every", "2",
+               "--inject-fault", "3", "--width", "8", "--n-data", "8", "--use-pallas",
+               "--ckpt-dir", d]
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        print("\n".join(f"[{tag}] " + line for line in out.stdout.strip().splitlines()))
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"[{tag}] train exited {out.returncode}")
+        if "failures=1 restores=1" not in out.stdout:
+            raise SystemExit(f"[{tag}] the injected fault was not restored from a checkpoint")
+        m = re.search(r"spectral kernel launches: fused (\d+), dw (\d+) over (\d+) train steps "
+                      r"x (\d+) blocks x (\d+) micro-batches \(rank 0 of (\d+)\)", out.stdout)
+        if m is None:
+            raise SystemExit(f"[{tag}] train printed no kernel launch counts")
+        fused, dw, n_steps, n_blocks, accum, n_ranks = map(int, m.groups())
+        if n_steps == 0 or fused != n_steps * n_blocks * 3 * accum or dw != n_steps * n_blocks * accum \
+                or n_ranks != DIST_RANKS:
+            raise SystemExit(f"[{tag}] launches fused {fused}, dw {dw} do not match "
+                             f"{n_steps} steps x {n_blocks} blocks x {accum} micro-batches")
+        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
+                     "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2", "--verify"]
+        srv = subprocess.run(serve_cmd, capture_output=True, text=True, env=env, timeout=600)
+    print("\n".join(f"[{tag}] " + line for line in srv.stdout.strip().splitlines()))
+    if srv.returncode != 0 or "verify OK" not in srv.stdout:
+        print(srv.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"[{tag}] serve_pde exited {srv.returncode} without verify OK")
+    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", srv.stdout)
+    if m is None:
+        raise SystemExit(f"[{tag}] serve_pde printed no spectral kernel launch count")
+    served = _check_launches(f"{tag} serve", int(m.group(1)), n_blocks, int(m.group(2)), gpu)
+    print(f"[{tag}] rank 0 of {DIST_RANKS} launched fused {fused}, dw {dw} over {n_steps} "
+          f"steps; {gpu}")
+    return {"fused": fused, "dw": dw, "serve": served}
 
 
 def _finite(t) -> bool:
@@ -1796,18 +2266,28 @@ def main() -> int:
     gpu = gpu_line()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}; {gpu}")
     t0 = time.perf_counter()
-    phase_build()
-    fused = phase_kernels(gpu)
-    dx, dw = phase_backward_kernels(gpu)
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
+        return result
+
+    phase("build", phase_build)
+    fused = phase("kernels", phase_kernels, gpu)
+    dx, dw = phase("backward kernels", phase_backward_kernels, gpu)
     fused.update(dx)
-    flat, flat_dw = phase_flat_kernels(gpu)
-    served = {"serve": phase_serving(gpu), **phase_ensemble(gpu), "cli": phase_cli(gpu)}
-    rms, flash = phase_lm_kernels(gpu)
-    train = phase_train(gpu)
-    train_cli = phase_train_cli(gpu)
-    dist = phase_dist(gpu)
-    lm = phase_lm_serving(gpu)
-    lm_cli = phase_lm_cli(gpu)
+    flat, flat_dw = phase("flat kernels", phase_flat_kernels, gpu)
+    served = {"serve": phase("serve", phase_serving, gpu), **phase("ensemble", phase_ensemble, gpu),
+              "cli": phase("cli", phase_cli, gpu)}
+    rms, flash = phase("lm kernels", phase_lm_kernels, gpu)
+    train = phase("train", phase_train, gpu)
+    train_cli = phase("train cli", phase_train_cli, gpu)
+    dist = phase("dist", phase_dist, gpu)
+    dist_train = phase("dist_train", phase_dist_train, gpu, dist)
+    dist_cli = phase("dist_train cli", phase_dist_train_cli, gpu)
+    lm = phase("lm serving", phase_lm_serving, gpu)
+    lm_cli = phase("lm cli", phase_lm_cli, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -1818,8 +2298,10 @@ def main() -> int:
     # the dist paths' launches as counted on rank 0 (every rank's were checked equal)
     for record, key in ((fused, "fused"), (dw, "dw")):
         record["launches_by_path"].update(
-            {tag: n[key] for tag, n in dist["launches"].items() if n[key]})
+            {tag: n[key] for tag, n in {**dist["launches"], **dist_train}.items() if n[key]})
+        record["launches_by_path"]["dist_train_cli"] = dist_cli[key]
         record["dist_ranks"] = DIST_RANKS
+    fused["launches_by_path"]["dist_train_cli_serve"] = dist_cli["serve"]
     fused["dist_shapes"] = {k: v for k, v in dist["timed"].items() if not k.endswith("dW")}
     dw["dist_shapes"] = {k: v for k, v in dist["timed"].items() if k.endswith("dW")}
     rms["launches"] = lm["rmsnorm"]

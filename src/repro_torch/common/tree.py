@@ -7,6 +7,8 @@ reference's order.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # Elements per slice when a reduction or an elementwise update walks one
@@ -37,6 +39,16 @@ def chunks(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
+def sum_sq_real(leaf: torch.Tensor) -> Optional[torch.Tensor]:
+    """Sum of squares of a leaf's real part as a float32 scalar (None for an
+    empty leaf), in ``CHUNK``-sized slices."""
+    sq = None
+    for c in chunks(leaf.detach()):
+        part = torch.sum(torch.square(c.real.to(torch.float32)))
+        sq = part if sq is None else sq + part
+    return sq
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, as a float32 scalar.
 
@@ -47,15 +59,16 @@ def global_norm(tree) -> torch.Tensor:
     of JAX's gradient and torch's ``.grad`` differ only in the sign of the
     imaginary part, so the real part is the same on both sides.
     """
+    return norm_of(sum_sq_real(leaf) for leaf in tree_leaves(tree))
+
+
+def norm_of(sum_squares) -> torch.Tensor:
+    """sqrt of the sum of per-leaf sums of squares, added in the order
+    given (None entries skipped), as a float32 scalar."""
     total = None
-    for leaf in tree_leaves(tree):
-        sq = None
-        for c in chunks(leaf.detach()):
-            part = torch.sum(torch.square(c.real.to(torch.float32)))
-            sq = part if sq is None else sq + part
-        if sq is None:
-            continue
-        total = sq if total is None else total + sq
+    for sq in sum_squares:
+        if sq is not None:
+            total = sq if total is None else total + sq
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)

@@ -1,5 +1,6 @@
 """4-D FFT with frequency truncation (S ∘ F and its adjoint): the serial
-oracle and the 1-D distributed schedules of the paper's Algorithm 2.
+oracle, the 1-D distributed schedules of the paper's Algorithm 2 and the
+2-D pencil schedules.
 
 Port of ``repro.core.dfft``. Conventions match it exactly:
 
@@ -19,12 +20,13 @@ reference's separate per-dim FFTs in its order.
 The distributed half takes an explicit process group where the reference
 takes a mesh-axis name (call it on every rank of the group, x sharded
 along XDIM): the paper schedule, the eager schedule and Grady et al.'s
-[31] untruncated schedule, each with ``comm_chunks``. The 2-D pencil
-schedules are ROADMAP Queue 1 item 2b, not ported yet.
+[31] untruncated schedule, each with ``comm_chunks``; and the 2-D pencil
+schedules (paper and eager) over a pair of groups, x sharded along XDIM
+over the first and y along YDIM over the second.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -373,5 +375,121 @@ def dist_adjoint_untruncated(
         xf = torch.fft.ifft(xf, dim=YDIM)
         xf = torch.fft.ifft(xf, dim=ZDIM)
         return _irfft_t(xf, nt, out_dtype)
+
+    return _chunk_channels(body, xf, comm_chunks)
+
+
+# ---------------------------------------------------------------------------
+# 2-D pencil decomposition: x sharded over ``groups[0]`` (Px ranks) and y
+# over ``groups[1]`` (Py ranks). Two repartitions, each over one group:
+#
+#   [b,c, nx/Px, ny/Py, nz,     nt ]   local input pencil
+#   [b,c, nx/Px, ny/Py, 2mz,    mt ]   F_{zt}, S_{zt} (unsharded dims)
+#   [b,c, nx/Px, ny,    2mz/Py, mt ]   R^{my}: y-shard moves to z
+#   [b,c, nx/Px, 2my,   2mz/Py, mt ]   F_y, S_y
+#   [b,c, nx,    2my/Px,2mz/Py, mt ]   R^{mx}: x-shard moves to y
+#   [b,c, 2mx,   2my/Px,2mz/Py, mt ]   F_x, S_x; weights sharded k_y x k_z
+#
+# Divisibility: Px | nx, Px | 2my, Py | ny, Py | 2mz.
+# ---------------------------------------------------------------------------
+
+def dist_forward_2d(
+    x: torch.Tensor, modes: Sequence[int], groups: Tuple[object, object], *,
+    trunc_x: bool = True, comm_chunks: int = 1,
+) -> torch.Tensor:
+    """Pencil-decomposed forward transform.
+
+    In: local real [b, c, nx/Px, ny/Py, nz, nt], x sharded over
+    ``groups[0]`` and y over ``groups[1]``.
+    Out: local complex [b, c, 2mx, 2my/Px, 2mz/Py, mt] (x at full size nx
+    with ``trunc_x=False``).
+    """
+    g_x, g_y = groups
+    mx, my, mz, mt = modes
+
+    def body(x):
+        # F_{zt}, S_{zt}: both dims are unsharded on every pencil
+        xf = _rfft_t(x)
+        xf = torch.fft.fft(xf, dim=ZDIM)
+        xf = truncate_full(xf, ZDIM, mz)
+        xf = truncate_rfft(xf, TDIM, mt)
+        # R^{my}_{y->z}: unshard y by sharding the (truncated) z dim
+        xf = repartition(xf, YDIM, ZDIM, g_y)
+        xf = torch.fft.fft(xf, dim=YDIM)
+        xf = truncate_full(xf, YDIM, my)
+        # R^{mx}_{x->y}: unshard x by sharding the (truncated) y dim
+        xf = repartition(xf, XDIM, YDIM, g_x)
+        xf = torch.fft.fft(xf, dim=XDIM)
+        return truncate_full(xf, XDIM, mx) if trunc_x else xf
+
+    return _chunk_channels(body, x, comm_chunks)
+
+
+def dist_adjoint_2d(
+    xf: torch.Tensor, grid: Sequence[int], groups: Tuple[object, object],
+    out_dtype: torch.dtype = torch.float32, *, pad_x: bool = True, comm_chunks: int = 1,
+) -> torch.Tensor:
+    """Adjoint of ``dist_forward_2d`` (each R^T is the reverse all-to-all).
+
+    In: local complex [b, c, 2mx, 2my/Px, 2mz/Py, mt] (x at full size with
+    ``pad_x=False``). Out: local real [b, c, nx/Px, ny/Py, nz, nt].
+    """
+    g_x, g_y = groups
+    nx, ny, nz, nt = grid
+
+    def body(xf):
+        xf = pad_full(xf, XDIM, nx) if pad_x else xf
+        xf = torch.fft.ifft(xf, dim=XDIM)
+        xf = repartition(xf, YDIM, XDIM, g_x)
+        xf = pad_full(xf, YDIM, ny)
+        xf = torch.fft.ifft(xf, dim=YDIM)
+        xf = repartition(xf, ZDIM, YDIM, g_y)
+        xf = pad_full(xf, ZDIM, nz)
+        xf = pad_rfft(xf, TDIM, nt // 2 + 1)
+        xf = torch.fft.ifft(xf, dim=ZDIM)
+        return _irfft_t(xf, nt, out_dtype)
+
+    return _chunk_channels(body, xf, comm_chunks)
+
+
+def dist_forward_2d_eager(
+    x: torch.Tensor, modes: Sequence[int], groups: Tuple[object, object], *,
+    trunc_x: bool = True, comm_chunks: int = 1,
+) -> torch.Tensor:
+    """2-D pencil forward with per-dim eager truncation: t is truncated
+    before the z FFT, so the z FFT runs on an mt-deep tensor (the same
+    transform as ``dist_forward_2d``)."""
+    g_x, g_y = groups
+    mx, my, mz, mt = modes
+
+    def body(x):
+        xf = truncate_rfft(_rfft_t(x), TDIM, mt)
+        xf = truncate_full(torch.fft.fft(xf, dim=ZDIM), ZDIM, mz)
+        xf = repartition(xf, YDIM, ZDIM, g_y)
+        xf = truncate_full(torch.fft.fft(xf, dim=YDIM), YDIM, my)
+        xf = repartition(xf, XDIM, YDIM, g_x)
+        xf = torch.fft.fft(xf, dim=XDIM)
+        return truncate_full(xf, XDIM, mx) if trunc_x else xf
+
+    return _chunk_channels(body, x, comm_chunks)
+
+
+def dist_adjoint_2d_eager(
+    xf: torch.Tensor, grid: Sequence[int], groups: Tuple[object, object],
+    out_dtype: torch.dtype = torch.float32, *, pad_x: bool = True, comm_chunks: int = 1,
+) -> torch.Tensor:
+    """Adjoint of the eager 2-D schedule: each pad happens right before its
+    own iFFT, so earlier iFFTs run on still-truncated tensors."""
+    g_x, g_y = groups
+    nx, ny, nz, nt = grid
+
+    def body(xf):
+        xf = pad_full(xf, XDIM, nx) if pad_x else xf
+        xf = torch.fft.ifft(xf, dim=XDIM)
+        xf = repartition(xf, YDIM, XDIM, g_x)
+        xf = torch.fft.ifft(pad_full(xf, YDIM, ny), dim=YDIM)
+        xf = repartition(xf, ZDIM, YDIM, g_y)
+        xf = torch.fft.ifft(pad_full(xf, ZDIM, nz), dim=ZDIM)
+        return _irfft_t(pad_rfft(xf, TDIM, nt // 2 + 1), nt, out_dtype)
 
     return _chunk_channels(body, xf, comm_chunks)

@@ -1,8 +1,8 @@
-"""Fourier Neural Operator — serial and 1-D model-parallel forward and
+"""Fourier Neural Operator — serial and model-parallel forward and
 training (paper Alg. 1 and 2).
 
-Port of ``repro.core.fno``: the serial forwards and the 1-D
-domain-decomposed ones. Parameters are a nested dict
+Port of ``repro.core.fno``: the serial forwards and the domain-decomposed
+ones, 1-D and 2-D pencils. Parameters are a nested dict
 of tensors with the reference's leaf names (``encoder.w/b``,
 ``blocks.w_spec`` complex64 ``[n_blocks, w, w, 2mx, 2my, 2mz, mt]``,
 ``blocks.w_bypass/b_bypass``, ``decoder.w1/b1/w2/b2``), so weights carry
@@ -29,11 +29,14 @@ in both.
 The model-parallel forwards (``make_dist_forward``) run on every rank of
 a ``torch.distributed`` process group, the reference's mesh axis: x is
 sharded along the solution's x dim over the group and the spectral weights
-along k_y (``shard_params``); everything else is replicated. Every block
-runs the same fused op at its shard's shapes, after the paper's schedule,
-the eager schedule or Grady et al.'s [31] (``core/dfft.py``). The 2-D
-pencil schedules are ROADMAP Queue 1 item 2b, distributed training 2c and
-model-parallel split serving 2d; none is ported yet.
+along k_y (``shard_params``); everything else is replicated. With a pair
+of groups (the 2-D pencils) x is sharded over the first and y over the
+second, and the weights along k_y over the first and k_z over the second.
+Every block runs the same fused op at its shard's shapes, after the
+paper's schedule, the eager schedule or (1-D only) Grady et al.'s [31]
+(``core/dfft.py``). ``forward_and_specs`` gives a trainer the serial or
+the distributed forward with its layouts. Model-parallel split serving is
+ROADMAP Queue 1 item 2d, not ported yet.
 
 Every GELU is the tanh form, as ``jax.nn.gelu``'s default: the exact erf
 form differs by up to ~2e-4, outside the 1e-4 parity gate. TF32 stays off:
@@ -53,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core import dfft
-from repro_torch.core.partition import PENCILS, CartPartition, gather, shard
+from repro_torch.core.partition import CartPartition, gather_tree, shard_tree
 from repro_torch.kernels.spectral_conv import (
     spectral_apply_fused,
     spectral_apply_fused_add,
@@ -97,6 +100,24 @@ class FNOConfig:
             raise ValueError(f"nx={nx} not divisible by {n_shards} shards")
         if two_my % n_shards:
             raise ValueError(f"2*my={two_my} not divisible by {n_shards} shards")
+        self._validate_modes_fit()
+
+    def validate_for_parallelism_2d(self, n_x: int, n_y: int) -> None:
+        """Pencil decomposition: x sharded n_x ways, y sharded n_y ways.
+
+        The two repartitions move the x-shard onto the truncated y dim and
+        the y-shard onto the truncated z dim, hence the 2my/2mz constraints.
+        """
+        nx, ny = self.grid[0], self.grid[1]
+        two_my, two_mz = 2 * self.modes[1], 2 * self.modes[2]
+        if nx % n_x:
+            raise ValueError(f"nx={nx} not divisible by {n_x} x-shards")
+        if two_my % n_x:
+            raise ValueError(f"2*my={two_my} not divisible by {n_x} x-shards")
+        if ny % n_y:
+            raise ValueError(f"ny={ny} not divisible by {n_y} y-shards")
+        if two_mz % n_y:
+            raise ValueError(f"2*mz={two_mz} not divisible by {n_y} y-shards")
         self._validate_modes_fit()
 
     def _validate_modes_fit(self) -> None:
@@ -398,108 +419,190 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Distributed forward (paper Algorithm 1 + 2). Every rank of ``group`` calls
-# it on its local slices: x [b_local, c, nx/P, ny, nz, nt] and w_spec
-# [n_blocks, ci, co, 2mx, 2my/P, 2mz, mt] (``shard_params``); everything
-# else replicated.
+# Distributed forward (paper Algorithm 1 + 2). Every rank of the model
+# group(s) calls it on its local slices: x [b_local, c, nx/P, ny, nz, nt]
+# and w_spec [n_blocks, ci, co, 2mx, 2my/P, 2mz, mt] (1-D), or x
+# [b_local, c, nx/Px, ny/Py, nz, nt] and w_spec [.., 2my/Px, 2mz/Py, mt]
+# (2-D pencils); everything else replicated. ``model`` is one group (1-D)
+# or the pair (mx_group, my_group) of ``launch.mesh.build_fno_groups``.
 # ---------------------------------------------------------------------------
 
-# [n_blocks, ci, co, kx, ky, kz, kt]: k_y sharded over the model group
+# [n_blocks, ci, co, kx, ky, kz, kt]: k_y sharded over the model group; with
+# pencils k_y over the mx group and k_z over the my group, the dims each
+# shard lands on after the pencil forward's repartitions
 W_SPEC_PARTITION = CartPartition((None, None, None, None, "model", None, None))
+W_SPEC_PARTITION_2D = CartPartition((None, None, None, None, "mx", "my", None))
 
 
-def shard_params(params: dict, group) -> dict:
-    """This rank's parameters: ``blocks.w_spec`` sliced along k_y into the
-    rank's 2my/P run (a copy), every other leaf the same tensor (replicated,
-    the paper's broadcast B). The counterpart of the reference's
-    ``param_specs``."""
-    blocks = dict(params["blocks"])
-    blocks["w_spec"] = shard(blocks["w_spec"], W_SPEC_PARTITION, {"model": group})
-    return {**params, "blocks": blocks}
+def _is_pair(model) -> bool:
+    return isinstance(model, (tuple, list))
 
 
-def gather_params(params: dict, group) -> dict:
-    """Inverse of ``shard_params`` (a collective over ``group``): the global
-    ``w_spec`` from every rank's k_y slice; the other leaves as they are."""
-    blocks = dict(params["blocks"])
-    blocks["w_spec"] = gather(blocks["w_spec"], W_SPEC_PARTITION, {"model": group})
-    return {**params, "blocks": blocks}
+def model_axes(model):
+    """The reference's mesh-axis name(s) of ``model``: "model" for one
+    group, ("mx", "my") for a pencil pair, None for None."""
+    if model is None:
+        return None
+    return ("mx", "my") if _is_pair(model) else "model"
+
+
+def group_names(data_group, model) -> dict:
+    """Each group under the name its partitions use: "data", and "model"
+    or "mx" and "my"."""
+    if model is None:
+        return {"data": data_group}
+    if _is_pair(model):
+        if len(model) != 2:
+            raise ValueError(f"expected 2 model groups, got {len(model)}")
+        return {"data": data_group, "mx": model[0], "my": model[1]}
+    return {"data": data_group, "model": model}
+
+
+def param_partitions(model) -> dict:
+    """The partition of every parameter leaf (None: replicated, the
+    paper's broadcast B), the counterpart of the reference's
+    ``param_specs``: only ``blocks.w_spec`` is sharded, along k_y (one
+    group) or k_y x k_z (a pencil pair); ``model=None`` replicates all."""
+    w_spec = None if model is None else (W_SPEC_PARTITION_2D if _is_pair(model)
+                                         else W_SPEC_PARTITION)
+    return {
+        "encoder": {"w": None, "b": None},
+        "blocks": {"w_spec": w_spec, "w_bypass": None, "b_bypass": None},
+        "decoder": {"w1": None, "b1": None, "w2": None, "b2": None},
+    }
+
+
+def shard_params(params: dict, model) -> dict:
+    """This rank's parameters: ``blocks.w_spec`` sliced into the rank's
+    k_y run (or k_y x k_z block for a pencil pair; a copy), every other
+    leaf the same tensor (replicated)."""
+    return shard_tree(params, param_partitions(model), group_names(None, model))
+
+
+def gather_params(params: dict, model) -> dict:
+    """Inverse of ``shard_params`` (a collective over the model group(s)):
+    the global ``w_spec`` from every rank's slice; the other leaves as
+    they are."""
+    return gather_tree(params, param_partitions(model), group_names(None, model))
 
 
 def input_spec(data_axis: Optional[str] = "data", model_axis="model") -> CartPartition:
     """Partition of the solution tensor [b, c, x, y, z, t]: batch over the
-    data group, x over the model group (``model_axis=None``: batch only).
-    The layout ``make_dist_forward`` takes and returns."""
-    if isinstance(model_axis, (tuple, list)):
-        raise ValueError(f"model axes {tuple(model_axis)}: {PENCILS}")
+    data group, x over the model group, or x and y over a pencil pair of
+    names (``model_axis=None``: batch only). The layout
+    ``make_dist_forward`` takes and returns."""
+    if _is_pair(model_axis):
+        ax_x, ax_y = model_axis
+        return CartPartition((data_axis, None, ax_x, ax_y, None, None))
     return CartPartition((data_axis, None, model_axis, None, None, None))
 
 
-# variant: (forward transform, its adjoint, whether z and t reach the fused
-# op untruncated). Every transform leaves x full size: the fused op
-# truncates it and pads it back.
+# (variant, decomposition): (forward transform, its adjoint, whether z and
+# t reach the fused op untruncated). Every transform leaves x full size:
+# the fused op truncates it and pads it back.
 _SCHEDULES = {
     # paper Alg. 2: local F/S over yzt, R_{x->y}, F over x
-    "paper": (partial(dfft.dist_forward, trunc_x=False),
-              partial(dfft.dist_adjoint, pad_x=False), False),
+    ("paper", 1): (partial(dfft.dist_forward, trunc_x=False),
+                   partial(dfft.dist_adjoint, pad_x=False), False),
     # per-dim eager truncation (beyond the paper; Alg. 2 with cheaper FFTs)
-    "eager": (partial(dfft.dist_forward_eager, trunc_x=False),
-              partial(dfft.dist_adjoint_eager, pad_x=False), False),
+    ("eager", 1): (partial(dfft.dist_forward_eager, trunc_x=False),
+                   partial(dfft.dist_adjoint_eager, pad_x=False), False),
     # Grady et al. [31]: repartition the spectrum untruncated along y/z/t
-    "grady31": (partial(dfft.dist_forward_untruncated, trunc_xzt=False),
-                partial(dfft.dist_adjoint_untruncated, pad_xzt=False), True),
+    ("grady31", 1): (partial(dfft.dist_forward_untruncated, trunc_xzt=False),
+                     partial(dfft.dist_adjoint_untruncated, pad_xzt=False), True),
+    # 2-D pencils: F/S over zt, R^{my}_{y->z}, F/S over y, R^{mx}_{x->y}, F over x
+    ("paper", 2): (partial(dfft.dist_forward_2d, trunc_x=False),
+                   partial(dfft.dist_adjoint_2d, pad_x=False), False),
+    ("eager", 2): (partial(dfft.dist_forward_2d_eager, trunc_x=False),
+                   partial(dfft.dist_adjoint_2d_eager, pad_x=False), False),
 }
 
 
-def fno_block_dist(x, w_spec, w_b, b_b, cfg: FNOConfig, group, variant: str = "paper"):
-    """One FNO block on this rank's x slice under ``variant``'s schedule:
-    the forward transform, the fused op (S_x, or S_xzt for Grady-31, the
-    per-mode mix with k_y-sharded weights, and its zero fill), the adjoint
-    transform, the bypass and the GELU."""
-    forward, adjoint, full_zt = _SCHEDULES[variant]
+def _variants(n_dims: int) -> list:
+    return sorted(v for v, d in _SCHEDULES if d == n_dims)
+
+
+def fno_block_dist(x, w_spec, w_b, b_b, cfg: FNOConfig, model, variant: str = "paper"):
+    """One FNO block on this rank's x slice (or pencil) under ``variant``'s
+    schedule: the forward transform, the fused op (S_x, or S_xzt for
+    Grady-31, the per-mode mix with sharded weights, and its zero fill),
+    the adjoint transform, the bypass and the GELU."""
+    forward, adjoint, full_zt = _SCHEDULES[variant, 2 if _is_pair(model) else 1]
     nx, _, nz, nt = cfg.grid
     trunc, t_out = ((nx, None, nz), nt // 2 + 1) if full_zt else ((nx, None, None), None)
-    xf = forward(x, cfg.modes, group, comm_chunks=cfg.comm_chunks)
+    xf = forward(x, cfg.modes, model, comm_chunks=cfg.comm_chunks)
     yf = spectral_apply_fused(xf, w_spec, trunc, t_out=t_out)
     del xf
-    y = adjoint(yf, cfg.grid, group, out_dtype=cfg.dtype, comm_chunks=cfg.comm_chunks)
+    y = adjoint(yf, cfg.grid, model, out_dtype=cfg.dtype, comm_chunks=cfg.comm_chunks)
     del yf
     y += _conv1x1(x, w_b, b_b)
     return _gelu(y)
 
 
-def fno_forward_dist(params, x, cfg: FNOConfig, group, variant: str = "paper"):
+def fno_forward_dist(params, x, cfg: FNOConfig, model, variant: str = "paper"):
     # The encoder, bypass and decoder contract channels only, so they run
     # on the local x slice with replicated weights (paper Alg. 1).
     return _run_blocks(
         params, _encoder(params, x, cfg), cfg,
         lambda h, blk: fno_block_dist(h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg,
-                                      group, variant),
+                                      model, variant),
     )
 
 
-def make_dist_forward(cfg: FNOConfig, model_group, *, variant: str = "paper"):
-    """The 1-D domain-decomposed forward over ``model_group``:
-    ``fwd(local_params, local_x) -> local_y``, every rank of the group
+def make_dist_forward(cfg: FNOConfig, model, *, variant: str = "paper"):
+    """The domain-decomposed forward over ``model``:
+    ``fwd(local_params, local_x) -> local_y``, every rank of the group(s)
     calling it. ``local_params`` from ``shard_params``; ``local_x`` and
     ``local_y`` laid out by ``input_spec`` (``partition.shard``/``gather``).
     Differentiable; runs where the tensors lie.
 
+    ``model``: one group shards the solution along x (paper Alg. 2); a
+    pair (mx_group, my_group) selects the 2-D pencils, x sharded over the
+    first and y over the second. None, which ``torch.distributed`` reads
+    as every rank, raises.
+
     variant: "paper" (truncate, then repartition), "eager" (per-dim eager
-    truncation) or "grady31" (the [31] baseline: repartition, then
-    truncate). A pair of model groups (the 2-D pencils) raises, and so does
-    None, which ``torch.distributed`` reads as every rank.
+    truncation) or, 1-D only, "grady31" (the [31] baseline: repartition,
+    then truncate).
     """
-    if isinstance(model_group, (tuple, list)):
-        raise ValueError(f"a pair of model groups: {PENCILS}")
-    if model_group is None:
-        raise ValueError("model_group is None, which torch.distributed reads as every rank; "
-                         "pass the model group build_fno_groups returns")
-    if variant not in _SCHEDULES:
-        raise ValueError(f"unknown variant {variant!r}; pick from {sorted(_SCHEDULES)}")
-    cfg.validate_for_parallelism(dist.get_world_size(model_group))
+    if model is None or (_is_pair(model) and None in tuple(model)):
+        raise ValueError("a model group is None, which torch.distributed reads as every rank; "
+                         "pass the model group(s) build_fno_groups returns")
+    if _is_pair(model):
+        if len(model) != 2:
+            raise ValueError(f"expected 2 model groups, got {len(model)}")
+        if (variant, 2) not in _SCHEDULES:
+            raise ValueError(f"variant {variant!r} has no 2-D schedule; pick from {_variants(2)}")
+        cfg.validate_for_parallelism_2d(*(dist.get_world_size(g) for g in model))
+    else:
+        if (variant, 1) not in _SCHEDULES:
+            raise ValueError(f"unknown variant {variant!r}; pick from {_variants(1)}")
+        cfg.validate_for_parallelism(dist.get_world_size(model))
 
     def forward(local_params: dict, local_x: torch.Tensor) -> torch.Tensor:
-        return fno_forward_dist(local_params, local_x, cfg, model_group, variant)
+        return fno_forward_dist(local_params, local_x, cfg, model, variant)
 
     return forward
+
+
+def forward_and_specs(cfg: FNOConfig, model=None, *, variant: str = "paper"):
+    """``(forward, x_part, p_parts)``: the one place that decides how an
+    FNO batch and its params are laid out, for the trainer.
+
+    ``model`` None, or a model group of one rank (pure data parallelism),
+    gives the serial forward with replicated params and the batch split
+    over the data group only; a model group or a pencil pair gives
+    ``make_dist_forward``'s forward with its layouts. ``forward(params,
+    x)`` in every case; ``x_part`` is the batch's ``CartPartition`` and
+    ``p_parts`` the params' (``param_partitions``), over the names of
+    ``group_names``.
+    """
+    if model is not None and not _is_pair(model) and dist.get_world_size(model) == 1:
+        model = None
+    x_part = input_spec("data", model_axes(model))
+    if model is None:
+        def forward(params, x):
+            return fno_forward(params, x, cfg)
+    else:
+        forward = make_dist_forward(cfg, model, variant=variant)
+    return forward, x_part, param_partitions(model)

@@ -1,15 +1,16 @@
 """Training batches from chunked stores, and per-channel normalization.
 
-The port's copy of ``repro.data.loader`` for one device (that module
-imports JAX): ``NdArraySource``, ``Normalizer``, the background
-``_Prefetcher`` and a ``ShardedDatasetLoader`` whose whole batch lies on
-one device. The sample schedule (``sample_ids``: per-epoch permutations
-seeded by ``(seed, epoch)``), the normalization of ``"x"`` from the store's
-``meta.json`` stats and the prefetch are the reference's, so both loaders
-give the same batches from the same store; the port's are torch tensors on
-the loader's device. Per-shard reads for a model-parallel mesh come with
-the model-parallel slice, and ``StreamingSchedule`` (online training) with
-the datagen slice.
+The port's copy of ``repro.data.loader`` (that module imports JAX):
+``NdArraySource``, ``Normalizer``, the background ``_Prefetcher`` and a
+``ShardedDatasetLoader``. The sample schedule (``sample_ids``: per-epoch
+permutations seeded by ``(seed, epoch)``), the normalization of ``"x"``
+from the store's ``meta.json`` stats and the prefetch are the reference's,
+so both loaders give the same batches from the same store; the port's are
+torch tensors on the loader's device. Across ranks, a batch partition
+(``core.fno.input_spec``) gives each rank its shard of the global batch:
+its rows of the sample order and its x (and y) slices of every sample,
+read from the store alone. ``StreamingSchedule`` (online training) comes
+with the datagen slice.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.core.partition import CartPartition
 
 
 class NdArraySource:
@@ -222,14 +224,22 @@ class _Prefetcher:
 
 
 class ShardedDatasetLoader:
-    """Training batches from chunked stores, on one device.
+    """Training batches from chunked stores.
 
     ``sources`` maps batch keys to ArrayStore-like objects whose layout is
     ``[n_samples, channels, *spatial]``. ``batch(step)`` reads the samples
     of ``sample_ids(step)`` on the host (prefetched on a background thread),
     normalizes the keys in ``normalize``, and returns float32 tensors on
-    ``device``. With one device the reference's shard plan is the whole
-    batch, so each sample is one read of its full extent.
+    ``device``.
+
+    With ``part`` (the batch's ``CartPartition``, dim 0 the batch) and
+    ``groups`` (its names' process groups), each key's batch is this rank's
+    shard of the global batch, as the reference's per-device shard plan
+    reads it: the rows of ``sample_ids(step)`` the data group gives this
+    rank, each one read as the store slice under the rank's spatial shard
+    (only the chunks it overlaps), normalized with the store's global
+    stats. Without, the whole batch, each sample one read of its full
+    extent.
     """
 
     def __init__(
@@ -242,6 +252,8 @@ class ShardedDatasetLoader:
         shuffle: bool = True,
         normalize: Sequence[str] = ("x",),
         prefetch: int = 2,
+        part: Optional[CartPartition] = None,
+        groups=None,
     ):
         self.sources = dict(sources)
         self.device = resolve_device(device)
@@ -258,6 +270,14 @@ class ShardedDatasetLoader:
         self.n_samples = ns.pop()
         if self.n_samples < 1:
             raise ValueError("empty dataset")
+        # each key's index of this rank's shard in the global batch; the
+        # partition is validated here, so an indivisible layout fails fast
+        self._index = {
+            k: (tuple(slice(0, d) for d in (self.batch_size,) + tuple(s.shape[1:]))
+                if part is None else
+                part.index((self.batch_size,) + tuple(s.shape[1:]), groups))
+            for k, s in self.sources.items()
+        }
         self._prefetcher = (
             _Prefetcher(self._read_host_batch, depth=prefetch) if prefetch else None
         )
@@ -280,15 +300,18 @@ class ShardedDatasetLoader:
         return ids
 
     def _read(self, key: str, ids: np.ndarray) -> np.ndarray:
+        """This rank's shard of ``key``'s batch: its rows of ``ids``, each a
+        store read of its spatial slice only."""
         source = self.sources[key]
-        out = np.empty((len(ids),) + tuple(source.shape[1:]), np.float32)
-        full = tuple(slice(0, d) for d in source.shape[1:])
-        for j, sample in enumerate(ids):
-            out[j] = source.read_slice((slice(int(sample), int(sample) + 1),) + full)[0]
+        rows, *rest = self._index[key]
+        rows = ids[rows]
+        out = np.empty((len(rows),) + tuple(sl.stop - sl.start for sl in rest), np.float32)
+        for j, sample in enumerate(rows):
+            out[j] = source.read_slice((slice(int(sample), int(sample) + 1),) + tuple(rest))[0]
         norm = self._norm.get(key)
         if norm is not None:
             mean, std = norm
-            out = (out - mean) / std
+            out = (out - mean[:, rest[0]]) / std[:, rest[0]]
         return np.ascontiguousarray(out, np.float32)
 
     def _read_host_batch(self, step: int):

@@ -1,8 +1,10 @@
 """Process groups for the model-parallel FNO, and a launcher for its ranks.
 
-Port of ``repro.launch.mesh``'s ``build_fno_mesh``, 1-D branch: where the
-reference lays devices on a ("data", "model") mesh, the port builds one
-``torch.distributed`` group per mesh row and column (``build_fno_groups``).
+Port of ``repro.launch.mesh``'s ``build_fno_mesh``: where the reference
+lays devices on a ("data", "model") or ("data", "mx", "my") mesh, the port
+builds one ``torch.distributed`` group per mesh row and column
+(``build_fno_groups``); ``core.fno.group_names`` names them as the
+reference names its axes.
 
 ``launch_ranks`` starts the ranks: spawned processes that meet through a
 ``FileStore`` under a directory the caller names (no TCP port, so two
@@ -19,40 +21,76 @@ import datetime
 import os
 import tempfile
 import time
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.common.device import resolve_device
-from repro_torch.core.partition import PENCILS
+
+# Group names understood as model-parallel: "model" (1-D, paper Alg. 2) and
+# the ("mx", "my") pair (2-D pencil decomposition).
+MODEL_AXIS_NAMES = ("model", "mx", "my")
+
+
+def fno_layout(world_size: int, model_shards: Sequence[int]) -> tuple:
+    """(n_dp, model_shards, n_model) of ``world_size`` ranks under
+    ``--model-shards``, or ValueError for a layout the FNO cannot take: one
+    value P (x-decomposition) or two PX PY (x, y pencils), whose product
+    divides the rank count. Needs no process group."""
+    model_shards = tuple(int(s) for s in model_shards)
+    if not 1 <= len(model_shards) <= 2 or min(model_shards) < 1:
+        raise ValueError(
+            f"model shards take 1 (x-decomposition) or 2 (x,y pencil) "
+            f"values >= 1, got {len(model_shards)}: {model_shards}")
+    n_model = 1
+    for s in model_shards:
+        n_model *= s
+    if world_size % n_model:
+        raise ValueError(f"{world_size} devices not divisible by {n_model} model shards")
+    return world_size // n_model, model_shards, n_model
 
 
 def build_fno_groups(world_size: int, model_shards: Sequence[int]):
-    """(data_group, model_group, n_model) of this rank from the world size
-    and ``--model-shards``. One shard value P decomposes the solution along
-    x (paper Alg. 2): ranks d*P .. d*P + P - 1 form model group d, and ranks
-    m, m + P, ... data group m, as on the reference's row-major (data,
-    model) mesh. Every rank creates every group, in the same order
-    (``dist.new_group`` is collective). With P = 1 each rank's model group
-    holds that rank alone, so nothing is sharded over it.
+    """(data_group, model, n_model) of this rank from the world size and
+    ``--model-shards``.
+
+    One shard value P decomposes the solution along x (paper Alg. 2):
+    ``model`` is this rank's model group; ranks d*P .. d*P + P - 1 form
+    model group d, and ranks m, m + P, ... data group m, as on the
+    reference's row-major (data, model) mesh. With P = 1 each rank's model
+    group holds that rank alone, so nothing is sharded over it.
+
+    Two values PX PY give the 2-D pencils: ``model`` is the pair (mx_group,
+    my_group). The ranks lie row-major on (data, mx, my), as the
+    reference's ``make_pencil_mesh`` lays its devices: rank = d*PX*PY +
+    i*PY + j holds x shard i (its rank in the mx group) and y shard j (its
+    rank in the my group).
+
+    Every rank creates every group, in the same order (``dist.new_group``
+    is collective).
     """
-    model_shards = tuple(int(s) for s in model_shards)
-    if len(model_shards) == 2:
-        raise ValueError(
-            f"model shards {model_shards}: two values ask for 2-D pencils; {PENCILS}")
-    if len(model_shards) != 1 or model_shards[0] < 1:
-        raise ValueError(f"model shards take 1 value >= 1 (x-decomposition), got {model_shards}")
-    n_model = model_shards[0]
-    if world_size % n_model:
-        raise ValueError(f"{world_size} ranks not divisible by {n_model} model shards")
-    n_dp = world_size // n_model
+    n_dp, shards, n_model = fno_layout(world_size, model_shards)
     rank = dist.get_rank()
-    model_groups = [dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
-                    for d in range(n_dp)]
     data_groups = [dist.new_group(list(range(m, world_size, n_model))) for m in range(n_model)]
-    return data_groups[rank % n_model], model_groups[rank // n_model], n_model
+    data_group = data_groups[rank % n_model]
+    if len(shards) == 1:
+        model_groups = [dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+                        for d in range(n_dp)]
+        return data_group, model_groups[rank // n_model], n_model
+    px, py = shards
+    d, i, j = rank // n_model, rank % n_model // py, rank % py
+    mx_groups = {(dd, jj): dist.new_group([dd * n_model + ii * py + jj for ii in range(px)])
+                 for dd in range(n_dp) for jj in range(py)}
+    my_groups = {(dd, ii): dist.new_group([dd * n_model + ii * py + jj for jj in range(py)])
+                 for dd in range(n_dp) for ii in range(px)}
+    return data_group, (mx_groups[d, j], my_groups[d, i]), n_model
+
+
+def dp_axes_for(groups: Mapping[str, object]) -> tuple:
+    """Data-parallel group names: every name that is not a model axis."""
+    return tuple(a for a in groups if a not in MODEL_AXIS_NAMES)
 
 
 def _rank_main(rank, fn, world_size, run_dir, device_type, timeout_s, args):
@@ -65,6 +103,9 @@ def _rank_main(rank, fn, world_size, run_dir, device_type, timeout_s, args):
     store = dist.FileStore(os.path.join(run_dir, "store"), world_size)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    # every rank has connected before any runs fn: a rank that returns
+    # early must not close its connections under a peer still connecting
+    dist.barrier()
     try:
         result = fn(rank, world_size, device, *args)
         torch.save(result, os.path.join(run_dir, f"result{rank}.pt"))

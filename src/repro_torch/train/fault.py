@@ -13,6 +13,12 @@ The training state is a nested dict of tensors. Restores load the
 checkpoint into a fresh ``init_state()`` in place
 (``checkpoint.restore_into``), which serves as the shapes and dtypes the
 reference takes from ``jax.eval_shape``.
+
+Across ranks (a ``StateLayout``) every rank runs the supervisor on its
+shard of the state: the steps, the saves (each a collective gather that
+rank 0 writes) and an injected fault fall on the same step everywhere,
+and after a failure every rank waits at a barrier until rank 0 has
+published its last save, so all restore the same checkpoint.
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ import time
 from typing import Any, Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.tree import tree_leaves
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.optimizer import StateLayout
 
 
 class FaultInjector:
@@ -77,9 +85,9 @@ def _synchronize(state) -> None:
             torch.cuda.synchronize(d)
 
 
-def _restored(init_state, ckpt_dir):
+def _restored(init_state, ckpt_dir, shards: dict):
     state = init_state()
-    step, _ = ckpt_lib.restore_into(ckpt_dir, state)
+    step, _ = ckpt_lib.restore_into(ckpt_dir, state, **shards)
     return state, step
 
 
@@ -94,9 +102,12 @@ def run_supervised(
     max_failures: int = 8,
     injector: Optional[FaultInjector] = None,
     async_save: bool = False,
+    layout: Optional[StateLayout] = None,
 ) -> SupervisorResult:
     """Train with checkpoint/restart. ``batch_iter(step)`` must return the
-    batch for a given step so replays are deterministic after restore."""
+    batch for a given step so replays are deterministic after restore.
+    With a ``layout`` every rank calls it with its shard of the state."""
+    shards = {} if layout is None else {"parts": layout.state(), "groups": layout.groups}
     failures = 0
     restores = 0
     metrics_log = []
@@ -110,7 +121,7 @@ def run_supervised(
         metrics_log[:] = [e for e in metrics_log if e[0] < to_step]
 
     if ckpt_lib.latest_step(ckpt_dir) is not None:
-        state, step = _restored(init_state, ckpt_dir)
+        state, step = _restored(init_state, ckpt_dir, shards)
         step += 1
         restores += 1
         _truncate_log(step)
@@ -131,7 +142,7 @@ def run_supervised(
                 if pending_save is not None:
                     pending_save.join()  # one in-flight async save at a time
                 _, pending_save = ckpt_lib.save(
-                    ckpt_dir, step, state, async_save=async_save
+                    ckpt_dir, step, state, async_save=async_save, **shards
                 )
             step += 1
         except Exception:  # noqa: BLE001 — any worker failure
@@ -141,12 +152,14 @@ def run_supervised(
             if pending_save is not None:
                 pending_save.join()
                 pending_save = None
+            if layout is not None:
+                dist.barrier()  # rank 0's last save is published before any rank reads
             state = None  # drop the failed step's state before restoring
             if ckpt_lib.latest_step(ckpt_dir) is None:
                 state = init_state()
                 step = 0
             else:
-                state, ck_step = _restored(init_state, ckpt_dir)
+                state, ck_step = _restored(init_state, ckpt_dir, shards)
                 step = ck_step + 1
             _truncate_log(step)
             restores += 1

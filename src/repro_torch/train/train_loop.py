@@ -1,10 +1,14 @@
-"""Train-step factory: gradients + AdamW + optional gradient accumulation.
+"""Train-step factory: gradients + AdamW + optional gradient accumulation,
+on one device or across ranks.
 
-Port of ``repro.train.train_loop.make_train_step`` for one device
-(``shard_train_step`` comes with the model-parallel slice). PyTorch runs
+Port of ``repro.train.train_loop.make_train_step``, and of what
+``shard_train_step``'s shardings make of it across ranks. PyTorch runs
 eagerly, so there is nothing to jit: the step differentiates ``loss_fn``
 with autograd, sums the micro-batches' gradients in preallocated buffers,
 divides by ``grad_accum`` and updates params and optimizer state in place.
+Across ranks (a ``StateLayout``) each rank differentiates the loss of its
+own shard of the batch; the gradients are then reduced as the reference's
+partitioner reduces them (``reduce_grads``) before the AdamW step.
 
 The gradient buffers are the one subtle part. The FNO stacks its blocks'
 weights in one leaf (``blocks.w_spec`` is 12.6 GB at the paper's width),
@@ -17,12 +21,13 @@ autograd accumulates into those slices in place.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.common.tree import tree_map
-from repro_torch.train.optimizer import AdamWConfig, adamw_update
+from repro_torch.common.tree import chunks, tree_leaves, tree_map
+from repro_torch.train.optimizer import AdamWConfig, StateLayout, adamw_update
 
 
 def zeros_like_tree(params: dict) -> dict:
@@ -56,7 +61,38 @@ def accumulate_grads(loss_fn: Callable, params: dict, batch, grads: dict):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, grad_accum: int = 1):
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """Sum ``t`` over ``group`` in place, in ``CHUNK``-sized pieces (a
+    block of the spectral weights' gradient is several GB); complex
+    tensors travel as their real view."""
+    if group is not None and dist.get_world_size(group) == 1:
+        return
+    for c in chunks(torch.view_as_real(t) if t.is_complex() else t):
+        dist.all_reduce(c, group=group)
+
+
+@torch.no_grad()
+def reduce_grads(grads: dict, layout: StateLayout) -> None:
+    """The global gradient from every rank's gradient of its local mean
+    loss, in place.
+
+    The reduction rule: each rank backpropagates the mean over its own
+    points, so the global mean's gradient is the mean of the local means'
+    (equal shards). A replicated leaf is summed over every rank (world);
+    a sharded leaf (``w_spec``) over the data group only, since the
+    all-to-alls' backward has already brought its model group's
+    cotangents to the rank that owns the shard. Then all divide by the
+    world size D*P.
+    """
+    world = dist.get_world_size()
+    for g, part in zip(tree_leaves(grads), tree_leaves(layout.params)):
+        _all_reduce(g, layout.groups["data"] if part is not None else None)
+        g.div_(world)
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
+                    layout: Optional[StateLayout] = None,
+                    mark: Optional[Callable[[str], None]] = None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``loss_fn(params, batch) -> (loss, metrics)``.
 
@@ -65,8 +101,23 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, grad_accum: int 
     divided by ``grad_accum``, and the loss and metrics averaged, as in the
     reference. Params and optimizer state are updated in place and
     returned.
+
+    With a ``layout`` every rank calls the step on its local params, its
+    local batch and its optimizer state (``init_opt_state(params,
+    layout)``); ``loss_fn`` returns the mean over the rank's own points.
+    The gradients are reduced (``reduce_grads``), the step is the sharded
+    AdamW of ``adamw_update``, and the loss and metrics reported are the
+    global means, the same on every rank. Every rank runs the same
+    collectives in the same order.
+
+    ``mark(name)``, if given, is called where the step's parts meet:
+    "backward" once the gradients are summed, "reduced" after
+    ``reduce_grads`` (with a ``layout`` only) and "updated" after the
+    AdamW update; it adds no synchronisation (a caller records CUDA events
+    there to time the parts).
     """
     buffers = {}
+    mark = mark or (lambda name: None)
 
     def train_step(params, opt_state, batch):
         grads = buffers.get("grads")
@@ -97,7 +148,18 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, grad_accum: int 
             metrics = {
                 k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]
             }
-        params, opt_state, stats = adamw_update(grads, opt_state, params, opt_cfg)
+        mark("backward")
+        if layout is not None:
+            reduce_grads(grads, layout)
+            mark("reduced")
+            metrics = dict(metrics, loss=loss)
+            for k, v in metrics.items():
+                v = v.clone()
+                dist.all_reduce(v)
+                metrics[k] = v / dist.get_world_size()
+            loss = metrics.pop("loss")
+        params, opt_state, stats = adamw_update(grads, opt_state, params, opt_cfg, layout)
+        mark("updated")
         return params, opt_state, dict(metrics, loss=loss, **stats)
 
     return train_step

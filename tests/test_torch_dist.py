@@ -1,11 +1,14 @@
-"""The port's 1-D domain-decomposed FNO vs the JAX package, on the CPU.
+"""The port's domain-decomposed FNO (1-D and 2-D pencils) vs the JAX
+package, on the CPU.
 
 One launch of 4 gloo ranks (``repro_torch.launch.mesh.launch_ranks``: a
 ``FileStore`` rendezvous, one thread a rank, a 240 s deadline) runs
 ``tests/torch_dist_checks.py``: the repartition operator, the partition
-descriptors, parameter sharding and the distributed forward under every
-1-D schedule (paper, eager, grady31) on a (1 data x 4 model) and a (2 x 2)
-layout, with ``comm_chunks`` 1 and 2, and its gradients. This process then
+descriptors (tuple dims too), parameter sharding and the distributed
+forward under every 1-D schedule (paper, eager, grady31) on a (1 data x 4
+model) and a (2 x 2) layout and under the pencil schedules (paper, eager)
+on (1 x 2x2) and (1 x 1x4), with ``comm_chunks`` 1 and 2, and its
+gradients. This process then
 holds the gathered outputs against the JAX package's unfused serial
 ``fno_forward`` (``use_pallas=False``, as ``tests/distributed_checks.py``
 does) on the same numpy parameters and input, writes every check's result
@@ -17,7 +20,8 @@ Gates: forwards rtol 1e-4, atol 1e-5; ``comm_chunks=2`` vs unchunked rtol
 ones rtol 1e-4, atol 1e-5, each atol at most 1e-3 of its leaf's max|ref|
 (most of w_spec's gradient lies below 5e-5); repartitions and round trips
 bitwise. The gradient gate is shown to refuse a zeroed w_spec gradient,
-k_y shards one rank off, and ci/co swapped.
+k_y shards one rank off, and ci/co swapped, and on the pencils the k_y or
+k_z shards one rank off.
 """
 import json
 import time
@@ -43,14 +47,19 @@ FUSED_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 LEAF_ATOL = 1e-3  # a gradient leaf's atol is at most this share of its max|ref|
 TIMEOUT_S = 240
 
+RUNS = [(v, layout) for layout in rank_side.LAYOUTS for v in rank_side.variants_of(layout)]
 PARITY_CHECKS = (
-    *(f"forward_{v}_{layout}_vs_jax_serial" for v in rank_side.VARIANTS
-      for layout in rank_side.LAYOUTS),
-    *(f"forward_{v}_1x4_comm_chunks_2_vs_unchunked" for v in rank_side.VARIANTS),
-    *(f"grads_{v}_1x4_vs_jax_serial" for v in rank_side.VARIANTS),
+    *(f"forward_{v}_{layout}_vs_jax_serial" for v, layout in RUNS),
+    *(f"forward_{v}_{layout}_comm_chunks_2_vs_unchunked" for v, layout in RUNS
+      if layout in rank_side.CHUNKED_LAYOUTS),
+    *(f"grads_{v}_{layout}_vs_jax_serial" for v, layout in RUNS
+      if layout in rank_side.GRAD_LAYOUTS),
     "grads_paper_1x4_vs_port_serial_fused",
+    "grads_paper_1x2x2_vs_port_serial_fused",
     *(f"grads_gate_refuses_{wrong}" for wrong in
       ("zeroed_w_spec", "k_y_shards_one_rank_off", "ci_co_swapped")),
+    *(f"grads_gate_refuses_pencil_{wrong}" for wrong in
+      ("k_y_shards_one_rank_off", "k_z_shards_one_rank_off")),
 )
 CHECKS = rank_side.RANK_CHECK_NAMES + PARITY_CHECKS
 
@@ -106,8 +115,9 @@ def results(tmp_path_factory):
     x = x.astype(np.float32)
 
     t0 = time.perf_counter()
-    ranks = launch_ranks(rank_side.run_checks, 4, str(root), args=(params, x, CFG),
-                         timeout_s=TIMEOUT_S, device="cpu")
+    with rank_side.one_launch_at_a_time():
+        ranks = launch_ranks(rank_side.run_checks, 4, str(root), args=(params, x, CFG),
+                             timeout_s=TIMEOUT_S, device="cpu")
     launch_s = time.perf_counter() - t0
 
     out = {}
@@ -125,21 +135,28 @@ def results(tmp_path_factory):
     g_fused = {k: {n: t.grad.numpy() for n, t in v.items()} for k, v in tparams.items()}
 
     outputs, grads = ranks[0]["outputs"], ranks[0]["grads"]
-    for v in rank_side.VARIANTS:
-        for layout in rank_side.LAYOUTS:
-            out[f"forward_{v}_{layout}_vs_jax_serial"] = _compare(
-                outputs[f"{v}_{layout}_chunks1"], y_ser, FWD_TOL)
-        out[f"forward_{v}_1x4_comm_chunks_2_vs_unchunked"] = _compare(
-            outputs[f"{v}_1x4_chunks2"], outputs[f"{v}_1x4_chunks1"], CHUNK_TOL)
-        out[f"grads_{v}_1x4_vs_jax_serial"] = _compare_trees(_numpy_tree(grads[v]), g_ser, GRAD_TOL)
-    out["grads_paper_1x4_vs_port_serial_fused"] = _compare_trees(
-        _numpy_tree(grads["paper"]), g_fused, FUSED_GRAD_TOL)
-    k = 2 * CFG["modes"][1] // 4  # a rank's k_y shard
-    for wrong, fn in (("zeroed_w_spec", np.zeros_like),
-                      ("k_y_shards_one_rank_off", lambda g: np.roll(g, k, axis=4)),
-                      ("ci_co_swapped", lambda g: np.swapaxes(g, 1, 2))):
-        out[f"grads_gate_refuses_{wrong}"] = _refused(
-            _numpy_tree(grads["paper"]), g_ser, GRAD_TOL, ("blocks", "w_spec"), fn)
+    for v, layout in RUNS:
+        out[f"forward_{v}_{layout}_vs_jax_serial"] = _compare(
+            outputs[f"{v}_{layout}_chunks1"], y_ser, FWD_TOL)
+        if layout in rank_side.CHUNKED_LAYOUTS:
+            out[f"forward_{v}_{layout}_comm_chunks_2_vs_unchunked"] = _compare(
+                outputs[f"{v}_{layout}_chunks2"], outputs[f"{v}_{layout}_chunks1"], CHUNK_TOL)
+        if layout in rank_side.GRAD_LAYOUTS:
+            out[f"grads_{v}_{layout}_vs_jax_serial"] = _compare_trees(
+                _numpy_tree(grads[f"{v}_{layout}"]), g_ser, GRAD_TOL)
+    for layout in ("1x4", "1x2x2"):
+        out[f"grads_paper_{layout}_vs_port_serial_fused"] = _compare_trees(
+            _numpy_tree(grads[f"paper_{layout}"]), g_fused, FUSED_GRAD_TOL)
+    ky, kz = 2 * CFG["modes"][1], 2 * CFG["modes"][2]  # global k_y, k_z extents
+    for prefix, layout, wrongs in (
+            ("", "1x4", (("zeroed_w_spec", np.zeros_like),
+                         ("k_y_shards_one_rank_off", lambda g: np.roll(g, ky // 4, axis=4)),
+                         ("ci_co_swapped", lambda g: np.swapaxes(g, 1, 2)))),
+            ("pencil_", "1x2x2", (("k_y_shards_one_rank_off", lambda g: np.roll(g, ky // 2, axis=4)),
+                                  ("k_z_shards_one_rank_off", lambda g: np.roll(g, kz // 2, axis=5))))):
+        for wrong, fn in wrongs:
+            out[f"grads_gate_refuses_{prefix}{wrong}"] = _refused(
+                _numpy_tree(grads[f"paper_{layout}"]), g_ser, GRAD_TOL, ("blocks", "w_spec"), fn)
     out["launch_seconds"] = launch_s
     path = root / "checks.json"
     path.write_text(json.dumps(out, indent=1))

@@ -17,6 +17,11 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    # what the ranks of the distributed tests run
+    tests = os.path.join(REPO, "tests")
+    for name in sorted(os.listdir(tests)):
+        if name.startswith("torch_") and name.endswith(".py"):
+            yield os.path.join(tests, name)
 
 
 def _forbidden(module: str) -> bool:

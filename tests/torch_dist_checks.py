@@ -3,14 +3,20 @@
 Kept apart from the test module so the spawned ranks import torch and the
 port only, never JAX. ``run_checks`` runs on every one of 4 gloo ranks on
 the CPU: the rank-local checks of the repartition operator, the partition
-descriptors and the parameter sharding, then the 1-D distributed forward
-(every schedule, two layouts, ``comm_chunks`` 1 and 2) and its gradients.
-Rank 0 returns the gathered global outputs and gradients, which the test
-holds against the JAX reference in its own process.
+descriptors (tuple dims included), the groups' rank order and the
+parameter sharding, then the distributed forward on two 1-D layouts
+(every schedule) and two 2-D pencil layouts (paper and eager), with
+``comm_chunks`` 1 and 2, and its gradients. Rank 0 returns the gathered
+global outputs and gradients, which the test holds against the JAX
+reference in its own process.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import fcntl
+import os
+import tempfile
 import traceback
 
 import numpy as np
@@ -22,11 +28,33 @@ from repro_torch.core.partition import CartPartition, gather, gather_dim, local_
 from repro_torch.core.repartition import (
     repartition, repartition_chunked, repartition_multi, repartition_multi_t, repartition_t,
 )
-from repro_torch.launch.mesh import build_fno_groups
+from repro_torch.launch.mesh import build_fno_groups, dp_axes_for
 
 VARIANTS = ("paper", "eager", "grady31")
-LAYOUTS = {"1x4": [4], "2x2": [2]}  # data x model ranks, as --model-shards
+VARIANTS_2D = ("paper", "eager")  # the schedules with a pencil form
+# data x model ranks, by --model-shards: one value 1-D, two the pencils
+LAYOUTS = {"1x4": [4], "2x2": [2], "1x2x2": [2, 2], "1x1x4": [1, 4]}
+CHUNKED_LAYOUTS = ("1x4", "1x2x2")            # also run with comm_chunks=2
+GRAD_LAYOUTS = ("1x4", "1x2x2", "1x1x4")      # also differentiated
 CHUNKS = (1, 2, 3, 6, 16)
+
+
+@contextlib.contextmanager
+def one_launch_at_a_time():
+    """Holds a lock file in the temp directory while a test launches its
+    ranks, so the 4-rank launches of ``tests/test_torch_dist.py`` and
+    ``tests/test_torch_dist_train.py`` take turns on the CPU's cores
+    when pytest-xdist runs the two modules at once."""
+    with open(os.path.join(tempfile.gettempdir(), "repro_torch_rank_launch.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def variants_of(layout: str) -> tuple:
+    return VARIANTS if len(LAYOUTS[layout]) == 1 else VARIANTS_2D
 
 
 class _Checks:
@@ -127,10 +155,20 @@ def _partition_checks(c: _Checks, groups):
         moved = part.with_moved(2, 3)
         c.require(moved.dims == ("data", None, None, "model", None, None), f"moved {moved.dims}")
         c.require(part.with_moved(2, 3, axis="model") == moved, "axis= names the moving group")
+        # the 2-D pencil forward's moves: R^{my}_{y->z}, then R^{mx}_{x->y}
+        pencil = CartPartition(("data", None, "mx", "my", None, None))
+        spectral = pencil.with_moved(3, 4).with_moved(2, 3)
+        c.require(spectral.dims == ("data", None, None, "mx", "my", None), f"pencil {spectral.dims}")
+        # a move onto a sharded dim appends its group, innermost; axis= picks it back out
+        both = pencil.with_moved(2, 3, axis="mx")
+        c.require(both.dims == ("data", None, None, ("my", "mx"), None, None), f"tuple {both.dims}")
+        c.require(both.with_moved(3, 2, axis="mx") == pencil, "moving mx back")
         for bad, words in ((lambda: part.with_moved(1, 3), "not sharded"),
                            (lambda: part.with_moved(2, 3, axis="data"), "not sharded by"),
-                           (lambda: part.with_moved(2, 0), "item 2b"),
-                           (lambda: CartPartition((None, ("mx", "my"))), "item 2b")):
+                           (lambda: both.with_moved(3, 4), "name the axis"),
+                           (lambda: both.with_moved(3, 2, axis="model"), "not sharded by"),
+                           (lambda: CartPartition((None, None, "mx", "mx", None, None))
+                            .with_moved(2, 3), "already sharded by")):
             try:
                 bad()
             except ValueError as e:
@@ -158,14 +196,64 @@ def _partition_checks(c: _Checks, groups):
     c.run("shard_gather_roundtrip_bitwise", shard_gather_roundtrip)
 
 
+def _pencil_checks(c: _Checks, params, world_size):
+    """The (1 x 2 x 2) groups: rank order, tuple-dim shards, and the
+    pencil shard of w_spec against its k_y x k_z block directly."""
+    data_group, model, _ = build_fno_groups(world_size, [2, 2])
+    groups = fno.group_names(data_group, model)
+    me = dist.get_rank()
+
+    def rank_order():
+        i, j = dist.get_rank(groups["mx"]), dist.get_rank(groups["my"])
+        c.require(me == i * 2 + j, f"rank {me} is (mx {i}, my {j}), not row-major (data, mx, my)")
+        c.require(dist.get_world_size(groups["data"]) == 1, "one data rank")
+        c.require(dp_axes_for(groups) == ("data",), f"data-parallel axes {dp_axes_for(groups)}")
+        w = params["blocks"]["w_spec"]
+        ky, kz = w.shape[4] // 2, w.shape[5] // 2
+        want = w[..., i * ky:(i + 1) * ky, j * kz:(j + 1) * kz, :]
+        c.require(torch.equal(fno.shard_params(params, model)["blocks"]["w_spec"], want),
+                  "the w_spec shard is not the rank's (k_y run i, k_z run j) block")
+
+    def tuple_dims():
+        x = _cplx(np.random.default_rng(6), (2, 3, 8, 4, 4, 3))
+        part = CartPartition((None, None, ("mx", "my"), None, None, None))
+        local = shard(x, part, groups)
+        piece = dist.get_rank(groups["mx"]) * 2 + dist.get_rank(groups["my"])
+        c.require(torch.equal(local, x[:, :, 2 * piece:2 * piece + 2]),
+                  "a dim split by (mx, my) is not laid out as P(('mx', 'my'))")
+        c.require(torch.equal(gather(local, part, groups), x), "gather(shard(x)) != x, tuple dim")
+        pencil = CartPartition((None, None, "mx", "my", None, None))
+        c.require(torch.equal(gather(shard(x, pencil, groups), pencil, groups), x),
+                  "gather(shard(x)) != x, pencil")
+        moved = pencil.with_moved(2, 3, axis="mx")
+        y = shard(x, pencil, groups)
+        c.require(torch.equal(repartition(y, 2, 3, groups["mx"]), shard(x, moved, groups)),
+                  "R^{mx}_{x->y} does not land as with_moved describes")
+        back = fno.gather_params(fno.shard_params(params, model), model)
+        for group_name, leaves in params.items():
+            for name, t in leaves.items():
+                c.require(torch.equal(back[group_name][name], t), f"{group_name}.{name} differs")
+
+    c.run("pencil_groups_are_row_major_and_shard_w_spec_by_k_y_k_z", rank_order)
+    c.run("shard_gather_tuple_dims_and_pencil_params_roundtrip_bitwise", tuple_dims)
+
+
 def _refusal_checks(c: _Checks, cfg, model_group):
     def refuses():
+        data_group, pair, n_model = build_fno_groups(4, [2, 2])  # pencils work
+        c.require(n_model == 4 and len(pair) == 2, f"pencil groups {pair!r}")
+        pair_1x4 = build_fno_groups(4, [1, 4])[1]
+        c.require(fno.input_spec("data", ("mx", "my")).dims == ("data", None, "mx", "my", None, None),
+                  "pencil input_spec")
+        fno.make_dist_forward(cfg, pair, variant="eager")
         for bad, words in (
-            (lambda: build_fno_groups(4, [2, 2]), "item 2b"),
-            (lambda: fno.make_dist_forward(cfg, (model_group, model_group)), "item 2b"),
-            (lambda: fno.input_spec("data", ("mx", "my")), "item 2b"),
             (lambda: build_fno_groups(4, [3]), "not divisible"),
-            (lambda: build_fno_groups(4, [1, 2, 2]), "1 value"),
+            (lambda: build_fno_groups(4, [3, 2]), "not divisible"),
+            (lambda: build_fno_groups(4, [1, 2, 2]), "1 (x-decomposition) or 2"),
+            (lambda: fno.make_dist_forward(cfg, pair, variant="grady31"), "no 2-D schedule"),
+            (lambda: fno.make_dist_forward(cfg, (model_group,) * 3), "2 model groups"),
+            (lambda: fno.make_dist_forward(dataclasses.replace(cfg, modes=(4, 4, 3, 3)), pair_1x4),
+             "2*mz=6 not divisible by 4 y-shards"),
             (lambda: fno.make_dist_forward(cfg, None), "every rank"),
             (lambda: fno.make_dist_forward(cfg, model_group, variant="pencil"), "unknown variant"),
             (lambda: fno.make_dist_forward(dataclasses.replace(cfg, modes=(4, 3, 2, 3)),
@@ -199,20 +287,23 @@ def _one_shard_checks(c: _Checks, world_size):
     c.run("model_shards_1_gives_each_rank_its_own_group", own_group)
 
 
-def _global_grads(grads: dict, data_group, model_group) -> dict:
+def _global_grads(grads: dict, groups: dict) -> dict:
     """Every leaf's gradient of the global loss from this rank's partial
-    ones: replicated leaves summed over all ranks, w_spec's k_y shards
-    summed over the data group and gathered over the model group."""
+    ones: replicated leaves summed over all ranks, w_spec's shards summed
+    over the data group and gathered over the model group(s)."""
+    model_names = [n for n in groups if n != "data"]
+    part = fno.W_SPEC_PARTITION_2D if "mx" in groups else fno.W_SPEC_PARTITION
     out = {}
     for group_name, leaves in grads.items():
         out[group_name] = {}
         for name, t in leaves.items():
             t = t.clone()
-            dist.all_reduce(t, group=data_group)
+            dist.all_reduce(t, group=groups["data"])
             if name == "w_spec":
-                t = gather(t, fno.W_SPEC_PARTITION, {"model": model_group})
+                t = gather(t, part, groups)
             else:
-                dist.all_reduce(t, group=model_group)
+                for n in model_names:
+                    dist.all_reduce(t, group=groups[n])
             out[group_name][name] = t
     return out
 
@@ -228,33 +319,34 @@ def run_checks(rank, world_size, device, params_np, x_np, cfg_kwargs):
     x = torch.from_numpy(x_np).to(device)
     outputs, grads = {}, {}
     for layout, shards in LAYOUTS.items():
-        data_group, model_group, _ = build_fno_groups(world_size, shards)
-        groups = {"data": data_group, "model": model_group}
-        part = fno.input_spec("data", "model")
+        data_group, model, _ = build_fno_groups(world_size, shards)
+        groups = fno.group_names(data_group, model)
+        part = fno.input_spec("data", fno.model_axes(model))
         if layout == "1x4":
-            _repartition_checks(c, model_group)
+            _repartition_checks(c, model)
             _partition_checks(c, groups)
-            _refusal_checks(c, cfg, model_group)
+            _refusal_checks(c, cfg, model)
             _one_shard_checks(c, world_size)
             c.run("shard_gather_params_roundtrip_bitwise",
-                  lambda mg=model_group: _params_roundtrip(c, params, mg))
-        local = fno.shard_params(params, model_group)
+                  lambda mg=model: _params_roundtrip(c, params, mg))
+        elif layout == "1x2x2":
+            _pencil_checks(c, params, world_size)
+        local = fno.shard_params(params, model)
         local_x = shard(x, part, groups)
-        for variant in VARIANTS:
-            for chunks in ((1, 2) if layout == "1x4" else (1,)):
+        for variant in variants_of(layout):
+            for chunks in ((1, 2) if layout in CHUNKED_LAYOUTS else (1,)):
                 fwd = fno.make_dist_forward(dataclasses.replace(cfg, comm_chunks=chunks),
-                                            model_group, variant=variant)
+                                            model, variant=variant)
                 with torch.no_grad():
                     y = gather(fwd(local, local_x), part, groups)
                 outputs[f"{variant}_{layout}_chunks{chunks}"] = y
-            if layout == "1x4":
+            if layout in GRAD_LAYOUTS:
                 leaves = {k: {n: t.clone().requires_grad_() for n, t in v.items()}
                           for k, v in local.items()}
-                y_local = fno.make_dist_forward(cfg, model_group, variant=variant)(leaves, local_x)
+                y_local = fno.make_dist_forward(cfg, model, variant=variant)(leaves, local_x)
                 (y_local.square().sum() / x[:, :1].numel()).backward()
-                grads[variant] = _global_grads(
-                    {k: {n: t.grad for n, t in v.items()} for k, v in leaves.items()},
-                    data_group, model_group)
+                grads[f"{variant}_{layout}"] = _global_grads(
+                    {k: {n: t.grad for n, t in v.items()} for k, v in leaves.items()}, groups)
     if rank != 0:
         outputs, grads = {}, {}
     return {"checks": c.results, "outputs": outputs, "grads": grads}
@@ -284,6 +376,8 @@ RANK_CHECK_NAMES = (
     "refuses_pencils_and_bad_model_shards",
     "model_shards_1_gives_each_rank_its_own_group",
     "shard_gather_params_roundtrip_bitwise",
+    "pencil_groups_are_row_major_and_shard_w_spec_by_k_y_k_z",
+    "shard_gather_tuple_dims_and_pencil_params_roundtrip_bitwise",
 )
 
 
