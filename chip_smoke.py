@@ -51,13 +51,19 @@ Phases, each failing hard:
      ranks sharing the card (NCCL refuses two ranks on one device), 1-D
      (paper Alg. 2, x over P = 4) and 2-D pencils (x and y over 2 x 2),
      started by ``launch_ranks`` after this process has built the kernels
-     (the ranks only load them). First the fused kernel (forward and dx)
-     and the dW kernel at the 1-D and 2-D shard shapes of the served and
-     training grids, in this process alone, against their plain versions
-     and timed beside their bounds; then the paper schedules at full width
-     on the served grid (128,64,32,88), batch 2, against the serial fused
-     forward, with each rank's peak memory and one block's split (FFTs,
-     all-to-alls, the fused kernel); then on the training grid, batch 1,
+     (the ranks only load them). First the fused kernel (forward, dx, and
+     forward with the deep split's ``add``) and the dW kernel at the 1-D
+     and 2-D shard shapes of the served and training grids, in this
+     process alone, against their plain versions and timed beside their
+     bounds; then ``FNORunner`` over the ranks (rank 0 the controller) at
+     full width on the served grid (128,64,32,88): one paper tick of
+     bucket 2 on each layout, rank 0's gathered outputs against the serial
+     fused forward, with each tick's split (scatter, forward, gather), each
+     rank's peak memory and one block's split (FFTs, all-to-alls, the fused
+     kernel); then a deep-split ensemble over the pencils on the training
+     grid (2 scenarios sharing one geomodel, 2 rollout steps, a cold and a
+     warm pass): cold == warm bitwise, the cache hit, the outputs against
+     the unfused serial oracle once the ranks exit; then on the training grid, batch 1,
      the eager, Grady-31 (1-D) and ``comm_chunks=2`` schedules against the
      serial forward, and one paper forward + backward of each layout whose
      every leaf's gradient is held against the serial gradient on the card;
@@ -68,7 +74,8 @@ Phases, each failing hard:
      grad norm, and every param after the last step on every rank; then
      the training CLI on 4 ranks (``--devices 4 --model-shards 2 2``)
      through an injected fault, and the serving CLI with ``--verify`` on
-     its checkpoint;
+     its checkpoint, on one card and on 4 ranks (``--devices 4
+     --model-shards 2 2``);
   8. hold the RMSNorm and flash-attention kernels against their plain
      versions (``rmsnorm_ref``, ``flash_attention_ref``) over bf16 and f32,
      ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
@@ -89,7 +96,8 @@ kernel twice (forward, dx), its weight-cotangent kernel once, and no other
 kernel. Each served run must launch the fused kernel exactly once per FNO block
 per forward; each training step, per micro-batch and block, three times
 (forward, remat recompute, dx) and the cotangent kernel once; each dist
-forward, on every rank, the fused kernel once per block, and the dist
+forward, on every rank, the fused kernel once per block (a served tick
+is one forward), and the dist
 backward 3 times per block and the cotangent kernel once; each dist train
 step, on every rank, as a training step on its micro-batches. Each LM
 prefill must launch flash attention once per layer, and each LM forward
@@ -861,7 +869,7 @@ def phase_ensemble(gpu: str) -> dict:
     print(f"[ensemble] warmup of buckets {runner.buckets}: {runner.warmup():.2f}s")
     passes, launches = [], {}
     for tag in ("cold", "warm"):
-        requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=2, n_static=1)
+        requests, _ = build_scenarios(cfg, ONE_CARD_SLOTS, 2, seed=0, steps=2, n_static=1)
         forwards = runner.batched_steps
         spectral_fused_cuda.launches = 0
         done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
@@ -1084,6 +1092,14 @@ DIST2D_TRAIN_FORWARDS = (("dist2d_paper_train", "paper", 1), ("dist2d_eager", "e
 # Grady-31's forward runs at this depth, to keep the script's time: it
 # moves the spectrum untruncated, 9.7-16.6 s a forward at 4 blocks
 DIST_GRADY31_BLOCKS = 1
+# The training grid's other forwards and the backward run at this depth, to
+# keep the script's time (a gate reads the reference a 3.15 GB block at a
+# time on every rank)
+DIST_GRID_BLOCKS = 2
+# The deep-split ensemble served over the pencils: 2 scenarios sharing one
+# geomodel in bucket 2, 2 rollout steps, a cold and a warm pass, at the
+# training grid (a cold tick's numpy spectral prefix runs on rank 0's host)
+DIST_ENSEMBLE_BATCH, DIST_ENSEMBLE_STEPS = 2, 2
 
 
 def _dist_input(cfg, batch: int, seed: int, device):
@@ -1110,7 +1126,8 @@ def _close(got, ref, tol) -> tuple:
 
 
 def _dist_kernel_times(gpu: str) -> dict:
-    """The fused kernel (forward, dx) and the dW kernel at every shard shape
+    """The fused kernel (forward, dx, and forward with its ``add`` as the
+    deep split's block 0 runs it) and the dW kernel at every shard shape
     the dist paths give them: the 1-D schedules' (P = 4), the 2-D pencils'
     (2 x 2) and each of ``DIST_TRAIN_RUNS``' shards at its micro-batch, in
     this process alone: each held to its plain version, two launches
@@ -1118,8 +1135,8 @@ def _dist_kernel_times(gpu: str) -> dict:
     import torch
 
     from repro_torch.kernels.spectral_conv import (
-        spectral_apply_fused, spectral_apply_fused_ref, spectral_fused_dw,
-        spectral_fused_dw_ref, spectral_fused_dx,
+        pad_kept_ref, spectral_apply_fused, spectral_apply_fused_add, spectral_apply_fused_ref,
+        spectral_fused_dw, spectral_fused_dw_ref, spectral_fused_dx,
     )
 
     dev = torch.device("cuda")
@@ -1158,6 +1175,11 @@ def _dist_kernel_times(gpu: str) -> dict:
             kept1 = kept_of((DIST_RANKS,))
             cases.insert(1, (f"{tag} grady31 shard forward", "forward", (nx, None, nz),
                              (nx, kept1[1], nz), nt // 2 + 1, nt // 2 + 1, kept1, b))
+        else:  # block 0 of the deep split, at the ensemble's bucket
+            cases += [(f"{tag} {label} shard forward add", "add", (nx, None, None),
+                       (nx, kept[1], kept[2]), kt, None, kept, DIST_ENSEMBLE_BATCH)
+                      for label, kept in (("paper", kept_of((DIST_RANKS,))),
+                                          ("pencil", kept_of(DIST_PENCILS)))]
         for name, op, trunc, ext, t_x, t_out, kept, b in cases:
             w = torch.randn((ci, co) + kept, dtype=torch.complex64, device=dev, generator=gen)
             t_y = kt if t_out is None else t_out
@@ -1166,6 +1188,13 @@ def _dist_kernel_times(gpu: str) -> dict:
                 run = lambda: spectral_apply_fused(xf, w, trunc, t_out=t_out)
                 plain = lambda: spectral_apply_fused_ref(xf, w, trunc, t_out)
                 bound = _fused_bound_ms(b, ci, co, ext, kept, t_x, t_y, False)
+            elif op == "add":
+                xf = spectrum(ci, ext, t_x, b)
+                add = torch.randn((b, co) + kept, dtype=torch.complex64, device=dev, generator=gen)
+                run = lambda: spectral_apply_fused_add(xf, w, add, trunc, t_out=t_out)
+                plain = lambda: (spectral_apply_fused_ref(xf, w, trunc, t_out)
+                                 + pad_kept_ref(add, trunc, t_out))
+                bound = _fused_bound_ms(b, ci, co, ext, kept, t_x, t_y, True)
             elif op == "dx":
                 g = spectrum(co, ext, t_y, b)
                 wt = w.transpose(0, 1).conj()
@@ -1189,7 +1218,7 @@ def _dist_kernel_times(gpu: str) -> dict:
                              "bound_by": bound[1], "max_abs_err": err}
             print(f"[dist kernel] {name}: b={b} E={ext} K={kept} trunc {trunc}: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}); {gpu}")
-            xf = g = wt = w = run = plain = None
+            xf = g = wt = w = add = run = plain = None
             torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return records
@@ -1293,15 +1322,14 @@ def _dist_setup(world_size: int, device) -> tuple:
     return load_s, layouts
 
 
-def _dist_local(cfg, batch: int, seed: int, model, groups: dict, device) -> tuple:
-    """This rank's shard of the seeded weights and input under one layout.
-    The ranks generate the full weights in turn, so that one 12.6 GB copy
-    exists at a time."""
+def _dist_local_params(cfg, seed: int, model, device) -> dict:
+    """This rank's shard of the seeded weights under one layout. The ranks
+    generate the full weights in turn, so that one 12.6 GB copy exists at
+    a time."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.fno import input_spec, model_axes, shard_params
-    from repro_torch.core.partition import shard
+    from repro_torch.core.fno import shard_params
 
     local = None
     for turn in range(dist.get_world_size()):
@@ -1309,6 +1337,15 @@ def _dist_local(cfg, batch: int, seed: int, model, groups: dict, device) -> tupl
             local = shard_params(_dist_params(cfg, seed, device), model)
             torch.cuda.empty_cache()
         dist.barrier()
+    return local
+
+
+def _dist_local(cfg, batch: int, seed: int, model, groups: dict, device) -> tuple:
+    """This rank's shard of the seeded weights and input under one layout."""
+    from repro_torch.core.fno import input_spec, model_axes
+    from repro_torch.core.partition import shard
+
+    local = _dist_local_params(cfg, seed, model, device)
     x = _dist_input(cfg, batch, seed, device)
     return local, shard(x, input_spec("data", model_axes(model)), groups)
 
@@ -1328,31 +1365,98 @@ def _counted(fn) -> tuple:
                "dw": spectral_fused_dw_cuda.launches}
 
 
+def _serve_on_ranks(runner, requests, passes: int = 1):
+    """Rank 0 serves ``requests()`` (fresh ones each pass) through the
+    scheduler and closes the runner; the other ranks follow its ticks.
+    Returns rank 0's served requests of each pass, by rid (None elsewhere)."""
+    from repro_torch.launch.serve_pde import check_served, serve
+
+    if not runner.is_controller:
+        runner.follow()
+        return None
+    out = []
+    for _ in range(passes):
+        reqs = requests()
+        done, _, sched = serve(runner, reqs, runner.max_slots)
+        check_served(done, reqs, sched.failed)
+        out.append(sorted(done, key=lambda r: r.rid))
+    runner.close()
+    return out
+
+
 def _dist_serve_part(layouts: dict, job: dict, device) -> dict:
-    """The served grid on this rank: the 1-D and the 2-D paper forward at
-    full width, each one's peak memory and one block's split."""
+    """The served grid on this rank: ``FNORunner`` ticks over the 1-D and
+    the 2-D layout at full width (bucket 2: 2 scenarios, 1 rollout step),
+    each tick's split, each rank's peak memory and one paper block's
+    split. Rank 0 returns the served outputs."""
     import torch
 
-    from repro_torch.core.fno import make_dist_forward
+    from repro_torch.serve import FNORunner, ScenarioRequest
 
     cfg = _serving_cfg()
     out = {"split": {}}
+    x = _dist_input(cfg, DIST_SERVE_BATCH, job["seed"], device).cpu().numpy()
     for name, tag in (("1d", "dist_paper"), ("2d", "dist2d_paper")):
         model, groups = layouts[name]
         local, x_local = _dist_local(cfg, DIST_SERVE_BATCH, job["seed"], model, groups, device)
-        fwd = make_dist_forward(cfg, model, variant="paper")
+        runner = FNORunner(cfg, local, device=device, data_group=groups["data"], model=model,
+                           max_slots=DIST_SERVE_BATCH, buckets=(DIST_SERVE_BATCH,))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with torch.inference_mode():
-            y, out[tag] = _counted(lambda: fwd(local, x_local))
+        served, out[tag] = _counted(lambda: _serve_on_ranks(runner, lambda: [
+            ScenarioRequest(rid=i, x=x[i], steps=1) for i in range(DIST_SERVE_BATCH)]))
         out[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        out[tag]["y"] = y.cpu()
-        del y
+        out[tag]["ticks"] = list(runner.tick_times)
+        if served is not None:
+            out[tag]["y"] = torch.from_numpy(np.stack([r.outputs[0] for r in served[0]]))
+        del runner
         torch.cuda.empty_cache()
         split = _block_split if name == "1d" else _block_split_2d
         out["split"][name] = split(local, x_local, cfg, model)
         del local, x_local
         torch.cuda.empty_cache()
+    return out
+
+
+def _ensemble_cfg():
+    import dataclasses
+
+    return dataclasses.replace(_train_cfg(), in_channels=2)
+
+
+def _ensemble_requests(cfg):
+    from repro_torch.launch.serve_pde import build_scenarios
+
+    return build_scenarios(cfg, DIST_ENSEMBLE_BATCH, 2, seed=0, steps=DIST_ENSEMBLE_STEPS,
+                           n_static=1)[0]
+
+
+def _dist_ensemble_part(layouts: dict, job: dict, device) -> dict:
+    """The deep-split ensemble over the 2-D pencils at full width on the
+    training grid: ``FNORunner`` with the geomodel cache (rank 0's), a cold
+    and a warm pass of ``DIST_ENSEMBLE_BATCH`` scenarios sharing one
+    geomodel. Rank 0 returns both passes' outputs and the cache's stats."""
+    import torch
+
+    from repro_torch.serve import FNORunner
+
+    cfg = _ensemble_cfg()
+    model, groups = layouts["2d"]
+    local = _dist_local_params(cfg, job["seed"] + 2, model, device)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    runner = FNORunner(cfg, local, device=device, data_group=groups["data"], model=model,
+                       max_slots=DIST_ENSEMBLE_BATCH, buckets=(DIST_ENSEMBLE_BATCH,), n_static=1,
+                       cache_level="deep", cache_bytes=16 << 30)
+    made_s = time.perf_counter() - t
+    passes, out = _counted(lambda: _serve_on_ranks(runner, lambda: _ensemble_requests(cfg), 2))
+    out.update(made_s=made_s, ticks=list(runner.tick_times))
+    if passes is not None:
+        out["outputs"] = [{r.rid: [torch.from_numpy(y) for y in r.outputs] for r in done}
+                          for done in passes]
+        out["cache"] = {k: runner.cache.stats[k] for k in ("hits", "misses", "hit_rate")}
+    del runner, local
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1467,7 +1571,7 @@ def _dist_train_grid_part(layouts: dict, job: dict, device) -> dict:
 
     from repro_torch.core.fno import make_dist_forward, param_partitions
 
-    cfg = _train_cfg()
+    cfg = _dist_train_cfg(DIST_GRID_BLOCKS)
     out = {"grads": {}}
     for name, forwards, back in (("1d", DIST_TRAIN_FORWARDS, "dist_backward"),
                                  ("2d", DIST2D_TRAIN_FORWARDS, "dist2d_backward")):
@@ -1499,6 +1603,7 @@ def _dist_rank(rank, world_size, device, job):
     load_s, layouts = _dist_setup(world_size, device)
     out = {"load_s": load_s}
     for part, run in (("serve", lambda: _dist_serve_part(layouts, job, device)),
+                      ("ensemble", lambda: _dist_ensemble_part(layouts, job, device)),
                       ("train_grid", lambda: _dist_train_grid_part(layouts, job, device))):
         t = time.perf_counter()
         out[part] = run()
@@ -1535,18 +1640,25 @@ def phase_dist(gpu: str) -> dict:
     from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
 
     _free_cuda()
+    t0 = time.perf_counter()
     timed = _dist_kernel_times(gpu)
+    print(f"[dist] shard kernels held and timed in {time.perf_counter() - t0:.1f}s")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    serve_cfg, train_cfg = _serving_cfg(), _train_cfg()
+    serve_cfg, train_cfg = _serving_cfg(), _dist_train_cfg(DIST_GRID_BLOCKS)
     total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
     print(f"[dist] {DIST_RANKS} gloo ranks on {torch.cuda.get_device_name(0)} (NCCL refuses "
           f"two ranks on one device), as 1 x {DIST_RANKS} (x sharded) and 1 x "
           f"{DIST_PENCILS[0]}x{DIST_PENCILS[1]} (x and y pencils); served grid {serve_cfg.grid} "
           f"batch {DIST_SERVE_BATCH}, training grid {train_cfg.grid} batch {DIST_TRAIN_BATCH}, "
           f"width {serve_cfg.width}, modes {serve_cfg.modes}, {serve_cfg.n_blocks} blocks")
-    print(f"reduced: dist_grady31 n_blocks {train_cfg.n_blocks} -> {DIST_GRADY31_BLOCKS} "
+    print(f"reduced: dist_grady31 n_blocks {serve_cfg.n_blocks} -> {DIST_GRADY31_BLOCKS} "
           f"(the script's time; full width)")
+    print(f"reduced: the training grid's dist forwards and backward n_blocks "
+          f"{serve_cfg.n_blocks} -> {DIST_GRID_BLOCKS} (the script's time; full width)")
+    print(f"reduced: dist2d_ensemble grid {'x'.join(map(str, serve_cfg.grid))} -> "
+          f"{'x'.join(map(str, train_cfg.grid))} (rank 0's numpy spectral prefix sets a cold "
+          f"tick's time; full width)")
 
     def gate(tag, got, ref, tol):
         ok, err, scale = _close(got, ref, tol)
@@ -1606,25 +1718,29 @@ def phase_dist(gpu: str) -> dict:
                                "batch": batch, "accum": accum, "steps": steps,
                                "ref": ref["ref"], "param_max": ref["param_max"],
                                "w_spec_path": path})
+        print(f"[dist] serial references computed and written in {time.perf_counter() - t0:.1f}s")
         t = time.perf_counter()
         ranks = launch_ranks(_dist_rank, DIST_RANKS, d,
                              args=({"seed": DIST_SEED, "grad_ref": grad_ref, "grad_max": grad_max,
                                     "grad_w_spec_path": grad_w_spec_path,
                                     "train_runs": train_runs},),
-                             timeout_s=DIST_TIMEOUT_S)
+                             deadline_s=DIST_TIMEOUT_S)
         print(f"[dist] {DIST_RANKS} ranks spawned, ran and joined in "
               f"{time.perf_counter() - t:.1f}s: served grid "
               + ", ".join(f"{r['serve']['wall_s']:.1f}" for r in ranks) + "s, training grid "
               + ", ".join(f"{r['train_grid']['wall_s']:.1f}" for r in ranks) + "s a rank")
-    for tag, what in (("dist_paper", "paper forward"), ("dist2d_paper", "2-D paper forward")):
-        gate(f"{what}, grid {serve_cfg.grid}, vs the serial fused forward",
-             gathered(ranks, "serve", tag), y_serve, DIST_FWD_TOL)
+    for tag, what in (("dist_paper", "1 x 4"), ("dist2d_paper", "1 x 2x2")):
+        gate(f"FNORunner tick over {what} ranks (paper), grid {serve_cfg.grid}, bucket "
+             f"{DIST_SERVE_BATCH}, rank 0's gathered outputs vs the serial fused forward",
+             ranks[0]["serve"][tag]["y"], y_serve, DIST_FWD_TOL)
     del y_serve
     for tag, what in (("dist_paper", "1-D"), ("dist2d_paper", "2-D")):
         peaks = [res["serve"][tag]["peak_gib"] for res in ranks]
         for r, res in enumerate(ranks):
-            print(f"[dist] rank {r}: kernels loaded in {res['load_s']:.2f}s; {what} paper forward "
-                  f"{res['serve'][tag]['s']:.3f}s, max_memory_allocated {peaks[r]:.2f} GiB; {gpu}")
+            tick = ", ".join(f"{k} {v:.3f}s" for k, v in res["serve"][tag]["ticks"][0].items())
+            print(f"[dist] rank {r}: kernels loaded in {res['load_s']:.2f}s; {what} served tick "
+                  f"{res['serve'][tag]['s']:.3f}s ({tick}), max_memory_allocated "
+                  f"{peaks[r]:.2f} GiB; {gpu}")
         print(f"[dist] the ranks' max_memory_allocated at the served grid, {what}, sum to "
               f"{sum(peaks):.2f} of {total_gib:.2f} GiB ({total_gib - sum(peaks):.2f} GiB left); "
               f"per-shard times on one card, not a scaling result; {gpu}")
@@ -1632,6 +1748,9 @@ def phase_dist(gpu: str) -> dict:
         for name, split in res["serve"]["split"].items():
             parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
             print(f"[dist] rank {r}: one {name} paper block at the served grid: {parts}; {gpu}")
+    t = time.perf_counter()
+    _check_dist_ensemble(ranks, gpu)
+    print(f"[dist2d_ensemble] checked in {time.perf_counter() - t:.1f}s")
 
     for tag, variant, chunks in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS:
         what = "2-D " if tag.startswith("dist2d") else ""
@@ -1665,15 +1784,17 @@ def phase_dist(gpu: str) -> dict:
               f"neighbouring shard along each sharded dim); {gpu}")
 
     # exact launches per rank on every path
-    n_blocks = serve_cfg.n_blocks
-    want = {tag: {"fused": n_blocks, "dw": 0}
-            for tag in ("dist_paper", "dist2d_paper")
-            + tuple(t for t, _, _ in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS)}
+    n_blocks, grid_blocks = serve_cfg.n_blocks, train_cfg.n_blocks
+    want = {tag: {"fused": n_blocks, "dw": 0} for tag in ("dist_paper", "dist2d_paper")}
+    want.update({t: {"fused": grid_blocks, "dw": 0}
+                 for t, _, _ in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS})
     want["dist_grady31"] = {"fused": DIST_GRADY31_BLOCKS, "dw": 0}
-    want["dist_backward"] = want["dist2d_backward"] = {"fused": 3 * n_blocks, "dw": n_blocks}
+    want["dist2d_ensemble"] = {"fused": 2 * DIST_ENSEMBLE_STEPS * n_blocks, "dw": 0}
+    want["dist_backward"] = want["dist2d_backward"] = {"fused": 3 * grid_blocks,
+                                                       "dw": grid_blocks}
     counted = []
     for r, res in enumerate(ranks):
-        res = {**res["serve"], **res["train_grid"]}
+        res = {**res["serve"], **res["train_grid"], "dist2d_ensemble": res["ensemble"]}
         got = {tag: {"fused": res[tag]["fused"], "dw": res[tag]["dw"]} for tag in want}
         counts = ", ".join(f"{tag} {n['fused']}/{n['dw']}" for tag, n in got.items())
         times = ", ".join(f"{tag} {res[tag]['s']:.3f}s" for tag in want)
@@ -1687,6 +1808,45 @@ def phase_dist(gpu: str) -> dict:
             "train_runs": [r["dist_train"] for r in ranks], "train_refs": train_refs}
 
 
+def _check_dist_ensemble(ranks, gpu: str) -> None:
+    """The deep-split ensemble of ``_dist_ensemble_part``: cold == warm
+    bitwise on rank 0, the cache hit, each tick's split, and the served
+    outputs against the unfused serial oracle on the card, computed here
+    once the ranks have left it (``serve_pde.verify``)."""
+    import torch
+
+    from repro_torch.launch.serve_pde import verify
+    from repro_torch.serve import FNORunner
+
+    ens = ranks[0]["ensemble"]
+    cold, warm = ens["outputs"]
+    for rid, steps in cold.items():
+        if not all(torch.equal(a, b) for a, b in zip(steps, warm[rid])):
+            raise SystemExit(f"[dist2d_ensemble] rid {rid}: cold and warm outputs differ")
+    stats = ens["cache"]
+    print(f"[dist2d_ensemble] cold == warm bitwise on rank 0; cache hit-rate "
+          f"{stats['hit_rate']:.3f} ({stats['hits']} hits / {stats['misses']} misses)")
+    if not stats["hit_rate"] > 0:
+        raise SystemExit("[dist2d_ensemble] the geomodel cache never hit")
+    for r, res in enumerate(ranks):
+        e = res["ensemble"]
+        ticks = "; ".join(", ".join(f"{k} {v:.3f}s" for k, v in t.items()) for t in e["ticks"])
+        print(f"[dist2d_ensemble] rank {r}: runner made in {e['made_s']:.2f}s, 2 passes in "
+              f"{e['s']:.3f}s; ticks: {ticks}; {gpu}")
+    cfg, dev = _ensemble_cfg(), torch.device("cuda")
+    _free_cuda()
+    oracle = FNORunner(cfg, _dist_params(cfg, DIST_SEED + 2, dev), device=dev, max_slots=1,
+                       n_static=1)
+    done = _ensemble_requests(cfg)
+    for r in done:
+        r.outputs = [y.numpy() for y in cold[r.rid]]
+    worst = verify(oracle, done, DIST_ENSEMBLE_STEPS)
+    print(f"[dist2d_ensemble] verify OK: {len(done)} scenarios x {DIST_ENSEMBLE_STEPS} steps vs "
+          f"the unfused serial oracle (max abs diff {worst:.3e}, rtol 1e-4, atol 1e-5); {gpu}")
+    del oracle
+    _free_cuda()
+
+
 # ---------------------------------------------------------------------------
 # Phase dist_train: the distributed train step on 4 gloo ranks sharing the
 # card (run in phase dist's launch of the ranks), against the serial train
@@ -1697,7 +1857,8 @@ DIST_TRAIN_SEED = 13
 DIST_TRAIN_TOL = (1e-4, 1e-5)  # rtol, atol of losses, grad norms and params
 # (tag, --model-shards, n_blocks, global batch, micro-batches, steps)
 DIST_TRAIN_RUNS = (
-    ("dist_train_pencils", [2, 2], 4, 2, 2, 3),  # 1 data x 2x2 pencils
+    # 1 data x 2x2 pencils, n_blocks 4 -> 2 (the script's time)
+    ("dist_train_pencils", [2, 2], 2, 2, 2, 3),
     # 2 data x 2 model (1-D), ZeRO-1, n_blocks 4 -> 2: at 4 blocks a rank's
     # state (w_spec shard 6.3 GB, its gradient 6.3, half of mu 3.15 and of
     # nu 1.6) is 17.3 GB, 69 GB for four ranks before any activation
@@ -1902,8 +2063,9 @@ def phase_dist_train(gpu: str, dist_out: dict) -> dict:
 
 def phase_dist_train_cli(gpu: str) -> dict:
     """The training CLI on 4 ranks (1 data x 2x2 pencils) through an
-    injected fault, then the serving CLI with --verify on its checkpoint;
-    returns rank 0's launches and the served run's."""
+    injected fault, then the serving CLI with --verify on its checkpoint,
+    on one card and on 4 ranks (``--devices 4 --model-shards 2 2``);
+    returns rank 0's launches and the served runs'."""
     import tempfile
 
     _free_cuda()  # the subprocesses need the memory this process has cached
@@ -1930,20 +2092,30 @@ def phase_dist_train_cli(gpu: str) -> dict:
                 or n_ranks != DIST_RANKS:
             raise SystemExit(f"[{tag}] launches fused {fused}, dw {dw} do not match "
                              f"{n_steps} steps x {n_blocks} blocks x {accum} micro-batches")
-        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
-                     "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2", "--verify"]
-        srv = subprocess.run(serve_cmd, capture_output=True, text=True, env=env, timeout=600)
-    print("\n".join(f"[{tag}] " + line for line in srv.stdout.strip().splitlines()))
-    if srv.returncode != 0 or "verify OK" not in srv.stdout:
-        print(srv.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"[{tag}] serve_pde exited {srv.returncode} without verify OK")
-    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", srv.stdout)
-    if m is None:
-        raise SystemExit(f"[{tag}] serve_pde printed no spectral kernel launch count")
-    served = _check_launches(f"{tag} serve", int(m.group(1)), n_blocks, int(m.group(2)), gpu)
+        served = {}
+        for key, layout in (("serve", ["--devices", "1", "--model-shards", "1"]),
+                            ("serve_4", ["--devices", str(DIST_RANKS), "--model-shards",
+                                         *map(str, DIST_PENCILS)])):
+            serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
+                         "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2",
+                         "--verify", *layout]
+            t = time.perf_counter()
+            srv = subprocess.run(serve_cmd, capture_output=True, text=True, env=env, timeout=600)
+            print("\n".join(f"[{tag} {key}] " + line for line in srv.stdout.strip().splitlines()))
+            if srv.returncode != 0 or "verify OK" not in srv.stdout:
+                print(srv.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"[{tag} {key}] serve_pde exited {srv.returncode} without "
+                                 f"verify OK")
+            m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", srv.stdout)
+            if m is None:
+                raise SystemExit(f"[{tag} {key}] serve_pde printed no spectral kernel launch "
+                                 f"count")
+            served[key] = _check_launches(f"{tag} {key}", int(m.group(1)), n_blocks,
+                                          int(m.group(2)), gpu)
+            print(f"[{tag} {key}] {' '.join(layout)}: {time.perf_counter() - t:.1f}s")
     print(f"[{tag}] rank 0 of {DIST_RANKS} launched fused {fused}, dw {dw} over {n_steps} "
           f"steps; {gpu}")
-    return {"fused": fused, "dw": dw, "serve": served}
+    return {"fused": fused, "dw": dw, **served}
 
 
 def _finite(t) -> bool:
@@ -2302,6 +2474,7 @@ def main() -> int:
         record["launches_by_path"]["dist_train_cli"] = dist_cli[key]
         record["dist_ranks"] = DIST_RANKS
     fused["launches_by_path"]["dist_train_cli_serve"] = dist_cli["serve"]
+    fused["launches_by_path"]["dist_train_cli_serve_4ranks"] = dist_cli["serve_4"]
     fused["dist_shapes"] = {k: v for k, v in dist["timed"].items() if not k.endswith("dW")}
     dw["dist_shapes"] = {k: v for k, v in dist["timed"].items() if k.endswith("dW")}
     rms["launches"] = lm["rmsnorm"]

@@ -35,8 +35,10 @@ second, and the weights along k_y over the first and k_z over the second.
 Every block runs the same fused op at its shard's shapes, after the
 paper's schedule, the eager schedule or (1-D only) Grady et al.'s [31]
 (``core/dfft.py``). ``forward_and_specs`` gives a trainer the serial or
-the distributed forward with its layouts. Model-parallel split serving is
-ROADMAP Queue 1 item 2d, not ported yet.
+the distributed forward with its layouts; ``split_forward_and_specs`` and
+``deep_split_forward_and_specs`` give a server the same for the split
+forwards, which take a cached static prelift (and, deep, block 0's cached
+kept-mode contribution, sharded as ``w_spec`` is: ``contrib_spec``).
 
 Every GELU is the tanh form, as ``jax.nn.gelu``'s default: the exact erf
 form differs by up to ~2e-4, outside the 1e-4 parity gate. TF32 stays off:
@@ -322,7 +324,9 @@ def _run_blocks(params: dict, h: torch.Tensor, cfg: FNOConfig, block_apply, firs
 
 
 def _fused_block(cfg):
-    return lambda h, blk: fno_block(h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg)
+    """``block(h, blk, add_kept=None, bypass_x=None)``: one serial fused block."""
+    return lambda h, blk, **kw: fno_block(
+        h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg, **kw)
 
 
 def fno_forward(params: dict, x: torch.Tensor, cfg: FNOConfig) -> torch.Tensor:
@@ -352,12 +356,19 @@ def fno_forward_split(
     n_static, ...] — the normalized dynamic channels, lifted here. Equal to
     ``fno_forward`` on the concatenated input up to summation order.
     """
+    return _split_forward(params, pre_static, x_dyn, cfg, n_static, _fused_block(cfg))
+
+
+def _split_forward(params, pre_static, x_dyn, cfg, n_static, block):
+    """The split forward's body under ``block`` (serial or one rank's).
+    The prelift add and the dynamic channels' lift are pointwise over the
+    spatial dims, so on a rank's slab they need no communication."""
     pre = pre_static.to(cfg.dtype) + encoder_prelift(
         params, x_dyn, cfg, slice(n_static, None)
     )
     h = _encoder_from_prelift(params, pre, cfg)
     del pre
-    return _run_blocks(params, h, cfg, _fused_block(cfg))
+    return _run_blocks(params, h, cfg, block)
 
 
 def spectral_prelift(params: dict, pre_static: torch.Tensor, cfg: FNOConfig):
@@ -398,6 +409,13 @@ def fno_forward_deep_split(
     the other blocks are unchanged. Equal to ``fno_forward_split`` up to
     summation order.
     """
+    return _deep_split_forward(params, contrib, pre_static, x_dyn, cfg, n_static,
+                               _fused_block(cfg))
+
+
+def _deep_split_forward(params, contrib, pre_static, x_dyn, cfg, n_static, block):
+    """The deep split's body under ``block`` (serial or one rank's, where
+    ``contrib`` is the rank's shard of the contribution)."""
     pre_s = pre_static.to(cfg.dtype)
     h_static = _encoder_from_prelift(params, pre_s, cfg)
     pre = pre_s + encoder_prelift(params, x_dyn, cfg, slice(n_static, None))
@@ -405,13 +423,10 @@ def fno_forward_deep_split(
     del pre
     h_rem = h_full - h_static
     del h_static
-    blk0 = _block_slice(params["blocks"], 0)
-    h = fno_block(
-        h_rem, blk0["w_spec"], blk0["w_bypass"], blk0["b_bypass"], cfg,
-        add_kept=contrib.to(torch.complex64).contiguous(), bypass_x=h_full,
-    )
+    h = block(h_rem, _block_slice(params["blocks"], 0),
+              add_kept=contrib.to(torch.complex64).contiguous(), bypass_x=h_full)
     del h_rem, h_full
-    return _run_blocks(params, h, cfg, _fused_block(cfg), first=1)
+    return _run_blocks(params, h, cfg, block, first=1)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -486,6 +501,17 @@ def gather_params(params: dict, model) -> dict:
     return gather_tree(params, param_partitions(model), group_names(None, model))
 
 
+def contrib_spec(data_axis: Optional[str] = "data", model_axis="model") -> CartPartition:
+    """Partition of the cached kept-mode contribution [b, co, 2mx, 2my,
+    2mz, mt]: batch over the data group, k_y over the model group (as
+    ``w_spec``: the contribution is a per-mode product with it), or k_y
+    and k_z over a pencil pair (``model_axis=None``: batch only)."""
+    if _is_pair(model_axis):
+        ax_x, ax_y = model_axis
+        return CartPartition((data_axis, None, None, ax_x, ax_y, None))
+    return CartPartition((data_axis, None, None, model_axis, None, None))
+
+
 def input_spec(data_axis: Optional[str] = "data", model_axis="model") -> CartPartition:
     """Partition of the solution tensor [b, c, x, y, z, t]: batch over the
     data group, x over the model group, or x and y over a pencil pair of
@@ -522,31 +548,61 @@ def _variants(n_dims: int) -> list:
     return sorted(v for v, d in _SCHEDULES if d == n_dims)
 
 
-def fno_block_dist(x, w_spec, w_b, b_b, cfg: FNOConfig, model, variant: str = "paper"):
+def fno_block_dist(x, w_spec, w_b, b_b, cfg: FNOConfig, model, variant: str = "paper",
+                   *, add_kept=None, bypass_x=None):
     """One FNO block on this rank's x slice (or pencil) under ``variant``'s
     schedule: the forward transform, the fused op (S_x, or S_xzt for
     Grady-31, the per-mode mix with sharded weights, and its zero fill),
-    the adjoint transform, the bypass and the GELU."""
+    the adjoint transform, the bypass and the GELU.
+
+    ``add_kept`` is this rank's shard of a cached kept-mode contribution
+    ([b, co, 2mx, 2my/P, 2mz, mt], or k_y x k_z sharded on pencils:
+    ``contrib_spec``), summed into the fused op's output on the kept
+    modes; ``bypass_x`` as in ``fno_block``."""
     forward, adjoint, full_zt = _SCHEDULES[variant, 2 if _is_pair(model) else 1]
     nx, _, nz, nt = cfg.grid
     trunc, t_out = ((nx, None, nz), nt // 2 + 1) if full_zt else ((nx, None, None), None)
     xf = forward(x, cfg.modes, model, comm_chunks=cfg.comm_chunks)
-    yf = spectral_apply_fused(xf, w_spec, trunc, t_out=t_out)
+    if add_kept is None:
+        yf = spectral_apply_fused(xf, w_spec, trunc, t_out=t_out)
+    else:
+        yf = spectral_apply_fused_add(xf, w_spec, add_kept, trunc, t_out=t_out)
     del xf
     y = adjoint(yf, cfg.grid, model, out_dtype=cfg.dtype, comm_chunks=cfg.comm_chunks)
     del yf
-    y += _conv1x1(x, w_b, b_b)
+    y += _conv1x1(x if bypass_x is None else bypass_x, w_b, b_b)
     return _gelu(y)
+
+
+def _dist_block(cfg, model, variant):
+    """``block(h, blk, add_kept=None, bypass_x=None)``: one rank's block."""
+    return lambda h, blk, **kw: fno_block_dist(
+        h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg, model, variant, **kw)
 
 
 def fno_forward_dist(params, x, cfg: FNOConfig, model, variant: str = "paper"):
     # The encoder, bypass and decoder contract channels only, so they run
     # on the local x slice with replicated weights (paper Alg. 1).
-    return _run_blocks(
-        params, _encoder(params, x, cfg), cfg,
-        lambda h, blk: fno_block_dist(h, blk["w_spec"], blk["w_bypass"], blk["b_bypass"], cfg,
-                                      model, variant),
-    )
+    return _run_blocks(params, _encoder(params, x, cfg), cfg, _dist_block(cfg, model, variant))
+
+
+def _check_dist(cfg: FNOConfig, model, variant: str) -> None:
+    """The refusals every distributed forward shares: a None group, a
+    wrong number of groups, a variant without a schedule for the layout,
+    and a grid or modes the shard counts do not divide."""
+    if model is None or (_is_pair(model) and None in tuple(model)):
+        raise ValueError("a model group is None, which torch.distributed reads as every rank; "
+                         "pass the model group(s) build_fno_groups returns")
+    if _is_pair(model):
+        if len(model) != 2:
+            raise ValueError(f"expected 2 model groups, got {len(model)}")
+        if (variant, 2) not in _SCHEDULES:
+            raise ValueError(f"variant {variant!r} has no 2-D schedule; pick from {_variants(2)}")
+        cfg.validate_for_parallelism_2d(*(dist.get_world_size(g) for g in model))
+    else:
+        if (variant, 1) not in _SCHEDULES:
+            raise ValueError(f"unknown variant {variant!r}; pick from {_variants(1)}")
+        cfg.validate_for_parallelism(dist.get_world_size(model))
 
 
 def make_dist_forward(cfg: FNOConfig, model, *, variant: str = "paper"):
@@ -565,22 +621,44 @@ def make_dist_forward(cfg: FNOConfig, model, *, variant: str = "paper"):
     truncation) or, 1-D only, "grady31" (the [31] baseline: repartition,
     then truncate).
     """
-    if model is None or (_is_pair(model) and None in tuple(model)):
-        raise ValueError("a model group is None, which torch.distributed reads as every rank; "
-                         "pass the model group(s) build_fno_groups returns")
-    if _is_pair(model):
-        if len(model) != 2:
-            raise ValueError(f"expected 2 model groups, got {len(model)}")
-        if (variant, 2) not in _SCHEDULES:
-            raise ValueError(f"variant {variant!r} has no 2-D schedule; pick from {_variants(2)}")
-        cfg.validate_for_parallelism_2d(*(dist.get_world_size(g) for g in model))
-    else:
-        if (variant, 1) not in _SCHEDULES:
-            raise ValueError(f"unknown variant {variant!r}; pick from {_variants(1)}")
-        cfg.validate_for_parallelism(dist.get_world_size(model))
+    _check_dist(cfg, model, variant)
 
     def forward(local_params: dict, local_x: torch.Tensor) -> torch.Tensor:
         return fno_forward_dist(local_params, local_x, cfg, model, variant)
+
+    return forward
+
+
+def make_dist_forward_split(cfg: FNOConfig, n_static: int, model, *, variant: str = "paper"):
+    """The distributed split forward: ``fwd(local_params, local_pre_static,
+    local_x_dyn) -> local_y`` (``fno_forward_split`` on every rank of the
+    group(s)). Both inputs take the solution's layout (``input_spec``):
+    the channel dim is never sharded. Refuses what ``make_dist_forward``
+    refuses."""
+    _check_dist(cfg, model, variant)
+    block = _dist_block(cfg, model, variant)
+
+    def forward(local_params, local_pre_static, local_x_dyn):
+        return _split_forward(local_params, local_pre_static, local_x_dyn, cfg, n_static, block)
+
+    return forward
+
+
+def make_dist_forward_deep_split(cfg: FNOConfig, n_static: int, model, *,
+                                 variant: str = "paper"):
+    """The distributed deep split: ``fwd(local_params, local_contrib,
+    local_pre_static, local_x_dyn) -> local_y`` (``fno_forward_deep_split``
+    on every rank). Each rank rebuilds the full first hidden state and the
+    static one on its slab; block 0 runs on the remainder with the rank's
+    shard of the cached contribution (laid out by ``contrib_spec``, which
+    gives each rank the k_y (x k_z) modes its ``w_spec`` shard makes), the
+    other blocks as in ``make_dist_forward``."""
+    _check_dist(cfg, model, variant)
+    block = _dist_block(cfg, model, variant)
+
+    def forward(local_params, local_contrib, local_pre_static, local_x_dyn):
+        return _deep_split_forward(local_params, local_contrib, local_pre_static, local_x_dyn,
+                                   cfg, n_static, block)
 
     return forward
 
@@ -597,8 +675,7 @@ def forward_and_specs(cfg: FNOConfig, model=None, *, variant: str = "paper"):
     ``p_parts`` the params' (``param_partitions``), over the names of
     ``group_names``.
     """
-    if model is not None and not _is_pair(model) and dist.get_world_size(model) == 1:
-        model = None
+    model = _model_or_serial(model)
     x_part = input_spec("data", model_axes(model))
     if model is None:
         def forward(params, x):
@@ -606,3 +683,41 @@ def forward_and_specs(cfg: FNOConfig, model=None, *, variant: str = "paper"):
     else:
         forward = make_dist_forward(cfg, model, variant=variant)
     return forward, x_part, param_partitions(model)
+
+
+def _model_or_serial(model):
+    """None for no model group or one of a single rank: what runs the
+    serial forward on each rank's batch slab."""
+    if model is not None and not _is_pair(model) and dist.get_world_size(model) == 1:
+        return None
+    return model
+
+
+def split_forward_and_specs(cfg: FNOConfig, n_static: int, model=None, *,
+                            variant: str = "paper"):
+    """``forward_and_specs`` for the split forward, for a server:
+    ``(forward, x_part, p_parts)`` with ``forward(params, pre_static,
+    x_dyn)``; both inputs take ``x_part``."""
+    model = _model_or_serial(model)
+    if model is None:
+        def forward(params, pre_static, x_dyn):
+            return fno_forward_split(params, pre_static, x_dyn, cfg, n_static)
+    else:
+        forward = make_dist_forward_split(cfg, n_static, model, variant=variant)
+    return forward, input_spec("data", model_axes(model)), param_partitions(model)
+
+
+def deep_split_forward_and_specs(cfg: FNOConfig, n_static: int, model=None, *,
+                                 variant: str = "paper"):
+    """``forward_and_specs`` for the deep split: ``(forward, x_part,
+    c_part, p_parts)`` with ``forward(params, contrib, pre_static, x_dyn)``;
+    ``c_part`` (``contrib_spec``) lays out the contribution."""
+    model = _model_or_serial(model)
+    if model is None:
+        def forward(params, contrib, pre_static, x_dyn):
+            return fno_forward_deep_split(params, contrib, pre_static, x_dyn, cfg, n_static)
+    else:
+        forward = make_dist_forward_deep_split(cfg, n_static, model, variant=variant)
+    axes = model_axes(model)
+    return (forward, input_spec("data", axes), contrib_spec("data", axes),
+            param_partitions(model))

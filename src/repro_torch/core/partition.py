@@ -120,14 +120,27 @@ class CartPartition:
     def index(self, shape: Sequence[int], groups: Mapping[str, object]) -> Tuple[slice, ...]:
         """This rank's slice of a global tensor of ``shape`` (no collective)."""
         self.validate(shape, groups)
+        used = {name for axes in self.dims for name in _names(axes)}
+        return self.index_at(shape, coords({name: groups[name] for name in used}))
+
+    def index_at(self, shape: Sequence[int], at: Mapping[str, Tuple[int, int]]) -> Tuple[slice, ...]:
+        """The slice of a global tensor of ``shape`` held by the rank whose
+        ``coords`` are ``at``: what one rank computes for another's shard."""
         out = []
         for n, axes in zip(shape, self.dims):
             piece, total = 0, 1
             for name in _names(axes):
-                size = dist.get_world_size(groups[name])
-                piece, total = piece * size + dist.get_rank(groups[name]), total * size
+                rank, size = at[name]
+                piece, total = piece * size + rank, total * size
+            if n % total:
+                raise ValueError(f"size {n} not divisible by groups {_names(axes)} "
+                                 f"(product {total})")
             out.append(slice(piece * (n // total), (piece + 1) * (n // total)))
         return tuple(out)
+
+    def local_shape(self, shape: Sequence[int], groups: Mapping[str, object]) -> tuple:
+        """The shape of this rank's shard of a global tensor of ``shape``."""
+        return tuple(s.stop - s.start for s in self.index(shape, groups))
 
     def global_shape(self, local_shape: Sequence[int], groups: Mapping[str, object]) -> tuple:
         """The global shape whose shards are ``local_shape``."""
@@ -137,6 +150,11 @@ class CartPartition:
                 n *= dist.get_world_size(groups[name])
             out.append(n)
         return tuple(out)
+
+
+def coords(groups: Mapping[str, object]) -> dict:
+    """This rank's (rank, size) in each named group."""
+    return {name: (dist.get_rank(g), dist.get_world_size(g)) for name, g in groups.items()}
 
 
 def shard(x: torch.Tensor, part: CartPartition, groups: Mapping[str, object]) -> torch.Tensor:

@@ -11,8 +11,13 @@ reference names its axes.
 launches at once cannot collide), join one ``gloo`` process group, and run
 a function. ``gloo`` because the ranks may share one card: NCCL refuses two
 ranks on one device. On the card every rank runs on ``cuda:rank % count``;
-on the CPU (only when the caller names it) each rank runs one thread. A
-rank that raises or outlives the deadline ends the launch with an error,
+on the CPU (only when the caller names it) each rank runs one thread.
+
+Two limits guard a launch. The collective timeout bounds how long a rank
+waits in one collective for its peers, so a hung or dead peer fails the
+launch; it does not bound the run, which may last as long as its ranks
+keep working. A wall-clock deadline is opt-in, for tests and smoke runs.
+A rank that raises, or a launch past its deadline, ends with an error,
 and every rank still running is killed.
 """
 from __future__ import annotations
@@ -21,7 +26,7 @@ import datetime
 import os
 import tempfile
 import time
-from typing import Callable, Mapping, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -93,7 +98,12 @@ def dp_axes_for(groups: Mapping[str, object]) -> tuple:
     return tuple(a for a in groups if a not in MODEL_AXIS_NAMES)
 
 
-def _rank_main(rank, fn, world_size, run_dir, device_type, timeout_s, args):
+# How long the ranks may take to start (spawn, imports, CUDA context) before
+# they connect; the collective timeout applies only once every rank is up.
+STARTUP_TIMEOUT_S = 300.0
+
+
+def _rank_main(rank, fn, world_size, run_dir, device_type, collective_timeout_s, args):
     if device_type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
@@ -101,8 +111,11 @@ def _rank_main(rank, fn, world_size, run_dir, device_type, timeout_s, args):
         torch.set_num_threads(1)
         device = torch.device(device_type)
     store = dist.FileStore(os.path.join(run_dir, "store"), world_size)
+    store.set(f"up{rank}", "1")
+    store.wait([f"up{r}" for r in range(world_size)],
+               datetime.timedelta(seconds=STARTUP_TIMEOUT_S))
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=collective_timeout_s))
     # every rank has connected before any runs fn: a rank that returns
     # early must not close its connections under a peer still connecting
     dist.barrier()
@@ -119,7 +132,8 @@ def launch_ranks(
     rendezvous_dir: str,
     *,
     args: tuple = (),
-    timeout_s: float = 240.0,
+    collective_timeout_s: float = 1800.0,
+    deadline_s: Optional[float] = None,
     device=None,
 ) -> list:
     """Run ``fn(rank, world_size, device, *args)`` on ``world_size`` ranks
@@ -128,21 +142,24 @@ def launch_ranks(
     ``fn`` must be importable by name (the ranks are spawned); what it
     returns travels through ``torch.save`` (tensors, numbers, strings and
     containers of them). Ranks run on ``device``'s type: ``cuda`` unless
-    the caller names the CPU. Raises if a rank raises, or when
-    ``timeout_s`` passes first; no rank outlives the call.
+    the caller names the CPU. ``collective_timeout_s`` is how long a rank
+    waits in one collective for its peers (gloo's timeout); with
+    ``deadline_s`` the launch also ends after that much wall time. Raises
+    if a rank raises, or at the deadline; no rank outlives the call.
     """
     device_type = resolve_device(device).type
     os.makedirs(rendezvous_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as run_dir:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world_size, run_dir, device_type, timeout_s, tuple(args)),
+            _rank_main,
+            args=(fn, world_size, run_dir, device_type, collective_timeout_s, tuple(args)),
             nprocs=world_size, join=False, start_method="spawn",
         )
-        deadline = time.monotonic() + timeout_s
+        deadline = None if deadline_s is None else time.monotonic() + deadline_s
         try:
             while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"{world_size} ranks did not finish within {timeout_s:.0f}s")
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(f"{world_size} ranks did not finish within {deadline_s:.0f}s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():

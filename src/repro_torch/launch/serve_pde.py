@@ -1,5 +1,5 @@
-"""Serve the trained CO2 surrogate on one device: UQ-ensemble inference
-through the slot scheduler.
+"""Serve the trained CO2 surrogate on one device or model-parallel over
+ranks: UQ-ensemble inference through the slot scheduler.
 
 Draws N permeability/well-placement scenarios the way the reference's
 serving CLI does, serves them through ``FNORunner.from_checkpoint`` (the fused
@@ -7,20 +7,26 @@ CUDA spectral kernel on the card), and reports scenarios/s plus
 per-request latency.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_pde --ckpt-dir CKPT \
-        --scenarios 8 --verify --bench-sequential
+        --scenarios 8 --verify --bench-sequential \
+        [--devices N --model-shards P | PX PY] [--comm-chunks C]
 
 ``CKPT`` is a directory written by the reference's ``train.py --mode fno``
-(or by the port's ``train.checkpoint.save`` plus an ``fno_config.json``).
-``--verify`` replays every served scenario through the port's unfused
-plain forward on the same device and exits non-zero on a mismatch beyond
-rtol=1e-4, atol=1e-5; ``--bench-sequential`` also serves the ensemble
-one at a time over the same warm runner. ``--device cpu`` runs on the
-CPU; the default is the card.
+or the port's. ``--devices N`` starts N ranks (``launch.mesh.launch_ranks``,
+gloo, no wall-clock deadline) laid out as (data x model) by
+``--model-shards``; by default the layout the checkpoint recorded, on as
+many ranks as it has model shards. Rank 0 serves and prints. ``--verify``
+replays every served scenario through the port's unfused plain forward,
+restored from the same checkpoint on one device (after the ranks exit),
+and exits non-zero on a mismatch beyond rtol=1e-4, atol=1e-5;
+``--bench-sequential`` also serves the ensemble one at a time over the
+same warm runner. ``--device cpu`` runs on the CPU; the default is the
+card.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -128,7 +134,7 @@ def verify(runner, done, steps: int) -> float:
     return worst
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt-dir", required=True,
                     help="train.py --mode fno checkpoint directory")
@@ -165,27 +171,115 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda; 'cpu' "
                     "runs on the CPU)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks to serve on (default: one per model shard of "
+                    "the layout)")
+    ap.add_argument("--model-shards", type=int, nargs="+", default=None,
+                    help="model parallelism of the serving ranks: P shards x "
+                    "(paper Alg. 2), PX PY the 2-D pencils; default: the "
+                    "layout recorded in the checkpoint's fno_config.json")
+    ap.add_argument("--comm-chunks", type=int, default=None,
+                    help="channel-chunked all-to-alls of the dist forward; "
+                    "default: the checkpoint's recorded value")
+    return ap
 
-    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+
+def _runner_kwargs(args) -> dict:
+    n_static = args.static_channels if args.ensemble else 0
+    return dict(max_slots=args.max_batch, n_static=n_static, cache_bytes=args.cache_bytes,
+                cache_level=args.cache_level, comm_chunks=args.comm_chunks)
+
+
+def _layout(args, cfg, saved) -> tuple:
+    """(devices, model_shards) of the serving ranks, checked against the
+    checkpoint's config; exits with the reference's wording on a layout
+    the flags cannot make."""
+    from repro_torch.launch.mesh import fno_layout
+
+    shards = tuple(int(s) for s in args.model_shards or saved.get("model_shards") or (1,))
+    try:
+        devices = int(np.prod(shards)) if args.devices is None else args.devices
+        fno_layout(devices, shards)
+        if len(shards) == 2:
+            cfg.validate_for_parallelism_2d(*shards)
+        elif shards[0] > 1:
+            cfg.validate_for_parallelism(shards[0])
+        n_static = args.static_channels if args.ensemble else 0
+        if not 0 <= n_static <= cfg.in_channels:
+            raise ValueError(f"n_static={n_static} must be in [0, in_channels="
+                             f"{cfg.in_channels}]")
+    except ValueError as e:  # library error -> CLI-flag wording
+        raise SystemExit(f"--devices/--model-shards/--static-channels: {e}") from None
+    return devices, shards
+
+
+def _serve_rank(rank, world_size, device, args, shards):
+    """One serving rank of ``--devices N``: rank 0 serves and returns each
+    served request's outputs by rid; the others follow its ticks."""
+    from repro_torch.launch.mesh import build_fno_groups
     from repro_torch.serve import FNORunner
 
-    n_static = args.static_channels if args.ensemble else 0
-    try:
-        runner = FNORunner.from_checkpoint(
-            args.ckpt_dir,
-            device=args.device,
-            max_slots=args.max_batch,
-            n_static=n_static,
-            cache_bytes=args.cache_bytes,
-            cache_level=args.cache_level,
-        )
-    except ValueError as e:  # library error -> CLI-flag wording
-        raise SystemExit(f"--static-channels/--max-batch: {e}") from None
+    data_group, model, _ = build_fno_groups(world_size, shards)
+    runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device, data_group=data_group,
+                                       model=model, **_runner_kwargs(args))
+    if rank != 0:
+        runner.follow()
+        return None
+    done = _serve_and_report(runner, args, f" (rank 0 of {world_size})")
+    runner.close()
+    return {r.rid: [torch.from_numpy(y) for y in r.outputs] for r in done}
+
+
+def main(argv=None) -> list:
+    """Serve the ensemble the flags describe; returns the served requests
+    (their ``outputs`` in physical units)."""
+    args = build_parser().parse_args(argv)
+    from repro_torch.common.device import resolve_device
+    from repro_torch.serve import FNORunner
+    from repro_torch.serve.fno_runner import load_serving_config
+
+    device = resolve_device(args.device)
+    cfg, saved = load_serving_config(args.ckpt_dir, args.comm_chunks)
+    devices, shards = _layout(args, cfg, saved)
+    runner = None
+    if devices == 1:
+        try:
+            runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device,
+                                               **_runner_kwargs(args))
+        except ValueError as e:  # library error -> CLI-flag wording
+            raise SystemExit(f"--static-channels/--max-batch: {e}") from None
+        done = _serve_and_report(runner, args, "")
+    else:
+        from repro_torch.launch.mesh import launch_ranks
+
+        sys.stdout.flush()  # the ranks print to the same stream
+        served = launch_ranks(_serve_rank, devices, tempfile.gettempdir(),
+                              args=(args, shards), device=device)[0]
+        done, _ = build_scenarios(cfg, args.scenarios, args.wells, args.seed,
+                                  args.rollout_steps, n_static=_runner_kwargs(args)["n_static"],
+                                  dup=args.dup)
+        for r in done:
+            r.outputs = [y.numpy() for y in served[r.rid]]
+    if args.verify:
+        if runner is None:  # the oracle: the same checkpoint on one device
+            runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device,
+                                               **dict(_runner_kwargs(args), max_slots=1))
+        worst = verify(runner, done, args.rollout_steps)
+        print(f"verify OK: {len(done)} scenarios match the unfused plain forward "
+              f"(max abs diff {worst:.2e})")
+    return done
+
+
+def _serve_and_report(runner, args, of_ranks: str) -> list:
+    """Warm up, serve the ensemble of ``args`` and print what was served;
+    returns the served requests."""
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+
+    n_static = runner.n_static
     cfg = runner.cfg
     print(
         f"serving {cfg.grid} FNO (width {cfg.width}, {cfg.n_blocks} blocks) "
-        f"from step {runner.restored_step} on {runner.device} "
+        f"from step {runner.restored_step} on {runner.device}{of_ranks} "
         f"(buckets {runner.buckets})"
     )
     warm_s = runner.warmup()
@@ -209,7 +303,7 @@ def main(argv=None):
     )
     if runner.device.type == "cuda":
         print(f"spectral kernel launches: {launches} over "
-              f"{runner.batched_steps} forwards")
+              f"{runner.batched_steps} forwards{of_ranks}")
     if runner.cache is not None:
         s = runner.cache.stats
         lv = s["level_bytes"]
@@ -234,11 +328,8 @@ def main(argv=None):
             f"({len(seq_done) / seq_dt:.2f} scen/s); continuous batching "
             f"speedup {seq_dt / dt:.2f}x"
         )
-
-    if args.verify:
-        worst = verify(runner, done, args.rollout_steps)
-        print(f"verify OK: {n} scenarios match the unfused plain forward "
-              f"(max abs diff {worst:.2e})")
+    sys.stdout.flush()
+    return done
 
 
 if __name__ == "__main__":

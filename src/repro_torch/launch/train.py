@@ -56,7 +56,9 @@ from repro_torch.train.optimizer import (
 )
 from repro_torch.train.train_loop import make_train_step
 
-# How long the ranks of ``--devices N`` may run before the launch is ended.
+# How long a rank of ``--devices N`` waits in one collective for its peers
+# before the launch fails (a hung or dead peer); the run itself has no
+# wall-clock deadline, as the reference's has none.
 RANK_TIMEOUT_S = 3600.0
 
 
@@ -278,7 +280,7 @@ def main(argv=None):
         out = train(args, device)
     else:
         out = launch_ranks(_train_rank, args.devices, tempfile.gettempdir(), args=(args,),
-                           timeout_s=RANK_TIMEOUT_S, device=device)[0]
+                           collective_timeout_s=RANK_TIMEOUT_S, device=device)[0]
     result = SupervisorResult(**out["result"])
     first = result.metrics_log[0][1]["loss"] if result.metrics_log else float("nan")
     last = result.metrics_log[-1][1]["loss"] if result.metrics_log else float("nan")

@@ -1,7 +1,8 @@
-"""PDE-scenario ModelRunner: FNO surrogate inference on one device.
+"""PDE-scenario ModelRunner: FNO surrogate inference on one device or
+model-parallel over ranks.
 
-Port of ``repro.serve.fno_runner`` for one card. The surrogate is served
-through the same slot scheduler as the reference:
+Port of ``repro.serve.fno_runner``. The surrogate is served through the
+same slot scheduler as the reference:
 
   * one scheduler tick = one batched FNO forward over every active slot,
     padded up to the next bucket size. A row's result does not depend on
@@ -10,6 +11,17 @@ through the same slot scheduler as the reference:
     output is bit-identical however admission interleaves it;
   * the forward is the fused one: every spectral block goes through the
     CUDA kernel on the card (its plain version on the CPU);
+  * given the groups of ``launch.mesh.build_fno_groups`` the runner serves
+    over a (data x model) layout of ranks, 1-D or 2-D pencils, each rank
+    holding its shard of the spectral weights. Rank 0 is the controller:
+    it alone holds the requests, the scheduler, the normalizers and the
+    geomodel cache. Each tick it broadcasts a header (which forward, the
+    bucket, or stop), scatters every rank's slab of the host batch by the
+    forward's partitions, runs its own share of the forward and gathers
+    the output slabs back; the other ranks run ``follow`` until the
+    controller's ``close``. So no rank can run a different tick, and cold
+    and warm serving scatter the same host arrays and agree bitwise. The
+    slabs travel through the host (``gloo``, CPU tensors);
   * ingress applies the persisted per-channel normalization, egress
     inverts the target normalization, so callers see physical units;
   * a request may ask for a multi-step autoregressive rollout through
@@ -21,34 +33,42 @@ through the same slot scheduler as the reference:
     in numpy, deterministically, so cold and warm serving feed the same
     arrays to the same forward and agree bitwise.
 
-Model-parallel meshes, the fleet-shared ``cache_store`` and the gateway's
-hooks (``affinity_key``, ``reset``) belong to later slices.
+The fleet-shared ``cache_store`` and the gateway's hooks
+(``affinity_key``, ``reset``) belong to a later slice.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Deque, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core.fno import (
     FNOConfig,
-    fno_forward,
-    fno_forward_deep_split,
-    fno_forward_split,
+    deep_split_forward_and_specs,
+    forward_and_specs,
+    group_names,
     param_shapes,
-    params_from_numpy,
+    split_forward_and_specs,
 )
+from repro_torch.core.partition import CartPartition, coords
 from repro_torch.data.loader import Normalizer
 from repro_torch.serve.geomodel_cache import GeomodelCache, GeomodelEntry, content_key
 from repro_torch.train import checkpoint as ckpt_lib
 
 FNO_CONFIG_FILE = "fno_config.json"
+
+# The forward a tick runs, as the controller's header names it (0: stop).
+_STOP, _PLAIN, _SPLIT, _DEEP = range(4)
+# How many ticks' times a runner keeps (``FNORunner.tick_times``).
+TICK_TIMES_KEPT = 1024
 
 
 @dataclasses.dataclass
@@ -103,6 +123,33 @@ def default_feedback(
     return np.ascontiguousarray(nxt, np.float32)
 
 
+def load_serving_config(ckpt_dir: str, comm_chunks: Optional[int] = None) -> tuple:
+    """(cfg, saved): the ``FNOConfig`` and the whole ``fno_config.json``
+    a trainer wrote beside its checkpoints. ``comm_chunks`` defaults to
+    what training recorded."""
+    cfg_path = os.path.join(ckpt_dir, FNO_CONFIG_FILE)
+    try:
+        with open(cfg_path) as f:
+            saved = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"{cfg_path} not found: serve from a checkpoint directory "
+            f"written by train.py --mode fno (which persists the FNO "
+            f"architecture + normalization snapshot there)"
+        ) from None
+    cfg = FNOConfig(
+        grid=tuple(saved["grid"]),
+        modes=tuple(saved["modes"]),
+        width=saved["width"],
+        in_channels=saved["in_channels"],
+        out_channels=saved["out_channels"],
+        n_blocks=saved["n_blocks"],
+        decoder_dim=saved["decoder_dim"],
+        comm_chunks=int(saved.get("comm_chunks", 1) if comm_chunks is None else comm_chunks),
+    )
+    return cfg, saved
+
+
 def _slice_normalizer(norm: Normalizer, sl: slice) -> Normalizer:
     """Per-channel stats restricted to a channel slice (identity passes
     through: its scalar mean/scale broadcast over any channel count)."""
@@ -121,15 +168,38 @@ def _bucket_ladder(max_slots: int, n_dp: int) -> tuple:
     return tuple(sorted(set(buckets)))
 
 
+def _real(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
 def _np_gelu(x: np.ndarray) -> np.ndarray:
-    """The tanh-approximate GELU, in float32 numpy."""
+    """The tanh-approximate GELU, in float32 numpy:
+    0.5 x (1 + tanh(0.79788456 (x + 0.044715 x^3))), evaluated in place
+    in that order (one temporary beside the copy of ``x``)."""
     x = x.astype(np.float32)
-    inner = np.float32(0.7978845608028654) * (x + np.float32(0.044715) * x * x * x)
-    return np.float32(0.5) * x * (np.float32(1.0) + np.tanh(inner))
+    t = np.float32(0.044715) * x
+    t *= x
+    t *= x
+    t += x
+    t *= np.float32(0.7978845608028654)
+    np.tanh(t, out=t)
+    t += np.float32(1.0)
+    x *= np.float32(0.5)
+    x *= t
+    return x
 
 
 class FNORunner:
-    """ModelRunner serving batched FNO inference on one device."""
+    """ModelRunner serving batched FNO inference on one device, or over a
+    (data x model) layout of ranks.
+
+    ``data_group`` and ``model`` are what ``build_fno_groups`` returns (the
+    model group, or the (mx, my) pencil pair); every rank of the world
+    constructs the runner with the same arguments and its own shard of the
+    parameters (``shard_params``, or ``from_checkpoint``). Rank 0 then
+    serves through the scheduler and ends with ``close``; the others call
+    ``follow``. Without groups the runner serves on ``device`` alone.
+    """
 
     def __init__(
         self,
@@ -137,6 +207,8 @@ class FNORunner:
         params: dict,
         *,
         device=None,
+        data_group=None,
+        model=None,
         max_slots: int = 4,
         x_normalizer: Optional[Normalizer] = None,
         y_normalizer: Optional[Normalizer] = None,
@@ -148,6 +220,9 @@ class FNORunner:
         cache_level: str = "deep",
     ):
         self.device = resolve_device(device)
+        if (data_group is None) != (model is None):
+            raise ValueError("pass both the data group and the model group(s) "
+                             "build_fno_groups returns, or neither")
         if not 0 <= n_static <= cfg.in_channels:
             raise ValueError(
                 f"n_static={n_static} must be in [0, in_channels="
@@ -160,15 +235,26 @@ class FNORunner:
         self.cfg = cfg
         self.n_static = int(n_static)
         self._cache_level = cache_level
+        self._ranked = data_group is not None
+        self.rank = dist.get_rank() if self._ranked else 0
+        self.is_controller = self.rank == 0
         # "auto": own cache when there are static channels; None: disabled
-        # (same split forward, no reuse); a GeomodelCache may be shared
+        # (same split forward, no reuse); a GeomodelCache may be shared.
+        # Only the controller stages batches, so only it holds one.
         self.cache: Optional[GeomodelCache] = (
             GeomodelCache(cache_bytes) if (cache == "auto" and n_static) else
             cache if isinstance(cache, GeomodelCache) else None
-        )
+        ) if self.is_controller else None
+        n_dp = dist.get_world_size(data_group) if self._ranked else 1
         self.buckets = (
-            tuple(sorted(set(buckets))) if buckets else _bucket_ladder(max_slots, 1)
+            tuple(sorted(set(buckets))) if buckets else _bucket_ladder(max_slots, n_dp)
         )
+        for b in self.buckets:
+            if b % n_dp:
+                raise ValueError(
+                    f"bucket {b} not divisible by data-parallel size "
+                    f"{n_dp} (buckets: {self.buckets})"
+                )
         if self.buckets[-1] < max_slots:
             raise ValueError(
                 f"largest bucket {self.buckets[-1]} < max_slots {max_slots}:"
@@ -176,15 +262,44 @@ class FNORunner:
                 f"bucket (buckets: {self.buckets})"
             )
         self.max_slots = max_slots
+        self._kind = _PLAIN if not n_static else _DEEP if cache_level == "deep" else _SPLIT
+        self._groups = group_names(data_group, model) if self._ranked else None
+        self._forward, parts = self._layout(model)
+        if self._ranked:
+            want = self._local_param_shapes(cfg, data_group, model)["blocks"]["w_spec"]
+            got = tuple(params["blocks"]["w_spec"].shape)
+            if got != want:
+                raise ValueError(f"w_spec {got} is not this rank's shard {want}: pass "
+                                 f"shard_params(params, model)")
         # host copies for the deterministic numpy recompute of cache misses
         self._enc_w = params["encoder"]["w"].detach().cpu().numpy().astype(np.float32)
         self._enc_b = params["encoder"]["b"].detach().cpu().numpy().astype(np.float32)
+        # every rank's (rank, size) in each group: the controller slices
+        # each rank's slab of a host batch from them
+        self._coords = None
+        if self._ranked:
+            self._coords = [None] * dist.get_world_size()
+            dist.all_gather_object(self._coords, coords(self._groups))
+        # deep level: the controller's host copy of block 0's spectral
+        # weights, whole (each rank holds only its shard: gathered to the
+        # controller's host)
         self._w0 = None
-        if n_static and cache_level == "deep":
-            self._w0 = params["blocks"]["w_spec"][0].detach().cpu().numpy().astype(np.complex64)
+        if self._kind == _DEEP:
+            w0 = params["blocks"]["w_spec"][0].detach().cpu()
+            w_part = parts["blocks"]["w_spec"]
+            w0 = w0.numpy() if w_part is None else self._to_controller(
+                w0, CartPartition(w_part.dims[1:]), param_shapes(cfg)["blocks"]["w_spec"][1:])
+            if self.is_controller:
+                self._w0 = w0.astype(np.complex64)
+            del w0
         self.params = {
             k: {n: t.to(self.device) for n, t in v.items()} for k, v in params.items()
         }
+        self._closed = False
+        # the last ticks' seconds staging the host batch (controller; a
+        # cold deep tick's spectral prefix included), scattering it, in the
+        # forward and gathering the output
+        self.tick_times: Deque[dict] = collections.deque(maxlen=TICK_TIMES_KEPT)
         self.x_normalizer = x_normalizer or Normalizer.from_stats(None)
         self.y_normalizer = y_normalizer or Normalizer.from_stats(None)
         self._x_norm_static = _slice_normalizer(self.x_normalizer, slice(0, n_static))
@@ -200,6 +315,37 @@ class FNORunner:
         self._remaining: List[int] = [0] * max_slots
         self.batched_steps = 0  # forward launches (vs scenarios served)
 
+    def _layout(self, model):
+        """(forward, parameter partitions) of this runner's kind over
+        ``model``, and each forward operand's (partition, per-row shape,
+        dtype) in ``self._operands``."""
+        cfg, n = self.cfg, self.n_static
+        model = model if self._ranked else None
+        grid = tuple(cfg.grid)
+        rows = [(cfg.width,) + grid, (cfg.in_channels - n,) + grid]
+        if self._kind == _PLAIN:
+            fwd, x_part, p_parts = forward_and_specs(cfg, model)
+            self._operands = [(x_part, (cfg.in_channels,) + grid, torch.float32)]
+        elif self._kind == _SPLIT:
+            fwd, x_part, p_parts = split_forward_and_specs(cfg, n, model)
+            self._operands = [(x_part, r, torch.float32) for r in rows]
+        else:
+            fwd, x_part, c_part, p_parts = deep_split_forward_and_specs(cfg, n, model)
+            self._operands = [(c_part, (cfg.width,) + cfg.mode_shape, torch.complex64)] + [
+                (x_part, r, torch.float32) for r in rows]
+        self._x_part = x_part
+        return fwd, p_parts
+
+    @staticmethod
+    def _local_param_shapes(cfg: FNOConfig, data_group, model) -> dict:
+        """Each parameter leaf's shape on this rank under the groups (its
+        shard of ``w_spec``; every other leaf whole)."""
+        _, _, p_parts = forward_and_specs(cfg, model)
+        groups = group_names(data_group, model)
+        return {g: {n: s if p_parts[g][n] is None else p_parts[g][n].local_shape(s, groups)
+                    for n, s in leaves.items()}
+                for g, leaves in param_shapes(cfg).items()}
+
     # -- checkpoint loading --------------------------------------------------
     @classmethod
     def from_checkpoint(
@@ -207,6 +353,8 @@ class FNORunner:
         ckpt_dir: str,
         *,
         device=None,
+        data_group=None,
+        model=None,
         step: Optional[int] = None,
         max_slots: int = 4,
         feedback: Optional[Callable] = None,
@@ -214,43 +362,40 @@ class FNORunner:
         cache="auto",
         cache_bytes: int = 256 << 20,
         cache_level: str = "deep",
+        comm_chunks: Optional[int] = None,
     ) -> "FNORunner":
         """Build a runner from a trainer's checkpoint directory.
 
         Reads the ``fno_config.json`` the trainer writes next to its
         checkpoints (architecture + normalization snapshot) and restores
-        the latest (or ``step``) params onto one device, reassembling any
-        model-parallel shards. ``use_pallas``, ``comm_chunks`` and
-        ``model_shards`` are ignored: the port always serves the fused path
-        on one card.
+        the latest (or ``step``) params: onto one device, or, given the
+        groups of ``build_fno_groups``, each rank only its region of every
+        sharded leaf (``checkpoint.restore_into``), whatever layout wrote
+        the checkpoint. ``comm_chunks`` defaults to what training recorded.
+        ``use_pallas`` is ignored: the port always serves the fused path.
         """
-        cfg_path = os.path.join(ckpt_dir, FNO_CONFIG_FILE)
-        try:
-            with open(cfg_path) as f:
-                saved = json.load(f)
-        except FileNotFoundError:
-            raise FileNotFoundError(
-                f"{cfg_path} not found: serve from a checkpoint directory "
-                f"written by train.py --mode fno (which persists the FNO "
-                f"architecture + normalization snapshot there)"
-            ) from None
-        cfg = FNOConfig(
-            grid=tuple(saved["grid"]),
-            modes=tuple(saved["modes"]),
-            width=saved["width"],
-            in_channels=saved["in_channels"],
-            out_channels=saved["out_channels"],
-            n_blocks=saved["n_blocks"],
-            decoder_dim=saved["decoder_dim"],
-        )
-        print(
-            f"checkpoint recorded model_shards={saved.get('model_shards')}; "
-            f"serving on one device"
-        )
+        cfg, saved = load_serving_config(ckpt_dir, comm_chunks)
         dev = resolve_device(device)
-        restored, ck_step, _ = ckpt_lib.restore(
-            ckpt_dir, {"params": param_shapes(cfg)}, step=step
-        )
+        ranked = data_group is not None
+        if not ranked or dist.get_rank() == 0:
+            where = "one device" if not ranked else (
+                f"{dist.get_world_size(data_group)} data x "
+                + "x".join(str(dist.get_world_size(g)) for g in
+                           (model if isinstance(model, (tuple, list)) else (model,)))
+                + " model ranks")
+            print(f"checkpoint recorded model_shards={saved.get('model_shards')}; "
+                  f"serving on {where}")
+        shapes = (cls._local_param_shapes(cfg, data_group, model) if ranked
+                  else param_shapes(cfg))
+        params = {g: {n: torch.empty(s, device=dev, dtype=torch.complex64 if n == "w_spec"
+                                     else torch.float32) for n, s in leaves.items()}
+                  for g, leaves in shapes.items()}
+        parts = groups = None
+        if ranked:
+            parts = {"params": forward_and_specs(cfg, model)[2]}
+            groups = group_names(data_group, model)
+        ck_step, _ = ckpt_lib.restore_into(ckpt_dir, {"params": params}, step=step,
+                                           parts=parts, groups=groups)
         kind = saved.get("normalizer", "meanstd")
         ndim = len(cfg.grid) + 2
         normalized = saved.get("normalized", [])
@@ -266,8 +411,10 @@ class FNORunner:
         )
         runner = cls(
             cfg,
-            params_from_numpy(restored["params"], dev),
+            params,
             device=dev,
+            data_group=data_group,
+            model=model,
             max_slots=max_slots,
             x_normalizer=x_norm,
             y_normalizer=y_norm,
@@ -296,16 +443,18 @@ class FNORunner:
     def _np_spectra(self, prelift: np.ndarray) -> np.ndarray:
         """Truncated kept-mode spectrum of the static first hidden state,
         S(GELU(prelift + b)), computed on the host — the numpy mirror of
-        ``core.fno.spectral_prelift``'s first half."""
+        ``core.fno.spectral_prelift``'s first half. Each dim is truncated
+        right after its transform (t first), as the eager schedule does:
+        the same spectrum, with the x, y and z transforms on the kept t
+        bins only."""
         h = _np_gelu(prelift + self._enc_b[:, None, None, None, None])
-        xf = np.fft.rfft(h, axis=-1)
-        xf = np.fft.fftn(xf, axes=(1, 2, 3))
         mx, my, mz, mt = self.cfg.modes
+        xf = np.fft.rfft(h, axis=-1)[..., :mt]
+        del h
         for ax, m in ((1, mx), (2, my), (3, mz)):
-            lo = np.take(xf, range(m), axis=ax)
-            hi = np.take(xf, range(xf.shape[ax] - m, xf.shape[ax]), axis=ax)
-            xf = np.concatenate([lo, hi], axis=ax)
-        xf = xf[..., :mt]
+            xf = np.fft.fft(xf, axis=ax)
+            n = xf.shape[ax]
+            xf = np.take(xf, np.r_[0:m, n - m:n], axis=ax)
         return np.ascontiguousarray(xf.astype(np.complex64))
 
     def _np_contribution(self, spectra: np.ndarray) -> np.ndarray:
@@ -369,29 +518,107 @@ class FNORunner:
         self._remaining[slot] = int(req.steps)
 
     def _zeros_batch(self, bucket: int):
-        grid = tuple(self.cfg.grid)
-        if not self.n_static:
-            return (np.zeros((bucket, self.cfg.in_channels) + grid, np.float32),)
-        pre = np.zeros((bucket, self.cfg.width) + grid, np.float32)
-        xd = np.zeros((bucket, self.cfg.in_channels - self.n_static) + grid, np.float32)
-        if self._cache_level == "deep":
-            ck = np.zeros((bucket, self.cfg.width) + self.cfg.mode_shape, np.complex64)
-            return ck, pre, xd
-        return pre, xd
+        """The forward's host operands for ``bucket`` rows, zeroed: (x,),
+        (pre_static, x_dyn) or (contrib, pre_static, x_dyn)."""
+        return tuple(np.zeros((bucket,) + row, np.complex64 if dt == torch.complex64
+                              else np.float32) for _, row, dt in self._operands)
 
     def _batch_forward(self, *arrays) -> np.ndarray:
-        """One batched forward on host arrays: the plain, split or
-        deep-split forward, matching the runner's cache level."""
-        cfg, n = self.cfg, self.n_static
-        if not n:
-            fn = lambda p, x: fno_forward(p, x, cfg)  # noqa: E731
-        elif self._cache_level == "deep":
-            fn = lambda p, c, pr, x: fno_forward_deep_split(p, c, pr, x, cfg, n)  # noqa: E731
+        """One batched forward on host arrays (the plain, split or
+        deep-split forward, matching the runner's cache level): on the
+        runner's device, or as the controller of a tick on every rank."""
+        if not self.is_controller:
+            raise RuntimeError(f"rank {self.rank} follows rank 0's ticks: call follow()")
+        bucket = arrays[0].shape[0]
+        if self._ranked:
+            self._header(self._kind, bucket)
+        return self._tick(bucket, arrays)
+
+    def _header(self, kind: int = _STOP, bucket: int = 0) -> tuple:
+        """The controller's (kind, bucket), broadcast to every rank."""
+        h = torch.tensor([kind, bucket], dtype=torch.int64)
+        dist.broadcast(h, src=0)
+        return int(h[0]), int(h[1])
+
+    def _tick(self, bucket: int, arrays) -> Optional[np.ndarray]:
+        """One forward over ``bucket`` rows on this rank: its slab of each
+        host operand in (scattered by the controller, which alone passes
+        ``arrays``), the output slabs out (gathered to the controller)."""
+        times = {}
+        t = time.perf_counter()
+        if self._ranked:
+            local = [self._scatter(part, (bucket,) + row, dt, a)
+                     for (part, row, dt), a in zip(self._operands, arrays or [None] * 3)]
         else:
-            fn = lambda p, pr, x: fno_forward_split(p, pr, x, cfg, n)  # noqa: E731
+            local = [torch.from_numpy(a).to(self.device) for a in arrays]
+        times["scatter"], t = self._lap(t)
         with torch.inference_mode():
-            y = fn(self.params, *(torch.from_numpy(a).to(self.device) for a in arrays))
-            return y.cpu().numpy()
+            y = self._forward(self.params, *local)
+            del local
+            times["forward"], t = self._lap(t)
+            y = y.cpu()
+        out = (self._to_controller(y, self._x_part, (bucket, self.cfg.out_channels)
+                                   + tuple(self.cfg.grid)) if self._ranked else y.numpy())
+        times["gather"], _ = self._lap(t)
+        self.tick_times.append(times)
+        return out
+
+    def _lap(self, t0: float) -> tuple:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        return t - t0, t
+
+    def _scatter(self, part: CartPartition, shape: tuple, dtype, array) -> torch.Tensor:
+        """This rank's slab of the controller's host ``array`` of global
+        ``shape``, on the runner's device. Complex slabs travel as their
+        real view."""
+        local = torch.empty(part.local_shape(shape, self._groups), dtype=dtype)
+        slabs = None
+        if self.is_controller:
+            slabs = [_real(torch.from_numpy(np.ascontiguousarray(array[part.index_at(shape, at)])))
+                     for at in self._coords]
+        dist.scatter(_real(local), slabs, src=0)
+        return local.to(self.device)
+
+    def _to_controller(self, local: torch.Tensor, part: CartPartition,
+                       shape: tuple) -> Optional[np.ndarray]:
+        """The global array of ``shape`` on the controller from every rank's
+        slab ``local`` (a CPU tensor laid out by ``part``); None elsewhere.
+        Complex slabs travel as their real view."""
+        local = local.contiguous()
+        slabs = [torch.empty_like(local) for _ in self._coords] if self.is_controller else None
+        dist.gather(_real(local), slabs and [_real(t) for t in slabs], dst=0)
+        if not self.is_controller:
+            return None
+        out = np.empty(shape, local.numpy().dtype)
+        for at, slab in zip(self._coords, slabs):
+            out[part.index_at(shape, at)] = slab.numpy()
+        return out
+
+    def follow(self) -> int:
+        """A non-controller rank's loop: run every tick the controller
+        announces until it closes; returns the ticks run."""
+        if not self._ranked or self.is_controller:
+            raise RuntimeError("only a rank other than 0 of a ranked runner follows")
+        ticks = 0
+        while True:
+            kind, bucket = self._header()
+            if kind == _STOP:
+                return ticks
+            if kind != self._kind:
+                raise RuntimeError(f"rank {self.rank} runs forward kind {self._kind}, the "
+                                   f"controller announced {kind}: construct every rank's "
+                                   f"runner alike")
+            self._tick(bucket, None)
+            ticks += 1
+
+    def close(self) -> None:
+        """The controller tells the followers to stop (once); nothing to do
+        on one device or on a follower."""
+        if self._ranked and self.is_controller and not self._closed:
+            self._header(_STOP)
+            self._closed = True
 
     def warmup(self) -> float:
         """Run every bucket shape once on zeros (kernel build, FFT plans);
@@ -412,6 +639,7 @@ class FNORunner:
         )
 
     def step(self, slots: Sequence[Optional[ScenarioRequest]], active: Sequence[int]) -> list:
+        t0 = time.perf_counter()
         batch = self._zeros_batch(self.bucket_for(len(active)))
         grid = tuple(self.cfg.grid)
         for j, i in enumerate(active):
@@ -423,7 +651,9 @@ class FNORunner:
             batch[-1][j] = self._dyn[i]
             if self._cache_level == "deep":
                 batch[0][j] = entry.contribution
+        staged_s = time.perf_counter() - t0
         yb = self._batch_forward(*batch)
+        self.tick_times[-1]["stage"] = staged_s
         del batch
         self.batched_steps += 1
         finished = []

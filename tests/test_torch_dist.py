@@ -117,7 +117,7 @@ def results(tmp_path_factory):
     t0 = time.perf_counter()
     with rank_side.one_launch_at_a_time():
         ranks = launch_ranks(rank_side.run_checks, 4, str(root), args=(params, x, CFG),
-                             timeout_s=TIMEOUT_S, device="cpu")
+                             deadline_s=TIMEOUT_S, device="cpu")
     launch_s = time.perf_counter() - t0
 
     out = {}
@@ -172,13 +172,34 @@ def test_dist_fno_check(results, check):
 
 def test_launcher_raises_on_a_failed_rank(tmp_path):
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
-        launch_ranks(rank_side.fail_on_rank_1, 2, str(tmp_path), timeout_s=60, device="cpu")
+        launch_ranks(rank_side.fail_on_rank_1, 2, str(tmp_path), deadline_s=60, device="cpu")
 
 
 def test_launcher_kills_ranks_past_its_deadline(tmp_path):
     t0 = time.perf_counter()
     with pytest.raises(TimeoutError):
-        launch_ranks(rank_side.hang, 2, str(tmp_path), timeout_s=5, device="cpu")
+        launch_ranks(rank_side.hang, 2, str(tmp_path), deadline_s=5, device="cpu")
+    assert time.perf_counter() - t0 < 60
+
+
+def test_launch_outlives_its_collective_timeout_without_a_deadline(tmp_path):
+    """The collective timeout bounds one wait for a peer, not the run: ranks
+    that keep running collectives for over twice that long finish, and
+    with no deadline nothing ends the launch."""
+    timeout_s, run_s = 5, 12
+    t0 = time.perf_counter()
+    with rank_side.one_launch_at_a_time():
+        counts = launch_ranks(rank_side.collectives_for, 4, str(tmp_path), args=(run_s,),
+                              collective_timeout_s=timeout_s, device="cpu")
+    assert time.perf_counter() - t0 >= 2 * timeout_s
+    assert len(set(counts)) == 1 and counts[0] > 2 * timeout_s
+
+
+def test_launch_past_its_deadline_raises_while_ranks_work(tmp_path):
+    t0 = time.perf_counter()
+    with rank_side.one_launch_at_a_time(), pytest.raises(TimeoutError):
+        launch_ranks(rank_side.collectives_for, 4, str(tmp_path), args=(120,),
+                     collective_timeout_s=5, deadline_s=15, device="cpu")
     assert time.perf_counter() - t0 < 60
 
 

@@ -94,7 +94,7 @@ def run(tmp_path_factory):
         ranks = launch_ranks(rank_side.run_train, 4, str(root),
                              args=(params, batches, CFG, OPT_KW, ACCUM, str(root / "ds"),
                                    str(root / "ck")),
-                             timeout_s=TIMEOUT_S, device="cpu")
+                             deadline_s=TIMEOUT_S, device="cpu")
 
     def jloss(p, b):
         return jfno.mse_loss(jfno.fno_forward(p, b["x"], jcfg), b["y"]), {}

@@ -393,3 +393,19 @@ def hang(rank, world_size, device):
     import time
 
     time.sleep(600)
+
+
+def collectives_for(rank, world_size, device, seconds):
+    """All-reduces, one every 50 ms, until rank 0's clock passes
+    ``seconds``; returns how many ran (the same on every rank)."""
+    import time
+
+    t0, n = time.monotonic(), 0
+    flag = torch.zeros(1)
+    while True:
+        flag.fill_(float(rank == 0 and time.monotonic() - t0 > seconds))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        n += 1
+        if flag.item():
+            return n
+        time.sleep(0.05)
