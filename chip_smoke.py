@@ -47,6 +47,17 @@ Phases, each failing hard:
   7. the training CLI on the card with an injected fault (restored from
      its checkpoint), then the serving CLI with ``--verify`` on the
      checkpoint it wrote;
+ 7a. data: the two-phase (IMPES + CG) and Navier-Stokes simulators on the
+     card against themselves on the CPU (32x16x8 x 8 frames, n = 32 x 8),
+     each timed at full size for 2 frames (two-phase at ``ONE_CARD_GRID``
+     and the paper grid, with its CG iterations a solve and the ratio to
+     the served tick's time a scenario; Navier-Stokes at 128^3); the
+     fno-ns3d FNO at full width on grid 64^3 x 64 (block 0's fused kernel
+     against its plain version, the forward against the unfused one,
+     exact launches); then ``train --online`` on the card (2 spawned
+     datagen workers, 4 samples, 4 steps), every sample complete,
+     ``datagen --resume`` simulating nothing with the stats bit for bit,
+     and ``serve_pde --verify --reference`` on its checkpoint;
  7b. dist: the domain-decomposed FNO (``make_dist_forward``) on 4 gloo
      ranks sharing the card (NCCL refuses two ranks on one device), 1-D
      (paper Alg. 2, x over P = 4) and 2-D pencils (x and y over 2 x 2),
@@ -67,6 +78,16 @@ Phases, each failing hard:
      the eager, Grady-31 (1-D) and ``comm_chunks=2`` schedules against the
      serial forward, and one paper forward + backward of each layout whose
      every leaf's gradient is held against the serial gradient on the card;
+     then in the same launch the GPipe pipeline (``core/pipeline.py``) at
+     full width on the training grid, 4 stages of one block, batch 2 as 2
+     micro-batches: rank 0's output against the serial forward, every
+     stage's gradients against the serial ones (the gate refusing zeros, 4
+     times the gradient, ci/co swapped and the next stage's block), each
+     stage's tick, send and bubble times beside ``bubble_efficiency(4,
+     2)``; and top-k compression with error feedback over the 4 ranks on a
+     64 MiB float32 and a 64 MiB complex64 leaf a rank (ratio 1 equal to
+     the dense mean with a zero residual, ratio 0.01 conserving it), with
+     the wire bytes of the 3.15 GB ``w_spec`` shard;
  7c. dist_train: the distributed train step (ZeRO-1, per-rank shard
      reads) on 4 ranks at full width on the training grid, (1 data x 2x2
      pencils) for 3 steps and (2 data x 2 model) with 2 blocks for 2,
@@ -99,7 +120,11 @@ per forward; each training step, per micro-batch and block, three times
 forward, on every rank, the fused kernel once per block (a served tick
 is one forward), and the dist
 backward 3 times per block and the cotangent kernel once; each dist train
-step, on every rank, as a training step on its micro-batches. Each LM
+step, on every rank, as a training step on its micro-batches; each
+pipeline stage, in a forward + backward, the fused kernel 3 times per
+micro-batch (forward, remat recompute, dx) and the cotangent kernel once;
+the fno-ns3d forward once per block; the online trainer and its served
+checkpoint as the training and serving CLIs. Each LM
 prefill must launch flash attention once per layer, and each LM forward
 (prefill or decode step) the RMSNorm kernel 2 L + 1 times.
 
@@ -111,6 +136,7 @@ without a result when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -816,9 +842,14 @@ def _free_cuda():
     torch.cuda.reset_peak_memory_stats()
 
 
-def phase_serving(gpu: str) -> int:
+# Rollout steps of the served ensemble (cut from 2 for the script's time)
+SERVE_STEPS = 1
+
+
+def phase_serving(gpu: str) -> tuple:
     """Full-width Sleipner serving through FNORunner + Scheduler; returns the
-    spectral kernel's launch count over the served run."""
+    spectral kernel's launch count over the served run and its seconds a
+    scenario."""
     import torch
 
     from repro_torch.configs.fno_sleipner import ONE_CARD_SLOTS
@@ -837,21 +868,30 @@ def phase_serving(gpu: str) -> int:
     print(f"[serve] weights on the card: {nbytes / 1e9:.2f} GB")
     runner = FNORunner(cfg, params, device=dev, max_slots=ONE_CARD_SLOTS)
     print(f"[serve] warmup of buckets {runner.buckets}: {runner.warmup():.2f}s")
-    requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=2)
+    print(f"reduced: serve rollout steps 2 -> {SERVE_STEPS} (the script's time; one surrogate "
+          f"application predicts a scenario's whole history)")
+    requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=SERVE_STEPS)
     spectral_fused_cuda.launches = 0
     done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
     launches = spectral_fused_cuda.launches
     check_served(done, requests, sched.failed)
     _report_serving("serve", done, dt, runner)
     _check_launches("serve", launches, cfg.n_blocks, runner.batched_steps, gpu)
-    worst = verify(runner, done, 2)
+    worst = verify(runner, done, SERVE_STEPS)
     print(f"[serve] verify OK vs the unfused plain forward (max abs diff {worst:.3e})")
-    return launches
+    return launches, dt / len(done)
+
+
+# Rollout steps and blocks of the one-card ensemble (cut from 2 and 4 for
+# the script's time: a cold pass is the host prefix, the rest is ticks)
+ENSEMBLE_STEPS, ENSEMBLE_BLOCKS = 1, 2
 
 
 def phase_ensemble(gpu: str) -> dict:
     """The same size as a UQ ensemble through the deep-split geomodel cache;
     returns the spectral kernel's launch count of each pass."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.fno_sleipner import ONE_CARD_SLOTS
@@ -860,7 +900,9 @@ def phase_ensemble(gpu: str) -> dict:
     from repro_torch.launch.serve_pde import build_scenarios, check_served, serve, verify
     from repro_torch.serve import FNORunner
 
-    cfg = _serving_cfg(in_channels=2)
+    cfg = dataclasses.replace(_serving_cfg(in_channels=2), n_blocks=ENSEMBLE_BLOCKS)
+    print(f"reduced: ensemble rollout steps 2 -> {ENSEMBLE_STEPS}, n_blocks 4 -> "
+          f"{ENSEMBLE_BLOCKS} (the script's time; a cold pass is the host prefix and one tick)")
     dev = torch.device("cuda")
     _free_cuda()
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
@@ -869,7 +911,8 @@ def phase_ensemble(gpu: str) -> dict:
     print(f"[ensemble] warmup of buckets {runner.buckets}: {runner.warmup():.2f}s")
     passes, launches = [], {}
     for tag in ("cold", "warm"):
-        requests, _ = build_scenarios(cfg, ONE_CARD_SLOTS, 2, seed=0, steps=2, n_static=1)
+        requests, _ = build_scenarios(cfg, ONE_CARD_SLOTS, 2, seed=0, steps=ENSEMBLE_STEPS,
+                                      n_static=1)
         forwards = runner.batched_steps
         spectral_fused_cuda.launches = 0
         done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
@@ -888,7 +931,7 @@ def phase_ensemble(gpu: str) -> dict:
             if not np.array_equal(a, b):
                 raise SystemExit(f"[ensemble] rid {cold.rid}: cold and warm outputs differ")
     print("[ensemble] cold == warm bitwise")
-    worst = verify(runner, passes[0], 2)
+    worst = verify(runner, passes[0], ENSEMBLE_STEPS)
     print(f"[ensemble] verify OK vs the unfused plain forward (max abs diff {worst:.3e})")
     return launches
 
@@ -1022,16 +1065,23 @@ def phase_train(gpu: str) -> dict:
     return launches
 
 
+# Steps of the training CLIs (cut from 6 for the script's time): the fault
+# at step 3 is restored from the step-2 checkpoint either way
+CLI_STEPS = 4
+
+
 def phase_train_cli(gpu: str) -> dict:
     """The training CLI on the card with an injected fault, then the serving
     CLI with --verify on its checkpoint; returns the launch counts of both."""
     import tempfile
 
     _free_cuda()  # the subprocesses need the memory this process has cached
+    print(f"reduced: train CLI steps 6 -> {CLI_STEPS} (the script's time)")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "fno",
-               "--steps", "6", "--save-every", "2", "--inject-fault", "3", "--width", "8",
+               "--steps", str(CLI_STEPS), "--save-every", "2", "--inject-fault", "3",
+               "--width", "8",
                "--n-data", "8", "--use-pallas", "--ckpt-dir", d]
         out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
         print("\n".join("[train_cli] " + line for line in out.stdout.strip().splitlines()))
@@ -1061,6 +1111,281 @@ def phase_train_cli(gpu: str) -> dict:
     served = _check_launches("train_cli serve", int(m.group(1)), n_blocks, int(m.group(2)), gpu)
     print(f"[train_cli] train launches fused {fused}, dw {dw} over {n_steps} steps; {gpu}")
     return {"fused": fused, "dw": dw, "serve": served}
+
+
+# ---------------------------------------------------------------------------
+# Phase data: the paper's data generation (data/pde/*, cloud/, launch/
+# datagen.py) and online training, on the card.
+# ---------------------------------------------------------------------------
+
+# Each simulator on the card against itself on the CPU (tests/test_torch_data.py
+# holds the CPU one to the JAX simulator at these gates)
+DATA_SAT_ATOL = 1e-4            # two-phase saturation, which lies in [0, 0.9]
+DATA_VORT_ATOL_OF_MAX = 1e-5    # Navier-Stokes vorticity, of its max|ref|
+DATA_TWO_PHASE_CHECK = ((32, 16, 8), 8)   # (grid, frames)
+DATA_NS_CHECK = (32, 8)                   # (n, frames)
+DATA_NS_CENTER = (0.4, 0.5, 0.55)
+# Timed at full size for this many frames (the script's time): Sleipner's
+# scenario has 88 (fno_sleipner's nt), Navier-Stokes' 64 (fno_ns3d's)
+DATA_TIMED_FRAMES = 2
+# The fno-ns3d forward at full width on a cut grid (at 128^3 x 64 one
+# float32 activation is 5.4 GB and a block needs several)
+NS3D_CUT_GRID = (64, 64, 64, 64)
+# train --online: 4 samples simulated by 2 spawned workers on the card
+# while 4 steps train on them
+ONLINE_ARGS = ["--n-data", "4", "--batch", "2", "--steps", "4", "--width", "8"]
+
+
+def _simulators_on_card_vs_cpu(gpu: str) -> None:
+    import torch
+
+    from repro_torch.data.pde import navier_stokes as ns
+    from repro_torch.data.pde import two_phase as tp
+
+    grid, nt = DATA_TWO_PHASE_CHECK
+    cfg = tp.TwoPhaseConfig(grid=grid, nt_frames=nt)
+    mask = tp.random_well_mask(cfg, 2, 1)
+    sat, iters, secs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        iters[dev] = []
+        t = time.perf_counter()
+        with torch.no_grad():
+            sat[dev] = tp.simulate(mask, cfg, device=dev, cg_iters=iters[dev]).cpu()
+        secs[dev] = time.perf_counter() - t
+    err = float((sat["cuda"] - sat["cpu"]).abs().max())
+    print(f"[data] two-phase {grid} x {nt} frames on the card vs the CPU: max|d|={err:.3e} "
+          f"(atol {DATA_SAT_ATOL:g}; saturation max {float(sat['cpu'].max()):.3f}); CG "
+          f"iterations a solve {min(iters['cuda'])}-{max(iters['cuda'])} on the card, "
+          f"{min(iters['cpu'])}-{max(iters['cpu'])} on the CPU; {secs['cuda']:.2f} s on the "
+          f"card (first call), {secs['cpu']:.2f} s on the CPU; {gpu}")
+    if not err <= DATA_SAT_ATOL or not bool(torch.isfinite(sat["cuda"]).all()):
+        raise SystemExit("[data] the two-phase simulator on the card disagrees with the CPU")
+    n, nt = DATA_NS_CHECK
+    out = {dev: ns.simulate(DATA_NS_CENTER, ns.NSConfig(n=n, nt_frames=nt), device=dev)
+           for dev in ("cpu", "cuda")}
+    chi_same = torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+    vort, ref = out["cuda"][1].cpu(), out["cpu"][1]
+    err, scale = float((vort - ref).abs().max()), float(ref.abs().max())
+    print(f"[data] Navier-Stokes n={n} x {nt} frames on the card vs the CPU: sphere mask "
+          f"{'bitwise equal' if chi_same else 'DIFFERS'}, vorticity max|d|={err:.3e} "
+          f"(max|ref|={scale:.3e}, atol {DATA_VORT_ATOL_OF_MAX:g} of it); {gpu}")
+    if not chi_same or not err <= DATA_VORT_ATOL_OF_MAX * scale:
+        raise SystemExit("[data] the Navier-Stokes simulator on the card disagrees with the CPU")
+
+
+def _simulators_timed(gpu: str, served_per_scen_s: float) -> dict:
+    """Each simulator at full size for DATA_TIMED_FRAMES frames on the card;
+    returns the seconds a frame by name."""
+    import torch
+
+    from repro_torch.configs.fno_ns3d import CONFIG as NS3D
+    from repro_torch.configs.fno_sleipner import CONFIG, ONE_CARD_GRID
+    from repro_torch.data.pde import navier_stokes as ns
+    from repro_torch.data.pde import two_phase as tp
+
+    nt_scen, nt_ns = CONFIG.grid[3], NS3D.grid[3]
+    print(f"reduced: two-phase simulator nt {nt_scen} -> {DATA_TIMED_FRAMES} frames (timed; "
+          f"s/scenario extrapolated from s/frame)")
+    print(f"reduced: Navier-Stokes simulator nt {nt_ns} -> {DATA_TIMED_FRAMES} frames (timed; "
+          f"s/scenario extrapolated from s/frame)")
+    frame_s = {}
+    for name, grid in (("one-card grid", ONE_CARD_GRID[:3]), ("paper grid", CONFIG.grid[:3])):
+        cfg = tp.TwoPhaseConfig(grid=tuple(grid), nt_frames=DATA_TIMED_FRAMES)
+        mask, iters = tp.random_well_mask(cfg, 2, 0), []
+        _free_cuda()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            sat = tp.simulate(mask, cfg, device="cuda", cg_iters=iters)
+        torch.cuda.synchronize()
+        per_frame = (time.perf_counter() - t) / DATA_TIMED_FRAMES
+        frame_s[f"two-phase {name}"] = per_frame
+        if not bool(torch.isfinite(sat).all()):
+            raise SystemExit(f"[data] two-phase at {grid}: non-finite saturation")
+        scen = per_frame * nt_scen
+        print(f"[data] two-phase simulator, {name} {'x'.join(map(str, grid))}: {per_frame:.3f} "
+              f"s/frame ({cfg.substeps} pressure solves a frame, CG iterations a solve "
+              f"{min(iters)}-{max(iters)}, mean {sum(iters) / len(iters):.1f}), "
+              f"{scen:.1f} s/scenario at {nt_scen} frames; vs the served surrogate's "
+              f"{served_per_scen_s * 1e3:.1f} ms/scenario at {'x'.join(map(str, ONE_CARD_GRID))} "
+              f"(phase serve): {scen / served_per_scen_s:.0f}x; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {gpu}")
+        del sat
+    cfg = ns.NSConfig(n=NS3D.grid[0], nt_frames=DATA_TIMED_FRAMES)
+    _free_cuda()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        _, vort = ns.simulate(DATA_NS_CENTER, cfg, device="cuda")
+    torch.cuda.synchronize()
+    per_frame = (time.perf_counter() - t) / DATA_TIMED_FRAMES
+    frame_s["navier-stokes"] = per_frame
+    if not bool(torch.isfinite(vort).all()):
+        raise SystemExit("[data] Navier-Stokes at 128^3: non-finite vorticity")
+    print(f"[data] Navier-Stokes simulator, n={cfg.n}: {per_frame:.3f} s/frame "
+          f"({cfg.steps_per_frame} RK2 steps a frame), {per_frame * nt_ns:.1f} s/scenario at "
+          f"{nt_ns} frames; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; {gpu}")
+    return frame_s
+
+
+def _ns3d_forward(gpu: str) -> int:
+    """The fno-ns3d FNO at full width on NS3D_CUT_GRID, batch 1, its input a
+    sphere mask repeated along t: block 0's fused kernel against its plain
+    version, the served forward against the unfused one, and its launches;
+    returns them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.fno_ns3d import CONFIG as NS3D
+    from repro_torch.core import dfft
+    from repro_torch.core.fno import _encoder, fno_forward, fno_forward_unfused, init_params
+    from repro_torch.data.pde.navier_stokes import NSConfig, sphere_mask
+    from repro_torch.kernels.spectral_conv import (
+        spectral_apply_fused, spectral_apply_fused_ref, spectral_fused_cuda,
+    )
+
+    cfg = dataclasses.replace(NS3D, grid=NS3D_CUT_GRID)
+    print(f"reduced: fno-ns3d grid {'x'.join(map(str, NS3D.grid))} -> "
+          f"{'x'.join(map(str, cfg.grid))} (one card; full width, modes {cfg.modes}, "
+          f"{cfg.n_blocks} blocks), batch 1")
+    dev = torch.device("cuda")
+    _free_cuda()
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    chi = sphere_mask(NSConfig(n=cfg.grid[0]), torch.tensor(DATA_NS_CENTER, device=dev))
+    x = chi[None, None, ..., None].expand((1, 1) + cfg.grid[:3] + (cfg.grid[3],)).contiguous()
+    nx, ny, nz, nt = cfg.grid
+    with torch.inference_mode():
+        xf = dfft.serial_forward(_encoder(params, x, cfg), cfg.modes, truncate=False)
+        w = params["blocks"]["w_spec"][0]
+        got = spectral_apply_fused(xf, w, (nx, ny, nz), t_out=nt // 2 + 1)
+        ms = cuda_ms(lambda: spectral_apply_fused(xf, w, (nx, ny, nz), t_out=nt // 2 + 1))
+        ref = spectral_apply_fused_ref(xf, w, (nx, ny, nz), nt // 2 + 1)
+        _gate(f"ns3d fused kernel, block 0 at {tuple(xf.shape)}, modes {cfg.modes}", got, ref)
+        del got, ref
+        plain_ms = cuda_ms(lambda: spectral_apply_fused_ref(xf, w, (nx, ny, nz), nt // 2 + 1),
+                           iters=3, warmup=1)
+        bound, by = _fused_bound_ms(1, cfg.width, cfg.width, (nx, ny, nz), tuple(w.shape[2:]),
+                                    xf.shape[-1], nt // 2 + 1, False)
+        del xf
+        print(f"[data] ns3d fused kernel: {ms:.3f} ms at the block shape (its plain version "
+              f"{plain_ms:.3f} ms), bound {bound:.3f} ms ({by}, {bound / ms:.0%} of it "
+              f"reached); {gpu}")
+        spectral_fused_cuda.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fno_forward(params, x, cfg)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = spectral_fused_cuda.launches
+        y_ref = fno_forward_unfused(params, x, cfg)
+    ok, err, scale = _close(y, y_ref, DIST_FWD_TOL)
+    print(f"[data] fno-ns3d forward {fwd_s:.3f}s (first call), output {tuple(y.shape)} vs the "
+          f"unfused forward max|d|={err:.3e} (max|ref|={scale:.3e}, rtol {DIST_FWD_TOL[0]:g}, "
+          f"atol {DIST_FWD_TOL[1]:g}); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {gpu}")
+    if not ok or not bool(torch.isfinite(y).all()):
+        raise SystemExit("[data] the fno-ns3d forward disagrees with the unfused forward")
+    del params, y, y_ref
+    _free_cuda()
+    return _check_launches("ns3d", launches, cfg.n_blocks, 1, gpu)
+
+
+def _online(gpu: str) -> dict:
+    """train --online on the card (2 spawned datagen workers), every
+    sample complete, datagen --resume a no-op with the stats bit for bit,
+    then serve_pde --verify --reference on its checkpoint; returns the
+    launch counts."""
+    import tempfile
+
+    from repro_torch.data.store import ArrayStore
+    from repro_torch.launch import datagen, serve_pde
+
+    _free_cuda()  # the subprocess needs the memory this process has cached
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        ds, ck = os.path.join(d, "ds"), os.path.join(d, "ck")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "fno", "--online",
+               "--out", ds, "--datagen-backend", "process", "--datagen-workers", "2",
+               *ONLINE_ARGS, "--use-pallas", "--ckpt-dir", ck]
+        t = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        print("\n".join("[online] " + line for line in out.stdout.strip().splitlines()))
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"[online] train --online exited {out.returncode}")
+        print(f"[online] train --online ran in {time.perf_counter() - t:.1f}s; {gpu}")
+        m = re.search(r"done: steps=(\d+) failures=0", out.stdout)
+        stalls = re.search(r"online: .* stalls=(\d+)", out.stdout)
+        if m is None or int(m.group(1)) != 4 or stalls is None:
+            raise SystemExit("[online] train --online did not complete its 4 steps")
+        m = re.search(r"spectral kernel launches: fused (\d+), dw (\d+) over (\d+) train steps "
+                      r"x (\d+) blocks x (\d+) micro-batches", out.stdout)
+        if m is None:
+            raise SystemExit("[online] train printed no kernel launch counts")
+        fused, dw, n_steps, n_blocks, accum = map(int, m.groups())
+        if n_steps != 4 or fused != n_steps * n_blocks * 3 * accum or dw != n_steps * n_blocks * accum:
+            raise SystemExit(f"[online] launches fused {fused}, dw {dw} do not match "
+                             f"{n_steps} steps x {n_blocks} blocks x {accum} micro-batches")
+        print(f"[online] stalls {stalls.group(1)}; launches fused {fused}, dw {dw} over "
+              f"{n_steps} steps x {n_blocks} blocks; {gpu}")
+        metas = {}
+        for name in ("x", "y"):
+            store = ArrayStore.open(os.path.join(ds, name))
+            done = [i for i in range(store.shape[0]) if store.sample_complete(i)]
+            rest = tuple(slice(0, k) for k in store.shape[1:])
+            finite = all(np.isfinite(store.read_slice((slice(i, i + 1),) + rest)).all()
+                         for i in done)
+            if len(done) != store.shape[0] or not finite:
+                raise SystemExit(f"[online] store {name}: {len(done)}/{store.shape[0]} samples "
+                                 f"complete (finite: {finite})")
+            with open(os.path.join(ds, name, "meta.json")) as f:
+                metas[name] = f.read()
+        print(f"[online] every sample of x and y complete and finite ({store.shape[0]} of "
+              f"{store.shape[1:]})")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            datagen.main(["--pde", "two_phase", "--n", "4", "--grid", "16", "16", "8",
+                          "--nt", "8", "--out", ds, "--resume"])
+        print("\n".join("[online] " + line for line in buf.getvalue().strip().splitlines()))
+        for name in ("x", "y"):
+            with open(os.path.join(ds, name, "meta.json")) as f:
+                if f.read() != metas[name]:
+                    raise SystemExit(f"[online] datagen --resume changed {name}'s meta.json")
+        if "simulating 0 (two_phase)" not in buf.getvalue():
+            raise SystemExit("[online] datagen --resume simulated samples")
+        print("[online] datagen --resume simulated 0 samples; the stats are bit for bit the same")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_pde.main(["--ckpt-dir", ck, "--scenarios", "4", "--verify", "--reference"])
+    print("\n".join("[online] " + line for line in buf.getvalue().strip().splitlines()))
+    text = buf.getvalue()
+    if "verify OK" not in text or "reference simulator:" not in text:
+        raise SystemExit("[online] serve_pde --verify --reference printed no verify OK or no "
+                         "reference line")
+    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", text)
+    if m is None:
+        raise SystemExit("[online] serve_pde printed no spectral kernel launch count")
+    served = _check_launches("online serve", int(m.group(1)), n_blocks, int(m.group(2)), gpu)
+    return {"fused": fused, "dw": dw, "serve": served}
+
+
+def phase_data(gpu: str, served_per_scen_s: float) -> dict:
+    """The simulators on the card against the CPU and timed at full size,
+    the fno-ns3d forward, and online training end to end; returns the
+    launch counts of the paths with kernels."""
+    _free_cuda()
+    t = time.perf_counter()
+    _simulators_on_card_vs_cpu(gpu)
+    print(f"[data] simulators held in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    frame_s = _simulators_timed(gpu, served_per_scen_s)
+    print(f"[data] simulators timed in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    ns3d = _ns3d_forward(gpu)
+    print(f"[data] fno-ns3d forward checked in {time.perf_counter() - t:.1f}s")
+    return {"ns3d_forward": ns3d, "online": _online(gpu), "frame_s": frame_s}
 
 
 # ---------------------------------------------------------------------------
@@ -1097,9 +1422,10 @@ DIST_GRADY31_BLOCKS = 1
 # time on every rank)
 DIST_GRID_BLOCKS = 2
 # The deep-split ensemble served over the pencils: 2 scenarios sharing one
-# geomodel in bucket 2, 2 rollout steps, a cold and a warm pass, at the
-# training grid (a cold tick's numpy spectral prefix runs on rank 0's host)
-DIST_ENSEMBLE_BATCH, DIST_ENSEMBLE_STEPS = 2, 2
+# geomodel in bucket 2, 1 rollout step (cut from 2 for the script's time),
+# a cold and a warm pass, at the training grid (a cold tick's numpy
+# spectral prefix runs on rank 0's host)
+DIST_ENSEMBLE_BATCH, DIST_ENSEMBLE_STEPS = 2, 1
 
 
 def _dist_input(cfg, batch: int, seed: int, device):
@@ -1593,6 +1919,155 @@ def _dist_train_grid_part(layouts: dict, job: dict, device) -> dict:
     return out
 
 
+# The GPipe baseline (core/pipeline.py) in the same launch: the 1-D
+# layout's model group as the (1 x 4) stage group, 4 blocks = 4 stages at
+# full width on the training grid, batch 2 as 2 micro-batches; and top-k
+# compression with error feedback over the 4 ranks as one data group, on a
+# 64 MiB float32 leaf and a 64 MiB complex64 leaf per rank.
+PIPE_SEED = DIST_SEED + 5
+PIPE_BATCH, PIPE_MICRO = 2, 2
+COMP_LEAF_BYTES = 64 << 20
+COMP_RATIOS = (1.0, 0.01)
+COMP_DENSE_TOL = (1e-5, 1e-6)     # ratio 1.0 vs the dense mean
+COMP_CONSERVE_TOL = (1e-4, 1e-5)  # reduced + mean residual vs the dense mean
+
+
+def _pipeline_cfg():
+    return _dist_train_cfg(DIST_RANKS)
+
+
+def _pipeline_grad_gate(g, want, scale: float, wrongs=()) -> dict:
+    """``_gate_leaf``'s rule for one pipeline stage's leaf: rtol of
+    DIST_GRAD_TOL, atol at most DIST_GRAD_LEAF_ATOL of the scale (for
+    w_spec [1, ci, co, kx, ky, kz, kt], of each kept mode's max|ref| over
+    (ci, co), and compared a slice of ci at a time: a stage's block is
+    3.15 GB). The same gate must refuse zeros, the gradient taken P times
+    (every rank's copy of the loss's cotangent summed) and each of
+    ``wrongs``: (name, fn), fn(ci slice) the wrong gradient's slice."""
+    import torch
+
+    rtol, atol = DIST_GRAD_TOL
+    if g.is_complex():
+        parts = [slice(i, i + 8) for i in range(0, g.shape[1], 8)]
+        m = torch.stack([want[:, sl].abs().amax(dim=(1, 2), keepdim=True) for sl in parts])
+        t = (DIST_GRAD_LEAF_ATOL * m.amax(dim=0)).clamp(max=atol)
+    else:
+        parts = [None]
+        t = torch.tensor(min(atol, DIST_GRAD_LEAF_ATOL * scale), device=g.device)
+
+    def part(x, sl):
+        return x if sl is None else x[:, sl]
+
+    def passes(fn) -> tuple:
+        res = [_close(fn(sl), part(want, sl), (rtol, t)) for sl in parts]
+        return all(r[0] for r in res), max(r[1] for r in res)
+
+    ok, max_d = passes(lambda sl: part(g, sl))
+    wrongs = (("zeros", lambda sl: torch.zeros_like(part(g, sl))),
+              (f"{DIST_RANKS} times", lambda sl: DIST_RANKS * part(g, sl))) + tuple(wrongs)
+    return {"ok": ok, "max_d": max_d, "max_ref": scale,
+            "atol": (float(t.min()), float(t.max())),
+            "passed_wrong": [name for name, fn in wrongs if passes(fn)[0]]}
+
+
+def _dist_pipeline_part(layouts: dict, job: dict, device) -> dict:
+    """One GPipe forward (with its trace) and backward of the mean squared
+    output on this stage; every gradient leaf this stage holds is gated
+    against the serial gradient (``job["pipe"]``): its own block, read from
+    the file a block at a time, and the encoder and decoder once the
+    replicated leaves are reduced over the stages. Rank 0 returns the
+    output."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.pipeline import (
+        make_pipeline_forward, reduce_pipeline_grads, shard_pipeline_params,
+    )
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    cfg, pj = _pipeline_cfg(), job["pipe"]
+    model, _ = layouts["1d"]
+    stage = dist.get_rank(model)
+    local = None
+    for turn in range(dist.get_world_size()):  # one 12.6 GB copy at a time
+        if turn == dist.get_rank():
+            local = shard_pipeline_params(_dist_params(cfg, pj["seed"], device), model)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    x = _dist_input(cfg, PIPE_BATCH, pj["seed"], device)
+    fwd = make_pipeline_forward(cfg, model, n_micro=PIPE_MICRO)
+    grads, trace, y = zeros_like_tree(local), [], {}
+
+    def loss(prm, b):
+        y["y"] = fwd(prm, b["x"], trace)
+        return y["y"].square().mean(), {}
+
+    torch.cuda.reset_peak_memory_stats()
+    _, rec = _counted(lambda: accumulate_grads(loss, local, {"x": x}, grads))
+    out = {"dist_pipeline": dict(rec, trace=trace,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)}
+    if dist.get_rank() == 0:
+        out["dist_pipeline"]["y"] = y["y"].detach().cpu()
+    del y
+    reduce_pipeline_grads(grads, model)
+    torch.cuda.empty_cache()
+    checked, refs = {}, pj["grad_ref"]
+    w_ref = np.load(pj["w_spec_path"], mmap_mode="r")
+    for group_name, leaves in grads.items():
+        for name, g in leaves.items():
+            key, scale = f"{group_name}.{name}", pj["grad_max"][f"{group_name}.{name}"]
+            if name == "w_spec":
+                want = torch.from_numpy(np.array(w_ref[stage:stage + 1])).to(device)
+                nxt = (stage + 1) % DIST_RANKS  # the gate must tell the stages' blocks apart
+                checked[key] = _pipeline_grad_gate(g, want, scale, (
+                    ("ci/co swapped", lambda sl: g.transpose(1, 2)[:, sl]),
+                    ("the next stage's block", lambda sl: torch.from_numpy(
+                        np.array(w_ref[nxt:nxt + 1, sl])).to(device))))
+                del want
+                continue
+            want = refs[group_name][name]
+            if group_name == "blocks":
+                want = want[stage:stage + 1]
+            checked[key] = _pipeline_grad_gate(g, want.to(device), scale)
+    out["dist_pipeline"]["grads"] = checked
+    del local, grads, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_compression_part(job: dict, device) -> dict:
+    """``compress_leaf`` over every rank as one data group on this rank's
+    seeded leaves, each ratio against the dense mean: ratio 1.0 equal to it
+    with a zero residual, a smaller ratio conserving it (reduced + mean
+    residual)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train import compression
+
+    group = dist.group.WORLD
+    gen = torch.Generator(device=device).manual_seed(job["seed"] + 100 + dist.get_rank())
+    n = COMP_LEAF_BYTES // 4
+    leaves = {"float32": torch.randn(n, generator=gen, device=device),
+              "complex64": torch.randn(n // 2, dtype=torch.complex64, generator=gen,
+                                       device=device)}
+    out = {}
+    for name, g in leaves.items():
+        dense = compression._mean_over(g, group)
+        for ratio in COMP_RATIOS:
+            (red, err), rec = _counted(lambda: compression.compress_leaf(
+                g, torch.zeros_like(g), group, ratio))
+            if ratio == 1.0:
+                ok, max_d, _ = _close(red, dense, COMP_DENSE_TOL)
+                ok = ok and not bool(err.any())
+            else:
+                ok, max_d, _ = _close(red + compression._mean_over(err, group), dense,
+                                      COMP_CONSERVE_TOL)
+            out[f"{name} ratio {ratio:g}"] = {"ok": ok, "max_d": max_d, "s": rec["s"]}
+            del red, err
+    return out
+
+
 def _dist_rank(rank, world_size, device, job):
     """One rank of the dist phases' single launch (one start-up of the
     ranks' processes and their CUDA libraries for all of them): the served
@@ -1604,7 +2079,9 @@ def _dist_rank(rank, world_size, device, job):
     out = {"load_s": load_s}
     for part, run in (("serve", lambda: _dist_serve_part(layouts, job, device)),
                       ("ensemble", lambda: _dist_ensemble_part(layouts, job, device)),
-                      ("train_grid", lambda: _dist_train_grid_part(layouts, job, device))):
+                      ("train_grid", lambda: _dist_train_grid_part(layouts, job, device)),
+                      ("pipeline", lambda: _dist_pipeline_part(layouts, job, device)),
+                      ("compression", lambda: {"leaves": _dist_compression_part(job, device)})):
         t = time.perf_counter()
         out[part] = run()
         out[part]["wall_s"] = time.perf_counter() - t
@@ -1615,6 +2092,109 @@ def _dist_rank(rank, world_size, device, job):
         out["dist_train"][run["tag"]] = _dist_train_run(rank, world_size, device, run)
         out["dist_train"][run["tag"]]["wall_s"] = time.perf_counter() - t
     return out
+
+
+def _pipeline_reference(d: str) -> tuple:
+    """(job, y): the serial references of the pipeline run, on the card,
+    then off it: the forward's output on the host, every gradient leaf but
+    w_spec on the host and w_spec's in a file under ``d`` (the batch's mean
+    loss as the mean of its samples' means, one sample at a time, as the
+    training phase fits the card)."""
+    import torch
+
+    from repro_torch.core.fno import fno_forward
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    cfg, dev = _pipeline_cfg(), torch.device("cuda")
+    params = _dist_params(cfg, PIPE_SEED, dev)
+    x = _dist_input(cfg, PIPE_BATCH, PIPE_SEED, dev)
+    grads, ys = zeros_like_tree(params), []
+
+    def loss(prm, b):
+        y = fno_forward(prm, b["x"], cfg)
+        ys.append(y.detach().cpu())
+        return y.square().mean() / PIPE_BATCH, {}
+
+    for i in range(PIPE_BATCH):
+        accumulate_grads(loss, params, {"x": x[i:i + 1]}, grads)
+    grad_max = {f"{g}.{n}": max(float(t.abs().max()) for t in v)
+                for g, leaves in grads.items() for n, v in leaves.items()}
+    path = os.path.join(d, "pipe_grad_w_spec.npy")
+    _to_file(grads["blocks"].pop("w_spec"), path)
+    grad_ref = {g: {n: v.cpu() for n, v in leaves.items()} for g, leaves in grads.items()}
+    del params, x, grads
+    _free_cuda()
+    return ({"seed": PIPE_SEED, "grad_ref": grad_ref, "grad_max": grad_max, "w_spec_path": path},
+            torch.cat(ys))
+
+
+def _check_pipeline(ranks, y_ref, gpu: str) -> None:
+    """The pipeline's output, gradients and per-stage times, and the
+    compression results, from the ranks' records."""
+    from repro_torch.core.pipeline import bubble_efficiency
+    from repro_torch.train.compression import wire_bytes_compressed, wire_bytes_dense
+
+    cfg = _pipeline_cfg()
+    ok, err, scale = _close(ranks[0]["pipeline"]["dist_pipeline"]["y"], y_ref, DIST_FWD_TOL)
+    print(f"[dist_pipeline] GPipe forward, {DIST_RANKS} stages x 1 block, grid {cfg.grid}, "
+          f"width {cfg.width}, batch {PIPE_BATCH} as {PIPE_MICRO} micro-batches: rank 0's output "
+          f"vs the serial fused forward max|d|={err:.3e} (max|ref|={scale:.3e}, rtol "
+          f"{DIST_FWD_TOL[0]:g}, atol {DIST_FWD_TOL[1]:g}); {gpu}")
+    if not ok:
+        raise SystemExit("[dist_pipeline] the pipeline's output is outside the gate")
+    for r, res in enumerate(ranks):
+        for leaf, c in res["pipeline"]["dist_pipeline"]["grads"].items():
+            if not c["ok"]:
+                raise SystemExit(f"[dist_pipeline] stage {r}: gradient of {leaf} outside the gate "
+                                 f"(max|d|={c['max_d']:.3e}, max|ref|={c['max_ref']:.3e}, atol "
+                                 f"{c['atol'][0]:.3e} to {c['atol'][1]:.3e})")
+            if c["passed_wrong"]:
+                raise SystemExit(f"[dist_pipeline] stage {r}: the gate of {leaf} also passes: "
+                                 f"{', '.join(c['passed_wrong'])}")
+    for leaf, c in ranks[0]["pipeline"]["dist_pipeline"]["grads"].items():
+        worst = max(res["pipeline"]["dist_pipeline"]["grads"][leaf]["max_d"] for res in ranks)
+        print(f"[dist_pipeline] backward, gradient of {leaf} (each stage its own block): "
+              f"worst max|d| over the stages {worst:.3e}, max|ref| {c['max_ref']:.3e}, gate rtol "
+              f"{DIST_GRAD_TOL[0]:g} atol {c['atol'][0]:.3e} to {c['atol'][1]:.3e}; {gpu}")
+    print(f"[dist_pipeline] every stage's gradients within the gate, which refuses zeros, "
+          f"{DIST_RANKS} times the gradient, ci/co swapped and the next stage's block; {gpu}")
+    ideal = bubble_efficiency(DIST_RANKS, PIPE_MICRO)
+    for r, res in enumerate(ranks):
+        trace = res["pipeline"]["dist_pipeline"]["trace"]
+        ticks = [t for t in trace if "tick" in t]
+        wall = trace[-1]["wall_s"]
+        busy = sum(t.get("block_s", 0.0) for t in ticks)
+        send = sum(t.get("send_s", 0.0) for t in ticks)
+        recv = sum(t.get("recv_s", 0.0) for t in ticks)
+        per_tick = "; ".join(
+            f"t{t['tick']}: " + ("bubble" if t["micro"] is None else
+                                 ", ".join(f"{k[:-2]} {t[k]:.3f}s" for k in
+                                           ("recv_s", "block_s", "send_s") if k in t))
+            for t in ticks)
+        print(f"[dist_pipeline] stage {r}: forward + backward {res['pipeline']['dist_pipeline']['s']:.3f}s, "
+              f"max_memory_allocated {res['pipeline']['dist_pipeline']['peak_gib']:.2f} GiB; {gpu}")
+        print(f"[dist_pipeline] stage {r}: forward {wall:.3f}s, blocks {busy:.3f}s, sends "
+              f"{send:.3f}s, receives (incl. waiting) {recv:.3f}s, bubble "
+              f"{wall - busy - send:.3f}s; busy share {busy / wall:.3f} vs bubble_efficiency("
+              f"{DIST_RANKS}, {PIPE_MICRO}) {ideal:.3f}; ticks: {per_tick}; {gpu}")
+    for r, res in enumerate(ranks):
+        for what, c in res["compression"]["leaves"].items():
+            if not c["ok"]:
+                raise SystemExit(f"[dist_compression] rank {r}: {what} outside its gate "
+                                 f"(max|d|={c['max_d']:.3e})")
+    for what in ranks[0]["compression"]["leaves"]:
+        worst = max(res["compression"]["leaves"][what]["max_d"] for res in ranks)
+        secs = ", ".join(f"{res['compression']['leaves'][what]['s']:.3f}" for res in ranks)
+        tol = COMP_DENSE_TOL if what.endswith(" 1") else COMP_CONSERVE_TOL
+        print(f"[dist_compression] {COMP_LEAF_BYTES >> 20} MiB {what} over {DIST_RANKS} ranks: "
+              f"worst max|d| {worst:.3e} ({'reduced vs the dense mean, zero residual' if tol is COMP_DENSE_TOL else 'reduced + mean residual vs the dense mean'}, "
+              f"rtol {tol[0]:g}, atol {tol[1]:g}); seconds a rank {secs}; {gpu}")
+    n = cfg.width ** 2 * int(np.prod(cfg.mode_shape)) * cfg.n_blocks // DIST_RANKS
+    for ratio in COMP_RATIOS:
+        print(f"[dist_compression] wire bytes a rank of the {n * 8 / 1e9:.2f} GB w_spec shard "
+              f"over {DIST_RANKS} ranks at ratio {ratio:g}: dense all-reduce "
+              f"{wire_bytes_dense(n, 8, DIST_RANKS) / 1e9:.3f} GB, compressed "
+              f"{wire_bytes_compressed(n, 8, DIST_RANKS, ratio) / 1e9:.3f} GB")
 
 
 def phase_dist(gpu: str) -> dict:
@@ -1635,6 +2215,7 @@ def phase_dist(gpu: str) -> dict:
 
     import torch
 
+    from repro_torch.configs.fno_sleipner import CONFIG as PAPER_CONFIG
     from repro_torch.core.fno import fno_forward
     from repro_torch.launch.mesh import launch_ranks
     from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
@@ -1656,6 +2237,11 @@ def phase_dist(gpu: str) -> dict:
           f"(the script's time; full width)")
     print(f"reduced: the training grid's dist forwards and backward n_blocks "
           f"{serve_cfg.n_blocks} -> {DIST_GRID_BLOCKS} (the script's time; full width)")
+    print(f"reduced: dist2d_ensemble rollout steps 2 -> {DIST_ENSEMBLE_STEPS} (the script's "
+          f"time)")
+    print(f"reduced: dist_pipeline grid {'x'.join(map(str, PAPER_CONFIG.grid))} -> "
+          f"{'x'.join(map(str, _pipeline_cfg().grid))} (4 ranks on one card; full width, "
+          f"{_pipeline_cfg().n_blocks} blocks = {DIST_RANKS} stages)")
     print(f"reduced: dist2d_ensemble grid {'x'.join(map(str, serve_cfg.grid))} -> "
           f"{'x'.join(map(str, train_cfg.grid))} (rank 0's numpy spectral prefix sets a cold "
           f"tick's time; full width)")
@@ -1718,17 +2304,22 @@ def phase_dist(gpu: str) -> dict:
                                "batch": batch, "accum": accum, "steps": steps,
                                "ref": ref["ref"], "param_max": ref["param_max"],
                                "w_spec_path": path})
+        pipe_job, y_pipe = _pipeline_reference(d)
         print(f"[dist] serial references computed and written in {time.perf_counter() - t0:.1f}s")
         t = time.perf_counter()
         ranks = launch_ranks(_dist_rank, DIST_RANKS, d,
                              args=({"seed": DIST_SEED, "grad_ref": grad_ref, "grad_max": grad_max,
                                     "grad_w_spec_path": grad_w_spec_path,
-                                    "train_runs": train_runs},),
+                                    "train_runs": train_runs, "pipe": pipe_job},),
                              deadline_s=DIST_TIMEOUT_S)
         print(f"[dist] {DIST_RANKS} ranks spawned, ran and joined in "
               f"{time.perf_counter() - t:.1f}s: served grid "
               + ", ".join(f"{r['serve']['wall_s']:.1f}" for r in ranks) + "s, training grid "
-              + ", ".join(f"{r['train_grid']['wall_s']:.1f}" for r in ranks) + "s a rank")
+              + ", ".join(f"{r['train_grid']['wall_s']:.1f}" for r in ranks) + "s, pipeline "
+              + ", ".join(f"{r['pipeline']['wall_s']:.1f}" for r in ranks) + "s, compression "
+              + ", ".join(f"{r['compression']['wall_s']:.1f}" for r in ranks) + "s a rank")
+    _check_pipeline(ranks, y_pipe, gpu)
+    del y_pipe
     for tag, what in (("dist_paper", "1 x 4"), ("dist2d_paper", "1 x 2x2")):
         gate(f"FNORunner tick over {what} ranks (paper), grid {serve_cfg.grid}, bucket "
              f"{DIST_SERVE_BATCH}, rank 0's gathered outputs vs the serial fused forward",
@@ -1792,9 +2383,13 @@ def phase_dist(gpu: str) -> dict:
     want["dist2d_ensemble"] = {"fused": 2 * DIST_ENSEMBLE_STEPS * n_blocks, "dw": 0}
     want["dist_backward"] = want["dist2d_backward"] = {"fused": 3 * grid_blocks,
                                                        "dw": grid_blocks}
+    # a pipeline stage's forward + backward: its one block per micro-batch
+    # in the forward, the remat recompute and dx, and the cotangent kernel
+    want["dist_pipeline"] = {"fused": 3 * PIPE_MICRO, "dw": PIPE_MICRO}
     counted = []
     for r, res in enumerate(ranks):
-        res = {**res["serve"], **res["train_grid"], "dist2d_ensemble": res["ensemble"]}
+        res = {**res["serve"], **res["train_grid"], **res["pipeline"],
+               "dist2d_ensemble": res["ensemble"]}
         got = {tag: {"fused": res[tag]["fused"], "dw": res[tag]["dw"]} for tag in want}
         counts = ", ".join(f"{tag} {n['fused']}/{n['dw']}" for tag, n in got.items())
         times = ", ".join(f"{tag} {res[tag]['s']:.3f}s" for tag in want)
@@ -1857,13 +2452,17 @@ DIST_TRAIN_SEED = 13
 DIST_TRAIN_TOL = (1e-4, 1e-5)  # rtol, atol of losses, grad norms and params
 # (tag, --model-shards, n_blocks, global batch, micro-batches, steps)
 DIST_TRAIN_RUNS = (
-    # 1 data x 2x2 pencils, n_blocks 4 -> 2 (the script's time)
-    ("dist_train_pencils", [2, 2], 2, 2, 2, 3),
+    # 1 data x 2x2 pencils, n_blocks 4 -> 2, steps 3 -> 2 (the script's time)
+    ("dist_train_pencils", [2, 2], 2, 2, 2, 2),
     # 2 data x 2 model (1-D), ZeRO-1, n_blocks 4 -> 2: at 4 blocks a rank's
     # state (w_spec shard 6.3 GB, its gradient 6.3, half of mu 3.15 and of
-    # nu 1.6) is 17.3 GB, 69 GB for four ranks before any activation
-    ("dist_train_dp2", [2], 2, 2, 1, 2),
+    # nu 1.6) is 17.3 GB, 69 GB for four ranks before any activation;
+    # steps 2 -> 1 (the script's time: a step is 8-13 s of host-staged
+    # data-group collectives)
+    ("dist_train_dp2", [2], 2, 2, 1, 1),
 )
+# The steps each run took before the cut, for its reduced: line
+DIST_TRAIN_STEPS_BEFORE = {"dist_train_pencils": 3, "dist_train_dp2": 2}
 
 
 def _dist_train_cfg(n_blocks: int):
@@ -1950,11 +2549,19 @@ def _dist_train_run(rank, world_size, device, job) -> dict:
 
 def _to_file(w, path: str) -> None:
     """A stacked complex64 tensor on the card into a .npy file, block by
-    block through the host, for ranks to read a block at a time."""
-    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.complex64, shape=tuple(w.shape))
-    for i in range(w.shape[0]):
-        out[i] = w[i].cpu().numpy()
-    out.flush()
+    block through one pinned host buffer, for ranks to read a block at a
+    time. Not synced to disk: the ranks, on this machine, read it through
+    the page cache."""
+    import torch
+
+    buf = torch.empty(tuple(w.shape[1:]), dtype=torch.complex64, pin_memory=True)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": np.lib.format.dtype_to_descr(np.dtype(np.complex64)),
+            "fortran_order": False, "shape": tuple(w.shape)})
+        for i in range(w.shape[0]):
+            buf.copy_(w[i])
+            f.write(buf.numpy().data)
 
 
 def _serial_train_reference(tag, cfg, batch, accum, steps, gpu, w_spec_path) -> dict:
@@ -2018,6 +2625,8 @@ def phase_dist_train(gpu: str, dist_out: dict) -> dict:
               + ", ".join(f"{r['wall_s']:.1f}" for r in ranks) + "s a rank")
         if n_blocks != _train_cfg().n_blocks:
             print(f"reduced: n_blocks {_train_cfg().n_blocks} -> {n_blocks} ({tag})")
+        print(f"reduced: steps {DIST_TRAIN_STEPS_BEFORE[tag]} -> {steps} ({tag}; the script's "
+              f"time)")
         for i, want in enumerate(ref["metrics"]):
             for key in ("loss", "grad_norm"):
                 for r, res in enumerate(ranks):
@@ -2069,11 +2678,13 @@ def phase_dist_train_cli(gpu: str) -> dict:
     import tempfile
 
     _free_cuda()  # the subprocesses need the memory this process has cached
+    print(f"reduced: 4-rank train CLI steps 6 -> {CLI_STEPS} (the script's time)")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     tag = "dist_train_cli"
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--devices", str(DIST_RANKS),
-               "--model-shards", *map(str, DIST_PENCILS), "--steps", "6", "--save-every", "2",
+               "--model-shards", *map(str, DIST_PENCILS), "--steps", str(CLI_STEPS),
+               "--save-every", "2",
                "--inject-fault", "3", "--width", "8", "--n-data", "8", "--use-pallas",
                "--ckpt-dir", d]
         out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
@@ -2450,11 +3061,13 @@ def main() -> int:
     dx, dw = phase("backward kernels", phase_backward_kernels, gpu)
     fused.update(dx)
     flat, flat_dw = phase("flat kernels", phase_flat_kernels, gpu)
-    served = {"serve": phase("serve", phase_serving, gpu), **phase("ensemble", phase_ensemble, gpu),
+    served_launches, served_per_scen_s = phase("serve", phase_serving, gpu)
+    served = {"serve": served_launches, **phase("ensemble", phase_ensemble, gpu),
               "cli": phase("cli", phase_cli, gpu)}
     rms, flash = phase("lm kernels", phase_lm_kernels, gpu)
     train = phase("train", phase_train, gpu)
     train_cli = phase("train cli", phase_train_cli, gpu)
+    data = phase("data", phase_data, gpu, served_per_scen_s)
     dist = phase("dist", phase_dist, gpu)
     dist_train = phase("dist_train", phase_dist_train, gpu, dist)
     dist_cli = phase("dist_train cli", phase_dist_train_cli, gpu)
@@ -2463,10 +3076,12 @@ def main() -> int:
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
-        "train_cli_serve": train_cli["serve"],
+        "train_cli_serve": train_cli["serve"], "ns3d_forward": data["ns3d_forward"],
+        "online_train": data["online"]["fused"], "online_serve": data["online"]["serve"],
     }
     dw["launches"] = train["dw"]
-    dw["launches_by_path"] = {"train": train["dw"], "train_cli": train_cli["dw"]}
+    dw["launches_by_path"] = {"train": train["dw"], "train_cli": train_cli["dw"],
+                              "online_train": data["online"]["dw"]}
     # the dist paths' launches as counted on rank 0 (every rank's were checked equal)
     for record, key in ((fused, "fused"), (dw, "dw")):
         record["launches_by_path"].update(

@@ -2,7 +2,9 @@
 
 ``ARCH_IDS`` lists the reference's ten LM architectures; the port serves
 the dense ones (``DENSE_IDS``). ``get_arch`` of any other raises and names
-the ROADMAP item that ports its family.
+the ROADMAP item that ports its family. ``FNO_IDS`` are the paper's FNO
+configs (Navier-Stokes and Sleipner), as the reference registers them;
+``get_fno`` returns one's ``(CONFIG, SHAPES)``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ ARCH_IDS = (
 
 DENSE_IDS = ("chameleon-34b", "qwen1.5-32b", "chatglm3-6b", "gemma-7b", "minitron-8b")
 
+FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
+
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
@@ -34,6 +38,14 @@ def get_arch(name: str) -> ArchConfig:
         raise NotImplementedError(f"arch {name!r}: {NOT_PORTED}")
     module = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+
+
+def get_fno(name: str):
+    """``(CONFIG, SHAPES)`` of the FNO config ``name`` (one of ``FNO_IDS``)."""
+    if name not in FNO_IDS:
+        raise KeyError(f"unknown FNO config {name!r}")
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    return mod.CONFIG, mod.SHAPES
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
@@ -54,4 +66,4 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     )
 
 
-__all__ = ["ARCH_IDS", "DENSE_IDS", "ArchConfig", "get_arch", "reduced"]
+__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "ArchConfig", "get_arch", "get_fno", "reduced"]

@@ -9,16 +9,22 @@ so both loaders give the same batches from the same store; the port's are
 torch tensors on the loader's device. Across ranks, a batch partition
 (``core.fno.input_spec``) gives each rank its shard of the global batch:
 its rows of the sample order and its x (and y) slices of every sample,
-read from the store alone. ``StreamingSchedule`` (online training) comes
-with the datagen slice.
+read from the store alone. ``StreamingSchedule`` draws batches from the
+part of a store that datagen has finished (online training), the
+reference's schedule; across ranks, rank 0 records each step's watermark
+and every rank takes it from there.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core.partition import CartPartition
@@ -223,6 +229,197 @@ class _Prefetcher:
         self._thread.join(timeout=5)
 
 
+class StreamingSchedule:
+    """Deterministic batch schedule over the currently-visible sample prefix.
+
+    Online training (Meyer et al.: stream samples into training as the
+    simulator produces them) needs a sample schedule that (a) only ever
+    draws samples whose chunks are fully published, (b) blocks — with a
+    stall counter surfaced in metrics — when training outpaces simulation,
+    and (c) stays a pure replayable function of ``step`` after a checkpoint
+    restore, which is the fault supervisor's contract.
+
+    (c) is the subtle one: visibility is a race against the simulator, so
+    the schedule RECORDS the complete-prefix watermark the first time each
+    step is drawn (``watermark_log``). Batch ids are then a pure function of
+    ``(seed, step, watermark_log[step])``; replaying the same log against
+    the finished store — or after a crash restore, against the same run —
+    reproduces every batch bit-identically. Pass ``log_path`` to persist the
+    log (append-only jsonl, one entry per newly recorded step; a torn tail
+    line from a crash is skipped) so a restarted process replays too. Note
+    the log fixes the sample SCHEDULE; normalization stats are read once at
+    loader construction, so a restarted process must reuse the same stats
+    snapshot (``launch/train.py --online`` persists one next to this log)
+    for the batch VALUES to match as well.
+
+    Across ranks (``group``, every rank of it holding a schedule), the ranks
+    must draw every step from one watermark, or the model shards of one
+    batch would read different samples. ``agree(step)``, a collective that
+    the training thread of every rank calls in step order, has the group's
+    rank 0 record the step's watermark and broadcasts it; every rank
+    records it and appends it to its own log. ``watermark`` then never runs
+    a collective: on another thread (the loader's prefetch) it waits until
+    ``agree`` has recorded the step. The port's counterpart of
+    ``repro.data.loader.StreamingSchedule``; ``sample_ids`` draws the
+    reference's ids bit for bit.
+    """
+
+    def __init__(
+        self,
+        stores: Sequence[object],
+        batch_size: int,
+        *,
+        seed: int = 0,
+        min_visible: Optional[int] = None,
+        timeout: Optional[float] = None,
+        poll_s: float = 0.02,
+        watermark_log: Optional[Dict[int, int]] = None,
+        log_path: Optional[str] = None,
+        group=None,
+    ):
+        self.stores = list(stores)
+        if not self.stores:
+            raise ValueError("StreamingSchedule needs at least one store")
+        self.batch_size = int(batch_size)
+        self.seed = seed
+        # back-pressure threshold: don't step until this many samples exist
+        # (clamped to the smallest store so a batch larger than the dataset
+        # oversamples the full prefix instead of waiting forever)
+        cap = min(int(s.shape[0]) for s in self.stores)
+        self.min_visible = max(
+            1, min(min_visible if min_visible else batch_size, cap)
+        )
+        self.timeout = timeout
+        self.poll_s = poll_s
+        self.watermark_log: Dict[int, int] = {
+            int(k): int(v) for k, v in (watermark_log or {}).items()
+        }
+        self.log_path = log_path
+        if log_path and os.path.exists(log_path):
+            with open(log_path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue  # torn tail line from a crash mid-append
+                    self.watermark_log[int(rec["step"])] = int(rec["w"])
+        self.group = group
+        self.stalls = 0
+        self.stall_s = 0.0
+        self._lock = threading.Lock()
+        self._recorded = threading.Condition(self._lock)
+        self._closed = False
+
+    # -- visibility --------------------------------------------------------
+    def visible_now(self) -> int:
+        """Samples visible in EVERY store (min over complete prefixes)."""
+        return min(s.complete_watermark() for s in self.stores)
+
+    def _persist_entry(self, step: int, w: int) -> None:
+        """Append one record — O(1) per step, unlike rewriting the dict."""
+        if not self.log_path:
+            return
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps({"step": step, "w": w}) + "\n")
+
+    def _record(self, step: int, w: int) -> None:
+        """Record ``w`` for ``step`` (lock held) and wake its waiters."""
+        self.watermark_log[step] = w
+        self._persist_entry(step, w)
+        self._recorded.notify_all()
+
+    def _observe(self, step: int) -> int:
+        """Visible-count watermark for ``step``: recorded once, replayed
+        forever after. Blocks (back-pressure) while fewer than
+        ``min_visible`` samples are published — WITHOUT holding the lock,
+        so replay lookups of already-recorded steps from other threads
+        (trainer vs prefetcher) never wait on the simulator."""
+        while True:
+            with self._lock:
+                w = self.watermark_log.get(step)
+                if w is not None:
+                    return w
+                w = self.visible_now()
+                if w >= self.min_visible:
+                    self._record(step, w)
+                    return w
+                self.stalls += 1
+            t0 = time.monotonic()
+            for s in self.stores:
+                s.wait_for_samples(
+                    self.min_visible, timeout=self.timeout, poll_s=self.poll_s
+                )
+            with self._lock:
+                self.stall_s += time.monotonic() - t0
+
+    def agree(self, step: int) -> int:
+        """Across the group: rank 0's watermark for ``step``, recorded on
+        every rank. A collective when the step is not yet recorded (the
+        logs of all ranks are equal, so all ranks decide alike); call it
+        on every rank's training thread, in step order. Without a group it
+        is ``watermark``."""
+        if self.group is None:
+            return self.watermark(step)
+        with self._lock:
+            w = self.watermark_log.get(step)
+        if w is not None:
+            return w
+        w = self._observe(step) if dist.get_rank(self.group) == 0 else 0
+        t = torch.tensor([w], dtype=torch.int64)
+        dist.broadcast(t, dist.get_global_rank(self.group, 0), group=self.group)
+        w = int(t)
+        with self._lock:
+            if step not in self.watermark_log:
+                self._record(step, w)
+        return w
+
+    def watermark(self, step: int) -> int:
+        """The watermark of ``step``. Without a group, recorded on first use
+        (``_observe``); with one, recorded by ``agree``, which this waits
+        for."""
+        if self.group is None:
+            return self._observe(step)
+        with self._lock:
+            while step not in self.watermark_log:
+                if self._closed:
+                    raise RuntimeError(f"schedule closed before step {step} was agreed")
+                self._recorded.wait()
+            return self.watermark_log[step]
+
+    def close(self) -> None:
+        """Wake every thread waiting in ``watermark`` for an ``agree`` that
+        will not come (it raises)."""
+        with self._lock:
+            self._closed = True
+            self._recorded.notify_all()
+
+    # -- the schedule itself ----------------------------------------------
+    def sample_ids(self, step: int) -> np.ndarray:
+        """Batch ids for ``step``: uniform over the visible prefix, pure in
+        (seed, step, recorded watermark). Draws without replacement when the
+        prefix is large enough, with replacement while it is still smaller
+        than the batch (the price of starting before the data exists)."""
+        w = self.watermark(step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, int(step), int(w)])
+        )
+        return rng.choice(w, size=self.batch_size, replace=w < self.batch_size)
+
+    def metrics(self) -> dict:
+        with self._lock:
+            return {
+                "stalls": self.stalls,
+                "stall_s": round(self.stall_s, 4),
+                "max_step_recorded": max(self.watermark_log, default=-1),
+                "last_watermark": self.watermark_log[
+                    max(self.watermark_log)
+                ] if self.watermark_log else 0,
+            }
+
+
 class ShardedDatasetLoader:
     """Training batches from chunked stores.
 
@@ -239,7 +436,8 @@ class ShardedDatasetLoader:
     rank, each one read as the store slice under the rank's spatial shard
     (only the chunks it overlaps), normalized with the store's global
     stats. Without, the whole batch, each sample one read of its full
-    extent.
+    extent. With ``schedule`` (a ``StreamingSchedule``), the sample ids of
+    each step are the schedule's.
     """
 
     def __init__(
@@ -254,8 +452,10 @@ class ShardedDatasetLoader:
         prefetch: int = 2,
         part: Optional[CartPartition] = None,
         groups=None,
+        schedule: Optional[StreamingSchedule] = None,
     ):
         self.sources = dict(sources)
+        self.schedule = schedule
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.seed = seed
@@ -283,7 +483,10 @@ class ShardedDatasetLoader:
         )
 
     def sample_ids(self, step: int) -> np.ndarray:
-        """Sample ids of batch ``step``: a pure function of (seed, step)."""
+        """Sample ids of batch ``step``: a pure function of (seed, step); in
+        streaming mode, the schedule's (of its watermark log)."""
+        if self.schedule is not None:
+            return self.schedule.sample_ids(step)
         n, b = self.n_samples, self.batch_size
         positions = np.arange(step * b, (step + 1) * b)
         epochs, offsets = positions // n, positions % n

@@ -19,8 +19,11 @@ replays every served scenario through the port's unfused plain forward,
 restored from the same checkpoint on one device (after the ranks exit),
 and exits non-zero on a mismatch beyond rtol=1e-4, atol=1e-5;
 ``--bench-sequential`` also serves the ensemble one at a time over the
-same warm runner. ``--device cpu`` runs on the CPU; the default is the
-card.
+same warm runner; ``--reference`` then times the numerical simulator
+(``data/pde/two_phase.py``) on one scenario at the served grid, on the
+serving device, and prints the surrogate-vs-simulator speedup against the
+served per-scenario time (of rank 0's serving pass with ``--devices N``).
+``--device cpu`` runs on the CPU; the default is the card.
 """
 from __future__ import annotations
 
@@ -168,6 +171,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bench-sequential", action="store_true",
                     help="also serve one at a time and report the "
                     "continuous-batching speedup")
+    ap.add_argument("--reference", action="store_true",
+                    help="time the numerical simulator on one scenario for "
+                    "the surrogate-vs-simulator speedup")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda; 'cpu' "
                     "runs on the CPU)")
@@ -225,9 +231,9 @@ def _serve_rank(rank, world_size, device, args, shards):
     if rank != 0:
         runner.follow()
         return None
-    done = _serve_and_report(runner, args, f" (rank 0 of {world_size})")
+    done, dt = _serve_and_report(runner, args, f" (rank 0 of {world_size})")
     runner.close()
-    return {r.rid: [torch.from_numpy(y) for y in r.outputs] for r in done}
+    return {"dt": dt, "outputs": {r.rid: [torch.from_numpy(y) for y in r.outputs] for r in done}}
 
 
 def main(argv=None) -> list:
@@ -248,7 +254,7 @@ def main(argv=None) -> list:
                                                **_runner_kwargs(args))
         except ValueError as e:  # library error -> CLI-flag wording
             raise SystemExit(f"--static-channels/--max-batch: {e}") from None
-        done = _serve_and_report(runner, args, "")
+        done, dt = _serve_and_report(runner, args, "")
     else:
         from repro_torch.launch.mesh import launch_ranks
 
@@ -259,7 +265,8 @@ def main(argv=None) -> list:
                                   args.rollout_steps, n_static=_runner_kwargs(args)["n_static"],
                                   dup=args.dup)
         for r in done:
-            r.outputs = [y.numpy() for y in served[r.rid]]
+            r.outputs = [y.numpy() for y in served["outputs"][r.rid]]
+        dt = served["dt"]
     if args.verify:
         if runner is None:  # the oracle: the same checkpoint on one device
             runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device,
@@ -267,12 +274,31 @@ def main(argv=None) -> list:
         worst = verify(runner, done, args.rollout_steps)
         print(f"verify OK: {len(done)} scenarios match the unfused plain forward "
               f"(max abs diff {worst:.2e})")
+    if args.reference:
+        _report_reference(args, cfg, device, dt / len(done))
     return done
 
 
-def _serve_and_report(runner, args, of_ranks: str) -> list:
+def _report_reference(args, cfg, device, per_scen: float) -> None:
+    """Time one ``simulate_task`` at the served scenario grid on ``device``
+    (synchronised: it returns host arrays) and print the reference's
+    speedup line."""
+    from repro_torch.data.pde.two_phase import simulate_task
+
+    nx, ny, nz, nt = cfg.grid
+    t0 = time.perf_counter()
+    simulate_task(args.seed, args.wells, (nx, ny, nz), nt, device=device)
+    sim_s = time.perf_counter() - t0
+    print(
+        f"reference simulator: {sim_s:.2f}s/scenario vs surrogate "
+        f"{per_scen * 1e3:.1f}ms/scenario -> {sim_s / per_scen:.0f}x "
+        f"(paper reports ~1e5x at Sleipner scale on real accelerators)"
+    )
+
+
+def _serve_and_report(runner, args, of_ranks: str) -> tuple:
     """Warm up, serve the ensemble of ``args`` and print what was served;
-    returns the served requests."""
+    returns the served requests and the serving pass's seconds."""
     from repro_torch.kernels.spectral_conv import spectral_fused_cuda
 
     n_static = runner.n_static
@@ -329,7 +355,7 @@ def _serve_and_report(runner, args, of_ranks: str) -> list:
             f"speedup {seq_dt / dt:.2f}x"
         )
     sys.stdout.flush()
-    return done
+    return done, dt
 
 
 if __name__ == "__main__":

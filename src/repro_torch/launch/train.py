@@ -3,7 +3,8 @@ across ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode fno --steps 6 \
         --ckpt-dir CKPT [--x-store DS/x --y-store DS/y] [--device cpu] \
-        [--devices N --model-shards P | PX PY] [--comm-chunks C]
+        [--devices N --model-shards P | PX PY] [--comm-chunks C] \
+        [--online --out DS [--pde two_phase] [--datagen-backend process]]
 
 The port of the reference's ``train.py --mode fno``: the same flags and
 defaults, the same ``FNOConfig`` (modes ``max(2, g // 4)``, 4 blocks,
@@ -24,6 +25,16 @@ ranks split the batch. Each rank reads only its shard of every batch,
 keeps its shard of the spectral weights and, with ZeRO-1, its slice of
 AdamW's moments; checkpoints hold the global state in the serial format.
 
+``--online`` runs datagen (``launch/datagen.py``) in a background thread
+of the launching process, once, and trains from the stores' complete
+prefix while it writes (``data.loader.StreamingSchedule``): the stats
+snapshot the run normalizes with goes to ``CKPT/stats_snapshot.json`` and
+the watermark log to ``CKPT/watermarks.json`` (rank r > 0 of ``--devices
+N`` logs to ``CKPT/watermarks.rank<r>.json``; rank 0 records each step's
+watermark and broadcasts it, so every rank logs the same). The datagen
+tasks simulate on the training device. Prints the reference's ``online:``
+line after the ``done:`` line.
+
 Without stores it trains on synthetic band-limited fields drawn from a
 seeded ``torch.Generator`` (the reference draws its own with
 ``jax.random``; the two sides meet on stores). Prints ``done: steps=...
@@ -38,15 +49,18 @@ import dataclasses
 import json
 import os
 import tempfile
+import threading
+import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.device import resolve_device
 from repro_torch.core.fno import (
     FNOConfig, forward_and_specs, group_names, init_params, mse_loss, param_shapes,
 )
 from repro_torch.core.partition import shard_tree
-from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader
+from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader, StreamingSchedule
 from repro_torch.data.store import ArrayStore
 from repro_torch.kernels.spectral_conv import spectral_fused_cuda, spectral_fused_dw_cuda
 from repro_torch.launch.mesh import build_fno_groups, fno_layout, launch_ranks
@@ -60,6 +74,90 @@ from repro_torch.train.train_loop import make_train_step
 # before the launch fails (a hung or dead peer); the run itself has no
 # wall-clock deadline, as the reference's has none.
 RANK_TIMEOUT_S = 3600.0
+
+
+def start_online_datagen(args, device):
+    """Run ``run_datagen`` in a background thread (the paper's 'simulate
+    in advance' cost removed: training overlaps it), its tasks on
+    ``device``. Returns ``(thread, err_holder)``; the holder carries any
+    datagen exception so the trainer fails loudly instead of stalling
+    forever. Sets ``args.x_store``/``args.y_store`` from ``--out``."""
+    from repro_torch.launch.datagen import build_parser, run_datagen
+
+    if args.x_store:
+        root = os.path.dirname(os.path.abspath(args.x_store))
+        if (
+            os.path.dirname(os.path.abspath(args.y_store or "")) != root
+            or os.path.basename(os.path.abspath(args.x_store)) != "x"
+            or os.path.basename(os.path.abspath(args.y_store)) != "y"
+        ):
+            raise SystemExit(
+                "--online: stores must be <root>/x and <root>/y "
+                "(datagen's layout); or pass --out <root> instead"
+            )
+    elif args.out:
+        root = args.out
+        args.x_store = os.path.join(root, "x")
+        args.y_store = os.path.join(root, "y")
+    else:
+        raise SystemExit("--online needs --out (or --x-store/--y-store)")
+    nx, ny, nz, nt = args.grid
+    dg_args = build_parser().parse_args([
+        "--pde", args.pde, "--n", str(args.n_data),
+        "--grid", str(nx), str(ny), str(nz), "--nt", str(nt),
+        "--out", root, "--backend", args.datagen_backend,
+        "--workers", str(args.datagen_workers),
+        "--chunks-xy", str(args.chunks_xy[0]), str(args.chunks_xy[1]),
+        "--stats-every", str(max(1, min(args.batch, 4))),
+        "--seed", str(args.seed), "--resume", "--device", str(device),
+    ])
+    err = []
+
+    def _run():
+        try:
+            run_datagen(dg_args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the waiters
+            err.append(e)
+
+    th = threading.Thread(target=_run, name="online-datagen", daemon=True)
+    th.start()
+    return th, err
+
+
+def _wait_online(path: str, err: list, timeout: float, need_stats: bool) -> None:
+    """Block until the store exists (and, if asked, carries normalization
+    stats from the incremental Welford pass)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if os.path.exists(os.path.join(path, "meta.json")):
+            if not need_stats or "stats" in ArrayStore.open(path).meta:
+                return
+        if err:
+            raise RuntimeError("online datagen failed") from err[0]
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"--online: store {path} "
+                f"{'has no stats' if need_stats else 'never appeared'} "
+                f"after {timeout}s"
+            )
+        time.sleep(0.05)
+
+
+def _pin_online_stats(args, x_src) -> None:
+    """Normalize with one stats snapshot for the whole run: datagen keeps
+    rewriting meta.json's stats as samples land, so the first reader writes
+    the stats it saw to ``CKPT/stats_snapshot.json`` and every later one
+    (a rank, a restarted process) reads them from there."""
+    snap = os.path.join(args.ckpt_dir, "stats_snapshot.json")
+    if os.path.exists(snap):
+        with open(snap) as f:
+            x_src.meta["stats"] = json.load(f)
+        return
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    tmp = snap + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(x_src.meta["stats"], f)
+    os.rename(tmp, snap)
 
 
 def synthetic_fno_data(cfg: FNOConfig, n: int, seed: int = 0):
@@ -119,7 +217,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--x-store", default=None)
     ap.add_argument("--y-store", default=None)
     ap.add_argument("--online", action="store_true",
-                    help="train while datagen writes the stores (not ported yet)")
+                    help="fno mode: spawn datagen in the background and "
+                    "start training from the store's visible sample prefix "
+                    "(Meyer-et-al streaming) instead of simulate-then-train")
+    ap.add_argument("--out", default=None,
+                    help="--online: dataset root (writes <out>/x, <out>/y); "
+                    "alternative to --x-store/--y-store")
+    ap.add_argument("--pde", choices=("two_phase", "navier_stokes"),
+                    default="two_phase", help="--online: PDE to simulate")
+    ap.add_argument("--datagen-workers", type=int, default=4)
+    ap.add_argument("--datagen-backend", choices=("process", "thread"),
+                    default="thread")
+    ap.add_argument("--chunks-xy", type=int, nargs=2, default=(2, 2),
+                    metavar=("CX", "CY"), help="--online: store chunking")
+    ap.add_argument("--online-timeout", type=float, default=600.0,
+                    help="--online: max seconds to wait for the simulator "
+                    "(first samples, stats, per-step back-pressure)")
     ap.add_argument("--no-normalize", action="store_true",
                     help="skip input normalization from the store's stats")
     ap.add_argument("--no-prefetch", action="store_true",
@@ -147,12 +260,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Exit non-zero on what a later slice of the port brings."""
+    """Exit non-zero on flags that do not go together (the reference's
+    words), and on what a later slice of the port brings."""
+    if args.online and args.mode != "fno":
+        raise SystemExit("--online is an fno-mode flag")
     if args.mode == "lm":
         raise SystemExit("--mode lm is not ported yet (ROADMAP Queue 1 item 5, "
                          "the LLM family)")
-    if args.online:
-        raise SystemExit("--online is not ported yet (ROADMAP Queue 1 item 4, data)")
 
 
 def _check_layout(args) -> None:
@@ -195,6 +309,8 @@ def _config_and_data(args):
     if x_src is None:
         x_all, y_all = synthetic_fno_data(cfg, args.n_data)
         x_src, y_src = NdArraySource(x_all), NdArraySource(y_all)
+    if args.online and not args.no_normalize:
+        _pin_online_stats(args, x_src)
     return cfg, x_src, y_src, () if args.no_normalize else ("x",)
 
 
@@ -225,9 +341,25 @@ def train(args, device, world_size: int = 1) -> dict:
             params = shard_tree(params, p_parts, groups)
         return {"params": params, "opt": init_opt_state(params, layout)}
 
+    schedule, online = None, {}
+    if args.online:
+        # every rank draws each step from rank 0's watermark, agreed on the
+        # training thread over a group of its own (never from the prefetch
+        # thread, never interleaved with the step's collectives)
+        group = dist.new_group(list(range(world_size))) if world_size > 1 else None
+        rank = dist.get_rank() if world_size > 1 else 0
+        log = "watermarks.json" if rank == 0 else f"watermarks.rank{rank}.json"
+        schedule = StreamingSchedule([x_src, y_src], args.batch, seed=args.seed,
+                                     timeout=args.online_timeout,
+                                     log_path=os.path.join(args.ckpt_dir, log), group=group)
     executed = []
 
     def train_step(state, batch):
+        if schedule is not None and "first_n_complete" not in online:
+            # the moment the first step launches: how much of the dataset
+            # exists? < n proves simulation and training truly overlap
+            online["first_visible"] = schedule.visible_now()
+            online["first_n_complete"] = x_src.n_complete()
         params, opt, metrics = step_fn(state["params"], state["opt"], batch)
         executed.append(1)
         return {"params": params, "opt": opt}, metrics
@@ -244,12 +376,19 @@ def train(args, device, world_size: int = 1) -> dict:
         prefetch=0 if args.no_prefetch else 2,
         part=None if layout is None else x_part,
         groups=groups,
+        schedule=schedule,
     )
+
+    def batches(step):
+        if schedule is not None and schedule.group is not None:
+            schedule.agree(step)
+        return loader.batch(step)
+
     try:
         result = run_supervised(
             init_state=init_state,
             train_step=train_step,
-            batch_iter=loader.batch,
+            batch_iter=batches,
             total_steps=args.steps,
             ckpt_dir=args.ckpt_dir,
             save_every=args.save_every,
@@ -258,10 +397,14 @@ def train(args, device, world_size: int = 1) -> dict:
             layout=layout,
         )
     finally:
+        if schedule is not None:
+            schedule.close()
         loader.close()
+    if schedule is not None:
+        online.update(schedule.metrics(), n_total=x_src.shape[0])
     return {"result": dataclasses.asdict(result), "executed": len(executed),
             "n_blocks": cfg.n_blocks, "fused": spectral_fused_cuda.launches,
-            "dw": spectral_fused_dw_cuda.launches}
+            "dw": spectral_fused_dw_cuda.launches, "online": online}
 
 
 def _train_rank(rank, world_size, device, args):
@@ -274,6 +417,11 @@ def main(argv=None):
     _refuse_unported(args)
     _check_layout(args)
     device = resolve_device(args.device)
+    dg_thread = dg_err = None
+    if args.online:
+        dg_thread, dg_err = start_online_datagen(args, device)
+        _wait_online(args.x_store, dg_err, args.online_timeout, need_stats=not args.no_normalize)
+        _wait_online(args.y_store, dg_err, args.online_timeout, need_stats=False)
     cfg, x_src, y_src, normalized = _config_and_data(args)
     write_fno_serving_config(args.ckpt_dir, cfg, args, x_src, y_src, normalized)
     if args.devices == 1:
@@ -281,6 +429,10 @@ def main(argv=None):
     else:
         out = launch_ranks(_train_rank, args.devices, tempfile.gettempdir(), args=(args,),
                            collective_timeout_s=RANK_TIMEOUT_S, device=device)[0]
+    if dg_thread is not None:
+        dg_thread.join()  # let the simulator finish/flush before reporting
+        if dg_err:
+            raise RuntimeError("online datagen failed") from dg_err[0]
     result = SupervisorResult(**out["result"])
     first = result.metrics_log[0][1]["loss"] if result.metrics_log else float("nan")
     last = result.metrics_log[-1][1]["loss"] if result.metrics_log else float("nan")
@@ -295,6 +447,15 @@ def main(argv=None):
             f"dw {out['dw']} over {out['executed']} train "
             f"steps x {out['n_blocks']} blocks x {args.grad_accum} micro-batches"
             + (f" (rank 0 of {args.devices})" if args.devices > 1 else "")
+        )
+    if args.online:
+        on = out["online"]
+        first = on.get("first_n_complete", "?")
+        print(
+            f"online: first step with {first}/{on['n_total']} samples complete "
+            f"(visible={on.get('first_visible', '?')}) "
+            f"stalls={on['stalls']} stall_s={on['stall_s']} "
+            f"overlap={first != '?' and first < on['n_total']}"
         )
     return result
 

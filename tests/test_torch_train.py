@@ -434,12 +434,19 @@ def test_cli_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flags,words", [
     (["--mode", "lm"], "ROADMAP Queue 1 item 5"),
-    (["--online"], "ROADMAP Queue 1 item 4"),
+    (["--online"], "--online needs --out (or --x-store/--y-store)"),
+    (["--online", "--mode", "lm"], "--online is an fno-mode flag"),
+    (["--online", "--x-store", "D/inputs", "--y-store", "D/y"],
+     "--online: stores must be <root>/x and <root>/y"),
+    (["--online", "--x-store", "D/x", "--y-store", "E/y"],
+     "--online: stores must be <root>/x and <root>/y"),
     (["--devices", "3", "--model-shards", "2"], "--devices/--model-shards: 3 devices not divisible"),
     (["--model-shards", "2", "2", "2"], "--devices/--model-shards: model shards take 1"),
-], ids=["lm", "online", "devices", "model-shards"])
+], ids=["lm", "online-needs-out", "online-fno-only", "online-not-x", "online-two-roots",
+        "devices", "model-shards"])
 def test_cli_refuses_what_is_not_ported(flags, words, tmp_path):
-    """What a later slice brings (the LLM family, online training), and the
-    (data x model) layouts no slice can make, in the reference's words."""
+    """What a later slice brings (the LLM family), ``--online`` without a
+    dataset root or in datagen's layout, and the (data x model) layouts no
+    slice can make, in the reference's words."""
     with pytest.raises(SystemExit, match=re.escape(words)):
         ttrain_cli.main(flags + ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
