@@ -39,7 +39,22 @@ Phases, each failing hard:
      through the deep-split cache: hit-rate > 0, cold == warm bitwise,
      verified likewise;
   5. the serving CLI on a small checkpoint written by the port, with
-     ``--verify``, as a subprocess;
+     ``--verify``, as a subprocess; then on the same checkpoint the fleet
+     CLI (``--replicas 2 --policy affinity --cache-store DIR --max-steps
+     200 --ensemble --verify``);
+ 5b. fleet: two full-width replicas (4 blocks, deep level) behind the
+     port's ``Gateway`` on grid (64,32,32,88), one fixed bucket, affinity
+     routing and a ``FileCacheStore``: 8 scenarios over two geomodels and
+     2 duplicates, served first by one plain ``FNORunner`` (which computes
+     both geomodels and publishes them to the store), then by the replicas
+     (their caches empty: both geomodels from the store), each replica's
+     outputs bitwise the single runner's, the geomodels pinned to different
+     replicas, the fleet's hit-rate within 0.05 of the single runner's;
+     then the same wave after the replica of geomodel 0 raises: rerouted
+     to the survivor, which hits the store, bitwise the first wave; then
+     ``serve_open_loop``'s makespan with per-replica executors and one
+     shared executor; verified against the unfused plain forward; the
+     cold prefix, the store's put and get and each tick timed;
   6. train the same model at full width on grid (64,32,32,88): every
      leaf's gradient through the fused path against the unfused forward's,
      then 4 steps of ``make_train_step`` (batch 2 as 2 micro-batches,
@@ -74,7 +89,11 @@ Phases, each failing hard:
      kernel); then a deep-split ensemble over the pencils on the training
      grid (2 scenarios sharing one geomodel, 2 rollout steps, a cold and a
      warm pass): cold == warm bitwise, the cache hit, the outputs against
-     the unfused serial oracle once the ranks exit; then on the training grid, batch 1,
+     the unfused serial oracle once the ranks exit; then the ranked fleet:
+     two replicas over 1 x 4 at the training grid, linked to share the one
+     start of the ranks, behind the gateway (two geomodels, prelift level,
+     one tick each), rank 0's outputs against the serial fused forward at
+     the dist gate; then on the training grid, batch 1,
      the eager, Grady-31 (1-D) and ``comm_chunks=2`` schedules against the
      serial forward, and one paper forward + backward of each layout whose
      every leaf's gradient is held against the serial gradient on the card;
@@ -104,7 +123,9 @@ Phases, each failing hard:
      chatglm3-6b and minitron-8b prefills, prefill and decode norms), with
      bf16 held to one rounding of the output, and time each
      against its bound, its plain version and one PyTorch call
-     (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick;
+     (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick,
+     and an empty kernel between two CUDA events beside rmsnorm's decode
+     reading, the floor of any launch;
   9. serve gemma-7b at full width (28 layers, d_model 3072, random
      weights) through ``Engine``: 8 requests of 200-1000 prompt tokens on 4
      slots, 16 tokens each; then, for 2 of the prompts, the prefill's
@@ -115,10 +136,12 @@ Phases, each failing hard:
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
 kernel. Each served run must launch the fused kernel exactly once per FNO block
-per forward; each training step, per micro-batch and block, three times
-(forward, remat recompute, dx) and the cotangent kernel once; each dist
-forward, on every rank, the fused kernel once per block (a served tick
-is one forward), and the dist
+per forward: the fleet on each replica in each wave (after the failover on
+the survivor), its single runner, and the fleet CLI as the serving CLI;
+each training step, per micro-batch and block, three times (forward, remat
+recompute, dx) and the cotangent kernel once; each dist forward, on every
+rank, the fused kernel once per block (a served tick is one forward; the
+ranked fleet's two ticks, one on each replica, 2 x 4), and the dist
 backward 3 times per block and the cotangent kernel once; each dist train
 step, on every rank, as a training step on its micro-batches; each
 pipeline stage, in a forward + backward, the fused kernel 3 times per
@@ -143,6 +166,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -180,6 +204,17 @@ FLAT_DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_dw.cu"
 FLAT_DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:140"
 # sources whose ptxas report (registers, shared memory, spills) phase 1 prints
 REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE, DW_SOURCE)
+# An empty kernel, built in phase 1 beside the port's and timed in phase 8:
+# what any launch costs, the floor under a kernel of microseconds (not a
+# kernel of the port)
+EMPTY_KERNEL_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def gpu_line() -> str:
@@ -307,6 +342,18 @@ def _ptxas_summary(out: str) -> list:
     return [f"{n}: {info}" for n, (_, info) in zip(names, kernels)]
 
 
+def _empty_kernel_library():
+    """``EMPTY_KERNEL_SOURCE`` as a kernel library under the build directory."""
+    from repro_torch.kernels.build import BUILD_DIR, KernelLibrary
+
+    src_dir = os.path.join(BUILD_DIR, "launch_floor_src")
+    os.makedirs(src_dir, exist_ok=True)
+    path = os.path.join(src_dir, "launch_floor.cu")
+    with open(path, "w") as f:
+        f.write(EMPTY_KERNEL_SOURCE)
+    return KernelLibrary("repro_torch_launch_floor", (path,))
+
+
 def phase_build() -> float:
     import tempfile
 
@@ -317,7 +364,8 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         reports = _ptxas_reports(tmp)
-        paths = build([spectral_build.LIBRARY, rmsnorm.LIBRARY, flash_attention.LIBRARY])
+        paths = build([spectral_build.LIBRARY, rmsnorm.LIBRARY, flash_attention.LIBRARY,
+                       _empty_kernel_library()])
         spectral_build.load_library()
         rmsnorm.ops.load_library()
         flash_attention.ops.load_library()
@@ -329,7 +377,8 @@ def phase_build() -> float:
                 raise SystemExit(f"[ptxas] nvcc -Xptxas -v of {src} exited {proc.returncode}")
             for line in _ptxas_summary(out):
                 print(f"[ptxas] {os.path.basename(src)}: {line}")
-    print(f"[build] {len(paths)} kernel libraries built/loaded in {dt:.1f}s: "
+    print(f"[build] {len(paths) - 1} kernel libraries and the empty kernel built/loaded in "
+          f"{dt:.1f}s: "
           + ", ".join(os.path.basename(p) for p in paths))
     return dt
 
@@ -832,6 +881,17 @@ def _report_serving(tag, done, dt, runner):
     )
 
 
+def _memory_line() -> str:
+    """This process's allocated and reserved device memory and the card's
+    free memory, for the lines printed where several processes share it."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, card free {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB")
+
+
 def _free_cuda():
     import gc
 
@@ -844,6 +904,9 @@ def _free_cuda():
 
 # Rollout steps of the served ensemble (cut from 2 for the script's time)
 SERVE_STEPS = 1
+# The scheduler (or gateway) steps a served pass may take: each pass here
+# needs a few
+SCHED_MAX_STEPS = 100
 
 
 def phase_serving(gpu: str) -> tuple:
@@ -872,7 +935,7 @@ def phase_serving(gpu: str) -> tuple:
           f"application predicts a scenario's whole history)")
     requests, _ = build_scenarios(cfg, 4, 2, seed=0, steps=SERVE_STEPS)
     spectral_fused_cuda.launches = 0
-    done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
+    done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS, SCHED_MAX_STEPS)
     launches = spectral_fused_cuda.launches
     check_served(done, requests, sched.failed)
     _report_serving("serve", done, dt, runner)
@@ -900,9 +963,13 @@ def phase_ensemble(gpu: str) -> dict:
     from repro_torch.launch.serve_pde import build_scenarios, check_served, serve, verify
     from repro_torch.serve import FNORunner
 
-    cfg = dataclasses.replace(_serving_cfg(in_channels=2), n_blocks=ENSEMBLE_BLOCKS)
+    cfg = dataclasses.replace(_train_cfg(), in_channels=2, n_blocks=ENSEMBLE_BLOCKS)
     print(f"reduced: ensemble rollout steps 2 -> {ENSEMBLE_STEPS}, n_blocks 4 -> "
           f"{ENSEMBLE_BLOCKS} (the script's time; a cold pass is the host prefix and one tick)")
+    print(f"reduced: ensemble grid {'x'.join(map(str, _serving_cfg().grid[:3]))} -> "
+          f"{'x'.join(map(str, cfg.grid[:3]))} (the script's time: the cold pass is the host's "
+          f"numpy prefix, 4x the work at the larger grid; the fleet phase serves this grid at "
+          f"4 blocks)")
     dev = torch.device("cuda")
     _free_cuda()
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
@@ -915,7 +982,7 @@ def phase_ensemble(gpu: str) -> dict:
                                       n_static=1)
         forwards = runner.batched_steps
         spectral_fused_cuda.launches = 0
-        done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS)
+        done, dt, sched = serve(runner, requests, ONE_CARD_SLOTS, SCHED_MAX_STEPS)
         launches[f"ensemble_{tag}"] = spectral_fused_cuda.launches
         check_served(done, requests, sched.failed)
         _report_serving(f"ensemble {tag}", done, dt, runner)
@@ -936,9 +1003,30 @@ def phase_ensemble(gpu: str) -> dict:
     return launches
 
 
-def phase_cli(gpu: str) -> int:
-    """The serving CLI on a small checkpoint the port writes, with --verify;
-    returns the spectral kernel's launch count of its served run."""
+def _serve_cli(tag: str, d: str, flags: list, n_blocks: int, gpu: str) -> int:
+    """``serve_pde`` on the checkpoint in ``d`` as a subprocess with
+    ``flags``; fails unless it exits 0 and launched the spectral kernel once
+    per block per forward. Returns its launch count."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
+           "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2", "--ensemble",
+           "--dup", "2", "--verify"] + flags
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    print("\n".join(f"[{tag}] " + line for line in out.stdout.strip().splitlines()))
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"[{tag}] serve_pde exited {out.returncode}")
+    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", out.stdout)
+    if m is None:
+        raise SystemExit(f"[{tag}] serve_pde printed no spectral kernel launch count")
+    return _check_launches(tag, int(m.group(1)), n_blocks, int(m.group(2)), gpu)
+
+
+def phase_cli(gpu: str) -> dict:
+    """The serving CLI on a small checkpoint the port writes, with --verify:
+    one replica, then the fleet (2 replicas behind the gateway, affinity
+    routing, a file cache store, a step budget). Returns the spectral
+    kernel's launch count of each served run."""
     import tempfile
 
     import torch
@@ -960,19 +1048,286 @@ def phase_cli(gpu: str) -> int:
                 "model_shards": [1], "normalized": ["x"], "normalizer": "meanstd",
                 "x_stats": {"mean": [0.5, 0.1], "std": [1.2, 0.3]}, "y_stats": None,
             }, f)
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve_pde", "--ckpt-dir", d,
-               "--scenarios", "4", "--max-batch", "2", "--rollout-steps", "2",
-               "--ensemble", "--dup", "2", "--verify", "--bench-sequential"]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
-    print("\n".join("[cli] " + line for line in out.stdout.strip().splitlines()))
-    if out.returncode != 0:
-        print(out.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"[cli] serve_pde exited {out.returncode}")
-    m = re.search(r"spectral kernel launches: (\d+) over (\d+) forwards", out.stdout)
-    if m is None:
-        raise SystemExit("[cli] serve_pde printed no spectral kernel launch count")
-    return _check_launches("cli", int(m.group(1)), cfg.n_blocks, int(m.group(2)), gpu)
+        launches = {"cli": _serve_cli("cli", d, ["--bench-sequential"], cfg.n_blocks, gpu)}
+        t = time.perf_counter()
+        launches["fleet_cli"] = _serve_cli(
+            "fleet cli", d, ["--replicas", "2", "--policy", "affinity", "--cache-store",
+                             os.path.join(d, "store"), "--max-steps", "200"], cfg.n_blocks, gpu)
+        print(f"[fleet cli] {time.perf_counter() - t:.1f}s")
+    return launches
+
+
+# The one-card fleet: replicas, scenarios (scenario i on geomodel i % 2),
+# byte-identical duplicates of the first ones
+FLEET_REPLICAS, FLEET_SCENARIOS, FLEET_DUPS = 2, 8, 2
+
+
+def _fleet_inputs(cfg, n: int, dups: int = 0) -> list:
+    """``n`` raw scenario inputs on two geomodels (scenario i on geomodel
+    i % 2: ``build_scenarios``' and one drawn from the next seed, as the
+    reference's fleet tests pin a second), each with its own wells, then
+    ``dups`` byte-identical copies of the first ones."""
+    from repro_torch.data.pde.two_phase import geomodel_channel
+    from repro_torch.launch.serve_pde import build_scenarios
+
+    base, _ = build_scenarios(cfg, n, 2, seed=0, steps=1, n_static=1)
+    second = geomodel_channel(cfg.grid[:3], cfg.grid[3], seed=1)
+    xs = []
+    for r in base:
+        x = r.x.copy()
+        if r.rid % 2:
+            x[:1] = second
+        xs.append(x)
+    return xs + [xs[j].copy() for j in range(dups)]
+
+
+def _fleet_requests(xs) -> list:
+    from repro_torch.serve import ScenarioRequest
+
+    return [ScenarioRequest(rid=i, x=x, steps=1) for i, x in enumerate(xs)]
+
+
+class _Timed:
+    """Seconds of each call of ``obj.name``, kept in ``calls``; the method is
+    wrapped on the instance and called through."""
+
+    def __init__(self, obj, name: str):
+        self.calls, fn = [], getattr(obj, name)
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.calls.append(time.perf_counter() - t)
+
+        setattr(obj, name, timed)
+
+
+def _replica_launches(gw) -> dict:
+    """Each replica's spectral kernel launches and forwards from here on,
+    counted around its scheduler steps (the counter is the wrapper's)."""
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+
+    counts = {h.name: {"launches": 0, "forwards": 0} for h in gw.replicas}
+    for h in gw.replicas:
+        def tick(h=h, step=h.tick):
+            launches, forwards = spectral_fused_cuda.launches, h.runner.batched_steps
+            n = step()
+            counts[h.name]["launches"] += spectral_fused_cuda.launches - launches
+            counts[h.name]["forwards"] += h.runner.batched_steps - forwards
+            return n
+
+        h.tick = tick
+    return counts
+
+
+def _digest_s(runner) -> float:
+    """Seconds to compute ``runner.cache_version`` (computed once, kept)."""
+    t = time.perf_counter()
+    runner.cache_version  # noqa: B018 - the property computes and keeps the digest
+    return time.perf_counter() - t
+
+
+def _latency(done) -> tuple:
+    lat = sorted(r.finished_s - r.submitted_s for r in done)
+    return len(done), lat[len(lat) // 2]
+
+
+def _fleet_wave(tag, gw, xs, gpu) -> tuple:
+    """One wave of ``xs`` through the gateway: (served by rid, seconds,
+    each replica's launches and forwards)."""
+    import torch
+
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+    from repro_torch.launch.serve_pde import check_served
+
+    counts = _replica_launches(gw)
+    reqs = _fleet_requests(xs)
+    before = len(gw.finished)
+    spectral_fused_cuda.launches = 0
+    for r in reqs:
+        gw.submit(r)
+    t = time.perf_counter()
+    gw.run_until_done(max_steps=SCHED_MAX_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    total = spectral_fused_cuda.launches
+    done = gw.finished[before:]
+    check_served(done, reqs, gw.failed)
+    n, p50 = _latency(done)
+    print(f"[{tag}] served {n} scenarios in {dt:.3f}s: {n / dt:.3f} scen/s, p50 latency "
+          f"{p50 * 1e3:.1f} ms; routed " + ", ".join(
+              f"{h.name} {h.routed}" for h in gw.replicas) + f"; rerouted {gw.rerouted}; {gpu}")
+    for name, c in counts.items():
+        if c["forwards"]:
+            _check_launches(f"{tag} {name}", c["launches"], gw.replicas[0].runner.cfg.n_blocks,
+                            c["forwards"], gpu)
+    return {r.rid: r for r in done}, dt, counts, total
+
+
+def phase_fleet(gpu: str) -> dict:
+    """``_fleet``, then the card freed of everything it made (its runners'
+    timing wrappers are reference cycles: collected here, once its frame
+    is gone)."""
+    out = _fleet(gpu)
+    _free_cuda()
+    return out
+
+
+def _fleet(gpu: str) -> dict:
+    """Two full-width replicas behind the gateway on one card (affinity
+    routing, one fixed bucket, a file cache store). One plain ``FNORunner``
+    first serves 8 scenarios over two geomodels plus 2 duplicates,
+    computing both geomodels (its store lookups miss) and publishing them;
+    the replicas, their caches empty, serve the same wave from the store,
+    bitwise as the single runner; then a second wave after the replica
+    that served geomodel 0 raises, failed over to the survivor, which hits
+    the store; then ``serve_open_loop`` with per-replica executors and with
+    one shared executor. Returns the spectral kernel's launch count of each
+    wave."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.fno_sleipner import ONE_CARD_SLOTS
+    from repro_torch.core.fno import init_params
+    from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+    from repro_torch.launch.serve_pde import check_served, serve, verify
+    from repro_torch.serve import FileCacheStore, FNORunner, Gateway, serve_open_loop
+
+    cfg = dataclasses.replace(_train_cfg(), in_channels=2)
+    print(f"reduced: fleet grid 256x128x64 -> {'x'.join(map(str, cfg.grid[:3]))} (two full-width "
+          f"replicas share one card: 2 x 12.6 GB of w_spec)")
+    dev = torch.device("cuda")
+    _free_cuda()
+    t = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    xs = _fleet_inputs(cfg, FLEET_SCENARIOS, FLEET_DUPS)
+    print(f"[fleet] weights and {len(xs)} inputs made in {time.perf_counter() - t:.2f}s")
+    kw = dict(device=dev, max_slots=ONE_CARD_SLOTS, buckets=(ONE_CARD_SLOTS,), n_static=1,
+              cache_level="deep", cache_bytes=16 << 30)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        store = FileCacheStore(os.path.join(d, "store"))
+        puts, gets = _Timed(store, "put"), _Timed(store, "get")
+        # one plain runner on replica 0's weights serves the same requests;
+        # it computes both geomodels itself (its store lookups miss) and
+        # publishes them
+        t = time.perf_counter()
+        single = FNORunner(cfg, params, cache_store=store, **kw)
+        made_s = time.perf_counter() - t
+        print(f"[fleet] single runner made in {made_s:.2f}s (block 0's weights to the host), "
+              f"warmed in {single.warmup():.2f}s")
+        digest_s = [_digest_s(single)]
+        prefix = [_Timed(single, name) for name in ("_np_spectra", "_np_contribution")]
+        reqs = _fleet_requests(xs)
+        spectral_fused_cuda.launches = 0
+        done, single_dt, sched = serve(single, reqs, ONE_CARD_SLOTS, SCHED_MAX_STEPS)
+        check_served(done, reqs, sched.failed)
+        _check_launches("fleet single", spectral_fused_cuda.launches, cfg.n_blocks,
+                        single.batched_steps, gpu)
+        want = {r.rid: r.outputs for r in done}
+        single_rate = single.cache.stats["hit_rate"]
+        n, p50 = _latency(done)
+        print(f"[fleet] single runner: served {n} scenarios in {single_dt:.3f}s: "
+              f"{n / single_dt:.3f} scen/s, p50 latency {p50 * 1e3:.1f} ms, cache hit-rate "
+              f"{single_rate:.3f}, dedup attached {sched.dedup_attached}; {gpu}")
+        for i, t in enumerate(single.tick_times):
+            print(f"[fleet] single tick {i}: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in t.items()) + f"; {gpu}")
+        print("[fleet] a geomodel's cold prefix on the host (numpy): spectra " + ", ".join(
+            f"{t:.3f}" for t in prefix[0].calls) + " s; block-0 mix " + ", ".join(
+            f"{t:.3f}" for t in prefix[1].calls) + f" s; the store's version digest (blake2b "
+            f"over block 0's weights, once a runner, before it serves) {digest_s[0]:.3f} s")
+        entry_mb = store.stats["bytes"] / max(1, store.stats["entries"]) / 1e6
+        print("[fleet] cache store (.npz files): put " + ", ".join(
+            f"{t:.3f}" for t in puts.calls) + f" s of {entry_mb:.0f} MB entries")
+        del single, done, sched, reqs
+
+        twin = {g: {k: t.clone() for k, t in leaves.items()} for g, leaves in params.items()}
+        replicas = [FNORunner(cfg, p, cache_store=store, **kw) for p in (params, twin)]
+        del twin
+        warm_s = sum(r.warmup() for r in replicas)
+        # each replica's digest on a thread of its own, as each replica's
+        # host would compute it (blake2b releases the GIL)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=FLEET_REPLICAS) as pool:
+            digest_s += list(pool.map(_digest_s, replicas))
+        print(f"[fleet] {FLEET_REPLICAS} replicas made and warmed ({warm_s:.2f}s of warmup; "
+              f"version digests " + ", ".join(f"{t:.3f}" for t in digest_s[1:]) + " s, "
+              f"{time.perf_counter() - t:.3f} s together), no geomodel in their caches; "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        gw = Gateway(replicas, policy="affinity")
+        served, fleet_dt, counts, out["fleet"] = _fleet_wave("fleet", gw, xs, gpu)
+        for rid, r in served.items():
+            if len(r.outputs) != len(want[rid]) or not all(
+                    np.array_equal(a, b) for a, b in zip(r.outputs, want[rid])):
+                raise SystemExit(f"[fleet] rid {rid}: the fleet's output differs from the "
+                                 f"single runner's")
+        print("[fleet] every replica's outputs (geomodels from the store) bitwise equal to the "
+              "single runner's (geomodels computed)")
+        keys = [{h.runner.affinity_key(r) for r in h.sched.finished} for h in gw.replicas]
+        if not all(len(k) == 1 for k in keys) or keys[0] == keys[1]:
+            raise SystemExit(f"[fleet] the two geomodels were not pinned to different "
+                             f"replicas: {[len(k) for k in keys]} key(s) a replica")
+        fleet = gw.stats()["fleet"]
+        print(f"[fleet] geomodels pinned to different replicas; fleet cache hit-rate "
+              f"{fleet['cache_hit_rate']:.3f} vs the single runner's {single_rate:.3f}; dedup "
+              f"attached {fleet['dedup_attached']}")
+        if abs(fleet["cache_hit_rate"] - single_rate) > 0.05:
+            raise SystemExit("[fleet] the fleet's hit-rate is not within 0.05 of the single "
+                             "runner's")
+        for r, rep in enumerate(replicas):
+            for i, t in enumerate(rep.tick_times):
+                print(f"[fleet] r{r} tick {i}: " + ", ".join(
+                    f"{k} {v:.3f}s" for k, v in t.items()) + f"; {gpu}")
+        print("[fleet] cache store gets " + ", ".join(f"{t:.3f}" for t in gets.calls) + " s")
+
+        # replica r0 (geomodel 0's) fails; the second wave goes to the survivor
+        dead, hits, n_gets = gw.replicas[0], store.hits, len(gets.calls)
+
+        def dead_step(slots, active):
+            raise RuntimeError("simulated replica failure")
+
+        dead.runner.step = dead_step
+        again, _, _, out["fleet_failover"] = _fleet_wave("fleet failover", gw, xs, gpu)
+        print("[fleet failover] store gets " + ", ".join(f"{t:.3f}" for t in gets.calls[n_gets:])
+              + f" s; store {store.stats['hits']} hits / {store.stats['misses']} misses")
+        if dead.healthy or gw.rerouted == 0 or store.hits <= hits:
+            raise SystemExit(f"[fleet failover] no failover to a store hit (r0 healthy "
+                             f"{dead.healthy}, rerouted {gw.rerouted}, store hits "
+                             f"{hits} -> {store.hits})")
+        for rid, r in again.items():
+            if not all(np.array_equal(a, b) for a, b in zip(r.outputs, served[rid].outputs)):
+                raise SystemExit(f"[fleet failover] rid {rid}: second wave differs from the first")
+        print("[fleet failover] r0 failed, its requests rerouted to r1, which hit the store; "
+              "second wave bitwise equal to the first")
+        del dead.runner.step
+
+        # the event clock: per-replica executors (each replica its own host,
+        # the deployment model) and one shared executor (what this card
+        # did), over a burst of one bucket a geomodel (warm caches)
+        burst = xs[:2 * ONE_CARD_SLOTS]
+        for per_replica, what in ((True, "per-replica executors (the event clock's "
+                                   "deployment model)"),
+                                  (False, "one shared executor (what this card did)")):
+            rep_ol = serve_open_loop(Gateway(replicas, policy="affinity"),
+                                     _fleet_requests(burst), [0.0] * len(burst),
+                                     per_replica_executors=per_replica)
+            if rep_ol.n_served != len(burst):
+                raise SystemExit(f"[fleet] open loop served {rep_ol.n_served}/{len(burst)}")
+            print(f"[fleet] serve_open_loop, {what}: makespan {rep_ol.makespan_s:.3f}s, "
+                  f"{rep_ol.scen_per_s:.3f} scen/s, p50 {rep_ol.percentile(0.5) * 1e3:.1f} ms "
+                  f"over {rep_ol.ticks} ticks; {gpu}")
+        t = time.perf_counter()
+        worst = verify(replicas[0], list(served.values()), 1)
+        print(f"[fleet] verify OK vs the unfused plain forward (max abs diff {worst:.3e}) in "
+              f"{time.perf_counter() - t:.2f}s")
+    return out
 
 
 def _train_cfg():
@@ -1703,7 +2058,7 @@ def _serve_on_ranks(runner, requests, passes: int = 1):
     out = []
     for _ in range(passes):
         reqs = requests()
-        done, _, sched = serve(runner, reqs, runner.max_slots)
+        done, _, sched = serve(runner, reqs, runner.max_slots, SCHED_MAX_STEPS)
         check_served(done, reqs, sched.failed)
         out.append(sorted(done, key=lambda r: r.rid))
     runner.close()
@@ -1784,6 +2139,93 @@ def _dist_ensemble_part(layouts: dict, job: dict, device) -> dict:
     del runner, local
     torch.cuda.empty_cache()
     return out
+
+
+# The ranked fleet: two replicas over 1 x 4 at the training grid, one tick
+# of bucket 2 each (two geomodels, the prelift level's split forward)
+DIST_FLEET_BATCH = 2
+
+
+def _dist_fleet_part(layouts: dict, job: dict, device) -> dict:
+    """Two ranked replicas over the 1-D layout (1 x 4) at full width on the
+    training grid, built alike on every rank and linked to share this one
+    start of the ranks, behind the gateway (affinity routing): two
+    geomodels, one tick of bucket 2 on each replica, at the prelift level.
+    Rank 0 returns the outputs by rid and the routing; every rank its ticks
+    on each replica."""
+    import torch
+
+    from repro_torch.launch.serve_pde import check_served
+    from repro_torch.serve import FNORunner, Gateway, link_replicas
+
+    cfg = _ensemble_cfg()
+    model, groups = layouts["1d"]
+    local = _dist_local_params(cfg, job["seed"] + 2, model, device)
+    twin = {g: {k: t.clone() for k, t in leaves.items()} for g, leaves in local.items()}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    runners = [FNORunner(cfg, p, device=device, data_group=groups["data"], model=model,
+                         max_slots=DIST_FLEET_BATCH, buckets=(DIST_FLEET_BATCH,), n_static=1,
+                         cache_level="prelift") for p in (local, twin)]
+    link_replicas(runners)
+    made_s = time.perf_counter() - t
+    del local, twin
+
+    def serve_fleet():
+        if not runners[0].is_controller:
+            runners[0].follow()
+            return None
+        gw = Gateway(runners, policy="affinity")
+        reqs = _fleet_requests(_fleet_inputs(cfg, 2 * DIST_FLEET_BATCH))
+        for r in reqs:
+            gw.submit(r)
+        done = gw.run_until_done(max_steps=SCHED_MAX_STEPS)
+        runners[0].close()
+        check_served(done, reqs, gw.failed)
+        return {"y": {r.rid: torch.from_numpy(r.outputs[0]) for r in done},
+                "routed": [h.routed for h in gw.replicas]}
+
+    served, out = _counted(serve_fleet)
+    out.update(made_s=made_s, ticks=[list(r.tick_times) for r in runners])
+    if served is not None:
+        out.update(served)
+    del runners
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_dist_fleet(ranks, params, gpu: str) -> None:
+    """The ranked fleet of ``_dist_fleet_part``: a geomodel on each replica,
+    every rank one tick on each, rank 0's outputs against the serial fused
+    forward on the same inputs (``params``: the seeded weights on the card)
+    at the dist gate."""
+    import torch
+
+    from repro_torch.core.fno import fno_forward
+
+    cfg = _ensemble_cfg()
+    fleet = ranks[0]["fleet"]
+    if fleet["routed"] != [DIST_FLEET_BATCH] * 2:
+        raise SystemExit(f"[dist_fleet] routed {fleet['routed']}: the two geomodels were not "
+                         f"pinned to different replicas")
+    for r, res in enumerate(ranks):
+        ticks = [len(t) for t in res["fleet"]["ticks"]]
+        if ticks != [1, 1]:
+            raise SystemExit(f"[dist_fleet] rank {r} ran {ticks} ticks on the replicas, not one "
+                             f"each")
+        print(f"[dist_fleet] rank {r}: replicas made in {res['fleet']['made_s']:.2f}s, served in "
+              f"{res['fleet']['s']:.3f}s; ticks: " + "; ".join(
+                  ", ".join(f"{k} {v:.3f}s" for k, v in t[0].items())
+                  for t in res["fleet"]["ticks"]) + f"; {gpu}")
+    for rid, x in enumerate(_fleet_inputs(cfg, 2 * DIST_FLEET_BATCH)):
+        with torch.inference_mode():
+            ref = fno_forward(params, torch.from_numpy(x[None]).cuda(), cfg)[0].cpu()
+        ok, err, scale = _close(fleet["y"][rid], ref, DIST_FWD_TOL)
+        print(f"[dist_fleet] rid {rid} (replica r{rid % 2}) vs the serial fused forward: "
+              f"max|d|={err:.3e} (max|ref|={scale:.3e}, rtol {DIST_FWD_TOL[0]:g}, atol "
+              f"{DIST_FWD_TOL[1]:g}); {gpu}")
+        if not ok:
+            raise SystemExit(f"[dist_fleet] rid {rid}: outside the gate")
 
 
 def _model_names(groups: dict) -> list:
@@ -2079,9 +2521,11 @@ def _dist_rank(rank, world_size, device, job):
     out = {"load_s": load_s}
     for part, run in (("serve", lambda: _dist_serve_part(layouts, job, device)),
                       ("ensemble", lambda: _dist_ensemble_part(layouts, job, device)),
+                      ("fleet", lambda: _dist_fleet_part(layouts, job, device)),
                       ("train_grid", lambda: _dist_train_grid_part(layouts, job, device)),
                       ("pipeline", lambda: _dist_pipeline_part(layouts, job, device)),
                       ("compression", lambda: {"leaves": _dist_compression_part(job, device)})):
+        print(f"[dist] rank {rank} before {part}: {_memory_line()}", flush=True)
         t = time.perf_counter()
         out[part] = run()
         out[part]["wall_s"] = time.perf_counter() - t
@@ -2242,6 +2686,9 @@ def phase_dist(gpu: str) -> dict:
     print(f"reduced: dist_pipeline grid {'x'.join(map(str, PAPER_CONFIG.grid))} -> "
           f"{'x'.join(map(str, _pipeline_cfg().grid))} (4 ranks on one card; full width, "
           f"{_pipeline_cfg().n_blocks} blocks = {DIST_RANKS} stages)")
+    print(f"reduced: dist_fleet grid {'x'.join(map(str, PAPER_CONFIG.grid))} -> "
+          f"{'x'.join(map(str, train_cfg.grid))} (two replicas' shards on 4 ranks of one card; "
+          f"full width)")
     print(f"reduced: dist2d_ensemble grid {'x'.join(map(str, serve_cfg.grid))} -> "
           f"{'x'.join(map(str, train_cfg.grid))} (rank 0's numpy spectral prefix sets a cold "
           f"tick's time; full width)")
@@ -2305,7 +2752,8 @@ def phase_dist(gpu: str) -> dict:
                                "ref": ref["ref"], "param_max": ref["param_max"],
                                "w_spec_path": path})
         pipe_job, y_pipe = _pipeline_reference(d)
-        print(f"[dist] serial references computed and written in {time.perf_counter() - t0:.1f}s")
+        print(f"[dist] serial references computed and written in {time.perf_counter() - t0:.1f}s; "
+              f"this process before the ranks start: {_memory_line()}", flush=True)
         t = time.perf_counter()
         ranks = launch_ranks(_dist_rank, DIST_RANKS, d,
                              args=({"seed": DIST_SEED, "grad_ref": grad_ref, "grad_max": grad_max,
@@ -2317,7 +2765,9 @@ def phase_dist(gpu: str) -> dict:
               + ", ".join(f"{r['serve']['wall_s']:.1f}" for r in ranks) + "s, training grid "
               + ", ".join(f"{r['train_grid']['wall_s']:.1f}" for r in ranks) + "s, pipeline "
               + ", ".join(f"{r['pipeline']['wall_s']:.1f}" for r in ranks) + "s, compression "
-              + ", ".join(f"{r['compression']['wall_s']:.1f}" for r in ranks) + "s a rank")
+              + ", ".join(f"{r['compression']['wall_s']:.1f}" for r in ranks) + "s, fleet "
+              + ", ".join(f"{r['fleet']['wall_s']:.1f}" for r in ranks) + "s, ensemble "
+              + ", ".join(f"{r['ensemble']['wall_s']:.1f}" for r in ranks) + "s a rank")
     _check_pipeline(ranks, y_pipe, gpu)
     del y_pipe
     for tag, what in (("dist_paper", "1 x 4"), ("dist2d_paper", "1 x 2x2")):
@@ -2381,6 +2831,7 @@ def phase_dist(gpu: str) -> dict:
                  for t, _, _ in DIST_TRAIN_FORWARDS + DIST2D_TRAIN_FORWARDS})
     want["dist_grady31"] = {"fused": DIST_GRADY31_BLOCKS, "dw": 0}
     want["dist2d_ensemble"] = {"fused": 2 * DIST_ENSEMBLE_STEPS * n_blocks, "dw": 0}
+    want["dist_fleet"] = {"fused": 2 * n_blocks, "dw": 0}  # one tick on each replica
     want["dist_backward"] = want["dist2d_backward"] = {"fused": 3 * grid_blocks,
                                                        "dw": grid_blocks}
     # a pipeline stage's forward + backward: its one block per micro-batch
@@ -2389,7 +2840,7 @@ def phase_dist(gpu: str) -> dict:
     counted = []
     for r, res in enumerate(ranks):
         res = {**res["serve"], **res["train_grid"], **res["pipeline"],
-               "dist2d_ensemble": res["ensemble"]}
+               "dist2d_ensemble": res["ensemble"], "dist_fleet": res["fleet"]}
         got = {tag: {"fused": res[tag]["fused"], "dw": res[tag]["dw"]} for tag in want}
         counts = ", ".join(f"{tag} {n['fused']}/{n['dw']}" for tag, n in got.items())
         times = ", ".join(f"{tag} {res[tag]['s']:.3f}s" for tag in want)
@@ -2438,6 +2889,7 @@ def _check_dist_ensemble(ranks, gpu: str) -> None:
     worst = verify(oracle, done, DIST_ENSEMBLE_STEPS)
     print(f"[dist2d_ensemble] verify OK: {len(done)} scenarios x {DIST_ENSEMBLE_STEPS} steps vs "
           f"the unfused serial oracle (max abs diff {worst:.3e}, rtol 1e-4, atol 1e-5); {gpu}")
+    _check_dist_fleet(ranks, oracle.params, gpu)  # the same seeded weights
     del oracle
     _free_cuda()
 
@@ -2778,6 +3230,36 @@ def _flash_bound_ms(b, h, kvh, sq, sk, d, causal, nbytes_el) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _launch_floor(gpu: str, decode: dict) -> dict:
+    """The empty kernel's time, as the kernels here are timed: between two
+    CUDA events around one launch, per launch around 50 back to back, and
+    its device time from the profiler; printed beside rmsnorm's decode
+    reading and bound."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.build import build
+
+    lib = ctypes.CDLL(build([_empty_kernel_library()])[0])  # built in phase 1
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def empty():
+        err = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"[launch floor] the empty kernel did not launch (CUDA error {err})")
+
+    floor = {"events_one": cuda_ms(empty), "events_loop": cuda_loop_ms(empty),
+             "device": device_ms(empty)}
+    print(f"[launch floor] empty kernel: {floor['events_one'] * 1e3:.2f} us between two CUDA "
+          f"events around one launch, {floor['events_loop'] * 1e3:.2f} us a launch back to back, "
+          f"{floor['device'] * 1e3:.2f} us device time (profiler); rmsnorm at decode [4, 3072] "
+          f"bf16: {decode['ms'] * 1e3:.2f} us device time, {decode['call_ms'] * 1e3:.2f} us a call "
+          f"back to back, bound {decode['bound_ms'] * 1e3:.2f} us; {gpu}")
+    return floor
+
+
 def phase_lm_kernels(gpu: str) -> tuple:
     """RMSNorm and flash attention vs their plain versions on the card, then
     timed at the serving path's shapes; returns their two records."""
@@ -2819,13 +3301,14 @@ def phase_lm_kernels(gpu: str) -> tuple:
                   f"({by}); back-to-back calls of the wrapper {call * 1e3:.2f} us each; {gpu}")
             rms[rows] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=bound, bound_by=by, call_ms=call)
+    floor = _launch_floor(gpu, rms[4])
     rms_record = {
         "name": "rmsnorm", "route": "cuda", "source": RMSNORM_SOURCE,
         "replaces": RMSNORM_REPLACES, "launches": None, **rms[1000],
         "shape": "x [1000, 3072] bf16 (a 1000-token prefill)",
         "decode_shape": "x [4, 3072] bf16", "decode_ms": rms[4]["ms"], "decode_call_ms": rms[4]["call_ms"],
         "decode_plain_ms": rms[4]["plain_ms"], "decode_library_ms": rms[4]["library_ms"],
-        "decode_bound_ms": rms[4]["bound_ms"],
+        "decode_bound_ms": rms[4]["bound_ms"], "decode_launch_floor_ms": floor,
     }
 
     # flash: (name, b, h, kvh, sq, sk, d, causal, dtype, timed)
@@ -3063,7 +3546,7 @@ def main() -> int:
     flat, flat_dw = phase("flat kernels", phase_flat_kernels, gpu)
     served_launches, served_per_scen_s = phase("serve", phase_serving, gpu)
     served = {"serve": served_launches, **phase("ensemble", phase_ensemble, gpu),
-              "cli": phase("cli", phase_cli, gpu)}
+              **phase("cli", phase_cli, gpu), **phase("fleet", phase_fleet, gpu)}
     rms, flash = phase("lm kernels", phase_lm_kernels, gpu)
     train = phase("train", phase_train, gpu)
     train_cli = phase("train cli", phase_train_cli, gpu)

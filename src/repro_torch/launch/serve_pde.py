@@ -7,8 +7,9 @@ CUDA spectral kernel on the card), and reports scenarios/s plus
 per-request latency.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_pde --ckpt-dir CKPT \
-        --scenarios 8 --verify --bench-sequential \
-        [--devices N --model-shards P | PX PY] [--comm-chunks C]
+        --scenarios 8 --verify --bench-sequential [--max-steps S] \
+        [--devices N --model-shards P | PX PY] [--comm-chunks C] \
+        [--replicas R --policy affinity [--ensemble --cache-store DIR|dict]]
 
 ``CKPT`` is a directory written by the reference's ``train.py --mode fno``
 or the port's. ``--devices N`` starts N ranks (``launch.mesh.launch_ranks``,
@@ -23,7 +24,13 @@ same warm runner; ``--reference`` then times the numerical simulator
 (``data/pde/two_phase.py``) on one scenario at the served grid, on the
 serving device, and prints the surrogate-vs-simulator speedup against the
 served per-scenario time (of rank 0's serving pass with ``--devices N``).
-``--device cpu`` runs on the CPU; the default is the card.
+``--replicas R`` serves through the gateway (``serve.gateway``): R
+replicas restored from the checkpoint, routed by ``--policy``, sharing one
+``--cache-store`` with ``--ensemble``; with ``--devices N`` every rank
+builds the R replicas and one start of the ranks serves the fleet
+(``fno_runner.link_replicas``). ``--max-steps`` budgets each serving pass's
+scheduler (or gateway) steps. ``--device cpu`` runs on the CPU; the
+default is the card.
 """
 from __future__ import annotations
 
@@ -34,8 +41,6 @@ import time
 
 import numpy as np
 import torch
-
-MAX_STEPS = 10000
 
 
 def build_scenarios(cfg, n: int, wells: int, seed: int, steps: int,
@@ -95,7 +100,7 @@ def oracle_rollout(runner, x_raw: np.ndarray, steps: int):
     return outs
 
 
-def serve(runner, requests, max_slots: int, max_steps: int = MAX_STEPS):
+def serve(runner, requests, max_slots: int, max_steps: int):
     """(finished, seconds, scheduler) for one serving pass over
     ``requests``; callers check ``sched.failed`` (``check_served``)."""
     from repro_torch.serve import Scheduler
@@ -122,7 +127,10 @@ def check_served(done, requests, failed):
             f"(errors above); {len(done)} served"
         )
     if len(done) != len(requests):
-        raise SystemExit(f"served {len(done)}/{len(requests)} scenarios")
+        raise SystemExit(
+            f"served {len(done)}/{len(requests)} scenarios; "
+            f"raise --max-steps"
+        )
 
 
 def verify(runner, done, steps: int) -> float:
@@ -138,6 +146,8 @@ def verify(runner, done, steps: int) -> float:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.serve.gateway import POLICIES
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt-dir", required=True,
                     help="train.py --mode fno checkpoint directory")
@@ -147,6 +157,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="autoregressive surrogate applications per scenario")
     ap.add_argument("--wells", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-steps", type=int, default=10000,
+                    help="scheduler (or gateway) steps each serving pass may take")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas behind the gateway; each is an "
+                    "independent FNORunner + scheduler restored from the "
+                    "same checkpoint (1 = the single-scheduler path)")
+    ap.add_argument("--policy", default="affinity", choices=POLICIES,
+                    help="gateway routing policy (--replicas > 1): "
+                    "backlog-aware least-pending, cyclic round-robin, or "
+                    "geomodel cache-affinity with least-pending fallback")
     ap.add_argument("--ensemble", action="store_true",
                     help="UQ-ensemble mode: every scenario shares the same "
                     "geomodel (static channels), only well locations vary; "
@@ -162,6 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="ensemble cache depth: 'prelift' stops at the "
                     "encoder lift; 'deep' also caches the first block's "
                     "static spectral contribution")
+    ap.add_argument("--cache-store", default=None,
+                    help="fleet-shared cache store replicas consult on "
+                    "local miss (with --ensemble): 'dict' for an in-process "
+                    "shared dict, or a directory for a file-backed (.npz) "
+                    "store that persists across runs")
     ap.add_argument("--dup", type=int, default=1,
                     help="submit each scenario this many times (identical "
                     "in-flight requests dedup onto one slot)")
@@ -196,6 +221,23 @@ def _runner_kwargs(args) -> dict:
                 cache_level=args.cache_level, comm_chunks=args.comm_chunks)
 
 
+def _replicas(args, **kw) -> list:
+    """The ``--replicas`` runners restored from the checkpoint (on every
+    rank alike with the groups in ``kw``), sharing one cache store (the
+    point of the tier; only with ``--ensemble``, and only the controller
+    holds it) and linked to share the ranks."""
+    from repro_torch.serve import FNORunner, link_replicas, open_cache_store
+
+    rkw = _runner_kwargs(args)
+    controller = kw.get("data_group") is None or torch.distributed.get_rank() == 0
+    store = (open_cache_store(args.cache_store)
+             if args.cache_store and rkw["n_static"] and controller else None)
+    runners = [FNORunner.from_checkpoint(args.ckpt_dir, cache_store=store, **kw, **rkw)
+               for _ in range(args.replicas)]
+    link_replicas(runners)
+    return runners
+
+
 def _layout(args, cfg, saved) -> tuple:
     """(devices, model_shards) of the serving ranks, checked against the
     checkpoint's config; exits with the reference's wording on a layout
@@ -223,16 +265,14 @@ def _serve_rank(rank, world_size, device, args, shards):
     """One serving rank of ``--devices N``: rank 0 serves and returns each
     served request's outputs by rid; the others follow its ticks."""
     from repro_torch.launch.mesh import build_fno_groups
-    from repro_torch.serve import FNORunner
 
     data_group, model, _ = build_fno_groups(world_size, shards)
-    runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device, data_group=data_group,
-                                       model=model, **_runner_kwargs(args))
+    runners = _replicas(args, device=device, data_group=data_group, model=model)
     if rank != 0:
-        runner.follow()
+        runners[0].follow()
         return None
-    done, dt = _serve_and_report(runner, args, f" (rank 0 of {world_size})")
-    runner.close()
+    done, dt = _serve_and_report(runners, args, f" (rank 0 of {world_size})")
+    runners[0].close()
     return {"dt": dt, "outputs": {r.rid: [torch.from_numpy(y) for y in r.outputs] for r in done}}
 
 
@@ -240,6 +280,8 @@ def main(argv=None) -> list:
     """Serve the ensemble the flags describe; returns the served requests
     (their ``outputs`` in physical units)."""
     args = build_parser().parse_args(argv)
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
     from repro_torch.common.device import resolve_device
     from repro_torch.serve import FNORunner
     from repro_torch.serve.fno_runner import load_serving_config
@@ -250,11 +292,11 @@ def main(argv=None) -> list:
     runner = None
     if devices == 1:
         try:
-            runner = FNORunner.from_checkpoint(args.ckpt_dir, device=device,
-                                               **_runner_kwargs(args))
+            runners = _replicas(args, device=device)
         except ValueError as e:  # library error -> CLI-flag wording
             raise SystemExit(f"--static-channels/--max-batch: {e}") from None
-        done, dt = _serve_and_report(runner, args, "")
+        runner = runners[0]
+        done, dt = _serve_and_report(runners, args, "")
     else:
         from repro_torch.launch.mesh import launch_ranks
 
@@ -296,41 +338,71 @@ def _report_reference(args, cfg, device, per_scen: float) -> None:
     )
 
 
-def _serve_and_report(runner, args, of_ranks: str) -> tuple:
-    """Warm up, serve the ensemble of ``args`` and print what was served;
-    returns the served requests and the serving pass's seconds."""
+def _serve_and_report(runners, args, of_ranks: str) -> tuple:
+    """Warm up, serve the ensemble of ``args`` (through the gateway when
+    there are several replicas) and print what was served; returns the
+    served requests and the serving pass's seconds."""
     from repro_torch.kernels.spectral_conv import spectral_fused_cuda
+    from repro_torch.serve import Gateway
 
+    runner = runners[0]
     n_static = runner.n_static
     cfg = runner.cfg
     print(
         f"serving {cfg.grid} FNO (width {cfg.width}, {cfg.n_blocks} blocks) "
         f"from step {runner.restored_step} on {runner.device}{of_ranks} "
-        f"(buckets {runner.buckets})"
+        f"(buckets {runner.buckets}"
+        + (f", {len(runners)} replicas policy={args.policy})" if len(runners) > 1 else ")")
     )
-    warm_s = runner.warmup()
+    warm_s = sum(r.warmup() for r in runners)
 
     requests, _ = build_scenarios(
         cfg, args.scenarios, args.wells, args.seed, args.rollout_steps,
         n_static=n_static, dup=args.dup,
     )
     spectral_fused_cuda.launches = 0
-    done, dt, sched = serve(runner, requests, args.max_batch)
-    launches = spectral_fused_cuda.launches
-    check_served(done, requests, sched.failed)
+    fleet = None
+    if len(runners) == 1:
+        done, dt, sched = serve(runner, requests, args.max_batch, args.max_steps)
+        launches = spectral_fused_cuda.launches
+        check_served(done, requests, sched.failed)
+        engine_steps, dedup_attached = sched.steps, sched.dedup_attached
+    else:
+        gateway = Gateway(runners, policy=args.policy)
+        for r in requests:
+            gateway.submit(r)
+        t0 = time.perf_counter()
+        done = gateway.run_until_done(max_steps=args.max_steps)
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize(runner.device)
+        dt = time.perf_counter() - t0
+        launches = spectral_fused_cuda.launches
+        check_served(done, requests, gateway.failed)
+        stats = gateway.stats()
+        fleet = stats["fleet"]
+        engine_steps, dedup_attached = fleet["ticks"], fleet["dedup_attached"]
+        for rs in stats["replicas"]:
+            print(
+                f"  replica {rs['name']}: routed {rs['routed']}, served "
+                f"{rs['finished']}, backlog {rs['pending']}, healthy "
+                f"{rs['healthy']}"
+                + (f", cache hit-rate {rs['cache']['hit_rate']:.3f} "
+                   f"({rs['cache']['bytes'] / 1e6:.2f} MB)"
+                   if rs["cache"] else "")
+            )
+    forwards = sum(r.batched_steps for r in runners)
     lat = sorted(r.finished_s - r.submitted_s for r in done)
     n = len(done)
     print(
         f"served {n} scenarios x {args.rollout_steps} rollout step(s) in "
         f"{dt:.3f}s ({n / dt:.2f} scen/s, warmup {warm_s:.2f}s excluded) "
-        f"over {sched.steps} engine steps / {runner.batched_steps} forwards; "
+        f"over {engine_steps} engine steps / {forwards} forwards; "
         f"latency p50 {lat[n // 2] * 1e3:.1f}ms p95 "
         f"{lat[min(n - 1, int(n * 0.95))] * 1e3:.1f}ms"
     )
     if runner.device.type == "cuda":
-        print(f"spectral kernel launches: {launches} over "
-              f"{runner.batched_steps} forwards{of_ranks}")
-    if runner.cache is not None:
+        print(f"spectral kernel launches: {launches} over {forwards} forwards{of_ranks}")
+    if fleet is None and runner.cache is not None:
         s = runner.cache.stats
         lv = s["level_bytes"]
         print(
@@ -339,7 +411,21 @@ def _serve_and_report(runner, args, of_ranks: str) -> tuple:
             f"entries, {s['bytes'] / 1e6:.2f} MB, {s['evictions']} evicted, "
             f"{s['deep_evictions']} deep-evicted); level MB "
             + "/".join(f"{lv[k] / 1e6:.2f}" for k in lv)
-            + f" ({'/'.join(lv)}); dedup attached {sched.dedup_attached} follower(s)"
+            + f" ({'/'.join(lv)}); dedup attached {dedup_attached} follower(s)"
+        )
+    elif fleet is not None and fleet["cache_hits"] + fleet["cache_misses"]:
+        print(
+            f"fleet geomodel cache: hit-rate {fleet['cache_hit_rate']:.3f} "
+            f"({fleet['cache_hits']} hits / {fleet['cache_misses']} misses across "
+            f"{fleet['n_replicas']} replicas, {fleet['cache_bytes'] / 1e6:.2f} MB); "
+            f"dedup attached {dedup_attached} follower(s)"
+        )
+    if runner.cache_store is not None:
+        ss = runner.cache_store.stats
+        print(
+            f"cache store: {ss['hits']} hits / {ss['misses']} misses "
+            f"({ss['hit_rate']:.3f}), {ss['puts']} puts, {ss['entries']} "
+            f"entries, {ss['bytes'] / 1e6:.2f} MB"
         )
 
     if args.bench_sequential:
@@ -347,7 +433,7 @@ def _serve_and_report(runner, args, of_ranks: str) -> tuple:
             cfg, args.scenarios, args.wells, args.seed, args.rollout_steps,
             n_static=n_static, dup=args.dup,
         )
-        seq_done, seq_dt, seq_sched = serve(runner, seq_requests, 1)
+        seq_done, seq_dt, seq_sched = serve(runner, seq_requests, 1, args.max_steps)
         check_served(seq_done, seq_requests, seq_sched.failed)
         print(
             f"sequential: {len(seq_done)} scenarios in {seq_dt:.3f}s "

@@ -33,8 +33,16 @@ same slot scheduler as the reference:
     in numpy, deterministically, so cold and warm serving feed the same
     arrays to the same forward and agree bitwise.
 
-The fleet-shared ``cache_store`` and the gateway's hooks
-(``affinity_key``, ``reset``) belong to a later slice.
+On a local miss the controller consults the fleet-shared ``cache_store``
+(``serve.cache_store``), namespaced by ``cache_version``, before it
+recomputes: a geomodel warmed by any replica is warm fleet-wide, and a
+store hit gives bitwise the arrays a recompute gives. The gateway's hooks
+are ``affinity_key`` (the geomodel's content key, for cache-affine
+routing) and ``reset`` (a failed-over request restarts). R ranked runners
+built alike on every rank serve as R gateway replicas over one start of
+the ranks once ``link_replicas`` has linked them: the header also names
+the replica, and a follower's one loop runs each tick on the replica it
+names.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import dataclasses
 import json
 import os
 import time
+import weakref
 from typing import Callable, Deque, List, Optional, Sequence
 
 import numpy as np
@@ -60,12 +69,14 @@ from repro_torch.core.fno import (
 )
 from repro_torch.core.partition import CartPartition, coords
 from repro_torch.data.loader import Normalizer
+from repro_torch.serve.cache_store import CacheStore
 from repro_torch.serve.geomodel_cache import GeomodelCache, GeomodelEntry, content_key
 from repro_torch.train import checkpoint as ckpt_lib
 
 FNO_CONFIG_FILE = "fno_config.json"
 
-# The forward a tick runs, as the controller's header names it (0: stop).
+# The forward a tick runs, as the controller's header names it (0: stop);
+# the header is [kind, bucket, replica].
 _STOP, _PLAIN, _SPLIT, _DEEP = range(4)
 # How many ticks' times a runner keeps (``FNORunner.tick_times``).
 TICK_TIMES_KEPT = 1024
@@ -199,6 +210,7 @@ class FNORunner:
     parameters (``shard_params``, or ``from_checkpoint``). Rank 0 then
     serves through the scheduler and ends with ``close``; the others call
     ``follow``. Without groups the runner serves on ``device`` alone.
+    ``link_replicas`` lets several ranked runners share the ranks.
     """
 
     def __init__(
@@ -218,6 +230,7 @@ class FNORunner:
         cache="auto",
         cache_bytes: int = 256 << 20,
         cache_level: str = "deep",
+        cache_store: Optional[CacheStore] = None,
     ):
         self.device = resolve_device(device)
         if (data_group is None) != (model is None):
@@ -245,6 +258,8 @@ class FNORunner:
             GeomodelCache(cache_bytes) if (cache == "auto" and n_static) else
             cache if isinstance(cache, GeomodelCache) else None
         ) if self.is_controller else None
+        # the fleet-shared tier consulted on a local miss (the controller's)
+        self.cache_store = cache_store if self.is_controller else None
         n_dp = dist.get_world_size(data_group) if self._ranked else 1
         self.buckets = (
             tuple(sorted(set(buckets))) if buckets else _bucket_ladder(max_slots, n_dp)
@@ -296,6 +311,12 @@ class FNORunner:
             k: {n: t.to(self.device) for n, t in v.items()} for k, v in params.items()
         }
         self._closed = False
+        # this runner's index among the replicas that share its ranks, and
+        # weak references to those replicas (``link_replicas``; None: this
+        # runner alone), so that no runner keeps another, or itself, alive
+        self.replica = 0
+        self._fleet = None
+        self._cache_version = None
         # the last ticks' seconds staging the host batch (controller; a
         # cold deep tick's spectral prefix included), scattering it, in the
         # forward and gathering the output
@@ -362,6 +383,7 @@ class FNORunner:
         cache="auto",
         cache_bytes: int = 256 << 20,
         cache_level: str = "deep",
+        cache_store: Optional[CacheStore] = None,
         comm_chunks: Optional[int] = None,
     ) -> "FNORunner":
         """Build a runner from a trainer's checkpoint directory.
@@ -423,6 +445,7 @@ class FNORunner:
             cache=cache,
             cache_bytes=cache_bytes,
             cache_level=cache_level,
+            cache_store=cache_store,
         )
         runner.restored_step = ck_step
         return runner
@@ -439,6 +462,36 @@ class FNORunner:
 
     def _encode(self, x_raw: np.ndarray) -> np.ndarray:
         return self.x_normalizer.encode(self._check_shape(x_raw)[None])[0]
+
+    @property
+    def cache_version(self) -> str:
+        """Checkpoint+config signature namespacing fleet-shared store
+        entries (the controller's): the grid, modes, width, input channels,
+        static channels and cache level, the encoder weights, the static
+        normalizer's stats and block 0's whole kept-mode weights, so
+        replicas serving another checkpoint or configuration never
+        exchange intermediates."""
+        if self._cache_version is None:
+            import hashlib
+
+            h = hashlib.blake2b(digest_size=16)
+            h.update(repr((
+                tuple(self.cfg.grid), tuple(self.cfg.modes), self.cfg.width,
+                self.cfg.in_channels, self.n_static, self._cache_level,
+            )).encode())
+            parts = [self._enc_w, self._enc_b]
+            norm = self._x_norm_static
+            if not norm.identity:
+                parts += [norm.mean, norm.scale]
+            if self._w0 is not None:
+                parts.append(self._w0)
+            for a in parts:
+                arr = np.ascontiguousarray(np.asarray(a))
+                h.update(str(arr.dtype).encode())
+                h.update(str(arr.shape).encode())
+                h.update(arr)
+            self._cache_version = h.hexdigest()
+        return self._cache_version
 
     def _np_spectra(self, prelift: np.ndarray) -> np.ndarray:
         """Truncated kept-mode spectrum of the static first hidden state,
@@ -465,12 +518,18 @@ class FNORunner:
         )
 
     def _static_entry(self, key: str, x_static_raw: np.ndarray) -> GeomodelEntry:
-        """Geomodel intermediates by content: local cache, then a host
-        recompute of whatever levels are missing (each level derives from
-        the previous). The recompute is deterministic numpy, so cold ==
-        warm bitwise."""
+        """Geomodel intermediates by content: local cache, then the
+        fleet-shared store, then a host recompute of whatever levels are
+        missing (each level derives from the previous). Fresh or deepened
+        entries go to both tiers, a store hit into the local cache. The
+        recompute is deterministic numpy, so cold == warm == a store hit,
+        bitwise."""
         deep = self._cache_level == "deep"
         entry = self.cache.get(key) if self.cache is not None else None
+        from_store = False
+        if entry is None and self.cache_store is not None:
+            entry = self.cache_store.get(self.cache_version, key)
+            from_store = entry is not None
         fresh = entry is None
         if fresh:
             normalized = self._x_norm_static.encode(
@@ -490,8 +549,10 @@ class FNORunner:
                 entry, contribution=self._np_contribution(entry.spectra)
             )
             grew = True
-        if self.cache is not None and (fresh or grew):
+        if self.cache is not None and (fresh or grew or from_store):
             self.cache.put(key, entry)
+        if self.cache_store is not None and (fresh or grew):
+            self.cache_store.put(self.cache_version, key, entry)
         return entry
 
     def request_key(self, req: ScenarioRequest):
@@ -503,6 +564,25 @@ class FNORunner:
         """Give a deduped follower the primary's outputs (shared arrays —
         served outputs are treated as read-only)."""
         follower.outputs = list(primary.outputs)
+
+    def affinity_key(self, req: ScenarioRequest) -> Optional[str]:
+        """The gateway's cache-affinity key: the content key of the static
+        channels (the geomodel), so that one replica serves each geomodel
+        and its cache hits as a lone runner's would; None without static
+        channels or for an input ``admit`` would refuse."""
+        if not self.n_static:
+            return None
+        x = np.asarray(req.x, np.float32)
+        if x.ndim != len(self.cfg.grid) + 1 or x.shape[0] < self.n_static:
+            return None
+        return content_key(np.ascontiguousarray(x[: self.n_static]))
+
+    def reset(self, req: ScenarioRequest) -> None:
+        """The gateway's failover hook: a request taken off a failed
+        replica restarts from its ``x``, its partial outputs dropped."""
+        req.outputs = []
+        req.done = False
+        req.error = None
 
     def admit(self, slot: int, req: ScenarioRequest) -> None:
         if req.steps < 1:
@@ -529,16 +609,18 @@ class FNORunner:
         runner's device, or as the controller of a tick on every rank."""
         if not self.is_controller:
             raise RuntimeError(f"rank {self.rank} follows rank 0's ticks: call follow()")
+        if self._closed:
+            raise RuntimeError("the runner's followers were stopped (close()): no tick can run")
         bucket = arrays[0].shape[0]
         if self._ranked:
             self._header(self._kind, bucket)
         return self._tick(bucket, arrays)
 
     def _header(self, kind: int = _STOP, bucket: int = 0) -> tuple:
-        """The controller's (kind, bucket), broadcast to every rank."""
-        h = torch.tensor([kind, bucket], dtype=torch.int64)
+        """The controller's (kind, bucket, replica), broadcast to every rank."""
+        h = torch.tensor([kind, bucket, self.replica], dtype=torch.int64)
         dist.broadcast(h, src=0)
-        return int(h[0]), int(h[1])
+        return int(h[0]), int(h[1]), int(h[2])
 
     def _tick(self, bucket: int, arrays) -> Optional[np.ndarray]:
         """One forward over ``bucket`` rows on this rank: its slab of each
@@ -598,27 +680,43 @@ class FNORunner:
 
     def follow(self) -> int:
         """A non-controller rank's loop: run every tick the controller
-        announces until it closes; returns the ticks run."""
+        announces, on the replica of this runner's fleet the header names
+        (this runner alone unless ``link_replicas`` linked it), until the
+        controller closes; returns the ticks run."""
         if not self._ranked or self.is_controller:
             raise RuntimeError("only a rank other than 0 of a ranked runner follows")
+        fleet = self._replicas()
         ticks = 0
         while True:
-            kind, bucket = self._header()
+            kind, bucket, replica = self._header()
             if kind == _STOP:
                 return ticks
-            if kind != self._kind:
-                raise RuntimeError(f"rank {self.rank} runs forward kind {self._kind}, the "
+            runner = fleet[replica] if 0 <= replica < len(fleet) else None
+            if runner is None:
+                raise RuntimeError(f"rank {self.rank} holds no replica {replica} of the "
+                                   f"{len(fleet)} the controller may announce: link every "
+                                   f"rank's runners alike and keep them")
+            if kind != runner._kind:
+                raise RuntimeError(f"rank {self.rank} runs forward kind {runner._kind}, the "
                                    f"controller announced {kind}: construct every rank's "
                                    f"runner alike")
-            self._tick(bucket, None)
+            runner._tick(bucket, None)
             ticks += 1
 
     def close(self) -> None:
-        """The controller tells the followers to stop (once); nothing to do
-        on one device or on a follower."""
+        """The controller tells the followers to stop, once for the runners
+        ``link_replicas`` linked; nothing to do on one device or on a
+        follower."""
         if self._ranked and self.is_controller and not self._closed:
             self._header(_STOP)
-            self._closed = True
+            for r in self._replicas():
+                if r is not None:
+                    r._closed = True
+
+    def _replicas(self) -> list:
+        """The runners linked with this one, by replica index (None for one
+        that no longer exists)."""
+        return [self] if self._fleet is None else [ref() for ref in self._fleet]
 
     def warmup(self) -> float:
         """Run every bucket shape once on zeros (kernel build, FFT plans);
@@ -685,3 +783,28 @@ class FNORunner:
         self._static_raw[slot] = None
         self._dyn[slot] = None
         self._remaining[slot] = 0
+
+
+def link_replicas(runners: Sequence[FNORunner]) -> None:
+    """Let R runners share one start of the ranks as R gateway replicas.
+
+    Every rank builds its runners alike and in the same order, then links
+    them: replica i's ticks name i in the header, a follower's ``follow``
+    (on any of them) runs each announced tick on the replica it names and
+    no other, and the controller's ``close`` (on any of them, once the
+    gateway has drained) stops that loop once. A replica that raises on
+    the controller before its header leaves the followers waiting for the
+    next one, so they stay in step. Runners on one device may be linked
+    too; the link changes nothing there.
+    """
+    runners = tuple(runners)
+    if len({id(r) for r in runners}) != len(runners):
+        raise ValueError("each replica needs its own runner instance")
+    if len({r._ranked for r in runners}) > 1:
+        raise ValueError("link ranked runners with ranked runners only")
+    for r in runners:
+        if r._closed:
+            raise ValueError("a closed runner cannot join a fleet")
+    refs = tuple(weakref.ref(r) for r in runners)
+    for i, r in enumerate(runners):
+        r.replica, r._fleet = i, refs
