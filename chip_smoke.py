@@ -119,8 +119,11 @@ Phases, each failing hard:
   8. hold the RMSNorm and flash-attention kernels against their plain
      versions (``rmsnorm_ref``, ``flash_attention_ref``) over bf16 and f32,
      ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
-     16-256 and the serving path's shapes in bf16 and f32 (gemma-7b,
-     chatglm3-6b and minitron-8b prefills, prefill and decode norms), with
+     16-256 (24 padded to the 32 instance) and the serving path's shapes in
+     bf16 and f32 (gemma-7b, chatglm3-6b and minitron-8b prefills,
+     deepseek-v2-lite's MLA prefill at head dim 192, prefill and decode
+     norms at gemma's d 3072, deepseek-v2-lite's d_model 2048 and its MLA
+     latent's 512), with
      bf16 held to one rounding of the output, and time each
      against its bound, its plain version and one PyTorch call
      (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick,
@@ -131,7 +134,14 @@ Phases, each failing hard:
      slots, 16 tokens each; then, for 2 of the prompts, the prefill's
      last-token logits and the first decode step's logits through the
      kernels against the same through the plain versions;
- 10. the LM serving CLI on the card, as a subprocess.
+ 9b. the same for deepseek-v2-lite-16b at full width (27 layers, d_model
+     2048, MLA 512/128/64/128, 64 routed experts top-6 + 2 shared, vocab
+     102400), its weights drawn and cast one leaf at a time (the peak
+     printed), with the prefills' MoE drop share and the decode steps held
+     dropless;
+ 10. the LM serving CLI on the card, as three subprocesses at once, for
+     reduced gemma-7b, deepseek-v2-lite-16b (flash at head dim 24, padded
+     to 32) and deepseek-moe-16b.
 
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
@@ -149,7 +159,8 @@ micro-batch (forward, remat recompute, dx) and the cotangent kernel once;
 the fno-ns3d forward once per block; the online trainer and its served
 checkpoint as the training and serving CLIs. Each LM
 prefill must launch flash attention once per layer, and each LM forward
-(prefill or decode step) the RMSNorm kernel 2 L + 1 times.
+(prefill or decode step) the RMSNorm kernel 2 L + 1 times (3 L + 1 under
+MLA, with the latent's norm).
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -3214,17 +3225,18 @@ def _rmsnorm_bound_ms(rows, d, nbytes_el) -> tuple:
     return _bound_ms(nbytes, 4 * rows * d)
 
 
-def _flash_bound_ms(b, h, kvh, sq, sk, d, causal, nbytes_el) -> tuple:
-    """q, k, v read once, o written once; 4 d flops per visible (query, key)
-    pair (the causal cut counted for these lengths), against the
-    tensor-core rate for bf16 operands (whose products are exact in f32)
-    and the f32 rate for f32."""
+def _flash_bound_ms(b, h, kvh, sq, sk, d, causal, nbytes_el, dv=None) -> tuple:
+    """q, k (head dim d), v and o (head dim dv, default d) read or written
+    once; 2 (d + dv) flops per visible (query, key) pair (the causal cut
+    counted for these lengths), against the tensor-core rate for bf16
+    operands (whose products are exact in f32) and the f32 rate for f32."""
+    dv = d if dv is None else dv
     if causal:
         pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
     else:
         pairs = sq * sk
-    nbytes = nbytes_el * d * (2 * b * h * sq + 2 * b * kvh * sk)
-    flops = 4 * d * b * h * pairs
+    nbytes = nbytes_el * (d + dv) * (b * h * sq + b * kvh * sk)
+    flops = 2 * (d + dv) * b * h * pairs
     rate = BF16_FLOP_PER_S if nbytes_el == 2 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3267,7 +3279,11 @@ def phase_lm_kernels(gpu: str) -> tuple:
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_cuda,
+        flash_attention_ref,
+    )
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 
     dev = torch.device("cuda")
@@ -3277,12 +3293,16 @@ def phase_lm_kernels(gpu: str) -> tuple:
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(types[dtype])
 
-    # rmsnorm: (rows, d, dtype); the last two are a gemma-7b prefill of
-    # 1000 tokens and a decode step over 4 slots
+    # rmsnorm: (rows, d, dtype); the timed ones (bf16 at d 3072, 2048 and
+    # 512) are a gemma-7b prefill of 1000 tokens and a decode step over 4
+    # slots, deepseek-v2-lite's ln1/ln2/final_norm (d_model 2048) and its
+    # latent norm (kv_norm, d = kv_lora = 512) at both
     rms_cases = [(1, 8, "float32"), (37, 96, "bfloat16"), (256, 96, "float32"),
                  (300, 8, "bfloat16"), (300, 3072, "float32"), (300, 3072, "bfloat16"),
                  (1000, 3072, "float32"), (4, 3072, "float32"),
-                 (1000, 3072, "bfloat16"), (4, 3072, "bfloat16")]
+                 (1000, 3072, "bfloat16"), (4, 3072, "bfloat16"),
+                 (1000, 2048, "float32"), (1000, 2048, "bfloat16"), (4, 2048, "bfloat16"),
+                 (1000, 512, "float32"), (1000, 512, "bfloat16"), (4, 512, "bfloat16")]
     rms = {}
     for rows, d, dtype in rms_cases:
         x = randn((rows, d), dtype, 3.0)
@@ -3290,7 +3310,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
         got = rmsnorm(x, w)
         torch.cuda.synchronize()
         err = _lm_check(f"rmsnorm {rows}x{d} {dtype}", got, rmsnorm_ref(x, w))
-        if d == 3072 and dtype == "bfloat16" and rows in (1000, 4):
+        if d in (3072, 2048, 512) and dtype == "bfloat16" and rows in (1000, 4):
             ms = device_ms(lambda: rmsnorm(x, w))
             plain = device_ms(lambda: rmsnorm_ref(x, w))
             lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
@@ -3299,16 +3319,23 @@ def phase_lm_kernels(gpu: str) -> tuple:
             print(f"[rmsnorm] {rows}x{d} bf16, device time: kernel {ms * 1e3:.2f} us, plain "
                   f"{plain * 1e3:.2f} us, F.rms_norm {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
                   f"({by}); back-to-back calls of the wrapper {call * 1e3:.2f} us each; {gpu}")
-            rms[rows] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by, call_ms=call)
-    floor = _launch_floor(gpu, rms[4])
+            rms[rows, d] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=bound, bound_by=by, call_ms=call)
+    prefill, decode = rms[1000, 3072], rms[4, 3072]
+    floor = _launch_floor(gpu, decode)
     rms_record = {
         "name": "rmsnorm", "route": "cuda", "source": RMSNORM_SOURCE,
-        "replaces": RMSNORM_REPLACES, "launches": None, **rms[1000],
+        "replaces": RMSNORM_REPLACES, "launches": None, **prefill,
         "shape": "x [1000, 3072] bf16 (a 1000-token prefill)",
-        "decode_shape": "x [4, 3072] bf16", "decode_ms": rms[4]["ms"], "decode_call_ms": rms[4]["call_ms"],
-        "decode_plain_ms": rms[4]["plain_ms"], "decode_library_ms": rms[4]["library_ms"],
-        "decode_bound_ms": rms[4]["bound_ms"], "decode_launch_floor_ms": floor,
+        "decode_shape": "x [4, 3072] bf16", "decode_ms": decode["ms"], "decode_call_ms": decode["call_ms"],
+        "decode_plain_ms": decode["plain_ms"], "decode_library_ms": decode["library_ms"],
+        "decode_bound_ms": decode["bound_ms"], "decode_launch_floor_ms": floor,
+        "kv_norm_shapes": {f"x [{rows}, {d}] bf16": {k: v for k, v in rms[rows, d].items()
+                                                      if k != "max_abs_err"}
+                           for rows, d in ((1000, 512), (4, 512))},
+        "moe_d_model_shapes": {f"x [{rows}, {d}] bf16": {k: v for k, v in rms[rows, d].items()
+                                                          if k != "max_abs_err"}
+                               for rows, d in ((1000, 2048), (4, 2048))},
     }
 
     # flash: (name, b, h, kvh, sq, sk, d, causal, dtype, timed)
@@ -3327,6 +3354,13 @@ def phase_lm_kernels(gpu: str) -> tuple:
         ("gemma-7b prefill", 1, 16, 16, 1000, 1000, 256, True, "bfloat16", True),
         ("chatglm3-6b gqa prefill", 1, 32, 2, 777, 777, 128, True, "bfloat16", True),
         ("minitron-8b prefill", 1, 32, 8, 1000, 1000, 128, True, "bfloat16", True),
+        # deepseek-v2-lite's MLA prefill (nope 128 + RoPE 64, v padded to 192),
+        # and the reduced MLA config's head dim 24, padded to the 32 instance
+        ("v2-lite mla prefill f32", 1, 16, 16, 1000, 1000, 192, True, "float32", False),
+        ("v2-lite mla prefill", 1, 16, 16, 1000, 1000, 192, True, "bfloat16", True),
+        ("reduced mla d24, padded to 32 (device time of the pads too)", 1, 4, 4, 77, 77, 24,
+         True, "bfloat16", True),
+        ("reduced mla d24 f32", 1, 4, 4, 77, 77, 24, True, "float32", False),
     ]
     flash = {}
     for name, b, h, kvh, sq, sk, d, causal, dtype, timed in flash_cases:
@@ -3334,8 +3368,11 @@ def phase_lm_kernels(gpu: str) -> tuple:
         q = randn((b, sq, h, d), dtype).transpose(1, 2)
         k = randn((b, sk, kvh, d), dtype).transpose(1, 2)
         v = randn((b, sk, kvh, d), dtype).transpose(1, 2)
+        before = flash_attention_cuda.launches
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if flash_attention_cuda.launches != before + 1:
+            raise SystemExit(f"[flash] {name}: {flash_attention_cuda.launches - before} launches")
         err = _lm_check(f"flash {name} b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d} {dtype}", got,
                         flash_attention_ref(q, k, v, causal=causal))
         if not timed:
@@ -3346,18 +3383,25 @@ def phase_lm_kernels(gpu: str) -> tuple:
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), n=10)
         bound, by = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2)
+        extra = {}
+        if d == 192:
+            # MLA's function needs v and o at dh_v = 128 only; the kernel
+            # takes v padded to 192, which the bound above counts
+            fbound, fby = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2, dv=128)
+            extra = dict(function_bound_ms=fbound, function_bound_by=fby)
+            by += f"; unpadded v/o at 128: {fbound * 1e3:.2f} us ({fby})"
         print(f"[flash] {name}, device time: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
               f"{lib:.3f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us ({by}); {gpu}")
         flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound, bound_by=by)
+                           bound_ms=bound, bound_by=by.split(";")[0], **extra)
         del q, k, v, got
         torch.cuda.empty_cache()
     flash_record = {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": None, **flash["gemma-7b prefill"],
         "shape": "q/k/v [1, 16, 1000, 256] bf16 causal (a gemma-7b prefill layer)",
-        "other_shapes": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"],
-                             "library_ms": v["library_ms"], "bound_ms": v["bound_ms"]}
+        "other_shapes": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "function_bound_ms") if key in v}
                          for k, v in flash.items() if k != "gemma-7b prefill"},
     }
     return rms_record, flash_record
@@ -3382,13 +3426,90 @@ def plain_kernels():
 
 
 LM_ARCH, LM_SLOTS, LM_REQUESTS, LM_MAX_TOKENS, LM_MAX_LEN = "gemma-7b", 4, 8, 16, 1040
+# the MoE family's served config (gemma's traffic) and the CLI's archs
+MOE_ARCH = "deepseek-v2-lite-16b"
+CLI_ARCHS = (LM_ARCH, MOE_ARCH, "deepseek-moe-16b")
 
 
-def phase_lm_serving(gpu: str) -> dict:
-    """Full-width gemma-7b through Engine, then 2 prompts' logits through the
-    kernels vs the plain versions; returns the kernels' launch counts."""
-    import gc
+@contextlib.contextmanager
+def counted_drops():
+    """Within the block, every MoE dispatch appends (tokens routed, entries
+    dropped) to the list it yields; the dropped count stays a device tensor,
+    so nothing waits for the device."""
+    from repro_torch.models import moe as moe_lib
 
+    seen, dispatch = [], moe_lib._dispatch
+
+    def counted(x_flat, topi, capacity, n_experts):
+        out = dispatch(x_flat, topi, capacity, n_experts)
+        seen.append((topi.shape[0], topi.shape[1], (~out[3]).sum()))
+        return out
+
+    moe_lib._dispatch = counted
+    try:
+        yield seen
+    finally:
+        moe_lib._dispatch = dispatch
+
+
+@contextlib.contextmanager
+def routes(recorded=None):
+    """Without ``recorded``: every MoE routing decision of the block (each
+    ``_route``'s top-k experts) is appended to the list yielded. With the
+    list of another run: that run's decisions are replayed in order, while
+    the block computes its own router probabilities and takes its weights
+    from them; ``flips`` in the yielded dict counts the tokens whose own
+    top-k experts differ from the replayed ones, and ``tied`` those of
+    them whose own k-th and (k+1)-th probabilities are equal (a tie of the
+    bf16 router logits, which the lower expert wins). A plain run that replays
+    the kernel run's routes checks the kernels' numbers and not the
+    routing's discrete choices, which a rounding flips (and a flip moves
+    every later entry of an expert past or inside its capacity)."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib._route
+    out = {"routes": [] if recorded is None else recorded, "flips": 0, "tied": 0, "tokens": 0}
+    replay = None if recorded is None else iter(recorded)
+
+    def wrapped(x_flat, router_w, moe):
+        topi, topv, probs = route(x_flat, router_w, moe)
+        if replay is None:
+            out["routes"].append(topi.clone())
+            return topi, topv, probs
+        want = next(replay)
+        flipped = (topi.sort(-1).values != want.sort(-1).values).any(-1)
+        edge = probs.sort(dim=-1, descending=True).values[:, moe.top_k - 1: moe.top_k + 1]
+        out["flips"] += int(flipped.sum())
+        out["tied"] += int((flipped & (edge[:, 0] == edge[:, 1])).sum())
+        out["tokens"] += topi.shape[0]
+        w = probs.gather(1, want)
+        if moe.norm_topk:
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        return want, w.to(x_flat.dtype), probs
+
+    moe_lib._route = wrapped
+    try:
+        yield out
+    finally:
+        moe_lib._route = route
+    if replay is not None and next(replay, None) is not None:
+        raise SystemExit("[routes] the replayed run routed fewer times than the recorded one")
+
+
+def _drop_share(seen, prefill: bool) -> tuple:
+    """(entries dropped, entries routed) of the prefills (more tokens than
+    slots) or of the decode steps."""
+    rows = [(t * k, int(n)) for t, k, n in seen if (t > LM_SLOTS) == prefill]
+    return sum(n for _, n in rows), sum(e for e, _ in rows)
+
+
+def _serve_lm(gpu: str, arch: str, tag: str) -> dict:
+    """``arch`` at full width through Engine (LM_REQUESTS requests on LM_SLOTS
+    slots), then 2 prompts' logits through the kernels vs the plain
+    versions; returns the kernels' launch counts (and, for the MoE family,
+    the prefills' drop share)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3398,94 +3519,141 @@ def phase_lm_serving(gpu: str) -> dict:
     from repro_torch.models.transformer import norms_per_forward
     from repro_torch.serve import Engine, Request
 
-    cfg = get_arch(LM_ARCH)
-    print(f"[lm] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+    cfg = get_arch(arch)
+    attn = (f"MLA {cfg.mla.kv_lora}/{cfg.mla.dh_nope}/{cfg.mla.dh_rope}/{cfg.mla.dh_v}"
+            if cfg.mla else f"{cfg.kv_heads} kv heads x {cfg.head_dim_}")
+    ffn = (f"{cfg.moe.n_experts} routed experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared "
+           f"of width {cfg.moe.d_expert}, layer 0 dense {cfg.moe.first_dense_ff}"
+           if cfg.moe else f"d_ff {cfg.d_ff}")
+    print(f"[{tag}] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {attn}, {ffn}, vocab {cfg.vocab}, "
           f"{cfg.approx_params() / 1e9:.2f} B params; random weights (seed 0)")
     dev = torch.device("cuda")
     _free_cuda()
     t0 = time.perf_counter()
-    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    # each leaf drawn in f32 and cast at once: the f32 masters never coexist
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev,
+                            serving=True)
     engine = Engine(cfg, params, max_len=LM_MAX_LEN, max_batch=LM_SLOTS, device=dev)
-    del params  # the f32 masters; the runner holds bf16 matmul weights
-    gc.collect()
+    del params
     torch.cuda.synchronize()
     runner = engine.runner
     held = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
-    cache = sum(t.numel() * t.element_size() for t in runner.cache["layers"].values())
-    print(f"[lm] weights set up in {time.perf_counter() - t0:.1f}s; peak while casting the f32 "
-          f"masters {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the runner holds "
-          f"{held / 1e9:.2f} GB of weights and a {cache / 1e9:.2f} GB bf16 KV cache")
+    cache = sum(t.numel() * t.element_size() for t in _leaves(runner.cache))
+    print(f"[{tag}] weights set up in {time.perf_counter() - t0:.1f}s, drawn leaf by leaf; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the runner holds "
+          f"{held / 1e9:.2f} GB of weights and a {cache / 1e9:.3f} GB bf16 cache; {gpu}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     rng = np.random.default_rng(0)
     lengths = rng.integers(200, 1001, size=LM_REQUESTS)
     prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist() for n in lengths]
-    print(f"[lm] {LM_REQUESTS} requests, prompt lengths {lengths.tolist()}, max_tokens "
+    print(f"[{tag}] {LM_REQUESTS} requests, prompt lengths {lengths.tolist()}, max_tokens "
           f"{LM_MAX_TOKENS}, max_len {LM_MAX_LEN}, {LM_SLOTS} slots")
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_tokens=LM_MAX_TOKENS))
-    rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run_until_done()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
+    with counted_drops() as seen:
+        rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        done = engine.run_until_done()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
     if engine.failed:
-        raise SystemExit(f"[lm] {len(engine.failed)} requests failed: {engine.failed[0].error!r}")
+        raise SystemExit(f"[{tag}] {len(engine.failed)} requests failed: {engine.failed[0].error!r}")
     if len(done) != LM_REQUESTS or any(
             len(r.output) != LM_MAX_TOKENS or not all(0 <= t < cfg.vocab for t in r.output)
             for r in done):
-        raise SystemExit("[lm] a request did not return max_tokens valid token ids")
+        raise SystemExit(f"[{tag}] a request did not return max_tokens valid token ids")
     prefills, steps = len(runner.prefill_s), len(runner.decode_s)
     tokens = sum(len(r.output) for r in done)
-    print(f"[lm] served {len(done)} requests, {tokens} tokens in {dt:.3f}s: "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] served {len(done)} requests, {tokens} tokens in {dt:.3f}s: "
           f"{tokens / dt:.1f} tok/s; {prefills} prefills, mean {np.mean(runner.prefill_s) * 1e3:.1f} ms "
           f"(prompt mean {lengths.mean():.0f} tokens); {steps} decode steps, mean "
           f"{np.mean(runner.decode_s) * 1e3:.2f} ms, median {np.median(runner.decode_s) * 1e3:.2f} ms; "
-          f"max_memory_allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {gpu}")
+          f"max_memory_allocated while serving {peak:.2f} GiB; {gpu}")
+    stats = {"requests": len(done), "tokens": tokens, "seconds": dt,
+             "prefill_ms_mean": float(np.mean(runner.prefill_s) * 1e3),
+             "decode_ms_mean": float(np.mean(runner.decode_s) * 1e3),
+             "decode_ms_median": float(np.median(runner.decode_s) * 1e3), "peak_gib": peak}
+    if cfg.moe:
+        dropped, routed = _drop_share(seen, prefill=True)
+        d_dropped, d_routed = _drop_share(seen, prefill=False)
+        print(f"[{tag}] MoE drops: prefills {dropped} of {routed} routed entries "
+              f"({dropped / routed:.4%}) over {sum(1 for t, _, _ in seen if t > LM_SLOTS)} "
+              f"dispatches; decode steps {d_dropped} of {d_routed} (dropless: room for every slot)")
+        if d_dropped or d_routed != steps * LM_SLOTS * cfg.moe.top_k * cfg.layer_kinds().count("moe"):
+            raise SystemExit(f"[{tag}] the decode steps dropped routed entries or missed a layer")
+        stats["prefill_drop_share"] = dropped / routed
     for r in sorted(done, key=lambda r: r.rid)[:2]:
-        print(f"[lm]   req {r.rid}: {len(r.prompt)} prompt tokens -> {r.output}")
+        print(f"[{tag}]   req {r.rid}: {len(r.prompt)} prompt tokens -> {r.output}")
     want = {"rmsnorm": norms_per_forward(cfg) * (prefills + steps), "flash": cfg.n_layers * prefills}
-    print(f"[lm] launches: rmsnorm {launches['rmsnorm']} (want {norms_per_forward(cfg)} x "
+    print(f"[{tag}] launches: rmsnorm {launches['rmsnorm']} (want {norms_per_forward(cfg)} x "
           f"({prefills} prefills + {steps} decode steps) = {want['rmsnorm']}), flash "
           f"{launches['flash']} (want {cfg.n_layers} x {prefills} = {want['flash']}); {gpu}")
     if prefills != LM_REQUESTS or launches != want:
-        raise SystemExit("[lm] the served run did not launch the kernels as expected")
+        raise SystemExit(f"[{tag}] the served run did not launch the kernels as expected")
 
-    # 2 prompts through the kernels and through the plain versions
+    # 2 prompts through the kernels and through the plain versions; under
+    # MoE the plain run replays the kernel run's routes (``routes``), and a
+    # third, free-running plain run is printed beside it, ungated
     first = {r.rid: r.output[0] for r in done}
     params = runner.params
     for rid in (0, 1):
         prompt = torch.tensor([prompts[rid]], dtype=torch.long, device=dev)
         n = prompt.shape[1]
-        out = {}
-        for tag in ("kernels", "plain"):
-            with torch.inference_mode(), (plain_kernels() if tag == "plain" else contextlib.nullcontext()):
+        out, record = {}, None
+        for kind in ("kernels", "plain", "free") if cfg.moe else ("kernels", "plain"):
+            with torch.inference_mode(), \
+                    (plain_kernels() if kind != "kernels" else contextlib.nullcontext()), \
+                    routes(record if kind == "plain" else None) as routed:
                 before = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
                 logits, cache = lm_prefill(params, prompt, cfg, max_len=n + 1)
                 tok = torch.argmax(logits, -1)[:, None]
                 step, _ = lm_decode_step(params, tok, cache, n, cfg)
                 moved = (rmsnorm_cuda.launches, flash_attention_cuda.launches) != before
-                if moved != (tag == "kernels"):
-                    raise SystemExit(f"[lm] the {tag} check did not run through the {tag}")
-                out[tag] = (logits.float(), step.float(), int(tok))
+                if moved != (kind == "kernels"):
+                    raise SystemExit(f"[{tag}] the {kind} check did not run through the {kind}")
+                out[kind] = (logits.float(), step.float(), int(tok))
                 del cache
+            if kind == "kernels":
+                record = routed["routes"]
+            elif kind == "plain" and cfg.moe:
+                print(f"[{tag}] req {rid}: the plain run replays the kernel run's routes; its own "
+                      f"top-{cfg.moe.top_k} would differ for {routed['flips']} of "
+                      f"{routed['tokens']} token routings (prefill + first decode step), "
+                      f"{routed['tied']} of them on a tie of its bf16 router logits")
         if out["kernels"][2] != first[rid]:
-            raise SystemExit(f"[lm] req {rid}: prefill's greedy token {out['kernels'][2]} != the "
+            raise SystemExit(f"[{tag}] req {rid}: prefill's greedy token {out['kernels'][2]} != the "
                              f"engine's {first[rid]}")
         for i, what in enumerate(("prefill last-token", "first decode step")):
             got, ref = out["kernels"][i], out["plain"][i]
             err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-            print(f"[lm] req {rid} ({n} tokens) {what} logits, kernels vs plain: max|d|={err:.3e} "
+            print(f"[{tag}] req {rid} ({n} tokens) {what} logits, kernels vs plain: max|d|={err:.3e} "
                   f"(gate {LM_LOGIT_GATE} x max|ref|={scale:.3e}); greedy tokens "
                   f"{int(got.argmax())} / {int(ref.argmax())}")
+            if "free" in out:
+                free = out["free"][i]
+                print(f"[{tag}]   free-running plain run (its own routes; not gated): max|d|="
+                      f"{float((got - free).abs().max()):.3e}, greedy token {int(free.argmax())}")
             if not (err <= LM_LOGIT_GATE * scale and _finite(got)):
-                raise SystemExit(f"[lm] req {rid}: {what} logits disagree with the plain path")
+                raise SystemExit(f"[{tag}] req {rid}: {what} logits disagree with the plain path")
     del engine, runner, params
     _free_cuda()
-    return launches
+    return {**launches, "stats": stats}
+
+
+def phase_lm_serving(gpu: str) -> dict:
+    """Full-width gemma-7b through Engine; returns the kernels' launch counts."""
+    return _serve_lm(gpu, LM_ARCH, "lm")
+
+
+def phase_moe_serving(gpu: str) -> dict:
+    """Full-width deepseek-v2-lite-16b (MLA, 64 routed experts) through
+    Engine; returns the kernels' launch counts and the serving profile."""
+    return _serve_lm(gpu, MOE_ARCH, "moe")
 
 
 def _leaves(tree):
@@ -3496,28 +3664,42 @@ def _leaves(tree):
         yield tree
 
 
-def phase_lm_cli(gpu: str) -> dict:
-    """The LM serving CLI (reduced gemma-7b) on the card; returns its counts."""
-    _free_cuda()
+def _lm_cli_run(arch: str) -> subprocess.CompletedProcess:
+    """The LM serving CLI (``reduced(arch)``) on the card, as a subprocess."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH]
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch]
+    return subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+
+
+def _lm_cli_check(gpu: str, arch: str, out: subprocess.CompletedProcess) -> dict:
+    """Print a CLI run's output and check its launch counts; returns them."""
     print("\n".join("[lm_cli] " + line for line in out.stdout.strip().splitlines()))
     if out.returncode != 0:
         print(out.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"[lm_cli] serve exited {out.returncode}")
+        raise SystemExit(f"[lm_cli] serve --arch {arch} exited {out.returncode}")
     m = re.search(r"kernel launches: rmsnorm (\d+) over (\d+) prefills \+ (\d+) decode steps "
                   r"x (\d+) norms; flash_attention (\d+) over (\d+) prefills x (\d+) layers",
                   out.stdout)
     if m is None:
-        raise SystemExit("[lm_cli] serve printed no kernel launch counts")
+        raise SystemExit(f"[lm_cli] serve --arch {arch} printed no kernel launch counts")
     rms, prefills, steps, norms, flash, prefills2, n_layers = map(int, m.groups())
     if prefills == 0 or rms != norms * (prefills + steps) or flash != n_layers * prefills2 \
             or prefills2 != prefills:
-        raise SystemExit(f"[lm_cli] launches rmsnorm {rms}, flash {flash} do not match "
+        raise SystemExit(f"[lm_cli] {arch}: launches rmsnorm {rms}, flash {flash} do not match "
                          f"{prefills} prefills + {steps} decode steps")
-    print(f"[lm_cli] launches rmsnorm {rms}, flash {flash}; {gpu}")
+    print(f"[lm_cli] {arch}: launches rmsnorm {rms}, flash {flash}; {gpu}")
     return {"rmsnorm": rms, "flash": flash}
+
+
+def phase_lm_cli(gpu: str) -> dict:
+    """The LM serving CLI on the card for reduced gemma-7b and both reduced
+    deepseek configs (the reduced MLA config's head dim 24 runs the flash
+    kernel padded to 32), the three processes at once (each counts its own
+    launches; they share the card); returns the counts by arch."""
+    _free_cuda()
+    with ThreadPoolExecutor(max_workers=len(CLI_ARCHS)) as pool:
+        runs = list(pool.map(_lm_cli_run, CLI_ARCHS))
+    return {arch: _lm_cli_check(gpu, arch, out) for arch, out in zip(CLI_ARCHS, runs)}
 
 
 def main() -> int:
@@ -3555,6 +3737,7 @@ def main() -> int:
     dist_train = phase("dist_train", phase_dist_train, gpu, dist)
     dist_cli = phase("dist_train cli", phase_dist_train_cli, gpu)
     lm = phase("lm serving", phase_lm_serving, gpu)
+    moe = phase("moe serving", phase_moe_serving, gpu)
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
@@ -3575,10 +3758,11 @@ def main() -> int:
     fused["launches_by_path"]["dist_train_cli_serve_4ranks"] = dist_cli["serve_4"]
     fused["dist_shapes"] = {k: v for k, v in dist["timed"].items() if not k.endswith("dW")}
     dw["dist_shapes"] = {k: v for k, v in dist["timed"].items() if k.endswith("dW")}
-    rms["launches"] = lm["rmsnorm"]
-    rms["launches_by_path"] = {"lm_serve": lm["rmsnorm"], "lm_cli": lm_cli["rmsnorm"]}
-    flash["launches"] = lm["flash"]
-    flash["launches_by_path"] = {"lm_serve": lm["flash"], "lm_cli": lm_cli["flash"]}
+    for record, key in ((rms, "rmsnorm"), (flash, "flash")):
+        record["launches"] = lm[key]
+        record["launches_by_path"] = {
+            "lm_serve": lm[key], "lm_cli": lm_cli[LM_ARCH][key], "moe_serve": moe[key],
+            "moe_cli": sum(lm_cli[arch][key] for arch in CLI_ARCHS if arch != LM_ARCH)}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the dense LM configs beside the FNO.
+"""Architecture registry of the port: the served LM configs beside the FNO.
 
 ``ARCH_IDS`` lists the reference's ten LM architectures; the port serves
-the dense ones (``DENSE_IDS``). ``get_arch`` of any other raises and names
-the ROADMAP item that ports its family. ``FNO_IDS`` are the paper's FNO
+the dense ones (``DENSE_IDS``) and the MoE ones (``MOE_IDS``), together
+``SERVED_IDS``. ``get_arch`` of any other raises and names the ROADMAP
+item that ports its family. ``FNO_IDS`` are the paper's FNO
 configs (Navier-Stokes and Sleipner), as the reference registers them;
 ``get_fno`` returns one's ``(CONFIG, SHAPES)``.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.configs.base import NOT_PORTED, PORTED_FAMILIES, ArchConfig, MLAConfig, MoEConfig
 
 ARCH_IDS = (
     "deepseek-moe-16b",
@@ -27,6 +28,8 @@ ARCH_IDS = (
 )
 
 DENSE_IDS = ("chameleon-34b", "qwen1.5-32b", "chatglm3-6b", "gemma-7b", "minitron-8b")
+MOE_IDS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
+SERVED_IDS = DENSE_IDS + MOE_IDS
 
 FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
 
@@ -34,7 +37,7 @@ FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if name not in DENSE_IDS:
+    if name not in SERVED_IDS:
         raise NotImplementedError(f"arch {name!r}: {NOT_PORTED}")
     module = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
@@ -50,11 +53,10 @@ def get_fno(name: str):
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests, as the reference's
-    ``reduced`` builds it for the dense family."""
-    if cfg.family != "dense":
+    ``reduced`` builds it for the dense and MoE families."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
-    return dataclasses.replace(
-        cfg,
+    changes = dict(
         n_layers=2,
         d_model=64,
         n_heads=4,
@@ -64,6 +66,20 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         head_dim=16,
         window=16 if cfg.window else None,
     )
+    if cfg.moe:
+        changes["moe"] = MoEConfig(
+            n_experts=8,
+            top_k=2,
+            d_expert=32,
+            n_shared=cfg.moe.n_shared and 1,
+            first_dense_ff=64 if cfg.moe.first_dense_ff else 0,
+            norm_topk=cfg.moe.norm_topk,
+        )
+    if cfg.mla:
+        changes["mla"] = MLAConfig(kv_lora=32, dh_nope=16, dh_rope=8, dh_v=16)
+        changes["head_dim"] = None
+    return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "ArchConfig", "get_arch", "get_fno", "reduced"]
+__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "MOE_IDS", "SERVED_IDS", "ArchConfig", "MLAConfig",
+           "MoEConfig", "get_arch", "get_fno", "reduced"]

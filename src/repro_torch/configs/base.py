@@ -1,11 +1,13 @@
-"""Architecture configuration of the LM side, for the dense family.
+"""Architecture configuration of the LM side, for the dense and MoE families.
 
-Port of ``repro.configs.base.ArchConfig``: the same fields and defaults,
-so a config prints and compares like the reference's. The port serves the
-dense family only; the fields of the other families (``moe``, ``mla``,
-``ssm``, ``rglru``, ``encoder``, ``block_pattern``) are kept so that the
-field lists match, and every method that would need them raises and names
-ROADMAP Queue 1 item 5, where those families wait.
+Port of ``repro.configs.base.ArchConfig`` with its ``MLAConfig``, and of
+``repro.models.moe.MoEConfig`` (kept here, beside the config that holds
+it): the same fields and defaults, so a config prints and compares like
+the reference's. The port serves the dense family and the MoE family
+(DeepSeek's fine-grained experts, with MLA or plain attention); the fields
+of the other families (``ssm``, ``rglru``, ``encoder``, ``block_pattern``)
+are kept so that the field lists match, and every method that would need
+them raises and names ROADMAP Queue 1 item 5, where those families wait.
 """
 from __future__ import annotations
 
@@ -16,7 +18,32 @@ import torch
 
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5: the rest of the LLM family)"
 
+# the families the port computes; the others raise with NOT_PORTED
+PORTED_FAMILIES = ("dense", "moe")
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2): the compressed kv width,
+    the per-head no-RoPE and RoPE query/key dims and the value dim."""
+    kv_lora: int = 512
+    dh_nope: int = 128
+    dh_rope: int = 64
+    dh_v: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int          # per-expert FFN width
+    n_shared: int = 0      # shared ("always-on") experts, deepseek-style
+    first_dense_ff: int = 0  # layer-0 dense FFN width (0 = layer 0 is MoE too)
+    norm_topk: bool = False
+    capacity_factor: float = 1.25
+    aux_coef: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +66,8 @@ class ArchConfig:
     embed_scale: bool = False         # gemma: x *= sqrt(d)
     norm: str = "rms"                 # rms | ln
     norm_eps: float = 1e-6
-    moe: Optional[object] = None
-    mla: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[object] = None
     rglru: Optional[object] = None
     block_pattern: Tuple[str, ...] = ()
@@ -59,15 +86,46 @@ class ArchConfig:
         return _DTYPES[self.dtype]
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer block kind sequence (the dense family only)."""
-        if self.family != "dense":
+        """Per-layer block kind sequence: ``dense`` layers, or for the MoE
+        family ``moe`` layers after a ``dense0`` first layer when
+        ``moe.first_dense_ff`` is set."""
+        if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"family {self.family!r}: {NOT_PORTED}")
+        if self.family == "moe":
+            first = ("dense0",) if (self.moe and self.moe.first_dense_ff) else ("moe",)
+            return first + ("moe",) * (self.n_layers - 1)
         return ("dense",) * self.n_layers
 
     def approx_params(self) -> int:
         """Analytic parameter count, as the reference counts it."""
         d, v, hd = self.d_model, self.vocab, self.head_dim_
-        per_layer = d * self.n_heads * hd + 2 * d * self.kv_heads * hd
-        per_layer += self.n_heads * hd * d
-        per_layer += (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * self.d_ff
-        return 2 * v * d + len(self.layer_kinds()) * per_layer
+        total = 2 * v * d  # embed + lm_head
+        for kind in self.layer_kinds():
+            if self.mla is not None:
+                m = self.mla
+                total += d * self.n_heads * (m.dh_nope + m.dh_rope)
+                total += d * (m.kv_lora + m.dh_rope)
+                total += m.kv_lora * self.n_heads * (m.dh_nope + m.dh_v)
+                total += self.n_heads * m.dh_v * d
+            else:
+                total += d * self.n_heads * hd + 2 * d * self.kv_heads * hd
+                total += self.n_heads * hd * d
+            if kind == "moe":
+                mo = self.moe
+                total += d * mo.n_experts  # router
+                total += mo.n_experts * 3 * d * mo.d_expert
+                total += mo.n_shared * 3 * d * mo.d_expert
+            elif kind == "dense0":
+                total += 3 * d * self.moe.first_dense_ff
+            else:
+                total += (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * self.d_ff
+        return total
+
+    def approx_active_params(self) -> int:
+        """Parameters a token runs through (MoE: the routed top-k and the
+        shared experts only)."""
+        if self.moe is None:
+            return self.approx_params()
+        mo = self.moe
+        inactive = (mo.n_experts - mo.top_k) * 3 * self.d_model * mo.d_expert
+        return self.approx_params() - self.layer_kinds().count("moe") * inactive

@@ -18,7 +18,8 @@
 // p = exp(s - m'), l' = exp(m - m') l + sum(p), acc' = exp(m - m') acc +
 // p . v; the output is acc / max(l, 1e-30), cast once to q's type. GQA:
 // query head h reads kv head h / (H / KVH). D is one of 16, 32, 64, 128,
-// 256. The TPU kernel carries m, l and acc in VMEM scratch from one kv grid
+// 192, 256 (the wrapper zero-pads any other head dim up to 256 to the next
+// of these). The TPU kernel carries m, l and acc in VMEM scratch from one kv grid
 // step to the next; here the kv walk is a loop inside one CTA, since CTAs
 // run in no order, and a causal CTA stops after the last kv tile any of its
 // rows can see (the tiles it skips would add exp(-1e30 - m) = 0).
@@ -42,7 +43,8 @@
 //     span of the 128-byte swizzle: D = 256 is four boxes a row, and
 //     D < 64 one box whose columns past D are zeros;
 //   * S = Q K^T with `wgmma` m64n64k16 (both operands K-major in shared
-//     memory); O += P V with `wgmma` m64nDk16, P from registers (the
+//     memory); O += P V with `wgmma` m64nDk16 (n64 for D <= 64, n128,
+//     n192, n256), P from registers (the
 //     accumulator layout of S is the A-operand layout of P . V) and V
 //     MN-major in shared memory. P keeps f32 precision, as the TPU kernel's
 //     does: p = p_hi + p_lo, two bf16 values, both into one accumulator
@@ -51,11 +53,15 @@
 //   * causal query tiles are launched heaviest first (blockIdx.y reversed);
 //   * no atomics and no split over keys: two runs agree bitwise.
 // At D = 256 a CTA's tiles take 160 KB of shared memory (one CTA per SM)
-// and 225 registers a thread; at D <= 128, two CTAs share an SM. On an
+// and 225 registers a thread; at D = 192 (MLA's prefill: nope 128 + RoPE
+// 64, v zero-padded to 192) three boxes a row, 121 KB (one CTA per SM) and
+// 96 f32 accumulators a thread; at D <= 128, two CTAs share an SM. On an
 // NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py phase 8,
 // device time) it takes 0.047 ms at the gemma-7b prefill layer against
 // SDPA's 0.028 ms (the first version: 0.690 ms), 0.031 and 0.043 ms at the
-// chatglm3-6b and minitron-8b prefills (SDPA 0.025, 0.029 ms). What holds
+// chatglm3-6b and minitron-8b prefills (SDPA 0.025, 0.029 ms), 0.039-0.040
+// ms at the deepseek-v2-lite MLA prefill, D = 192 (SDPA 0.023 ms; bound 7.34
+// us of bytes). What holds
 // it back now is not settled:
 // dropping p_lo saves about a tenth, a cheaper exp less; neither two
 // consumer warpgroups sharing the K/V tiles nor two CTAs an SM (single K
@@ -65,7 +71,8 @@
 // Left for later work: a ping-pong schedule of two warpgroups, wider key
 // tiles for Q K^T, a TMA store of O.
 //
-// f32 operands (`flash_kernel_f32`, kept from the first version): products
+// f32 operands (`flash_kernel_f32`, kept from the first version; at
+// D = 192 its tiles take 163 KB of shared memory, at D = 256 139 KB): products
 // in f32 FFMA from shared memory, a far lower ceiling (the 67 TFLOP/s f32
 // peak): each thread holds a 4 x (BK/16) block of logits and a 4 x (D/16)
 // block of the output (rows ty + 16 i, columns tx + 16 j); q, k and p are
@@ -414,6 +421,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -734,6 +766,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 32: err = launch<32>(p, is_bf16, s); break;
     case 64: err = launch<64>(p, is_bf16, s); break;
     case 128: err = launch<128>(p, is_bf16, s); break;
+    case 192: err = launch<192>(p, is_bf16, s); break;
     case 256: err = launch<256>(p, is_bf16, s); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -5,12 +5,16 @@ Port of ``repro.kernels.flash_attention.ops.flash_attention`` on its
 by nothing else: CUDA tensors go to the hand-written kernel
 (``csrc/flash_attention.cu``), CPU tensors — which only a caller that asked
 for the CPU has — to the plain version in ``ref``. A failed build or launch
-raises; there is no fallback. Unlike the TPU wrapper nothing is padded: the
-kernel reads q, k and v through their (b, h, s) strides, so the strided
-views that the attention layer hands over are read in place, and it masks
-the ragged tails itself. The operands' dtype picks the kernel: bf16 runs on
-the tensor cores with TMA loads, which need 16-byte aligned base pointers
-and strides (``tma_alignment_error``); f32 runs the FFMA kernel.
+raises; there is no fallback. The kernel reads q, k and v through their
+(b, h, s) strides, so the strided views that the attention layer hands over
+are read in place, and it masks the ragged tails itself. It has instances
+for the head dims ``KERNEL_HEAD_DIMS``; any other head dim up to 256 (the
+reduced MLA config's 24) runs at the next instance up, with q, k and v
+zero-padded to it in copies here: the pad adds zeros to every q . k, the
+output's extra columns are zeros and are sliced off, and the scale stays
+the one of the true head dim. The operands' dtype picks the kernel: bf16
+runs on the tensor cores with TMA loads, which need 16-byte aligned base
+pointers and strides (``tma_alignment_error``); f32 runs the FFMA kernel.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import KernelLibrary, load
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -27,7 +32,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 LIBRARY = KernelLibrary("repro_torch_flash_attention", (
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "flash_attention.cu"),
 ))
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# head dims the kernel has an instance for (csrc/flash_attention.cu)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,6 +88,17 @@ def tma_alignment_error(name: str, t: torch.Tensor) -> Optional[str]:
     return None
 
 
+def kernel_head_dim(d: int) -> int:
+    """The kernel instance a head dim ``d`` runs at: the smallest of
+    ``KERNEL_HEAD_DIMS`` at or above it. Raises ValueError for a head dim
+    the kernel cannot take (below 1 or above 256)."""
+    for dk in KERNEL_HEAD_DIMS:
+        if 1 <= d <= dk:
+            return dk
+    raise ValueError(f"head dim {d} is not in 1..{KERNEL_HEAD_DIMS[-1]}: the kernel has "
+                     f"instances for {KERNEL_HEAD_DIMS} and pads a smaller one to the next")
+
+
 def _validate(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be 4-D")
@@ -114,9 +131,10 @@ def flash_attention(
 
     f32 arithmetic inside; causal offset ``sk - sq`` on the true lengths;
     GQA maps query head i to kv head i // (h // kvh); ``scale`` defaults
-    to d**-0.5. On the card d must be one of ``HEAD_DIMS``, each operand
-    must have unit stride along d, and bf16 operands must pass
-    ``tma_alignment_error``."""
+    to d**-0.5. On the card d must be at most 256 (``kernel_head_dim``);
+    at one of ``KERNEL_HEAD_DIMS`` each operand must have unit stride along
+    d, and bf16 operands must pass ``tma_alignment_error``; another d is
+    padded into contiguous copies (one launch all the same)."""
     _validate(q, k, v, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -124,8 +142,10 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} is not one of {HEAD_DIMS}")
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    if dk != d:
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
     if q.dtype == torch.bfloat16:
@@ -134,5 +154,6 @@ def flash_attention(
             if reason is not None:
                 raise ValueError(f"the bf16 kernel's TMA loads need 16-byte alignment: {reason}")
     if q.numel() == 0:
-        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        return torch.empty(q.shape[:3] + (d,), dtype=q.dtype, device=q.device)
+    o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return o if dk == d else o[..., :d]

@@ -6,11 +6,15 @@ random weights (seed 0) through ``Engine``, greedy decoding over
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
 
-The default device is the card (the hand-written RMSNorm and flash-attention
+``--arch`` is any served config (``SERVED_IDS``: the dense family and the
+MoE family, deepseek-moe-16b and deepseek-v2-lite-16b with MLA). The
+default device is the card (the hand-written RMSNorm and flash-attention
 kernels, built at first use); there it also prints both kernels' launch
-counts. ``--device cpu`` runs their plain versions. Full width is served by
-``chip_smoke.py``.
+counts (``norms_per_forward`` RMSNorms per prefill or decode step, one
+flash attention per layer per prefill). ``--device cpu`` runs their plain
+versions. Full width is served by ``chip_smoke.py``.
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
-"""GQA/MQA/MHA attention with a KV cache: projections and decode.
+"""GQA/MQA/MHA and MLA attention with a KV cache: projections and decode.
 
-Port of the dense part of ``repro.models.attention``: ``_project_qkv``
-(with ``qkv_bias``, ``qk_norm`` and partial RoPE), ``init_kv_cache``,
-``attn_decode`` and ``decode_attention`` (``attention.py:55-74``,
-``:184-259``, ``:333-345``). Split and quantised caches, sliding windows
-and MLA are not ported (ROADMAP Queue 1 item 5).
+Port of ``repro.models.attention`` less its distributed parts:
+``_project_qkv`` (with ``qkv_bias``, ``qk_norm`` and partial RoPE),
+``init_kv_cache``, ``attn_decode`` and ``decode_attention``
+(``attention.py:55-74``, ``:184-259``, ``:333-345``), and DeepSeek-V2's
+multi-head latent attention: ``init_mla_params``, ``_mla_qkr``,
+``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on its unsplit cache
+(``:354-479``). Split and quantised caches (which only a distributed
+policy takes) and sliding windows are not ported (ROADMAP Queue 1 item 5).
 
 Layouts as in the reference: residual stream [b, s, d]; heads [b, h, s,
-hd]; the cache {"k": [b, kvh, S, hd], "v": ...}.
+hd]; the cache {"k": [b, kvh, S, hd], "v": ...}; the MLA cache {"ckv":
+[b, S, kv_lora], "kr": [b, S, dh_rope]}, the compressed latent and the
+shared RoPE key, bf16 whatever the activation dtype.
 
 Decode is batched over slots with a per-slot index vector, where the
 reference vmaps a batch-1 step over the slots: each row gets its own RoPE
@@ -18,8 +23,10 @@ returns the same dict.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import NOT_PORTED
+from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -49,19 +56,29 @@ def _project_qkv(p, x, cfg, positions):
 
 
 def dense_only(cfg):
-    """Refuse the variants that are not ported: sliding windows, LayerNorm."""
+    """Refuse the attention variants that are not ported: sliding windows,
+    LayerNorm."""
     if cfg.window is not None:
         raise NotImplementedError(f"sliding-window caches: {NOT_PORTED}")
     if cfg.norm != "rms":
         raise NotImplementedError(f"norm {cfg.norm!r}: {NOT_PORTED}")
 
 
+def cache_shapes(cfg, batch: int, max_len: int) -> dict:
+    """The leaf shapes of one layer's plain cache, the sequence dim second
+    to last: the latent and the RoPE key under MLA, else k and v."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": (batch, max_len, m.kv_lora), "kr": (batch, max_len, m.dh_rope)}
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim_)
+    return {"k": shape, "v": shape}
+
+
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """Plain cache: one zeroed [batch, kvh, max_len, hd] buffer per k/v."""
     dense_only(cfg)
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in cache_shapes(cfg, batch, max_len).items()}
 
 
 def attn_decode(p, x, cache, index, cfg, n_keys=None):
@@ -103,3 +120,106 @@ def decode_attention(q, k, v, valid):
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", w.to(v.dtype).float(), v.float())
     return o.reshape(b, h, 1, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2). Per-head no-RoPE dims
+# attend against up-projections of a compressed latent; one shared RoPE key
+# rides alongside. The cache holds the latent and the RoPE key.
+# ---------------------------------------------------------------------------
+
+def init_mla_params(cfg, normal, ones) -> dict:
+    """MLA's leaves with the reference's shapes and scales; ``normal(name,
+    shape, std)`` and ``ones(name, shape)`` make (and finish) a leaf."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    std = d ** -0.5
+    return {
+        "wq": normal("wq", (d, h * (m.dh_nope + m.dh_rope)), std),
+        "w_dkv": normal("w_dkv", (d, m.kv_lora + m.dh_rope), std),
+        "kv_norm": ones("kv_norm", (m.kv_lora,)),
+        "k_up": normal("k_up", (m.kv_lora, h * m.dh_nope), m.kv_lora ** -0.5),
+        "v_up": normal("v_up", (m.kv_lora, h * m.dh_v), m.kv_lora ** -0.5),
+        "wo": normal("wo", (h * m.dh_v, d), std),
+    }
+
+
+def _mla_qkr(p, x, cfg, positions):
+    """x: [b, s, d] -> q_nope [b, s, h, dh_nope], q_rope [b, s, h, dh_rope]
+    (rotated), the normed latent ckv [b, s, kv_lora] (through the RMSNorm
+    kernel) and the rotated shared key k_rope [b, s, dh_rope]."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, m.dh_nope + m.dh_rope)
+    q_nope, q_rope = q[..., : m.dh_nope], q[..., m.dh_nope:]
+    q_rope = layers.apply_rope(q_rope, positions, theta=cfg.rope_theta)
+    dkv = x @ p["w_dkv"].to(x.dtype)
+    ckv = layers.rms_norm(dkv[..., : m.kv_lora].contiguous(), p["kv_norm"])
+    k_rope = layers.apply_rope(dkv[:, :, None, m.kv_lora:], positions, theta=cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_forward(p, x, cfg, *, positions=None, return_latents=False):
+    """Full-sequence causal MLA (prefill): per-head k and v materialised
+    from the latent, one flash-attention launch at head dim dh_nope +
+    dh_rope with v zero-padded to it (the output's extra columns are zeros
+    and are sliced off). Returns out [b, s, d], and with ``return_latents``
+    also the (ckv, k_rope) the cache keeps."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, positions)
+    k_nope = (ckv @ p["k_up"].to(x.dtype)).reshape(b, s, h, m.dh_nope)
+    v = (ckv @ p["v_up"].to(x.dtype)).reshape(b, s, h, m.dh_v)
+    dq = m.dh_nope + m.dh_rope
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, m.dh_rope)], dim=-1)
+    v = F.pad(v, (0, dq - m.dh_v))
+    o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=True, scale=dq ** -0.5)
+    o = o.transpose(1, 2)[..., : m.dh_v].reshape(b, s, h * m.dh_v)
+    out = o @ p["wo"].to(x.dtype)
+    return (out, ckv, k_rope) if return_latents else out
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Plain MLA cache: zeroed latent [batch, max_len, kv_lora] and RoPE key
+    [batch, max_len, dh_rope]."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in cache_shapes(cfg, batch, max_len).items()}
+
+
+def mla_decode(p, x, cache, index, cfg, n_keys=None):
+    """One absorbed-projection decode step for every row: attention runs in
+    the latent space, so a cached token costs kv_lora + dh_rope values.
+
+    x: [b, 1, d]; cache {"ckv", "kr"}: [b, S, ...], updated in place at each
+    row's ``index`` (int tensor [b]); ``n_keys`` = max(index) + 1 when the
+    caller knows it. As the reference: k_up absorbed into q in f32, q's
+    latent and RoPE parts cast to the cache dtype, logits accumulated in
+    f32, f32 softmax, the latent output and v_up in f32, the result cast to
+    x's dtype before ``wo``. Returns (out [b, 1, d], cache)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, index[:, None])
+    rows = torch.arange(b, device=x.device)
+    cache["ckv"][rows, index] = ckv[:, 0].to(cache["ckv"].dtype)
+    cache["kr"][rows, index] = k_rope[:, 0].to(cache["kr"].dtype)
+    n = int(index.max()) + 1 if n_keys is None else n_keys
+    ckv_c, kr_c = cache["ckv"][:, :n], cache["kr"][:, :n]
+    k_up = p["k_up"].reshape(m.kv_lora, h, m.dh_nope)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), k_up.float())
+    qr = q_rope[:, 0].float()
+    # a product of two values of the cache dtype is exact in f32
+    logits = torch.einsum("bhl,bsl->bhs", q_lat.to(ckv_c.dtype).float(), ckv_c.float())
+    logits = logits + torch.einsum("bhr,bsr->bhs", qr.to(kr_c.dtype).float(), kr_c.float())
+    logits = logits * (m.dh_nope + m.dh_rope) ** -0.5
+    valid = torch.arange(n, device=x.device)[None, :] <= index[:, None]
+    w = torch.softmax(logits.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", w, ckv_c.float())
+    v_up = p["v_up"].reshape(m.kv_lora, h, m.dh_v)
+    o = torch.einsum("bhl,lhv->bhv", o_lat, v_up.float())
+    o = o.reshape(b, 1, h * m.dh_v).to(x.dtype)
+    return o @ p["wo"].to(x.dtype), cache

@@ -1,6 +1,6 @@
 """Token-family ModelRunner and the LLM serving engine.
 
-Port of ``repro.serve.engine`` for the dense family. ``TransformerRunner``
+Port of ``repro.serve.engine`` for the dense and MoE families. ``TransformerRunner``
 prefills a request's cache on admission and advances every active slot by
 one greedy decode step per scheduler tick, on the shared slot scheduler.
 Per-slot sequence positions differ, so the decode step runs all slots as
@@ -10,9 +10,15 @@ in the reference, and its row is overwritten whole on the next admission.
 
 The runner holds the serving parameters (``serving_params``): matmul
 weights cast once to the activation dtype, the embedding table and the
-norm weights float32. Its KV cache is bfloat16 whatever the activation
-dtype, as the reference's. Greedy argmax takes the first of tied logits,
-as ``jnp.argmax`` does.
+norm weights float32. Its KV cache (under MLA the latent cache) is
+bfloat16 whatever the activation dtype, as the reference's. Greedy argmax
+takes the first of tied logits, as ``jnp.argmax`` does.
+
+MoE: each admission prefills its prompt alone, so the prompt's routing
+capacity and drops are the reference's; the decode step routes the slots'
+tokens together with room for all of them on every expert, so it drops
+none for any number of slots, as the reference's one-token steps under
+``vmap`` drop none.
 """
 from __future__ import annotations
 
@@ -23,12 +29,14 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.models import transformer as tf_lib
 from repro_torch.serve.scheduler import Scheduler
 
-# Families Engine can decode with lm_prefill/lm_decode_step. The reference
-# also serves moe, ssm and hybrid; those wait in ROADMAP Queue 1 item 5.
-SERVABLE_FAMILIES = ("dense",)
+# Families Engine can decode with lm_prefill/lm_decode_step: the ported
+# ones. The reference also serves ssm and hybrid; those wait in ROADMAP
+# Queue 1 item 5.
+SERVABLE_FAMILIES = PORTED_FAMILIES
 
 
 @dataclasses.dataclass
@@ -77,8 +85,7 @@ class TransformerRunner:
         t0 = time.perf_counter()
         tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
         # the prefill writes the slot's whole row: the prompt, zeros past it
-        row = {"layer0": None, "layers": {
-            name: c[:, slot:slot + 1] for name, c in self.cache["layers"].items()}}
+        row = tf_lib.cache_rows(self.cache, slot, slot + 1)
         logits, _ = tf_lib.lm_prefill(self.params, tokens, self.cfg, cache=row)
         nxt = int(torch.argmax(logits[0]))
         req.output.append(nxt)

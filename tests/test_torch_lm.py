@@ -30,7 +30,7 @@ from repro.models import transformer as jtf
 from repro.models.policy import ParallelPolicy
 from repro.serve import Engine as JEngine
 from repro.serve import Request as JRequest
-from repro_torch.configs import ARCH_IDS, DENSE_IDS, get_arch, reduced
+from repro_torch.configs import ARCH_IDS, DENSE_IDS, SERVED_IDS, get_arch, reduced
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -128,7 +128,7 @@ def test_gemma_7b_full_width_numbers():
     assert abs(cfg.approx_params() - 9.32e9) < 0.01e9
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(DENSE_IDS)))
+@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(SERVED_IDS)))
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         get_arch(arch)
@@ -137,14 +137,14 @@ def test_other_families_name_their_roadmap_item(arch):
 def test_unknown_arch_and_other_family_refusals():
     with pytest.raises(KeyError):
         get_arch("gpt-2")
-    moe = dataclasses.replace(reduced(get_arch("gemma-7b")), family="moe")
+    ssm = dataclasses.replace(reduced(get_arch("gemma-7b")), family="ssm")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        reduced(moe)
+        reduced(ssm)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        moe.layer_kinds()
+        ssm.layer_kinds()
     with pytest.raises(ValueError, match="not servable"):
-        TransformerRunner(moe, {}, device="cpu")
-    assert SERVABLE_FAMILIES == ("dense",)
+        TransformerRunner(ssm, {}, device="cpu")
+    assert SERVABLE_FAMILIES == ("dense", "moe")
     with pytest.raises(ValueError, match="activation dtype"):
         ArchConfig("x", "dense", 1, 8, 1, 1, 8, 8, dtype="float16").activation_dtype
 
@@ -485,8 +485,9 @@ def test_serve_cli_on_the_cpu():
 def test_serve_cli_refuses_without_a_card_and_names_unported_archs():
     out = _cli("--requests", "1", env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0 and "no CUDA device" in out.stderr
-    out = _cli("--arch", "mamba2-370m", "--device", "cpu")
-    assert out.returncode != 0 and "Queue 1 item 5" in out.stderr
+    for arch in ("mamba2-370m", "recurrentgemma-2b", "whisper-tiny"):
+        out = _cli("--arch", arch, "--device", "cpu")
+        assert out.returncode != 0 and "Queue 1 item 5" in out.stderr
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,11 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
     flash_attention,
     flash_attention_cuda,
     flash_attention_ref,
+    kernel_head_dim,
 )
 from repro_torch.kernels.flash_attention.ops import tma_alignment_error
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref
@@ -113,6 +114,9 @@ FLASH_CASES = [
     ("d256-causal-bf16", 1, 2, 2, 140, 140, 256, True, "bfloat16"),
     ("d256-gqa-sq<sk", 1, 4, 2, 33, 129, 256, True, "float32"),
     ("mqa-noncausal-bf16", 1, 4, 1, 70, 70, 128, False, "bfloat16"),
+    # MLA's prefill (nope 128 + RoPE 64, v padded to 192) and the reduced MLA config's 24
+    ("mla-d192-bf16", 1, 4, 4, 70, 70, 192, True, "bfloat16"),
+    ("mla-reduced-d24", 1, 4, 4, 19, 19, 24, True, "float32"),
 ]
 
 
@@ -154,6 +158,18 @@ def test_flash_rejects_what_it_cannot_compute(shapes, causal, match):
     qs, ks = shapes
     with pytest.raises(ValueError, match=match):
         flash_attention(torch.zeros(qs), torch.zeros(ks), torch.zeros(ks), causal=causal)
+
+
+def test_kernel_head_dim_is_the_next_instance_and_refuses_past_256():
+    """The wrapper runs a head dim at the smallest kernel instance at or
+    above it (24, the reduced MLA config's, at 32, zero-padded) and refuses
+    what no instance can take; a refused head dim raises before any launch."""
+    assert KERNEL_HEAD_DIMS == (16, 32, 64, 128, 192, 256)
+    want = {1: 16, 16: 16, 17: 32, 24: 32, 48: 64, 100: 128, 129: 192, 192: 192, 200: 256, 256: 256}
+    assert {d: kernel_head_dim(d) for d in want} == want
+    for bad in (0, 257, 320, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            kernel_head_dim(bad)
 
 
 def test_tma_alignment_error_names_what_the_bf16_kernel_cannot_load():
@@ -264,8 +280,11 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
     ("chatglm3-gqa", 1, 32, 2, 777, 777, 128, True, "bfloat16"),
     ("f32-d256-ragged", 2, 2, 1, 65, 97, 256, True, "float32"),
     ("gemma-prefill-f32", 1, 16, 16, 1000, 1000, 256, True, "float32"),
+    ("v2-lite-mla-prefill", 1, 16, 16, 1000, 1000, 192, True, "bfloat16"),
+    ("v2-lite-mla-prefill-f32", 1, 16, 16, 1000, 1000, 192, True, "float32"),
 ], ids=[c[0] for c in FLASH_CASES] + ["gemma-prefill", "chatglm3-gqa", "f32-d256-ragged",
-                                      "gemma-prefill-f32"])
+                                      "gemma-prefill-f32", "v2-lite-mla-prefill",
+                                      "v2-lite-mla-prefill-f32"])
 def test_flash_kernel_matches_plain(cuda, name, b, h, kvh, sq, sk, d, causal, dtype):
     rng = np.random.default_rng(len(name) + d)
     # [b, s, h, d] tensors swapped to [b, h, s, d], as the attention layer does
@@ -284,9 +303,11 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(x.t(), torch.ones(4, device=cuda))
-    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    q = torch.zeros(1, 2, 8, 320, device=cuda)
+    before = flash_attention_cuda.launches
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+    assert flash_attention_cuda.launches == before
 
 
 # the bf16 kernel's edges: q tiles of 64 rows and K/V tiles of 64 keys
@@ -317,15 +338,20 @@ def test_flash_bf16_kernel_at_tile_edges(cuda, sq, sk, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS + (24,))
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bf16_kernel_every_head_dim(cuda, d, causal):
+    """Every instance, and 24 (the reduced MLA config's) padded to 32: one
+    launch either way."""
     rng = np.random.default_rng(d + causal)
     q, k, v = _bf16_qkv(rng, 1, 4, 2, 130, 193, d, cuda)
     if causal:
         q = q[:, :, :97]
-    _close_to_plain(flash_attention(q, k, v, causal=causal),
-                    flash_attention_ref(q, k, v, causal=causal), "bfloat16")
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and got.shape == q.shape
+    _close_to_plain(got, flash_attention_ref(q, k, v, causal=causal), "bfloat16")
 
 
 @pytest.mark.cuda
