@@ -121,9 +121,11 @@ Phases, each failing hard:
      ragged rows and tails, MHA/GQA/MQA, sq < sk, non-causal, head dims
      16-256 (24 padded to the 32 instance) and the serving path's shapes in
      bf16 and f32 (gemma-7b, chatglm3-6b and minitron-8b prefills,
-     deepseek-v2-lite's MLA prefill at head dim 192, prefill and decode
-     norms at gemma's d 3072, deepseek-v2-lite's d_model 2048 and its MLA
-     latent's 512), with
+     deepseek-v2-lite's MLA prefill at head dim 192, recurrentgemma-2b's
+     MQA prefill of 10 query heads over 1 kv head at head dim 256, prefill
+     and decode norms at gemma's d 3072, deepseek-v2-lite's d_model 2048
+     (also mamba2-370m's gated norm), its MLA latent's 512, mamba2-370m's
+     d_model 1024 and recurrentgemma-2b's 2560), with
      bf16 held to one rounding of the output, and time each
      against its bound, its plain version and one PyTorch call
      (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick,
@@ -139,9 +141,18 @@ Phases, each failing hard:
      102400), its weights drawn and cast one leaf at a time (the peak
      printed), with the prefills' MoE drop share and the decode steps held
      dropless;
- 10. the LM serving CLI on the card, as three subprocesses at once, for
+ 9c. recurrent serving: the same for mamba2-370m (48 SSD layers, d_model
+     1024, d_state 128) and recurrentgemma-2b (26 layers of rec, rec, attn:
+     RG-LRU width 2560, local MQA attention 10 x 256 over 1 kv head, window
+     2048, GeGLU 7680, vocab 256000), max_len 2320; recurrentgemma takes
+     two more requests, a 2300-token prompt (the windowed prefill: no flash,
+     a rolled ring) and a 2040-token one whose decode crosses the ring's
+     wrap at index 2048; besides the 2 prompts' logits, those of the
+     windowed prefill and of the decode step at index 2048 (fed the
+     engine's tokens) are held against the plain path;
+ 10. the LM serving CLI on the card, as five subprocesses at once, for
      reduced gemma-7b, deepseek-v2-lite-16b (flash at head dim 24, padded
-     to 32) and deepseek-moe-16b.
+     to 32), deepseek-moe-16b, mamba2-370m and recurrentgemma-2b.
 
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
@@ -158,9 +169,10 @@ pipeline stage, in a forward + backward, the fused kernel 3 times per
 micro-batch (forward, remat recompute, dx) and the cotangent kernel once;
 the fno-ns3d forward once per block; the online trainer and its served
 checkpoint as the training and serving CLIs. Each LM
-prefill must launch flash attention once per layer, and each LM forward
-(prefill or decode step) the RMSNorm kernel 2 L + 1 times (3 L + 1 under
-MLA, with the latent's norm).
+prefill must launch flash attention once per attention layer (none past a
+sliding window, none for mamba2), and each LM forward (prefill or decode
+step) the RMSNorm kernel 2 L + 1 times (3 L + 1 under MLA, with the
+latent's norm; an SSM layer's second norm is its mixer's gated norm).
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -170,6 +182,7 @@ without a result when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -200,6 +213,9 @@ LM_BF16_REL, LM_BF16_ABS_OF_MAX = 2.0 ** -7, 1e-3
 # versions: 28 layers of bf16 activations, where one rounding flip of an
 # activation propagates through every later layer
 LM_LOGIT_GATE = 3e-2
+# the same with float32 activations (on the same bf16-valued weights),
+# where the kernels and the plain versions differ by float32 rounding only
+LM_F32_LOGIT_GATE = 1e-4
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:217"
@@ -3293,16 +3309,21 @@ def phase_lm_kernels(gpu: str) -> tuple:
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(types[dtype])
 
-    # rmsnorm: (rows, d, dtype); the timed ones (bf16 at d 3072, 2048 and
-    # 512) are a gemma-7b prefill of 1000 tokens and a decode step over 4
-    # slots, deepseek-v2-lite's ln1/ln2/final_norm (d_model 2048) and its
-    # latent norm (kv_norm, d = kv_lora = 512) at both
+    # rmsnorm: (rows, d, dtype); the timed ones (bf16 at d 3072, 2048, 512,
+    # 1024 and 2560) are a gemma-7b prefill of 1000 tokens and a decode step
+    # over 4 slots, deepseek-v2-lite's ln1/ln2/final_norm (d_model 2048, also
+    # mamba2-370m's gated norm over d_inner) and its latent norm (kv_norm, d
+    # = kv_lora = 512), mamba2-370m's ln1/final_norm (d_model 1024) and
+    # recurrentgemma-2b's norms (d_model 2560) at both
+    timed_d = (3072, 2048, 512, 1024, 2560)
     rms_cases = [(1, 8, "float32"), (37, 96, "bfloat16"), (256, 96, "float32"),
                  (300, 8, "bfloat16"), (300, 3072, "float32"), (300, 3072, "bfloat16"),
                  (1000, 3072, "float32"), (4, 3072, "float32"),
                  (1000, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                  (1000, 2048, "float32"), (1000, 2048, "bfloat16"), (4, 2048, "bfloat16"),
-                 (1000, 512, "float32"), (1000, 512, "bfloat16"), (4, 512, "bfloat16")]
+                 (1000, 512, "float32"), (1000, 512, "bfloat16"), (4, 512, "bfloat16"),
+                 (1000, 1024, "float32"), (1000, 1024, "bfloat16"), (4, 1024, "bfloat16"),
+                 (1000, 2560, "float32"), (1000, 2560, "bfloat16"), (4, 2560, "bfloat16")]
     rms = {}
     for rows, d, dtype in rms_cases:
         x = randn((rows, d), dtype, 3.0)
@@ -3310,7 +3331,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
         got = rmsnorm(x, w)
         torch.cuda.synchronize()
         err = _lm_check(f"rmsnorm {rows}x{d} {dtype}", got, rmsnorm_ref(x, w))
-        if d in (3072, 2048, 512) and dtype == "bfloat16" and rows in (1000, 4):
+        if d in timed_d and dtype == "bfloat16" and rows in (1000, 4):
             ms = device_ms(lambda: rmsnorm(x, w))
             plain = device_ms(lambda: rmsnorm_ref(x, w))
             lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
@@ -3336,6 +3357,10 @@ def phase_lm_kernels(gpu: str) -> tuple:
         "moe_d_model_shapes": {f"x [{rows}, {d}] bf16": {k: v for k, v in rms[rows, d].items()
                                                           if k != "max_abs_err"}
                                for rows, d in ((1000, 2048), (4, 2048))},
+        "recurrent_d_model_shapes": {f"x [{rows}, {d}] bf16": {k: v for k, v in rms[rows, d].items()
+                                                                if k != "max_abs_err"}
+                                     for rows, d in ((1000, 1024), (4, 1024), (1000, 2560),
+                                                     (4, 2560))},
     }
 
     # flash: (name, b, h, kvh, sq, sk, d, causal, dtype, timed)
@@ -3361,6 +3386,10 @@ def phase_lm_kernels(gpu: str) -> tuple:
         ("reduced mla d24, padded to 32 (device time of the pads too)", 1, 4, 4, 77, 77, 24,
          True, "bfloat16", True),
         ("reduced mla d24 f32", 1, 4, 4, 77, 77, 24, True, "float32", False),
+        # recurrentgemma-2b's local attention within its window: MQA, 10
+        # query heads over 1 kv head (a group that is not a power of two)
+        ("recurrentgemma-2b mqa prefill f32", 1, 10, 1, 1000, 1000, 256, True, "float32", False),
+        ("recurrentgemma-2b mqa prefill", 1, 10, 1, 1000, 1000, 256, True, "bfloat16", True),
     ]
     flash = {}
     for name, b, h, kvh, sq, sk, d, causal, dtype, timed in flash_cases:
@@ -3428,7 +3457,13 @@ def plain_kernels():
 LM_ARCH, LM_SLOTS, LM_REQUESTS, LM_MAX_TOKENS, LM_MAX_LEN = "gemma-7b", 4, 8, 16, 1040
 # the MoE family's served config (gemma's traffic) and the CLI's archs
 MOE_ARCH = "deepseek-v2-lite-16b"
-CLI_ARCHS = (LM_ARCH, MOE_ARCH, "deepseek-moe-16b")
+# the SSM and hybrid families' served configs (gemma's traffic; recurrentgemma
+# with two more requests: one past its window of 2048, one whose decode
+# steps cross the ring's wrap at index 2048)
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "recurrentgemma-2b"
+HYBRID_EXTRA = (2300, 2040)
+RECURRENT_MAX_LEN = 2320
+CLI_ARCHS = (LM_ARCH, MOE_ARCH, "deepseek-moe-16b", SSM_ARCH, HYBRID_ARCH)
 
 
 @contextlib.contextmanager
@@ -3505,52 +3540,65 @@ def _drop_share(seen, prefill: bool) -> tuple:
     return sum(n for _, n in rows), sum(e for e, _ in rows)
 
 
-def _serve_lm(gpu: str, arch: str, tag: str) -> dict:
+def _serve_lm(gpu: str, arch: str, tag: str, extra: tuple = (), max_len: int = LM_MAX_LEN,
+              bf16_gate=LM_LOGIT_GATE, f32_check: bool = False) -> dict:
     """``arch`` at full width through Engine (LM_REQUESTS requests on LM_SLOTS
-    slots), then 2 prompts' logits through the kernels vs the plain
-    versions; returns the kernels' launch counts (and, for the MoE family,
-    the prefills' drop share)."""
+    slots, and one more request for each prompt length in ``extra``), then
+    2 prompts' logits through the kernels vs the plain versions (and each
+    extra prompt's: under a sliding window the windowed prefill, and the
+    decode step at the ring's wrap); returns the kernels' launch counts
+    (and, for the MoE family, the prefills' drop share)."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import init_lm_params, lm_decode_step, lm_prefill
-    from repro_torch.models.transformer import norms_per_forward
+    from repro_torch.models.transformer import flash_per_prefill, norms_per_forward
     from repro_torch.serve import Engine, Request
 
     cfg = get_arch(arch)
-    attn = (f"MLA {cfg.mla.kv_lora}/{cfg.mla.dh_nope}/{cfg.mla.dh_rope}/{cfg.mla.dh_v}"
-            if cfg.mla else f"{cfg.kv_heads} kv heads x {cfg.head_dim_}")
-    ffn = (f"{cfg.moe.n_experts} routed experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared "
-           f"of width {cfg.moe.d_expert}, layer 0 dense {cfg.moe.first_dense_ff}"
-           if cfg.moe else f"d_ff {cfg.d_ff}")
+    if cfg.ssm:
+        layout = (f"SSD mixers: d_inner {cfg.ssm.d_inner(cfg.d_model)}, {cfg.ssm.n_heads(cfg.d_model)} "
+                  f"heads x {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    else:
+        attn = (f"MLA {cfg.mla.kv_lora}/{cfg.mla.dh_nope}/{cfg.mla.dh_rope}/{cfg.mla.dh_v}"
+                if cfg.mla else f"{cfg.n_heads} heads over {cfg.kv_heads} kv heads x {cfg.head_dim_}")
+        if cfg.window:
+            attn = (f"pattern {'/'.join(cfg.pattern)}, RG-LRU width "
+                    f"{cfg.rglru.width(cfg.d_model)}, local attention {attn}, window {cfg.window}")
+        ffn = (f"{cfg.moe.n_experts} routed experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared "
+               f"of width {cfg.moe.d_expert}, layer 0 dense {cfg.moe.first_dense_ff}"
+               if cfg.moe else f"d_ff {cfg.d_ff}")
+        layout = f"{attn}, {ffn}"
     print(f"[{tag}] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads, {attn}, {ffn}, vocab {cfg.vocab}, "
-          f"{cfg.approx_params() / 1e9:.2f} B params; random weights (seed 0)")
+          f"{layout}, vocab {cfg.vocab}, {cfg.approx_params() / 1e9:.2f} B params (the reference's "
+          f"count); random weights (seed 0)")
     dev = torch.device("cuda")
     _free_cuda()
     t0 = time.perf_counter()
     # each leaf drawn in f32 and cast at once: the f32 masters never coexist
     params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev,
                             serving=True)
-    engine = Engine(cfg, params, max_len=LM_MAX_LEN, max_batch=LM_SLOTS, device=dev)
+    engine = Engine(cfg, params, max_len=max_len, max_batch=LM_SLOTS, device=dev)
     del params
     torch.cuda.synchronize()
     runner = engine.runner
     held = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
     cache = sum(t.numel() * t.element_size() for t in _leaves(runner.cache))
+    draw_peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{tag}] weights set up in {time.perf_counter() - t0:.1f}s, drawn leaf by leaf; peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the runner holds "
-          f"{held / 1e9:.2f} GB of weights and a {cache / 1e9:.3f} GB bf16 cache; {gpu}")
+          f"{draw_peak:.2f} GiB; the runner holds "
+          f"{held / 1e9:.2f} GB of weights and a {cache / 1e9:.3f} GB cache; {gpu}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     rng = np.random.default_rng(0)
-    lengths = rng.integers(200, 1001, size=LM_REQUESTS)
+    lengths = np.concatenate([rng.integers(200, 1001, size=LM_REQUESTS), np.array(extra, int)])
     prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist() for n in lengths]
-    print(f"[{tag}] {LM_REQUESTS} requests, prompt lengths {lengths.tolist()}, max_tokens "
-          f"{LM_MAX_TOKENS}, max_len {LM_MAX_LEN}, {LM_SLOTS} slots")
+    n_requests = len(prompts)
+    print(f"[{tag}] {n_requests} requests, prompt lengths {lengths.tolist()}, max_tokens "
+          f"{LM_MAX_TOKENS}, max_len {max_len}, {LM_SLOTS} slots")
     for rid, prompt in enumerate(prompts):
         engine.submit(Request(rid=rid, prompt=prompt, max_tokens=LM_MAX_TOKENS))
     with counted_drops() as seen:
@@ -3562,7 +3610,7 @@ def _serve_lm(gpu: str, arch: str, tag: str) -> dict:
         launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
     if engine.failed:
         raise SystemExit(f"[{tag}] {len(engine.failed)} requests failed: {engine.failed[0].error!r}")
-    if len(done) != LM_REQUESTS or any(
+    if len(done) != n_requests or any(
             len(r.output) != LM_MAX_TOKENS or not all(0 <= t < cfg.vocab for t in r.output)
             for r in done):
         raise SystemExit(f"[{tag}] a request did not return max_tokens valid token ids")
@@ -3577,7 +3625,9 @@ def _serve_lm(gpu: str, arch: str, tag: str) -> dict:
     stats = {"requests": len(done), "tokens": tokens, "seconds": dt,
              "prefill_ms_mean": float(np.mean(runner.prefill_s) * 1e3),
              "decode_ms_mean": float(np.mean(runner.decode_s) * 1e3),
-             "decode_ms_median": float(np.median(runner.decode_s) * 1e3), "peak_gib": peak}
+             "decode_ms_median": float(np.median(runner.decode_s) * 1e3), "peak_gib": peak,
+             "tok_per_s": tokens / dt, "draw_peak_gib": draw_peak, "held_weights_gb": held / 1e9,
+             "cache_gb": cache / 1e9}
     if cfg.moe:
         dropped, routed = _drop_share(seen, prefill=True)
         d_dropped, d_routed = _drop_share(seen, prefill=False)
@@ -3589,57 +3639,85 @@ def _serve_lm(gpu: str, arch: str, tag: str) -> dict:
         stats["prefill_drop_share"] = dropped / routed
     for r in sorted(done, key=lambda r: r.rid)[:2]:
         print(f"[{tag}]   req {r.rid}: {len(r.prompt)} prompt tokens -> {r.output}")
-    want = {"rmsnorm": norms_per_forward(cfg) * (prefills + steps), "flash": cfg.n_layers * prefills}
+    # flash once per attention layer of each prefill within the window
+    flash_each = [flash_per_prefill(cfg, len(p)) for p in prompts]
+    want = {"rmsnorm": norms_per_forward(cfg) * (prefills + steps), "flash": sum(flash_each)}
     print(f"[{tag}] launches: rmsnorm {launches['rmsnorm']} (want {norms_per_forward(cfg)} x "
           f"({prefills} prefills + {steps} decode steps) = {want['rmsnorm']}), flash "
-          f"{launches['flash']} (want {cfg.n_layers} x {prefills} = {want['flash']}); {gpu}")
-    if prefills != LM_REQUESTS or launches != want:
+          f"{launches['flash']} (want {' + '.join(map(str, flash_each))} = {want['flash']} over the "
+          f"prefills); {gpu}")
+    if prefills != n_requests or launches != want:
         raise SystemExit(f"[{tag}] the served run did not launch the kernels as expected")
 
-    # 2 prompts through the kernels and through the plain versions; under
-    # MoE the plain run replays the kernel run's routes (``routes``), and a
-    # third, free-running plain run is printed beside it, ungated
+    # 2 prompts (and the extra ones) through the kernels and through the
+    # plain versions; under MoE the plain run replays the kernel run's routes
+    # (``routes``), and a third, free-running plain run is printed beside it,
+    # ungated. A prompt that ends short of the ring's wrap under a window is
+    # decoded, with the engine's tokens, up to the step at the wrap (index
+    # ``window``), whose logits are held too. With ``f32_check`` the same
+    # runs again with float32 activations on the same (bf16-valued) weights,
+    # held at LM_F32_LOGIT_GATE, and ``bf16_gate`` None prints the served
+    # dtype's difference without gating it.
     first = {r.rid: r.output[0] for r in done}
+    outputs = {r.rid: r.output for r in done}
     params = runner.params
-    for rid in (0, 1):
+    variants = [(cfg, bf16_gate)]
+    if f32_check:
+        variants.append((dataclasses.replace(cfg, dtype="float32"), LM_F32_LOGIT_GATE))
+    stats["logit_rel_err"] = {}
+    for rid in (0, 1) + tuple(range(LM_REQUESTS, n_requests)):
         prompt = torch.tensor([prompts[rid]], dtype=torch.long, device=dev)
         n = prompt.shape[1]
-        out, record = {}, None
-        for kind in ("kernels", "plain", "free") if cfg.moe else ("kernels", "plain"):
-            with torch.inference_mode(), \
-                    (plain_kernels() if kind != "kernels" else contextlib.nullcontext()), \
-                    routes(record if kind == "plain" else None) as routed:
-                before = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
-                logits, cache = lm_prefill(params, prompt, cfg, max_len=n + 1)
-                tok = torch.argmax(logits, -1)[:, None]
-                step, _ = lm_decode_step(params, tok, cache, n, cfg)
-                moved = (rmsnorm_cuda.launches, flash_attention_cuda.launches) != before
-                if moved != (kind == "kernels"):
-                    raise SystemExit(f"[{tag}] the {kind} check did not run through the {kind}")
-                out[kind] = (logits.float(), step.float(), int(tok))
-                del cache
-            if kind == "kernels":
-                record = routed["routes"]
-            elif kind == "plain" and cfg.moe:
-                print(f"[{tag}] req {rid}: the plain run replays the kernel run's routes; its own "
-                      f"top-{cfg.moe.top_k} would differ for {routed['flips']} of "
-                      f"{routed['tokens']} token routings (prefill + first decode step), "
-                      f"{routed['tied']} of them on a tie of its bf16 router logits")
-        if out["kernels"][2] != first[rid]:
-            raise SystemExit(f"[{tag}] req {rid}: prefill's greedy token {out['kernels'][2]} != the "
-                             f"engine's {first[rid]}")
-        for i, what in enumerate(("prefill last-token", "first decode step")):
-            got, ref = out["kernels"][i], out["plain"][i]
-            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-            print(f"[{tag}] req {rid} ({n} tokens) {what} logits, kernels vs plain: max|d|={err:.3e} "
-                  f"(gate {LM_LOGIT_GATE} x max|ref|={scale:.3e}); greedy tokens "
-                  f"{int(got.argmax())} / {int(ref.argmax())}")
-            if "free" in out:
-                free = out["free"][i]
-                print(f"[{tag}]   free-running plain run (its own routes; not gated): max|d|="
-                      f"{float((got - free).abs().max()):.3e}, greedy token {int(free.argmax())}")
-            if not (err <= LM_LOGIT_GATE * scale and _finite(got)):
-                raise SystemExit(f"[{tag}] req {rid}: {what} logits disagree with the plain path")
+        wrap = cfg.window if cfg.window and n < cfg.window < n + LM_MAX_TOKENS else None
+        feed = outputs[rid][: wrap - n + 1] if wrap else outputs[rid][:1]
+        for run_cfg, gate in variants:
+            out, record = {}, None
+            for kind in ("kernels", "plain", "free") if cfg.moe else ("kernels", "plain"):
+                with torch.inference_mode(), \
+                        (plain_kernels() if kind != "kernels" else contextlib.nullcontext()), \
+                        routes(record if kind == "plain" else None) as routed:
+                    before = (rmsnorm_cuda.launches, flash_attention_cuda.launches)
+                    logits, cache = lm_prefill(params, prompt, run_cfg, max_len=n + len(feed))
+                    tok = torch.argmax(logits, -1)[:, None]
+                    steps_out = []
+                    for i, t in enumerate(feed):  # the engine's tokens: the same on both runs
+                        step, _ = lm_decode_step(params, torch.tensor([[t]], device=dev), cache,
+                                                 n + i, run_cfg)
+                        steps_out.append(step.float())
+                    moved = (rmsnorm_cuda.launches, flash_attention_cuda.launches) != before
+                    if moved != (kind == "kernels"):
+                        raise SystemExit(f"[{tag}] the {kind} check did not run through the {kind}")
+                    out[kind] = (logits.float(), steps_out[0], int(tok), steps_out[-1])
+                    del cache
+                if kind == "kernels":
+                    record = routed["routes"]
+                elif kind == "plain" and cfg.moe:
+                    print(f"[{tag}] req {rid}: the plain run replays the kernel run's routes; its "
+                          f"own top-{cfg.moe.top_k} would differ for {routed['flips']} of "
+                          f"{routed['tokens']} token routings (prefill + first decode step), "
+                          f"{routed['tied']} of them on a tie of its bf16 router logits")
+            if run_cfg is cfg and out["kernels"][2] != first[rid]:
+                raise SystemExit(f"[{tag}] req {rid}: prefill's greedy token {out['kernels'][2]} != "
+                                 f"the engine's {first[rid]}")
+            checks = [(0, "prefill last-token"), (1, "first decode step")]
+            if wrap:
+                checks.append((3, f"decode step at index {wrap}, past the ring's wrap"))
+            elif cfg.window and n > cfg.window:
+                checks[0] = (0, f"windowed prefill ({n} > window {cfg.window}, no flash) last-token")
+            for i, what in checks:
+                got, ref = out["kernels"][i], out["plain"][i]
+                err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+                said = f"gate {gate} x max|ref|" if gate else "not gated: max|ref|"
+                print(f"[{tag}] req {rid} ({n} tokens) {what} logits, {run_cfg.dtype} activations, "
+                      f"kernels vs plain: max|d|={err:.3e} ({said}={scale:.3e}); greedy tokens "
+                      f"{int(got.argmax())} / {int(ref.argmax())}")
+                stats["logit_rel_err"][f"req {rid} {what} {run_cfg.dtype}"] = err / scale
+                if "free" in out and i < 2:
+                    free = out["free"][i]
+                    print(f"[{tag}]   free-running plain run (its own routes; not gated): max|d|="
+                          f"{float((got - free).abs().max()):.3e}, greedy token {int(free.argmax())}")
+                if not _finite(got) or (gate is not None and not err <= gate * scale):
+                    raise SystemExit(f"[{tag}] req {rid}: {what} logits disagree with the plain path")
     del engine, runner, params
     _free_cuda()
     return {**launches, "stats": stats}
@@ -3656,9 +3734,27 @@ def phase_moe_serving(gpu: str) -> dict:
     return _serve_lm(gpu, MOE_ARCH, "moe")
 
 
+def phase_recurrent_serving(gpu: str) -> dict:
+    """Full-width mamba2-370m (48 SSD layers) and recurrentgemma-2b (RG-LRU
+    and local attention, with a windowed prefill and a decode across the
+    ring's wrap) through Engine; returns each one's launch counts and
+    serving profile."""
+    # mamba2's 48 bf16 layers carry the kernels' rounding flips past the
+    # dense gate (3.1-3.9% of max|ref|, where float32 activations differ by
+    # 4.5e-6-5.8e-6): its bf16 logits' difference is printed, and its
+    # float32 run holds the gate
+    return {SSM_ARCH: _serve_lm(gpu, SSM_ARCH, "recurrent", max_len=RECURRENT_MAX_LEN,
+                                bf16_gate=None, f32_check=True),
+            HYBRID_ARCH: _serve_lm(gpu, HYBRID_ARCH, "recurrent", HYBRID_EXTRA, RECURRENT_MAX_LEN,
+                                   f32_check=True)}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     elif tree is not None:
         yield tree
@@ -3738,6 +3834,7 @@ def main() -> int:
     dist_cli = phase("dist_train cli", phase_dist_train_cli, gpu)
     lm = phase("lm serving", phase_lm_serving, gpu)
     moe = phase("moe serving", phase_moe_serving, gpu)
+    recurrent = phase("recurrent serving", phase_recurrent_serving, gpu)
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
@@ -3758,11 +3855,18 @@ def main() -> int:
     fused["launches_by_path"]["dist_train_cli_serve_4ranks"] = dist_cli["serve_4"]
     fused["dist_shapes"] = {k: v for k, v in dist["timed"].items() if not k.endswith("dW")}
     dw["dist_shapes"] = {k: v for k, v in dist["timed"].items() if k.endswith("dW")}
+    moe_cli_archs, recurrent_archs = (MOE_ARCH, "deepseek-moe-16b"), (SSM_ARCH, HYBRID_ARCH)
     for record, key in ((rms, "rmsnorm"), (flash, "flash")):
         record["launches"] = lm[key]
         record["launches_by_path"] = {
             "lm_serve": lm[key], "lm_cli": lm_cli[LM_ARCH][key], "moe_serve": moe[key],
-            "moe_cli": sum(lm_cli[arch][key] for arch in CLI_ARCHS if arch != LM_ARCH)}
+            "moe_cli": sum(lm_cli[arch][key] for arch in moe_cli_archs),
+            "recurrent_serve": sum(recurrent[arch][key] for arch in recurrent_archs),
+            "recurrent_cli": sum(lm_cli[arch][key] for arch in recurrent_archs)}
+        record["recurrent_launches_by_arch"] = {
+            arch: {"serve": recurrent[arch][key], "cli": lm_cli[arch][key]}
+            for arch in recurrent_archs}
+    flash["recurrent_serving"] = {arch: recurrent[arch]["stats"] for arch in recurrent_archs}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

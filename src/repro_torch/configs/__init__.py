@@ -1,9 +1,10 @@
 """Architecture registry of the port: the served LM configs beside the FNO.
 
 ``ARCH_IDS`` lists the reference's ten LM architectures; the port serves
-the dense ones (``DENSE_IDS``) and the MoE ones (``MOE_IDS``), together
-``SERVED_IDS``. ``get_arch`` of any other raises and names the ROADMAP
-item that ports its family. ``FNO_IDS`` are the paper's FNO
+the dense ones (``DENSE_IDS``), the MoE ones (``MOE_IDS``) and the
+recurrent ones (``RECURRENT_IDS``: the SSM and hybrid families), together
+``SERVED_IDS``. ``get_arch`` of the other (whisper-tiny) raises and names
+the ROADMAP item that ports its family. ``FNO_IDS`` are the paper's FNO
 configs (Navier-Stokes and Sleipner), as the reference registers them;
 ``get_fno`` returns one's ``(CONFIG, SHAPES)``.
 """
@@ -12,7 +13,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import NOT_PORTED, PORTED_FAMILIES, ArchConfig, MLAConfig, MoEConfig
+from repro_torch.configs.base import (
+    NOT_PORTED, PORTED_FAMILIES, ArchConfig, MLAConfig, MoEConfig, RGLRUConfig, SSMConfig,
+)
 
 ARCH_IDS = (
     "deepseek-moe-16b",
@@ -29,7 +32,8 @@ ARCH_IDS = (
 
 DENSE_IDS = ("chameleon-34b", "qwen1.5-32b", "chatglm3-6b", "gemma-7b", "minitron-8b")
 MOE_IDS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
-SERVED_IDS = DENSE_IDS + MOE_IDS
+RECURRENT_IDS = ("mamba2-370m", "recurrentgemma-2b")
+SERVED_IDS = DENSE_IDS + MOE_IDS + RECURRENT_IDS
 
 FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
 
@@ -53,15 +57,15 @@ def get_fno(name: str):
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests, as the reference's
-    ``reduced`` builds it for the dense and MoE families."""
+    ``reduced`` builds it for the dense, MoE, SSM and hybrid families."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
     changes = dict(
-        n_layers=2,
+        n_layers=3 if cfg.family == "hybrid" else 2,
         d_model=64,
         n_heads=4,
         kv_heads=max(1, min(cfg.kv_heads, 2)),
-        d_ff=128,
+        d_ff=0 if cfg.family == "ssm" else 128,
         vocab=512,
         head_dim=16,
         window=16 if cfg.window else None,
@@ -78,8 +82,16 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.mla:
         changes["mla"] = MLAConfig(kv_lora=32, dh_nope=16, dh_rope=8, dh_v=16)
         changes["head_dim"] = None
+    if cfg.ssm:
+        changes["ssm"] = SSMConfig(d_state=16, head_dim=16, chunk=16)
+        changes["head_dim"] = None
+        changes["n_heads"] = 8
+        changes["kv_heads"] = 8
+    if cfg.rglru:
+        changes["rglru"] = RGLRUConfig(d_rnn=0, conv_kernel=4)
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "MOE_IDS", "SERVED_IDS", "ArchConfig", "MLAConfig",
-           "MoEConfig", "get_arch", "get_fno", "reduced"]
+__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "MOE_IDS", "RECURRENT_IDS", "SERVED_IDS",
+           "ArchConfig", "MLAConfig", "MoEConfig", "RGLRUConfig", "SSMConfig", "get_arch",
+           "get_fno", "reduced"]

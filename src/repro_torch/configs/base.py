@@ -1,13 +1,15 @@
-"""Architecture configuration of the LM side, for the dense and MoE families.
+"""Architecture configuration of the LM side: the dense, MoE, SSM and hybrid families.
 
 Port of ``repro.configs.base.ArchConfig`` with its ``MLAConfig``, and of
-``repro.models.moe.MoEConfig`` (kept here, beside the config that holds
-it): the same fields and defaults, so a config prints and compares like
-the reference's. The port serves the dense family and the MoE family
-(DeepSeek's fine-grained experts, with MLA or plain attention); the fields
-of the other families (``ssm``, ``rglru``, ``encoder``, ``block_pattern``)
-are kept so that the field lists match, and every method that would need
-them raises and names ROADMAP Queue 1 item 5, where those families wait.
+``repro.models.moe.MoEConfig``, ``repro.models.ssm.SSMConfig`` and
+``repro.models.rglru.RGLRUConfig`` (kept here, beside the config that
+holds them): the same fields and defaults, so a config prints and compares
+like the reference's. The port serves the dense family, the MoE family
+(DeepSeek's fine-grained experts, with MLA or plain attention), the SSM
+family (Mamba-2) and the hybrid family (RecurrentGemma's RG-LRU and local
+attention); the encoder-decoder family's field (``encoder``) is kept so
+that the field lists match, and every method that would need it raises
+and names ROADMAP Queue 1 item 5, where that family waits.
 """
 from __future__ import annotations
 
@@ -19,7 +21,10 @@ import torch
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5: the rest of the LLM family)"
 
 # the families the port computes; the others raise with NOT_PORTED
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+# the hybrid family's layer pattern when the config names none
+DEFAULT_BLOCK_PATTERN = ("rec", "rec", "attn")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -47,6 +52,38 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2's SSD mixer: state width, head dim, inner expansion, the
+    depthwise conv's width, the scan's chunk and the B/C groups."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk: int = 128
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+    def conv_dim(self, d_model: int) -> int:
+        return self.d_inner(d_model) + 2 * self.n_groups * self.d_state
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma's RG-LRU mixer: its width (0: d_model) and the
+    depthwise conv's width."""
+    d_rnn: int = 0
+    conv_kernel: int = 4
+
+    def width(self, d_model: int) -> int:
+        return self.d_rnn or d_model
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                       # dense | moe | ssm | hybrid | encdec
@@ -68,9 +105,9 @@ class ArchConfig:
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    ssm: Optional[object] = None
-    rglru: Optional[object] = None
-    block_pattern: Tuple[str, ...] = ()
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    block_pattern: Tuple[str, ...] = ()   # hybrid pattern, e.g. (rec, rec, attn)
     encoder: Optional[object] = None
     dtype: str = "bfloat16"
     notes: str = ""
@@ -85,22 +122,45 @@ class ArchConfig:
             raise ValueError(f"activation dtype {self.dtype!r} is not one of {sorted(_DTYPES)}")
         return _DTYPES[self.dtype]
 
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        """The hybrid family's repeating layer pattern."""
+        return self.block_pattern or DEFAULT_BLOCK_PATTERN
+
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer block kind sequence: ``dense`` layers, or for the MoE
+        """Per-layer block kind sequence: ``dense`` layers; for the MoE
         family ``moe`` layers after a ``dense0`` first layer when
-        ``moe.first_dense_ff`` is set."""
+        ``moe.first_dense_ff`` is set; ``ssm`` layers; for the hybrid
+        family the pattern repeated and cut to ``n_layers``."""
         if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"family {self.family!r}: {NOT_PORTED}")
+        if self.family == "ssm":
+            return ("ssm",) * self.n_layers
+        if self.family == "hybrid":
+            reps = -(-self.n_layers // len(self.pattern))
+            return (self.pattern * reps)[: self.n_layers]
         if self.family == "moe":
             first = ("dense0",) if (self.moe and self.moe.first_dense_ff) else ("moe",)
             return first + ("moe",) * (self.n_layers - 1)
         return ("dense",) * self.n_layers
 
     def approx_params(self) -> int:
-        """Analytic parameter count, as the reference counts it."""
+        """Analytic parameter count, as the reference counts it: an SSM
+        layer's projections, conv and out_proj; a rec layer's RG-LRU mixer
+        alone (the reference's count leaves out its MLP)."""
         d, v, hd = self.d_model, self.vocab, self.head_dim_
         total = 2 * v * d  # embed + lm_head
         for kind in self.layer_kinds():
+            if kind == "ssm":
+                s = self.ssm
+                di = s.d_inner(d)
+                total += d * (2 * di + 2 * s.d_state + s.n_heads(d))  # in_proj
+                total += di * d + s.conv_dim(d) * s.conv_kernel + di
+                continue
+            if kind == "rec":
+                w = self.rglru.width(d)
+                total += 2 * d * w + 2 * w * w + w * d + 4 * w
+                continue
             if self.mla is not None:
                 m = self.mla
                 total += d * self.n_heads * (m.dh_nope + m.dh_rope)

@@ -7,14 +7,19 @@ random weights (seed 0) through ``Engine``, greedy decoding over
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
 
-``--arch`` is any served config (``SERVED_IDS``: the dense family and the
-MoE family, deepseek-moe-16b and deepseek-v2-lite-16b with MLA). The
-default device is the card (the hand-written RMSNorm and flash-attention
-kernels, built at first use); there it also prints both kernels' launch
-counts (``norms_per_forward`` RMSNorms per prefill or decode step, one
-flash attention per layer per prefill). ``--device cpu`` runs their plain
-versions. Full width is served by ``chip_smoke.py``.
+``--arch`` is any served config (``SERVED_IDS``: the dense family, the MoE
+family, deepseek-moe-16b and deepseek-v2-lite-16b with MLA, and the
+recurrent ones, mamba2-370m and recurrentgemma-2b). The default device is
+the card (the hand-written RMSNorm and flash-attention kernels, built at
+first use); there it also prints both kernels' launch counts
+(``norms_per_forward`` RMSNorms per prefill or decode step, one flash
+attention per attention layer per prefill: none for mamba2, one for the
+reduced recurrentgemma, whose prompts here stay within its window).
+``--device cpu`` runs their plain versions. Full width is served by
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.kernels import rmsnorm as rmsnorm_ops
 from repro_torch.models import init_lm_params
-from repro_torch.models.transformer import norms_per_forward
+from repro_torch.models.transformer import attention_layers, norms_per_forward
 from repro_torch.serve import Engine, Request
 
 
@@ -79,11 +84,13 @@ def main(argv=None):
     if device.type == "cuda":
         runner = engine.runner
         prefills, steps = len(runner.prefill_s), len(runner.decode_s)
+        # the prompts' 3-8 tokens are within any window: every attention
+        # layer of every prefill runs flash
         print(
             f"kernel launches: rmsnorm {rmsnorm_ops.rmsnorm_cuda.launches} over "
             f"{prefills} prefills + {steps} decode steps x {norms_per_forward(cfg)} norms; "
             f"flash_attention {flash_ops.flash_attention_cuda.launches} over {prefills} "
-            f"prefills x {cfg.n_layers} layers"
+            f"prefills x {attention_layers(cfg)} layers"
         )
     if engine.failed:
         raise SystemExit(f"{len(engine.failed)} requests failed: {engine.failed[0].error!r}")

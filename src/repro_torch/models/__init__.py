@@ -1,4 +1,4 @@
-"""LM models of the port: the dense decoder family, for serving."""
+"""LM models of the port, for serving: the dense, MoE, SSM and hybrid decoder families."""
 from repro_torch.models.transformer import (
     init_cache,
     init_lm_params,

@@ -1,24 +1,27 @@
-"""GQA/MQA/MHA and MLA attention with a KV cache: projections and decode.
+"""GQA/MQA/MHA (with sliding windows) and MLA attention with a KV cache.
 
 Port of ``repro.models.attention`` less its distributed parts:
 ``_project_qkv`` (with ``qkv_bias``, ``qk_norm`` and partial RoPE),
-``init_kv_cache``, ``attn_decode`` and ``decode_attention``
-(``attention.py:55-74``, ``:184-259``, ``:333-345``), and DeepSeek-V2's
-multi-head latent attention: ``init_mla_params``, ``_mla_qkr``,
-``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on its unsplit cache
-(``:354-479``). Split and quantised caches (which only a distributed
-policy takes) and sliding windows are not ported (ROADMAP Queue 1 item 5).
+``_windowed_attention``, ``init_kv_cache``, ``attn_decode`` and
+``decode_attention`` (``attention.py:55-74``, ``:136-259``,
+``:333-345``), and DeepSeek-V2's multi-head latent attention:
+``init_mla_params``, ``_mla_qkr``, ``mla_forward``, ``init_mla_cache`` and
+``mla_decode`` on its unsplit cache (``:354-479``). Split and quantised
+caches, which only a distributed policy takes, are not ported (ROADMAP
+Queue 1 item 5).
 
 Layouts as in the reference: residual stream [b, s, d]; heads [b, h, s,
 hd]; the cache {"k": [b, kvh, S, hd], "v": ...}; the MLA cache {"ckv":
 [b, S, kv_lora], "kr": [b, S, dh_rope]}, the compressed latent and the
-shared RoPE key, bf16 whatever the activation dtype.
+shared RoPE key, bf16 whatever the activation dtype. Under a sliding
+window (RecurrentGemma's local attention) the cache is a ring of S =
+min(max_len, window) positions, position t at slot t % S.
 
 Decode is batched over slots with a per-slot index vector, where the
 reference vmaps a batch-1 step over the slots: each row gets its own RoPE
-position, its own cache row to write and its own valid prefix. The cache
-is updated in place (the reference returns a new one); ``attn_decode``
-returns the same dict.
+position, its own cache row (and ring slot) to write and its own valid
+keys. The cache is updated in place (the reference returns a new one);
+``attn_decode`` returns the same dict.
 """
 from __future__ import annotations
 
@@ -56,34 +59,70 @@ def _project_qkv(p, x, cfg, positions):
 
 
 def dense_only(cfg):
-    """Refuse the attention variants that are not ported: sliding windows,
-    LayerNorm."""
-    if cfg.window is not None:
-        raise NotImplementedError(f"sliding-window caches: {NOT_PORTED}")
+    """Refuse the layer variant that is not ported: LayerNorm (whisper's)."""
     if cfg.norm != "rms":
         raise NotImplementedError(f"norm {cfg.norm!r}: {NOT_PORTED}")
 
 
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:
     """The leaf shapes of one layer's plain cache, the sequence dim second
-    to last: the latent and the RoPE key under MLA, else k and v."""
+    to last: the latent and the RoPE key under MLA, else k and v (a ring
+    of min(max_len, window) positions under a sliding window)."""
     if cfg.mla is not None:
         m = cfg.mla
         return {"ckv": (batch, max_len, m.kv_lora), "kr": (batch, max_len, m.dh_rope)}
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim_)
+    length = max_len if cfg.window is None else min(max_len, cfg.window)
+    shape = (batch, cfg.kv_heads, length, cfg.head_dim_)
     return {"k": shape, "v": shape}
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
-    """Plain cache: one zeroed [batch, kvh, max_len, hd] buffer per k/v."""
+    """Plain cache: one zeroed [batch, kvh, S, hd] buffer per k/v (S =
+    max_len, or the ring's min(max_len, window))."""
     dense_only(cfg)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, shape in cache_shapes(cfg, batch, max_len).items()}
 
 
+def _windowed_attention(q, k, v, window: int):
+    """Sliding-window causal attention (RecurrentGemma's local layers),
+    which the reference takes for prompts longer than the window, outside
+    any kernel. q: [b, h, s, hd]; k/v: [b, kvh, s, hd].
+
+    Queries run in window-sized blocks, each against its own and the
+    previous key block (the positions within the window), never the full
+    s x s matrix. As the reference: logits in q's dtype, then float32 and
+    scaled, masked with ``where`` to -1e30, the softmax in float32 cast to
+    q's dtype before P.V."""
+    b, h, s, hd = q.shape
+    kvh = k.shape[1]
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=1)
+        v = v.repeat_interleave(h // kvh, dim=1)
+    pad = (-s) % window  # end-pad: padded keys lie in every real query's future
+    q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    nb = (s + pad) // window
+    qb, kb, vb = (t.reshape(b, h, nb, window, hd) for t in (q, k, v))
+    # the previous block of keys and values (zeros for block 0)
+    kcat = torch.cat([F.pad(kb, (0, 0, 0, 0, 1, 0))[:, :, :nb], kb], dim=3)  # [b, h, nb, 2w, hd]
+    vcat = torch.cat([F.pad(vb, (0, 0, 0, 0, 1, 0))[:, :, :nb], vb], dim=3)
+    logits = torch.einsum("bhnqd,bhnkd->bhnqk", qb, kcat).float() * hd ** -0.5
+    qpos = torch.arange(window, device=q.device)[:, None] + window  # position in the 2w slab
+    kpos = torch.arange(2 * window, device=q.device)[None, :]
+    valid = (kpos <= qpos) & (kpos > qpos - window)
+    mask = valid.expand(nb, window, 2 * window).clone()
+    mask[0] &= kpos >= window  # block 0 has no previous keys
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bhnqk,bhnkd->bhnqd", w, vcat)
+    return o.reshape(b, h, s + pad, hd)[:, :, :s]
+
+
 def attn_decode(p, x, cache, index, cfg, n_keys=None):
     """One decode step for every row: write its k/v at its own ``index``
-    and attend over its valid prefix.
+    (under a window at its ring slot index % S) and attend over its valid
+    keys: the prefix up to ``index``, or under a window the ring's slots up
+    to that slot, every slot once the row has wrapped (index >= S).
 
     x: [b, 1, d]; cache {"k", "v"}: [b, kvh, S, hd], updated in place;
     index: int tensor [b], the number of tokens already in each row's
@@ -92,13 +131,17 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None):
     dense_only(cfg)
     b = x.shape[0]
     hd = cfg.head_dim_
+    s_max = cache["k"].shape[2]
     q, k, v = _project_qkv(p, x, cfg, index[:, None])
     rows = torch.arange(b, device=x.device)
-    cache["k"][rows, :, index] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, index] = v[:, 0].to(cache["v"].dtype)
-    # keys past every row's index are masked; attend over the longest prefix
-    n = int(index.max()) + 1 if n_keys is None else n_keys
-    valid = torch.arange(n, device=x.device)[None, :] <= index[:, None]
+    slot = index % s_max if cfg.window is not None else index
+    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+    # keys past every row's slot are masked; attend over the longest prefix
+    n = min(s_max, int(index.max()) + 1 if n_keys is None else n_keys)
+    valid = torch.arange(n, device=x.device)[None, :] <= slot[:, None]
+    if cfg.window is not None:
+        valid = valid | (index >= s_max)[:, None]
     o = decode_attention(q.transpose(1, 2), cache["k"][:, :, :n], cache["v"][:, :, :n], valid)
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd)
     return o @ p["wo"].to(x.dtype), cache

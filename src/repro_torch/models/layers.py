@@ -1,7 +1,8 @@
 """Shared LM layers: RMSNorm, RoPE, embeddings, MLPs, last-token logits.
 
 Port of ``repro.models.layers`` (``layers.py:16-138`` less the chunked
-cross-entropy, which only training uses). Weights are cast to the
+cross-entropy, which only training uses), and the depthwise causal conv
+that the reference's SSM and RG-LRU mixers each define. Weights are cast to the
 activation dtype at each matmul as in the reference (``.to(x.dtype)``,
 a no-op when the serving runner already holds them in that dtype).
 """
@@ -21,6 +22,23 @@ from repro_torch.kernels import rmsnorm as rmsnorm_ops
 def rms_norm(x, w, *, eps=1e-6):
     """RMSNorm through the fused kernel (its plain version for CPU tensors)."""
     return rmsnorm_ops.rmsnorm(x, w, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the Mamba-2 and RG-LRU mixers')
+# ---------------------------------------------------------------------------
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv, as ``_causal_conv`` in the reference's
+    ``ssm.py`` and ``rglru.py``. x: [b, s, c]; w: [k, c], b: [c], both cast
+    to x's dtype at use; the k taps summed in order."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    w = w.to(x.dtype)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

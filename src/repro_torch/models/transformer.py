@@ -1,10 +1,11 @@
-"""Decoder-LM serving for the dense and MoE families: parameters, prefill, decode.
+"""Decoder-LM serving for the dense, MoE, SSM and hybrid families: parameters, prefill, decode.
 
-Port of the dense- and MoE-family part of ``repro.models.transformer``:
+Port of the serving part of ``repro.models.transformer``:
 ``init_lm_params``, ``_init_layer``, ``_norm``, the prefill layer,
-``lm_prefill``, ``_attn_prefill``, ``_mla_prefill``, ``init_cache``,
-``_decode_layer`` and ``lm_decode_step``. Parameters keep the reference's
-tree and leaf names, with the layers stacked on a leading layer dim::
+``lm_prefill``, ``_attn_prefill`` (with the sliding window's ring),
+``_mla_prefill``, ``_rglru_prefill``, ``init_cache``, ``_decode_layer``
+and ``lm_decode_step``. Parameters keep the reference's tree and leaf
+names, with the layers stacked on a leading layer dim::
 
     {"embed": [V, d], "final_norm": [d], "lm_head": [d, V], "layer0": None,
      "layers": {"ln1": [L, d], "attn": {"wq": [L, d, h*hd], ...},
@@ -14,23 +15,36 @@ An MoE config whose first layer is dense (``moe.first_dense_ff``) keeps
 that layer unstacked under ``layer0`` and stacks the ``moe`` layers, which
 hold {"router", "w_gate": [L, E, d, f], ..., "shared": {...}} under
 ``moe`` in place of ``mlp``; under MLA ``attn`` holds {"wq", "w_dkv",
-"kv_norm", "k_up", "v_up", "wo"}.
-The reference's ``lax.scan`` over the stack is a Python loop over its
-layer views. ``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry a
-parameter tree across the two packages. Caches are laid out the same way,
-{"layer0": None or one layer's, "layers": {"k", "v"}: [L, b, kvh, S, hd]}
-(under MLA {"ckv": [L, b, S, kv_lora], "kr": [L, b, S, dh_rope]}), and
-``lm_decode_step`` updates them in place.
+"kv_norm", "k_up", "v_up", "wo"}. An SSM layer holds {"ln1", "mixer"}
+(Mamba-2's, ``models/ssm.py``). The hybrid family stacks each position of
+its pattern over the superblocks and keeps the layers past the last whole
+superblock unstacked, in a list::
+
+    {"embed", "final_norm", "lm_head",
+     "superblocks": {"b0_rec": {"ln1", "mixer", "ln2", "mlp"}: [n_super, ...],
+                     "b1_rec": ..., "b2_attn": {"ln1", "attn", "ln2", "mlp"}},
+     "tail": [{"ln1", "mixer", "ln2", "mlp"}, ...]}
+
+The reference's ``lax.scan`` over a stack is a Python loop over its layer
+views. ``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry a parameter
+tree across the two packages. Caches are laid out the same way: {"layer0":
+None or one layer's, "layers": {"k", "v"}: [L, b, kvh, S, hd]} (under MLA
+{"ckv": [L, b, S, kv_lora], "kr": [L, b, S, dh_rope]}; for SSM layers
+{"conv": [L, b, k, conv_dim], "state": [L, b, H, N, p]}), and for the
+hybrid family {"superblocks": {"b0_rec": {"conv", "h"}, ..., "b2_attn":
+{"k", "v"}}, "tail": [...]}, the attention caches rings of
+min(max_len, window) positions. ``lm_decode_step`` updates them in place.
 
 Every RMSNorm goes through the fused RMSNorm kernel and every prefill
-attention through the flash-attention kernel (their plain versions for CPU
-tensors): ``norms_per_forward(cfg)`` norms per prefill or decode step
-(2 L + 1, plus 2 L with qk-norm and L with MLA's latent norm) and L flash
-launches per prefill.
+attention within the window through the flash-attention kernel (their
+plain versions for CPU tensors): ``norms_per_forward(cfg)`` norms per
+prefill or decode step (2 L + 1, plus 2 L with qk-norm and L with MLA's
+latent norm; an SSM layer's second norm is its mixer's gated norm) and
+``flash_per_prefill(cfg, s)`` flash launches per prefill of s tokens.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,13 +54,22 @@ from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 
 # leaves that stay float32 when the serving runner casts the rest to the
 # activation dtype (the reference casts every other weight at its matmul).
-# MLA's k_up and v_up: the reference casts them at the prefill's matmuls
-# but runs the absorbed decode with them in float32, so the runner keeps
-# them float32 and the prefill casts them at each use.
-F32_LEAVES = ("embed", "final_norm", "ln1", "ln2", "q_norm", "k_norm", "kv_norm", "k_up", "v_up")
+# MLA's k_up and v_up, and both recurrent mixers' conv weights and biases:
+# the reference casts them at the prefill's matmuls and convs but runs the
+# decode with them in float32, so the runner keeps them float32 and the
+# prefill casts them at each use. The SSM's A_log, D, dt_bias and gated
+# norm weight, and the RG-LRU's gates (w_r, b_r, w_i, b_i, lambda) are
+# used in float32 throughout.
+F32_LEAVES = ("embed", "final_norm", "ln1", "ln2", "q_norm", "k_norm", "kv_norm", "k_up", "v_up",
+              "A_log", "D", "dt_bias", "norm_w", "conv_x", "conv_B", "conv_C", "conv_bx",
+              "conv_bB", "conv_bC", "conv_w", "conv_b", "w_r", "b_r", "w_i", "b_i", "lambda")
+# the cache leaves that hold a position per token along their second-to-last dim
+_SEQ_LEAVES = ("k", "v", "ckv", "kr")
 
 
 # ---------------------------------------------------------------------------
@@ -79,11 +102,29 @@ def _init_mlp(d, f, act, normal, const) -> dict:
             "w2": normal("w2", (f, d), std_f), "b2": const("b2", (d,), 0.0)}
 
 
-def _init_layer(cfg, kind: str, normal, const) -> dict:
-    """One layer's leaves for ``kind`` (dense, dense0 or moe); ``normal`` and
-    ``const`` make each leaf (stacked or not, finished as they choose)."""
+class _Makers(NamedTuple):
+    """Leaf makers: ``normal(name, shape, std)``, ``const(name, shape,
+    value)`` (a float or a tensor of ``shape``) and ``uniform(name, shape,
+    lo, hi, fn)``; each makes a leaf stacked or not, finished as it
+    chooses."""
+    normal: Callable
+    const: Callable
+    uniform: Callable
+
+
+def _init_layer(cfg, kind: str, mk: _Makers) -> dict:
+    """One layer's leaves for ``kind`` (dense, dense0, moe, ssm, rec or attn)."""
+    normal, const = mk.normal, mk.const
     d = cfg.d_model
     p = {"ln1": const("ln1", (d,), 1.0)}
+    if kind == "ssm":
+        p["mixer"] = ssm_lib.init_ssm_params(d, cfg.ssm, normal, const)
+        return p
+    if kind == "rec":
+        p["mixer"] = rglru_lib.init_rglru_params(d, cfg.rglru, normal, const, mk.uniform)
+        p["ln2"] = const("ln2", (d,), 1.0)
+        p["mlp"] = _init_mlp(d, cfg.d_ff, cfg.mlp_act, normal, const)
+        return p
     if cfg.mla is not None:
         p["attn"] = attn_lib.init_mla_params(cfg, normal, lambda name, shape: const(name, shape, 1.0))
     else:
@@ -99,6 +140,13 @@ def _init_layer(cfg, kind: str, normal, const) -> dict:
 
 def _serving_dtype(name: str, cfg) -> torch.dtype:
     return torch.float32 if name in F32_LEAVES else cfg.activation_dtype
+
+
+def hybrid_layout(cfg) -> tuple:
+    """(pattern, superblocks, tail layers) of a hybrid config."""
+    pat = cfg.pattern
+    n_super, tail = divmod(cfg.n_layers, len(pat))
+    return pat, n_super, tail
 
 
 def init_lm_params(cfg, *, generator: torch.Generator, device=None, serving: bool = False) -> dict:
@@ -118,57 +166,68 @@ def init_lm_params(cfg, *, generator: torch.Generator, device=None, serving: boo
             return finish(name, _normal(lead + tuple(shape), std, generator, device))
 
         def const(name, shape, value):
-            return finish(name, torch.full(lead + tuple(shape), value, dtype=torch.float32,
-                                           device=device))
-        return normal, const
+            full = lead + tuple(shape)
+            if isinstance(value, torch.Tensor):
+                return finish(name, value.to(device=device, dtype=torch.float32).expand(full).clone())
+            return finish(name, torch.full(full, value, dtype=torch.float32, device=device))
+
+        def uniform(name, shape, lo, hi, fn):
+            u = torch.rand(lead + tuple(shape), generator=generator, device=device)
+            return finish(name, fn(u * (hi - lo) + lo))
+        return _Makers(normal, const, uniform)
 
     params = {
         "embed": finish("embed", _normal((v, d), d ** -0.5, generator, device)),
         "final_norm": finish("final_norm", torch.ones(d, device=device)),
         "lm_head": finish("lm_head", _normal((d, v), d ** -0.5, generator, device)),
     }
+    if cfg.family == "hybrid":
+        pat, n_super, tail = hybrid_layout(cfg)
+        params["superblocks"] = {f"b{i}_{kind}": _init_layer(cfg, kind, makers((n_super,)))
+                                 for i, kind in enumerate(pat)}
+        params["tail"] = [_init_layer(cfg, pat[i % len(pat)], makers(())) for i in range(tail)]
+        return params
     kinds = cfg.layer_kinds()
     first = kinds[0] == "dense0"
-    params["layer0"] = _init_layer(cfg, "dense0", *makers(())) if first else None
-    params["layers"] = _init_layer(cfg, kinds[-1], *makers((len(kinds) - first,)))
+    params["layer0"] = _init_layer(cfg, "dense0", makers(())) if first else None
+    params["layers"] = _init_layer(cfg, kinds[-1], makers((len(kinds) - first,)))
     return params
 
 
-def _tree_map(fn, tree):
+def _tree_map(fn, tree, name=None):
+    """``fn(leaf, name)`` over a tree of dicts and lists (None stays None);
+    ``name`` is the key of the dict that holds the leaf."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _tree_map(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v, name) for v in tree]
+    return fn(tree, name)
 
 
 def lm_params_from_numpy(tree: dict, device=None) -> dict:
     """The reference's parameter tree (numpy leaves, ``layer0`` None or the
-    first dense layer's, layers stacked) as the port's: the same tree of
-    float32 tensors on ``device``."""
+    first dense layer's, layers stacked; the hybrid's superblocks stacked
+    and its tail a list) as the port's: the same tree of float32 tensors
+    on ``device``."""
     device = resolve_device(device)
-    return _tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(device), tree)
+    return _tree_map(lambda a, _: torch.from_numpy(np.array(a, np.float32)).to(device), tree)
 
 
 def lm_params_to_numpy(params: dict) -> dict:
     """The port's parameters as the reference's tree of float32 numpy arrays."""
-    return _tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+    return _tree_map(lambda t, _: t.detach().float().cpu().numpy(), params)
 
 
 def serving_params(params: dict, cfg, device) -> dict:
     """The parameters a serving runner holds: every matmul weight and bias
     cast once to the activation dtype (what the reference's per-matmul
-    ``.astype(x.dtype)`` computes, bitwise), the embedding table, the norm
-    weights and MLA's up-projections float32, all on ``device``. Leaves
+    ``.astype(x.dtype)`` computes, bitwise), ``F32_LEAVES`` float32 (the
+    embedding table, the norm weights, MLA's up-projections, the recurrent
+    mixers' convs, gates and decay parameters), all on ``device``. Leaves
     already in place are shared, not copied."""
-    def walk(tree, name=None):
-        if tree is None:
-            return None
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        return tree.to(device=device, dtype=_serving_dtype(name, cfg))
-
-    return walk(params)
+    return _tree_map(lambda t, name: t.to(device=device, dtype=_serving_dtype(name, cfg)), params)
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -200,16 +259,41 @@ def _embed_in(params, tokens, cfg):
 
 
 def norms_per_forward(cfg) -> int:
-    """RMSNorm launches of one prefill or decode step: ln1 and ln2 per
-    layer, the final norm, q- and k-norm per layer with ``qk_norm``, and
-    the latent's kv_norm per layer under MLA."""
+    """RMSNorm launches of one prefill or decode step: two per layer (ln1
+    and ln2, or an SSM layer's ln1 and its mixer's gated norm), the final
+    norm, q- and k-norm per layer with ``qk_norm``, and the latent's
+    kv_norm per layer under MLA."""
     n = len(cfg.layer_kinds())
     return 2 * n + 1 + (2 * n if cfg.qk_norm else 0) + (n if cfg.mla is not None else 0)
+
+
+def attention_layers(cfg) -> int:
+    """The layers that attend (every layer but the SSM and RG-LRU ones)."""
+    return sum(kind not in ("ssm", "rec") for kind in cfg.layer_kinds())
+
+
+def flash_per_prefill(cfg, s: int) -> int:
+    """Flash-attention launches of a prefill of ``s`` tokens: one per
+    attention layer, none past a sliding window (``_windowed_attention``
+    takes those prompts, as in the reference)."""
+    return 0 if cfg.window is not None and s > cfg.window else attention_layers(cfg)
 
 
 def _layers(cfg, params, cache):
     """(layer params, layer cache, kind) of every layer in order; the
     stacked ones as views."""
+    if cfg.family == "hybrid":
+        pat, n_super, tail = hybrid_layout(cfg)
+        if len(params["tail"]) != tail:
+            raise ValueError(f"{cfg.name}: {len(params['tail'])} tail layers given, {tail} expected")
+        out = []
+        for j in range(n_super):
+            for i, kind in enumerate(pat):
+                name = f"b{i}_{kind}"
+                out.append((layer_params(params["superblocks"][name], j),
+                            {n: c[j] for n, c in cache["superblocks"][name].items()}, kind))
+        return out + [(lp, lc, pat[i % len(pat)])
+                      for i, (lp, lc) in enumerate(zip(params["tail"], cache["tail"]))]
     kinds = cfg.layer_kinds()
     first = kinds[0] == "dense0"
     if first != (params.get("layer0") is not None):
@@ -228,20 +312,34 @@ def _layers(cfg, params, cache):
 # ---------------------------------------------------------------------------
 
 def _new_cache(cfg, batch: int, max_len: int, dtype, device, alloc) -> dict:
+    """The cache tree, each leaf from ``alloc``: attention leaves in
+    ``dtype``, recurrent ones (SSM, RG-LRU) float32, as the reference's."""
+    def make(kind, lead):
+        if kind == "ssm":
+            shapes, dt = ssm_lib.cache_shapes(cfg.d_model, cfg.ssm, batch), torch.float32
+        elif kind == "rec":
+            shapes, dt = rglru_lib.cache_shapes(cfg.d_model, cfg.rglru, batch), torch.float32
+        else:
+            shapes, dt = attn_lib.cache_shapes(cfg, batch, max_len), dtype
+        return {name: alloc(lead + shape, dtype=dt, device=device) for name, shape in shapes.items()}
+
+    if cfg.family == "hybrid":
+        pat, n_super, tail = hybrid_layout(cfg)
+        return {"superblocks": {f"b{i}_{kind}": make(kind, (n_super,)) for i, kind in enumerate(pat)},
+                "tail": [make(pat[i % len(pat)], ()) for i in range(tail)]}
     kinds = cfg.layer_kinds()
     first = kinds[0] == "dense0"
-
-    def make(lead):
-        return {name: alloc(lead + shape, dtype=dtype, device=device)
-                for name, shape in attn_lib.cache_shapes(cfg, batch, max_len).items()}
-
-    return {"layer0": make(()) if first else None, "layers": make((len(kinds) - first,))}
+    return {"layer0": make("attn", ()) if first else None,
+            "layers": make(kinds[-1], (len(kinds) - first,))}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """The zeroed cache: {"layer0": one layer's or None, "layers": stacked},
     k and v [L, batch, kvh, max_len, hd], or under MLA ckv [L, batch,
-    max_len, kv_lora] and kr [L, batch, max_len, dh_rope]."""
+    max_len, kv_lora] and kr [L, batch, max_len, dh_rope], or for SSM
+    layers conv and state, float32; for the hybrid family {"superblocks",
+    "tail"} with rings of min(max_len, window) positions (``dtype``) and
+    the RG-LRU's conv and h (float32)."""
     device = resolve_device(device)
     attn_lib.dense_only(cfg)
     return _new_cache(cfg, batch, max_len, dtype, device, torch.zeros)
@@ -249,28 +347,56 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
 
 def cache_rows(cache: dict, start: int, stop: int) -> dict:
     """Rows ``start:stop`` of every leaf of ``cache``, as views (a serving
-    runner's slot rows; the batch dim follows the stacked layer dim)."""
-    layer0 = cache["layer0"]
-    return {"layer0": None if layer0 is None else {n: c[start:stop] for n, c in layer0.items()},
-            "layers": {n: c[:, start:stop] for n, c in cache["layers"].items()}}
+    runner's slot rows; under ``layers`` and ``superblocks`` the batch dim
+    follows the stacked layer dim)."""
+    def rows(stacked):
+        return (lambda c, _: c[:, start:stop]) if stacked else (lambda c, _: c[start:stop])
+
+    return {k: _tree_map(rows(k in ("layers", "superblocks")), v) for k, v in cache.items()}
 
 
-def _cache_leaves(cache: dict) -> list:
-    return [c for part in (cache["layer0"], cache["layers"]) if part for c in part.values()]
+def _leaves(tree, name=None):
+    """(name, leaf) of every leaf of a cache tree."""
+    if isinstance(tree, dict):
+        return [pair for k, v in tree.items() for pair in _leaves(v, k)]
+    if isinstance(tree, (list, tuple)):
+        return [pair for v in tree for pair in _leaves(v, name)]
+    return [] if tree is None else [(name, tree)]
+
+
+def _write(lc: dict, new: dict) -> None:
+    """Overwrite a layer's recurrent cache (or ring) whole."""
+    for name, t in new.items():
+        lc[name].copy_(t)
 
 
 def _attn_prefill(p, h, cfg, positions, lc):
-    """Causal self-attention over the prompt through the flash kernel; the
-    prompt's k/v are written into the first s positions of the layer's
-    cache ``lc`` {"k", "v"}: [b, kvh, S, hd]."""
+    """Causal self-attention over the prompt: through the flash kernel, or
+    past a sliding window through ``_windowed_attention``. The prompt's k/v
+    are written into the first s positions of the layer's cache ``lc``
+    {"k", "v"}: [b, kvh, S, hd]; under a window the ring is written whole:
+    the prompt and zeros past it when it is shorter than the ring, else
+    its last S positions, position t at slot t % S."""
     b, s, _ = h.shape
     q, k, v = attn_lib._project_qkv(p, h, cfg, positions)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    # q, k, v go to the kernel as the strided [b, h, s, hd] views they are
-    o = flash_ops.flash_attention(q.transpose(1, 2), kt, vt, causal=True)
+    if cfg.window is not None and s > cfg.window:
+        o = attn_lib._windowed_attention(q.transpose(1, 2), kt, vt, cfg.window)
+    else:
+        # q, k, v go to the kernel as the strided [b, h, s, hd] views they are
+        o = flash_ops.flash_attention(q.transpose(1, 2), kt, vt, causal=True)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
-    lc["k"][:, :, :s] = kt
-    lc["v"][:, :, :s] = vt
+    if cfg.window is None:
+        lc["k"][:, :, :s] = kt
+        lc["v"][:, :, :s] = vt
+    else:
+        w = lc["k"].shape[2]
+        for name, t in (("k", kt), ("v", vt)):
+            if s < w:
+                lc[name][:, :, :s] = t
+                lc[name][:, :, s:] = 0
+            else:
+                lc[name].copy_(torch.roll(t[:, :, s - w:], s % w, dims=2))
     return o @ p["wo"].to(h.dtype)
 
 
@@ -286,8 +412,17 @@ def _mla_prefill(p, h, cfg, positions, lc):
 
 def _prefill_layer(x, lp, kind, cfg, positions, lc):
     h = _norm(x, lp["ln1"], cfg)
-    attend = _mla_prefill if cfg.mla is not None else _attn_prefill
-    x = x + attend(lp["attn"], h, cfg, positions, lc)
+    if kind == "ssm":
+        y, new = ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm, return_cache=True)
+        _write(lc, new)
+        return x + y
+    if kind == "rec":
+        y, new = rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, return_cache=True)
+        _write(lc, new)
+    else:
+        attend = _mla_prefill if cfg.mla is not None else _attn_prefill
+        y = attend(lp["attn"], h, cfg, positions, lc)
+    x = x + y
     h = _norm(x, lp["ln2"], cfg)
     return x + _ffn(h, lp, kind, cfg)
 
@@ -298,20 +433,24 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
     written into ``cache`` when one is given (a cache of b rows, such as a
     serving runner's slot row, whose dtype rounds them once); otherwise
     into a new cache sized to ``max_len`` (defaults to the prompt length),
-    as the reference's: in the activation dtype, bf16 under MLA. The MoE
-    layers route the whole prompt at once, so its capacity (and what it
-    drops) is the reference's for this prompt."""
+    as the reference's: attention leaves in the activation dtype, bf16
+    under MLA, recurrent ones float32. Every leaf of the cache is written:
+    the recurrent states and the sliding window's rings whole by their
+    layers, the other attention leaves past the prompt zeroed here. The
+    MoE layers route the whole prompt at once, so its capacity (and what
+    it drops) is the reference's for this prompt."""
     attn_lib.dense_only(cfg)
     b, s = tokens.shape
     if cache is None:
         dtype = torch.bfloat16 if cfg.mla is not None else cfg.activation_dtype
         cache = _new_cache(cfg, b, max_len or s, dtype, tokens.device, torch.empty)
-    leaves = _cache_leaves(cache)
-    room = leaves[0].shape[-2]
-    if s > room:
-        raise ValueError(f"prompt of {s} tokens does not fit max_len={room}")
-    for buf in leaves:  # the reference's zero padding, all layers at once
-        buf[..., s:, :] = 0
+    if cfg.window is None:
+        leaves = [t for name, t in _leaves(cache) if name in _SEQ_LEAVES]
+        room = leaves[0].shape[-2] if leaves else s
+        if s > room:
+            raise ValueError(f"prompt of {s} tokens does not fit max_len={room}")
+        for buf in leaves:  # the reference's zero padding, all layers at once
+            buf[..., s:, :] = 0
     x = _embed_in(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
     for lp, lc, kind in _layers(cfg, params, cache):
@@ -322,8 +461,14 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
 
 def _decode_layer(x, lp, kind, lc, index, cfg, n_keys):
     h = _norm(x, lp["ln1"], cfg)
-    decode = attn_lib.mla_decode if cfg.mla is not None else attn_lib.attn_decode
-    y, _ = decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys)
+    if kind == "ssm":
+        y, _ = ssm_lib.ssm_decode(lp["mixer"], h, lc, cfg.d_model, cfg.ssm)
+        return x + y
+    if kind == "rec":
+        y, _ = rglru_lib.rglru_decode(lp["mixer"], h, lc, cfg.rglru, cfg.d_model)
+    else:
+        decode = attn_lib.mla_decode if cfg.mla is not None else attn_lib.attn_decode
+        y, _ = decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys)
     x = x + y
     h = _norm(x, lp["ln2"], cfg)
     return x + _ffn(h, lp, kind, cfg, dropless=True)

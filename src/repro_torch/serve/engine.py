@@ -1,18 +1,23 @@
 """Token-family ModelRunner and the LLM serving engine.
 
-Port of ``repro.serve.engine`` for the dense and MoE families. ``TransformerRunner``
+Port of ``repro.serve.engine`` for the dense, MoE, SSM and hybrid
+families (``SERVABLE_FAMILIES``, the reference's). ``TransformerRunner``
 prefills a request's cache on admission and advances every active slot by
 one greedy decode step per scheduler tick, on the shared slot scheduler.
 Per-slot sequence positions differ, so the decode step runs all slots as
 one batch with a per-slot index vector (the reference vmaps a batch-1
 step over them); a slot that is not active decodes token 0 at index 0, as
-in the reference, and its row is overwritten whole on the next admission.
+in the reference (which advances its recurrent state and writes its ring
+slot 0), and its row is overwritten whole on the next admission: the
+prompt's k/v and zeros past it, the recurrent states and the rings whole.
 
 The runner holds the serving parameters (``serving_params``): matmul
-weights cast once to the activation dtype, the embedding table and the
-norm weights float32. Its KV cache (under MLA the latent cache) is
-bfloat16 whatever the activation dtype, as the reference's. Greedy argmax
-takes the first of tied logits, as ``jnp.argmax`` does.
+weights cast once to the activation dtype, ``F32_LEAVES`` (the embedding
+table, the norm weights, the recurrent mixers' convs and gates) float32.
+Its KV cache (under MLA the latent cache; under a sliding window a ring)
+is bfloat16 whatever the activation dtype, and its recurrent caches
+float32, as the reference's. Greedy argmax takes the first of tied
+logits, as ``jnp.argmax`` does.
 
 MoE: each admission prefills its prompt alone, so the prompt's routing
 capacity and drops are the reference's; the decode step routes the slots'
@@ -34,8 +39,8 @@ from repro_torch.models import transformer as tf_lib
 from repro_torch.serve.scheduler import Scheduler
 
 # Families Engine can decode with lm_prefill/lm_decode_step: the ported
-# ones. The reference also serves ssm and hybrid; those wait in ROADMAP
-# Queue 1 item 5.
+# ones, the reference's four ("encdec", whisper, waits in ROADMAP Queue 1
+# item 5 and has its own entry points there).
 SERVABLE_FAMILIES = PORTED_FAMILIES
 
 

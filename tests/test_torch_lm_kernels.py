@@ -262,7 +262,12 @@ def _close_to_plain(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype", RMS_CASES + [(1000, 3072, "bfloat16")])
+@pytest.mark.parametrize("rows,d,dtype", RMS_CASES + [
+    (1000, 3072, "bfloat16"),
+    # mamba2-370m's d_model (ln1, final norm) and recurrentgemma-2b's, prefill and decode
+    (1000, 1024, "bfloat16"), (4, 1024, "bfloat16"), (1000, 1024, "float32"),
+    (1000, 2560, "bfloat16"), (4, 2560, "bfloat16"), (1000, 2560, "float32"),
+])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
     rng = np.random.default_rng(rows + d)
     x = _torch(_np(rng, (rows, d), dtype)).to(cuda)
@@ -282,9 +287,13 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
     ("gemma-prefill-f32", 1, 16, 16, 1000, 1000, 256, True, "float32"),
     ("v2-lite-mla-prefill", 1, 16, 16, 1000, 1000, 192, True, "bfloat16"),
     ("v2-lite-mla-prefill-f32", 1, 16, 16, 1000, 1000, 192, True, "float32"),
+    # recurrentgemma-2b's local attention: MQA, a group of 10 query heads
+    ("recurrentgemma-mqa-prefill", 1, 10, 1, 1000, 1000, 256, True, "bfloat16"),
+    ("recurrentgemma-mqa-prefill-f32", 1, 10, 1, 1000, 1000, 256, True, "float32"),
 ], ids=[c[0] for c in FLASH_CASES] + ["gemma-prefill", "chatglm3-gqa", "f32-d256-ragged",
                                       "gemma-prefill-f32", "v2-lite-mla-prefill",
-                                      "v2-lite-mla-prefill-f32"])
+                                      "v2-lite-mla-prefill-f32", "recurrentgemma-mqa-prefill",
+                                      "recurrentgemma-mqa-prefill-f32"])
 def test_flash_kernel_matches_plain(cuda, name, b, h, kvh, sq, sk, d, causal, dtype):
     rng = np.random.default_rng(len(name) + d)
     # [b, s, h, d] tensors swapped to [b, h, s, d], as the attention layer does

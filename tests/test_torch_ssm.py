@@ -1,0 +1,396 @@
+"""The port's SSM family (Mamba-2) against the JAX reference, on the CPU.
+
+The SSD mixer piece by piece (``ssd_chunked``, the causal conv,
+``ssm_forward`` with its cache, ``ssm_decode``), then reduced mamba2-370m
+as a slice: prefill, decode, ``Engine`` and the CLI. Inputs are drawn with
+numpy and carried across (``lm_params_from_numpy``); the reference runs
+with ``ParallelPolicy(use_pallas=True)``, so its RMSNorm (the gated norm
+too) is the TPU kernel in interpret mode, while the port's wrapper runs
+its plain version on CPU tensors. Tolerances, stated where they are used:
+the mixer's pieces at f32 within rtol 1e-4 / atol 1e-5 (the sums run in
+another order on each side); the slice at f32 within 1e-4 of max|ref|
+(prefill and decode logits, caches), greedy tokens identical; at bf16
+within 3e-2 of max|ref| (bf16 rounds every activation, in another order
+on each side).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.configs import reduced as jreduced
+from repro.models import ssm as jssm
+from repro.models import transformer as jtf
+from repro.models.policy import ParallelPolicy
+from repro.serve import Engine as JEngine
+from repro.serve import Request as JRequest
+from repro_torch.configs import get_arch, reduced
+from repro_torch.configs.base import SSMConfig
+from repro_torch.models import (
+    init_cache,
+    init_lm_params,
+    lm_decode_step,
+    lm_params_from_numpy,
+    lm_params_to_numpy,
+    lm_prefill,
+)
+from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
+from repro_torch.models.transformer import flash_per_prefill, norms_per_forward, serving_params
+from repro_torch.serve import Engine, Request
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PALLAS = ParallelPolicy(use_pallas=True)
+ARCH = "mamba2-370m"
+RTOL, ATOL = 1e-4, 1e-5
+F32, BF16 = 1e-4, 3e-2
+NORMS = ("ln1", "ln2", "final_norm", "norm_w")
+
+
+def _cfgs(dtype=None):
+    jcfg, cfg = jreduced(jget_arch(ARCH)), reduced(get_arch(ARCH))
+    if dtype:
+        jcfg, cfg = (dataclasses.replace(c, dtype=dtype) for c in (jcfg, cfg))
+    return jcfg, cfg
+
+
+def _draw(rng, name, shape):
+    """A leaf of ``shape`` for ``name``: fan-in scaled weights, norms and D
+    near 1, the reference's ranges for the decay parameters, small
+    non-zero biases."""
+    def normal(scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    if name in NORMS or name == "D":
+        return (1 + normal(0.1)).astype(np.float32)
+    if name == "A_log":
+        return np.log(rng.uniform(1.0, 16.0, shape)).astype(np.float32)
+    if name == "dt_bias":
+        return np.log(np.expm1(rng.uniform(0.001, 0.1, shape))).astype(np.float32)
+    if name == "lambda":
+        return np.log(np.expm1(-np.log(rng.uniform(0.9, 0.999, shape)))).astype(np.float32)
+    if name.startswith("conv_b") or name in ("b_r", "b_i"):
+        return normal(0.1)
+    if name.startswith("conv"):
+        return normal(0.3)
+    return normal((shape[-1] if name == "embed" else shape[-2]) ** -0.5)
+
+
+def _np_params(jcfg, seed):
+    """A parameter tree of the reference's shapes (dicts and lists) drawn
+    with numpy."""
+    shapes = jax.eval_shape(lambda: jtf.init_lm_params(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, name=None):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, name) for v in tree]
+        return _draw(rng, name, tuple(tree.shape))
+
+    return walk(shapes)
+
+
+def _jtree(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _close(got, want, rel, what):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all(), what
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, f"{what}: max|d|={err:.3e} > {rel} * max|ref|={scale:.3e}"
+
+
+def _allclose(got, want, what):
+    assert np.isfinite(_f32(got)).all(), what
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def _leaves(tree):
+    """A tree's leaves in the reference's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tokens(seed, b, s, vocab):
+    return np.random.default_rng(seed).integers(1, vocab, size=(b, s)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+def test_config_matches_the_reference():
+    for full in (True, False):
+        jcfg = jget_arch(ARCH) if full else jreduced(jget_arch(ARCH))
+        cfg = get_arch(ARCH) if full else reduced(get_arch(ARCH))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.layer_kinds() == jcfg.layer_kinds()
+        assert cfg.approx_params() == jcfg.approx_params()
+        for d in (cfg.d_model, 48):
+            assert (cfg.ssm.d_inner(d), cfg.ssm.n_heads(d), cfg.ssm.conv_dim(d)) == (
+                jcfg.ssm.d_inner(d), jcfg.ssm.n_heads(d), jcfg.ssm.conv_dim(d))
+    cfg = get_arch(ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm.n_heads(cfg.d_model), cfg.ssm.d_state) == (48, 1024, 32, 128)
+    assert norms_per_forward(cfg) == 97 and flash_per_prefill(cfg, 1000) == 0
+
+
+# ---------------------------------------------------------------------------
+# the mixer's pieces
+# ---------------------------------------------------------------------------
+
+def _naive_ssd(x, dt, a_log, bm, cm):
+    """The step-by-step recurrence (tests/test_models.py's oracle), float64."""
+    b, s, h, p = x.shape
+    a = -np.exp(a_log.astype(np.float64))
+    state = np.zeros((b, h, bm.shape[-1], p))
+    y = np.zeros((b, s, h, p))
+    for t in range(s):
+        decay = np.exp(dt[:, t] * a)
+        inp = np.einsum("bn,bhp->bhnp", bm[:, t], x[:, t] * dt[:, t][..., None])
+        state = state * decay[:, :, None, None] + inp
+        y[:, t] = np.einsum("bn,bhnp->bhp", cm[:, t], state)
+    return y, state
+
+
+@pytest.mark.parametrize("steep", [False, True], ids=["a_log~N(0,.5)", "large-A_log"])
+def test_ssd_chunked_matches_reference_and_recurrence(steep):
+    """With a large A_log and large steps, exp(cs_i - cs_j) above the
+    diagonal overflows to inf inside a chunk; ``where`` keeps it out of the
+    sums (no NaN), on both sides."""
+    rng = np.random.default_rng(7 + steep)
+    b, s, h, p, n, chunk = 2, 32, 3, 8, 4, 8
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) + (3.0 if steep else 0.0))).astype(np.float32)
+    a_log = (np.full(h, np.log(16.0) + 2.0) if steep else rng.standard_normal(h) * 0.5).astype(np.float32)
+    bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    if steep:  # the decay over a chunk does overflow
+        cs = np.cumsum((dt * -np.exp(a_log)).reshape(b, s // chunk, chunk, h), axis=2)
+        with np.errstate(over="ignore"):
+            assert np.isinf(np.exp((cs[:, :, :, None] - cs[:, :, None]).astype(np.float32))).any()
+    want, wstate = jssm.ssd_chunked(*map(jnp.asarray, (x, dt, a_log, bm, cm)), chunk, return_state=True)
+    got, state = tssm.ssd_chunked(*map(_t, (x, dt, a_log, bm, cm)), chunk, return_state=True)
+    _allclose(got, want, "y vs reference")
+    _allclose(state, wstate, "final state vs reference")
+    oracle, ostate = _naive_ssd(*(a.astype(np.float64) for a in (x, dt, a_log, bm, cm)))
+    _allclose(got, oracle, "y vs the recurrence")
+    _allclose(state, ostate, "final state vs the recurrence")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_matches(dtype):
+    """``layers.causal_conv``, the one conv both recurrent mixers call."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 9, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 6)).astype(np.float32)
+    bias = rng.standard_normal(6).astype(np.float32)
+    jx = jnp.asarray(x, dtype)
+    want = jssm._causal_conv(jx, jnp.asarray(w), jnp.asarray(bias))
+    got = tlayers.causal_conv(_t(_f32(jx)).to(getattr(torch, dtype)), _t(w), _t(bias))
+    assert got.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        _allclose(got, want, "conv")
+    else:  # one bf16 rounding of each partial sum
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
+
+
+def _mixer(seed, d_model=32, ssm=SSMConfig(d_state=16, head_dim=16, chunk=16)):
+    jcfg, _ = _cfgs("float32")
+    jcfg = dataclasses.replace(jcfg, d_model=d_model, ssm=ssm)
+    shapes = jax.eval_shape(lambda: jssm.init_ssm_params(jax.random.PRNGKey(0), d_model, ssm))
+    rng = np.random.default_rng(seed)
+    p_np = {k: _draw(rng, k, tuple(v.shape)) for k, v in shapes.items()}
+    return jcfg, p_np, {k: _t(v) for k, v in p_np.items()}
+
+
+@pytest.mark.parametrize("s", [37, 2], ids=["s37-padded-to-chunk", "s2-below-conv-kernel"])
+def test_ssm_forward_with_cache_matches(s):
+    """s = 37 pads to 48 with dt = 0 steps (chunk 16); s = 2 runs one chunk
+    of 2 and left-pads the conv cache to the kernel's 4 columns."""
+    jcfg, p_np, p = _mixer(11)
+    d = jcfg.d_model
+    x = np.random.default_rng(12).standard_normal((2, s, d)).astype(np.float32)
+    want, wcache = jssm.ssm_forward(_jtree(p_np), jnp.asarray(x), d, jcfg.ssm, PALLAS, return_cache=True)
+    got, cache = tssm.ssm_forward(p, _t(x), d, jcfg.ssm, return_cache=True)
+    _allclose(got, want, "ssm_forward out")
+    assert set(cache) == {"conv", "state"} and all(c.dtype == torch.float32 for c in cache.values())
+    _allclose(cache["conv"], wcache["conv"], "conv cache")
+    _allclose(cache["state"], wcache["state"], "state cache")
+    if s < 4:
+        assert not cache["conv"][:, : 4 - s].any()
+    np.testing.assert_allclose(_f32(tssm.ssm_forward(p, _t(x), d, jcfg.ssm)), _f32(got), rtol=0, atol=0)
+
+
+def test_ssm_decode_four_steps_match():
+    """Four recurrent steps from a prefilled cache, each side on its own
+    cache; the port's cache is updated in place."""
+    jcfg, p_np, p = _mixer(13)
+    d, ssm = jcfg.d_model, jcfg.ssm
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((3, 7, d)).astype(np.float32)
+    _, jcache = jssm.ssm_forward(_jtree(p_np), jnp.asarray(x), d, ssm, PALLAS, return_cache=True)
+    _, cache = tssm.ssm_forward(p, _t(x), d, ssm, return_cache=True)
+    empty = tssm.init_ssm_cache(d, ssm, 3)
+    assert {k: tuple(v.shape) for k, v in empty.items()} == {
+        k: tuple(v.shape) for k, v in jssm.init_ssm_cache(d, ssm, 3).items()}
+    for step in range(4):
+        xt = rng.standard_normal((3, 1, d)).astype(np.float32)
+        want, jcache = jssm.ssm_decode(_jtree(p_np), jnp.asarray(xt), jcache, d, ssm, PALLAS)
+        got, new = tssm.ssm_decode(p, _t(xt), cache, d, ssm)
+        assert new is cache
+        _allclose(got, want, f"decode step {step} out")
+        _allclose(cache["conv"], jcache["conv"], f"decode step {step} conv")
+        _allclose(cache["state"], jcache["state"], f"decode step {step} state")
+
+
+# ---------------------------------------------------------------------------
+# the slice: reduced mamba2-370m
+# ---------------------------------------------------------------------------
+
+def test_param_and_cache_trees_match_the_reference():
+    jcfg, cfg = _cfgs()
+    want = jax.eval_shape(lambda: jtf.init_lm_params(jax.random.PRNGKey(0), jcfg))
+    got = lm_params_to_numpy(init_lm_params(cfg, generator=torch.Generator().manual_seed(0),
+                                            device="cpu"))
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.shape == tuple(w.shape) and g.dtype == np.float32
+    np.testing.assert_allclose(got["layers"]["mixer"]["A_log"][1],
+                               np.log(np.linspace(1, 16, cfg.ssm.n_heads(cfg.d_model))), rtol=1e-6)
+    jcache = jtf.init_cache(jcfg, 3, 10)
+    cache = init_cache(cfg, 3, 10, device="cpu")
+    assert jax.tree.structure(lm_params_to_numpy(cache)) == jax.tree.structure(jcache)
+    for g, w in zip(_leaves(cache), jax.tree.leaves(jcache)):
+        assert tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32 and not g.any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_leaf_by_leaf_serving_draw_is_bitwise_the_cast_masters(dtype):
+    cfg = dataclasses.replace(reduced(get_arch(ARCH)), dtype=dtype)
+    cpu = torch.device("cpu")
+    want = serving_params(init_lm_params(cfg, generator=torch.Generator().manual_seed(3),
+                                         device=cpu), cfg, cpu)
+    got = init_lm_params(cfg, generator=torch.Generator().manual_seed(3), device=cpu, serving=True)
+    pairs = list(zip(_leaves(got), _leaves(want)))
+    assert pairs and all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs)
+    mixer = got["layers"]["mixer"]
+    for name in ("A_log", "D", "dt_bias", "norm_w", "conv_x", "conv_bB"):
+        assert mixer[name].dtype == torch.float32, name
+    assert mixer["w_x"].dtype == mixer["out_proj"].dtype == cfg.activation_dtype
+
+
+def _prefill_both(jcfg, cfg, tree, tokens, max_len):
+    jlogits, jcache = jax.jit(
+        lambda p, t: jtf.lm_prefill(p, t, jcfg, PALLAS, max_len=max_len))(_jtree(tree), tokens)
+    params = lm_params_from_numpy(tree, device="cpu")
+    logits, cache = lm_prefill(params, torch.from_numpy(tokens).long(), cfg, max_len=max_len)
+    return (jlogits, jcache), (logits, cache), params
+
+
+@pytest.mark.parametrize("dtype,rel", [("float32", F32), ("bfloat16", BF16)])
+def test_prefill_and_decode_match(dtype, rel):
+    """A 37-token prompt (past a chunk, padded), then 4 decode steps, each
+    side on its own float32 state from its prefill, the same tokens."""
+    jcfg, cfg = _cfgs(dtype)
+    tree = _np_params(jcfg, 10)
+    tokens = _tokens(11, 2, 37, cfg.vocab)
+    (jl, jc), (tl, tc), params = _prefill_both(jcfg, cfg, tree, tokens, 48)
+    _close(tl, jl, rel, "prefill logits")
+    for g, w in zip(_leaves(tc), jax.tree.leaves(jc)):
+        assert g.dtype == torch.float32
+        _close(g, w, rel, "prefill cache")
+    jstep = jax.jit(lambda p, t, c, i: jtf.lm_decode_step(p, t, c, i, jcfg, PALLAS))
+    jp = _jtree(tree)
+    tok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+    for i in range(4):
+        jl, jc = jstep(jp, jnp.asarray(tok), jc, jnp.int32(37 + i))
+        tl, tc = lm_decode_step(params, torch.from_numpy(tok).long(), tc, 37 + i, cfg)
+        _close(tl, jl, rel, f"decode step {i} logits")
+        if dtype == "float32":
+            np.testing.assert_array_equal(torch.argmax(tl, -1).numpy(), np.asarray(jnp.argmax(jl, -1)))
+        tok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+    for g, w in zip(_leaves(tc), jax.tree.leaves(jc)):
+        _close(g, w, rel, "cache after 4 steps")
+
+
+def test_engine_outputs_match_float32():
+    """Four requests on two slots: every admission overwrites its slot's
+    conv and state whole after the idle slot decoded token 0 at index 0."""
+    jcfg, cfg = _cfgs("float32")
+    tree = _np_params(jcfg, 40)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist() for n in (5, 19, 2, 19)]
+    jeng = JEngine(jcfg, _jtree(tree), max_len=32, max_batch=2, policy=PALLAS)
+    eng = Engine(cfg, lm_params_from_numpy(tree, device="cpu"), max_len=32, max_batch=2, device="cpu")
+    for rid, prompt in enumerate(prompts):
+        jeng.submit(JRequest(rid=rid, prompt=prompt, max_tokens=3 + 2 * rid))
+        eng.submit(Request(rid=rid, prompt=prompt, max_tokens=3 + 2 * rid))
+    want = {r.rid: r.output for r in jeng.run_until_done()}
+    done = eng.run_until_done()
+    assert not eng.failed
+    assert {r.rid: r.output for r in done} == want
+    assert eng.steps == jeng.steps
+    assert all(c.dtype == torch.float32 for c in _leaves(eng.runner.cache))
+
+
+def test_forward_runs_the_counted_norms_and_no_flash(monkeypatch):
+    """2 L + 1 RMSNorm calls a forward (ln1 and the gated norm a layer, the
+    final norm) and no flash attention, counted at the wrappers."""
+    import repro_torch.kernels.flash_attention as flash_pkg
+    import repro_torch.kernels.rmsnorm as rms_pkg
+
+    calls = {"rms": 0, "flash": 0}
+    rms, flash = rms_pkg.rmsnorm, flash_pkg.flash_attention
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(rms_pkg, "rmsnorm", count("rms", rms))
+    monkeypatch.setattr(flash_pkg, "flash_attention", count("flash", flash))
+    _, cfg = _cfgs()
+    params = init_lm_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    logits, cache = lm_prefill(params, torch.tensor([[3, 4, 5, 6, 7]]), cfg, max_len=8)
+    assert calls == {"rms": norms_per_forward(cfg), "flash": 0} and norms_per_forward(cfg) == 5
+    lm_decode_step(params, torch.argmax(logits, -1)[:, None], cache, 5, cfg)
+    assert calls == {"rms": 2 * norms_per_forward(cfg), "flash": 0}
+
+
+def test_serve_cli_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+                          "--device", "cpu", "--requests", "3", "--max-tokens", "4",
+                          "--max-batch", "2"],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"{ARCH}: served 3 requests, 12 tokens" in out.stdout
+
