@@ -122,15 +122,19 @@ Phases, each failing hard:
      16-256 (24 padded to the 32 instance) and the serving path's shapes in
      bf16 and f32 (gemma-7b, chatglm3-6b and minitron-8b prefills,
      deepseek-v2-lite's MLA prefill at head dim 192, recurrentgemma-2b's
-     MQA prefill of 10 query heads over 1 kv head at head dim 256, prefill
-     and decode norms at gemma's d 3072, deepseek-v2-lite's d_model 2048
-     (also mamba2-370m's gated norm), its MLA latent's 512, mamba2-370m's
-     d_model 1024 and recurrentgemma-2b's 2560), with
-     bf16 held to one rounding of the output, and time each
-     against its bound, its plain version and one PyTorch call
-     (``F.rms_norm``, ``F.scaled_dot_product_attention``) as a yardstick,
-     and an empty kernel between two CUDA events beside rmsnorm's decode
-     reading, the floor of any launch;
+     MQA prefill of 10 query heads over 1 kv head at head dim 256,
+     whisper-tiny's non-causal attention at head dim 64 over its 1500
+     frames (the encoder, at batch 4 and 1; the cross-attention of a
+     prefill, of a decode step's one query row and of the loss) and the
+     loss's causal self-attention, prefill and decode norms at gemma's d
+     3072, deepseek-v2-lite's d_model 2048 (also mamba2-370m's gated
+     norm), its MLA latent's 512, mamba2-370m's d_model 1024 and
+     recurrentgemma-2b's 2560), with bf16 held to one rounding of the
+     output, and time each against its bound, its plain version and one
+     PyTorch call (``F.rms_norm``, ``F.scaled_dot_product_attention``,
+     masked only when causal) as a yardstick, and an empty kernel between
+     two CUDA events beside rmsnorm's decode reading, the floor of any
+     launch;
   9. serve gemma-7b at full width (28 layers, d_model 3072, random
      weights) through ``Engine``: 8 requests of 200-1000 prompt tokens on 4
      slots, 16 tokens each; then, for 2 of the prompts, the prefill's
@@ -149,7 +153,21 @@ Phases, each failing hard:
      a rolled ring) and a 2040-token one whose decode crosses the ring's
      wrap at index 2048; besides the 2 prompts' logits, those of the
      windowed prefill and of the decode step at index 2048 (fed the
-     engine's tokens) are held against the plain path;
+     engine's tokens) are held against the plain path; mamba2's bf16
+     logits at 1.5 times the reference's own kernel-vs-plain gap at its
+     48 layers (``MAMBA2_BF16_LOGIT_GATE``), the others' at 3e-2;
+ 9d. whisper serving: full-width whisper-tiny (4 + 4 layers, d_model
+     384, 6 heads of 64, vocab 51865) through its ``whisper_*`` entry
+     points, random bf16 weights: a batch of 4 stub frame sequences
+     [1500, 384], 4-token prompts, a prefill and 60 greedy decode steps
+     (flash exactly 8 + 4 x 60 times, no RMSNorm), the encoder timed;
+     the prefill's and the first decode step's logits through the kernels
+     against the plain versions in bf16 (3e-2 of max|ref|) and with f32
+     activations (1e-4 of max|ref|; the decode step on a copy of the
+     kernel run's bf16 caches, and on its own printed), the bf16 greedy
+     tokens equal; one teacher-forced ``whisper_loss`` on 448 tokens (12
+     flash launches; its scalar printed), and ``decode_train``'s final
+     hidden states on those tokens held the same way;
  10. the LM serving CLI on the card, as five subprocesses at once, for
      reduced gemma-7b, deepseek-v2-lite-16b (flash at head dim 24, padded
      to 32), deepseek-moe-16b, mamba2-370m and recurrentgemma-2b.
@@ -173,6 +191,11 @@ prefill must launch flash attention once per attention layer (none past a
 sliding window, none for mamba2), and each LM forward (prefill or decode
 step) the RMSNorm kernel 2 L + 1 times (3 L + 1 under MLA, with the
 latent's norm; an SSM layer's second norm is its mixer's gated norm).
+Whisper's prefill launches flash once per encoder layer and once per
+decoder layer (the cross-attention; the decoder's self-attention there
+is the plain version, as in the reference), a decode step once per
+decoder layer, a ``whisper_loss`` 3 times per layer pair; none of them
+the RMSNorm kernel (whisper's norms are LayerNorms).
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -216,6 +239,15 @@ LM_LOGIT_GATE = 3e-2
 # the same with float32 activations (on the same bf16-valued weights),
 # where the kernels and the plain versions differ by float32 rounding only
 LM_F32_LOGIT_GATE = 1e-4
+# mamba2-370m's bf16 logits, 48 layers deep: the reference's own gap between
+# its kernel path (the RMSNorm kernel in interpret mode) and its plain path
+# on the CPU at 48 layers and mamba2's d_model 1024 (vocab, state and head
+# dim reduced), the prefill and first decode step of 64-token prompts over 8
+# seeds, is at most 0.0856 of max|ref| (tests/mamba2_bf16_gap.py --d-model
+# 1024 --seeds 8; PERF.md §6; tests/test_torch_ssm.py holds the port to
+# the same gate); the gate is 1.5 times that gap
+MAMBA2_BF16_GAP = 0.0856
+MAMBA2_BF16_LOGIT_GATE = 1.5 * MAMBA2_BF16_GAP
 
 KERNEL_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:217"
@@ -3390,6 +3422,22 @@ def phase_lm_kernels(gpu: str) -> tuple:
         # query heads over 1 kv head (a group that is not a power of two)
         ("recurrentgemma-2b mqa prefill f32", 1, 10, 1, 1000, 1000, 256, True, "float32", False),
         ("recurrentgemma-2b mqa prefill", 1, 10, 1, 1000, 1000, 256, True, "bfloat16", True),
+        # whisper-tiny (6 heads of 64, batch 4 of 1500 frames): the encoder's
+        # non-causal self-attention (1500 = 23 x 64 + 28 keys, a ragged last
+        # tile), the cross-attention of a 4-token prefill, of a decode step
+        # (one query row in a 64-row tile) and of the loss's 448 tokens, and
+        # the loss's causal decoder self-attention
+        ("whisper-tiny encoder f32", 4, 6, 6, 1500, 1500, 64, False, "float32", False),
+        ("whisper-tiny encoder", 4, 6, 6, 1500, 1500, 64, False, "bfloat16", True),
+        ("whisper-tiny encoder b1", 1, 6, 6, 1500, 1500, 64, False, "bfloat16", True),
+        ("whisper-tiny prefill cross f32", 4, 6, 6, 4, 1500, 64, False, "float32", False),
+        ("whisper-tiny prefill cross", 4, 6, 6, 4, 1500, 64, False, "bfloat16", True),
+        ("whisper-tiny decode cross f32", 4, 6, 6, 1, 1500, 64, False, "float32", False),
+        ("whisper-tiny decode cross", 4, 6, 6, 1, 1500, 64, False, "bfloat16", True),
+        ("whisper-tiny loss cross f32", 4, 6, 6, 448, 1500, 64, False, "float32", False),
+        ("whisper-tiny loss cross", 4, 6, 6, 448, 1500, 64, False, "bfloat16", True),
+        ("whisper-tiny loss self f32", 4, 6, 6, 448, 448, 64, True, "float32", False),
+        ("whisper-tiny loss self", 4, 6, 6, 448, 448, 64, True, "bfloat16", True),
     ]
     flash = {}
     for name, b, h, kvh, sq, sk, d, causal, dtype, timed in flash_cases:
@@ -3408,7 +3456,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
             continue
         ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
         plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal), n=5)
-        mask = causal_lower_right(sq, sk)
+        mask = causal_lower_right(sq, sk) if causal else None
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), n=10)
         bound, by = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2)
@@ -3540,6 +3588,18 @@ def _drop_share(seen, prefill: bool) -> tuple:
     return sum(n for _, n in rows), sum(e for e, _ in rows)
 
 
+def _logit_pair(tag, what, got, ref, gate) -> float:
+    """Fail unless got (through the kernels) is finite and within ``gate``
+    x max|ref| of ref (through the plain versions); returns max|d| /
+    max|ref|."""
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"[{tag}] {what}, kernels vs plain: max|d|={err:.3e} (gate {gate:.4g} x max|ref|="
+          f"{scale:.3e})")
+    if not _finite(got) or not err <= gate * scale:
+        raise SystemExit(f"[{tag}] {what} disagrees with the plain path")
+    return err / scale
+
+
 def _serve_lm(gpu: str, arch: str, tag: str, extra: tuple = (), max_len: int = LM_MAX_LEN,
               bf16_gate=LM_LOGIT_GATE, f32_check: bool = False) -> dict:
     """``arch`` at full width through Engine (LM_REQUESTS requests on LM_SLOTS
@@ -3656,8 +3716,7 @@ def _serve_lm(gpu: str, arch: str, tag: str, extra: tuple = (), max_len: int = L
     # decoded, with the engine's tokens, up to the step at the wrap (index
     # ``window``), whose logits are held too. With ``f32_check`` the same
     # runs again with float32 activations on the same (bf16-valued) weights,
-    # held at LM_F32_LOGIT_GATE, and ``bf16_gate`` None prints the served
-    # dtype's difference without gating it.
+    # held at LM_F32_LOGIT_GATE; the served dtype's logits at ``bf16_gate``.
     first = {r.rid: r.output[0] for r in done}
     outputs = {r.rid: r.output for r in done}
     params = runner.params
@@ -3706,18 +3765,14 @@ def _serve_lm(gpu: str, arch: str, tag: str, extra: tuple = (), max_len: int = L
                 checks[0] = (0, f"windowed prefill ({n} > window {cfg.window}, no flash) last-token")
             for i, what in checks:
                 got, ref = out["kernels"][i], out["plain"][i]
-                err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-                said = f"gate {gate} x max|ref|" if gate else "not gated: max|ref|"
-                print(f"[{tag}] req {rid} ({n} tokens) {what} logits, {run_cfg.dtype} activations, "
-                      f"kernels vs plain: max|d|={err:.3e} ({said}={scale:.3e}); greedy tokens "
-                      f"{int(got.argmax())} / {int(ref.argmax())}")
-                stats["logit_rel_err"][f"req {rid} {what} {run_cfg.dtype}"] = err / scale
                 if "free" in out and i < 2:
                     free = out["free"][i]
-                    print(f"[{tag}]   free-running plain run (its own routes; not gated): max|d|="
-                          f"{float((got - free).abs().max()):.3e}, greedy token {int(free.argmax())}")
-                if not _finite(got) or (gate is not None and not err <= gate * scale):
-                    raise SystemExit(f"[{tag}] req {rid}: {what} logits disagree with the plain path")
+                    print(f"[{tag}] req {rid} free-running plain run (its own routes; not gated): "
+                          f"max|d|={float((got - free).abs().max()):.3e}, greedy token "
+                          f"{int(free.argmax())}")
+                stats["logit_rel_err"][f"req {rid} {what} {run_cfg.dtype}"] = _logit_pair(
+                    tag, f"req {rid} ({n} tokens) {what} logits, {run_cfg.dtype} activations "
+                    f"(greedy tokens {int(got.argmax())} / {int(ref.argmax())})", got, ref, gate)
     del engine, runner, params
     _free_cuda()
     return {**launches, "stats": stats}
@@ -3741,12 +3796,202 @@ def phase_recurrent_serving(gpu: str) -> dict:
     serving profile."""
     # mamba2's 48 bf16 layers carry the kernels' rounding flips past the
     # dense gate (3.1-3.9% of max|ref|, where float32 activations differ by
-    # 4.5e-6-5.8e-6): its bf16 logits' difference is printed, and its
-    # float32 run holds the gate
+    # 4.5e-6-5.8e-6): its bf16 logits are held at the reference's own
+    # kernel-vs-plain gap at that depth, and its float32 run at the f32 gate
     return {SSM_ARCH: _serve_lm(gpu, SSM_ARCH, "recurrent", max_len=RECURRENT_MAX_LEN,
-                                bf16_gate=None, f32_check=True),
+                                bf16_gate=MAMBA2_BF16_LOGIT_GATE, f32_check=True),
             HYBRID_ARCH: _serve_lm(gpu, HYBRID_ARCH, "recurrent", HYBRID_EXTRA, RECURRENT_MAX_LEN,
                                    f32_check=True)}
+
+
+# whisper-tiny's served run: a batch of stub frames (the conv frontend's
+# output), short prompts, greedy decode steps; and one teacher-forced loss
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_LOSS_TOKENS = (
+    "whisper-tiny", 4, 4, 60, 448)
+
+
+def phase_whisper_serving(gpu: str) -> dict:
+    """Full-width whisper-tiny through its entry points: a batch of stub
+    frames encoded, prompts prefilled, greedy decode steps; exact flash
+    launches (the encoder's layers and every cross-attention) and no
+    RMSNorm; the prefill's and first decode step's logits through the
+    kernels against the plain versions in bf16 and with f32 activations;
+    then one teacher-forced ``whisper_loss`` likewise. Returns the launch
+    counts and the serving profile."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import (init_whisper_params, whisper_decode_step, whisper_loss,
+                                    whisper_prefill)
+    from repro_torch.models.whisper import decode_train, encode, flash_per_loss, flash_per_prefill
+
+    tag = "whisper"
+    cfg = get_arch(WHISPER_ARCH)
+    b, s, steps, f = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS, cfg.encoder.frames
+    print(f"[{tag}] {cfg.name} at full width: {cfg.encoder.n_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.kv_heads} kv heads "
+          f"x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {f} stub frames; random weights "
+          f"(seed 0)")
+    dev = torch.device("cuda")
+    _free_cuda()
+    params = init_whisper_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                 device=dev, serving=True)
+    held = sum(t.numel() * t.element_size() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((b, f, cfg.d_model), generator=gen, device=dev)
+    prompt = torch.randint(1, cfg.vocab, (b, s), generator=gen, device=dev)
+    max_len = s + steps
+    with torch.inference_mode():
+        # warm up (cuBLAS handles, the allocator) outside the counted run
+        logits, cache = whisper_prefill(params, prompt, frames, cfg, max_len=max_len)
+        whisper_decode_step(params, torch.argmax(logits, -1)[:, None], cache, s, cfg)
+        enc_ms = cuda_ms(lambda: encode(params, frames, cfg), iters=5, warmup=1)
+        enc_busy_ms = device_ms(lambda: encode(params, frames, cfg), n=5)
+        del logits, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = whisper_prefill(params, prompt, frames, cfg, max_len=max_len)
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok.flatten().tolist()]
+        prefill_s = time.perf_counter() - t0
+        decode_s = []
+        for i in range(steps):
+            t = time.perf_counter()
+            logits, cache = whisper_decode_step(params, tok, cache, s + i, cfg)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(tok.flatten().tolist())
+            decode_s.append(time.perf_counter() - t)
+        dt = time.perf_counter() - t0
+        launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache_gb = sum(t.numel() * t.element_size() for t in _leaves(cache)) / 1e9
+    tokens = b * (steps + 1)
+    if not _finite(logits) or any(not 0 <= t < cfg.vocab for row in out for t in row):
+        raise SystemExit(f"[{tag}] non-finite logits or a token id out of range")
+    print(f"[{tag}] batch {b}, {s}-token prompts, {steps} greedy decode steps, max_len {max_len}: "
+          f"encoder {enc_ms:.3f} ms (CUDA events, median of 5; its kernels busy the device "
+          f"{enc_busy_ms:.3f} ms, profiler); prefill {prefill_s * 1e3:.2f} ms; "
+          f"decode step mean {np.mean(decode_s) * 1e3:.2f} ms, median "
+          f"{np.median(decode_s) * 1e3:.2f} ms; {tokens} tokens in {dt:.3f}s: {tokens / dt:.1f} "
+          f"tok/s; weights {held / 1e9:.3f} GB, cache {cache_gb:.3f} GB; max_memory_allocated "
+          f"{peak:.2f} GiB; {gpu}")
+    print(f"[{tag}]   row 0: prompt {prompt[0].tolist()} -> {[r[0] for r in out[:16]]}...")
+    want = {"rmsnorm": 0, "flash": flash_per_prefill(cfg) + steps * cfg.n_layers}
+    print(f"[{tag}] launches: flash {launches['flash']} (want {flash_per_prefill(cfg)} a prefill + "
+          f"{steps} steps x {cfg.n_layers} = {want['flash']}), rmsnorm {launches['rmsnorm']} "
+          f"(want 0: LayerNorms); {gpu}")
+    if launches != want:
+        raise SystemExit(f"[{tag}] the served run did not launch the kernels as expected")
+    del cache, logits
+
+    # the prefill's last-token logits and the first decode step's (fed the
+    # served run's first token) through the kernels and the plain versions,
+    # in bf16 and with f32 activations on the same bf16-valued weights. The
+    # caches are bf16 whatever the activation dtype (the reference's), and
+    # two prefills whose k/v differ by f32 rounding round some of them to
+    # neighbouring bf16 values: the plain decode step is held on a copy of
+    # the kernel run's cache ("same cache"), which holds the decode step's
+    # arithmetic, and on its own ("own cache"), held at the bf16 gate in
+    # bf16 and printed with f32 activations
+    rel = {}
+    first = torch.tensor(out[0], device=dev)[:, None]
+    for run_cfg, gate in ((cfg, LM_LOGIT_GATE),
+                          (dataclasses.replace(cfg, dtype="float32"), LM_F32_LOGIT_GATE)):
+        res = {}
+        for kind in ("kernels", "plain"):
+            with torch.inference_mode(), \
+                    (plain_kernels() if kind == "plain" else contextlib.nullcontext()):
+                before = flash_attention_cuda.launches
+                logits, cache = whisper_prefill(params, prompt, frames, run_cfg, max_len=s + 1)
+                if kind == "kernels":
+                    shared = {"self": {k: v.clone() for k, v in cache["self"].items()},
+                              "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
+                step, _ = whisper_decode_step(params, first, cache, s, run_cfg)
+                steps_out = [step.float()]
+                if kind == "plain":
+                    same, _ = whisper_decode_step(params, first, shared, s, run_cfg)
+                    steps_out.append(same.float())
+                moved = flash_attention_cuda.launches - before
+                if moved != (flash_per_prefill(cfg) + cfg.n_layers if kind == "kernels" else 0):
+                    raise SystemExit(f"[{tag}] the {kind} check launched flash {moved} times")
+                res[kind] = (logits.float(), *steps_out)
+                del cache
+        del shared
+        kernels, plain = res["kernels"], res["plain"]
+        for got, ref, what in ((kernels[0], plain[0], "prefill last-token logits"),
+                               (kernels[1], plain[2], "first decode step logits, same cache")):
+            rel[f"{what} {run_cfg.dtype}"] = _logit_pair(
+                tag, f"{what}, {run_cfg.dtype} activations", got, ref, gate)
+        what = "first decode step logits, own cache"
+        if run_cfg is cfg:
+            rel[f"{what} {run_cfg.dtype}"] = _logit_pair(
+                tag, f"{what}, {run_cfg.dtype} activations", kernels[1], plain[1], gate)
+        else:
+            err = float((kernels[1] - plain[1]).abs().max()) / float(plain[1].abs().max())
+            rel[f"{what} {run_cfg.dtype}"] = err
+            print(f"[{tag}] {what}, {run_cfg.dtype} activations (bf16 caches rounded apart; not "
+                  f"gated): max|d| / max|ref| = {err:.3e}")
+        greedy = [torch.argmax(res[k][0], -1).tolist() for k in ("kernels", "plain")]
+        print(f"[{tag}] prefill greedy tokens, {run_cfg.dtype}: kernels {greedy[0]}, plain "
+              f"{greedy[1]}, served {out[0]}")
+        if run_cfg is cfg and not greedy[0] == greedy[1] == out[0]:
+            raise SystemExit(f"[{tag}] the bf16 prefill's greedy tokens differ between the runs")
+
+    # one teacher-forced loss forward, its own launches counted and its
+    # scalar printed (with random weights it sits near ln(vocab) whatever
+    # the attention does, so it is not what is gated); decode_train's final
+    # hidden states over all 448 positions, through the kernels and the
+    # plain versions, are held at the logit gates
+    teacher = torch.randint(1, cfg.vocab, (b, WHISPER_LOSS_TOKENS + 1), generator=gen, device=dev)
+    batch = {"frames": frames, "tokens": teacher[:, :-1], "targets": teacher[:, 1:]}
+    losses = {}
+    with torch.inference_mode():
+        for run_cfg, gate in ((cfg, LM_LOGIT_GATE),
+                              (dataclasses.replace(cfg, dtype="float32"), LM_F32_LOGIT_GATE)):
+            rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+            t = time.perf_counter()
+            loss, _ = whisper_loss(params, batch, run_cfg)
+            value = float(loss)  # waits for the device
+            loss_ms = (time.perf_counter() - t) * 1e3
+            loss_launches = {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
+            if loss_launches != {"rmsnorm": 0, "flash": flash_per_loss(cfg)}:
+                raise SystemExit(f"[{tag}] whisper_loss launched {loss_launches}, want flash "
+                                 f"{flash_per_loss(cfg)} and no rmsnorm")
+            with plain_kernels():
+                ref, _ = whisper_loss(params, batch, run_cfg)
+            losses[run_cfg.dtype] = (value, float(ref), loss_ms)
+            print(f"[{tag}] whisper_loss over {b} x {WHISPER_LOSS_TOKENS} teacher-forced tokens, "
+                  f"{run_cfg.dtype} activations: {value:.6f} (plain {float(ref):.6f}, ln(vocab) "
+                  f"{np.log(cfg.vocab):.6f}) in {loss_ms:.1f} ms; launches {loss_launches}; {gpu}")
+            hidden = {}
+            for kind in ("kernels", "plain"):
+                with plain_kernels() if kind == "plain" else contextlib.nullcontext():
+                    before = flash_attention_cuda.launches
+                    enc_out = encode(params, frames, run_cfg)
+                    hidden[kind] = decode_train(params, batch["tokens"], enc_out, run_cfg).float()
+                    moved = flash_attention_cuda.launches - before
+                    if moved != (flash_per_loss(cfg) if kind == "kernels" else 0):
+                        raise SystemExit(f"[{tag}] the {kind} decode_train launched flash {moved} "
+                                         f"times")
+                    del enc_out
+            rel[f"decode_train hidden {run_cfg.dtype}"] = _logit_pair(
+                tag, f"decode_train final hidden states [{b}, {WHISPER_LOSS_TOKENS}, "
+                f"{cfg.d_model}], {run_cfg.dtype} activations", hidden["kernels"],
+                hidden["plain"], gate)
+            del hidden
+    del params
+    _free_cuda()
+    stats = {"encoder_ms": enc_ms, "encoder_busy_ms": enc_busy_ms, "prefill_ms": prefill_s * 1e3,
+             "decode_ms_mean": float(np.mean(decode_s) * 1e3),
+             "decode_ms_median": float(np.median(decode_s) * 1e3), "tokens": tokens, "seconds": dt,
+             "tok_per_s": tokens / dt, "peak_gib": peak, "held_weights_gb": held / 1e9,
+             "cache_gb": cache_gb, "loss": losses, "logit_rel_err": rel}
+    return {**launches, "loss_flash": loss_launches["flash"], "stats": stats}
 
 
 def _leaves(tree):
@@ -3835,6 +4080,7 @@ def main() -> int:
     lm = phase("lm serving", phase_lm_serving, gpu)
     moe = phase("moe serving", phase_moe_serving, gpu)
     recurrent = phase("recurrent serving", phase_recurrent_serving, gpu)
+    whisper = phase("whisper serving", phase_whisper_serving, gpu)
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
@@ -3862,11 +4108,14 @@ def main() -> int:
             "lm_serve": lm[key], "lm_cli": lm_cli[LM_ARCH][key], "moe_serve": moe[key],
             "moe_cli": sum(lm_cli[arch][key] for arch in moe_cli_archs),
             "recurrent_serve": sum(recurrent[arch][key] for arch in recurrent_archs),
-            "recurrent_cli": sum(lm_cli[arch][key] for arch in recurrent_archs)}
+            "recurrent_cli": sum(lm_cli[arch][key] for arch in recurrent_archs),
+            "whisper_serve": whisper[key]}
         record["recurrent_launches_by_arch"] = {
             arch: {"serve": recurrent[arch][key], "cli": lm_cli[arch][key]}
             for arch in recurrent_archs}
     flash["recurrent_serving"] = {arch: recurrent[arch]["stats"] for arch in recurrent_archs}
+    flash["launches_by_path"]["whisper_loss"] = whisper["loss_flash"]
+    flash["whisper_serving"] = whisper["stats"]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

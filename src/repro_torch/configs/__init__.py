@@ -1,10 +1,11 @@
-"""Architecture registry of the port: the served LM configs beside the FNO.
+"""Architecture registry of the port: the LM configs beside the FNO.
 
-``ARCH_IDS`` lists the reference's ten LM architectures; the port serves
-the dense ones (``DENSE_IDS``), the MoE ones (``MOE_IDS``) and the
-recurrent ones (``RECURRENT_IDS``: the SSM and hybrid families), together
-``SERVED_IDS``. ``get_arch`` of the other (whisper-tiny) raises and names
-the ROADMAP item that ports its family. ``FNO_IDS`` are the paper's FNO
+``ARCH_IDS`` lists the reference's ten LM architectures, all ported: the
+dense ones (``DENSE_IDS``), the MoE ones (``MOE_IDS``) and the recurrent
+ones (``RECURRENT_IDS``: the SSM and hybrid families), together
+``SERVED_IDS``, which the token engine serves; and the encoder-decoder one
+(``ENCDEC_IDS``: whisper-tiny), which the ``whisper_*`` entry points serve,
+as in the reference. ``FNO_IDS`` are the paper's FNO
 configs (Navier-Stokes and Sleipner), as the reference registers them;
 ``get_fno`` returns one's ``(CONFIG, SHAPES)``.
 """
@@ -14,7 +15,7 @@ import dataclasses
 import importlib
 
 from repro_torch.configs.base import (
-    NOT_PORTED, PORTED_FAMILIES, ArchConfig, MLAConfig, MoEConfig, RGLRUConfig, SSMConfig,
+    ArchConfig, EncoderConfig, MLAConfig, MoEConfig, RGLRUConfig, SSMConfig,
 )
 
 ARCH_IDS = (
@@ -34,6 +35,7 @@ DENSE_IDS = ("chameleon-34b", "qwen1.5-32b", "chatglm3-6b", "gemma-7b", "minitro
 MOE_IDS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
 RECURRENT_IDS = ("mamba2-370m", "recurrentgemma-2b")
 SERVED_IDS = DENSE_IDS + MOE_IDS + RECURRENT_IDS
+ENCDEC_IDS = ("whisper-tiny",)
 
 FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
 
@@ -41,8 +43,6 @@ FNO_IDS = ("fno-ns3d", "fno-sleipner", "fno-sleipner-2d")
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if name not in SERVED_IDS:
-        raise NotImplementedError(f"arch {name!r}: {NOT_PORTED}")
     module = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
@@ -57,9 +57,7 @@ def get_fno(name: str):
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests, as the reference's
-    ``reduced`` builds it for the dense, MoE, SSM and hybrid families."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
+    ``reduced`` builds it."""
     changes = dict(
         n_layers=3 if cfg.family == "hybrid" else 2,
         d_model=64,
@@ -89,9 +87,11 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         changes["kv_heads"] = 8
     if cfg.rglru:
         changes["rglru"] = RGLRUConfig(d_rnn=0, conv_kernel=4)
+    if cfg.encoder:
+        changes["encoder"] = EncoderConfig(n_layers=2, frames=12)
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCH_IDS", "DENSE_IDS", "FNO_IDS", "MOE_IDS", "RECURRENT_IDS", "SERVED_IDS",
-           "ArchConfig", "MLAConfig", "MoEConfig", "RGLRUConfig", "SSMConfig", "get_arch",
-           "get_fno", "reduced"]
+__all__ = ["ARCH_IDS", "DENSE_IDS", "ENCDEC_IDS", "FNO_IDS", "MOE_IDS", "RECURRENT_IDS",
+           "SERVED_IDS", "ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "RGLRUConfig",
+           "SSMConfig", "get_arch", "get_fno", "reduced"]

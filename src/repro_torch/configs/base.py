@@ -1,15 +1,15 @@
-"""Architecture configuration of the LM side: the dense, MoE, SSM and hybrid families.
+"""Architecture configuration of the LM side: all five families of the reference.
 
-Port of ``repro.configs.base.ArchConfig`` with its ``MLAConfig``, and of
-``repro.models.moe.MoEConfig``, ``repro.models.ssm.SSMConfig`` and
-``repro.models.rglru.RGLRUConfig`` (kept here, beside the config that
-holds them): the same fields and defaults, so a config prints and compares
-like the reference's. The port serves the dense family, the MoE family
-(DeepSeek's fine-grained experts, with MLA or plain attention), the SSM
-family (Mamba-2) and the hybrid family (RecurrentGemma's RG-LRU and local
-attention); the encoder-decoder family's field (``encoder``) is kept so
-that the field lists match, and every method that would need it raises
-and names ROADMAP Queue 1 item 5, where that family waits.
+Port of ``repro.configs.base.ArchConfig`` with its ``MLAConfig`` and
+``EncoderConfig``, and of ``repro.models.moe.MoEConfig``,
+``repro.models.ssm.SSMConfig`` and ``repro.models.rglru.RGLRUConfig``
+(kept here, beside the config that holds them): the same fields and
+defaults, so a config prints and compares like the reference's. The
+families: dense, MoE (DeepSeek's fine-grained experts, with MLA or plain
+attention), SSM (Mamba-2), hybrid (RecurrentGemma's RG-LRU and local
+attention) and encoder-decoder (Whisper, served through the ``whisper_*``
+entry points of ``models/whisper.py``). What the port still lacks (LM
+training and the distributed LM paths) raises with ``NOT_PORTED``.
 """
 from __future__ import annotations
 
@@ -18,10 +18,10 @@ from typing import Optional, Tuple
 
 import torch
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5: the rest of the LLM family)"
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5d: LM training and the distributed LM paths)"
 
-# the families the port computes; the others raise with NOT_PORTED
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families the port computes (every family of the reference)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 # the hybrid family's layer pattern when the config names none
 DEFAULT_BLOCK_PATTERN = ("rec", "rec", "attn")
@@ -37,6 +37,14 @@ class MLAConfig:
     dh_nope: int = 128
     dh_rope: int = 64
     dh_v: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder; the conv/mel frontend is a stub: the inputs
+    are precomputed frame embeddings [b, frames, d_model]."""
+    n_layers: int = 4
+    frames: int = 1500
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +116,7 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     block_pattern: Tuple[str, ...] = ()   # hybrid pattern, e.g. (rec, rec, attn)
-    encoder: Optional[object] = None
+    encoder: Optional[EncoderConfig] = None
     dtype: str = "bfloat16"
     notes: str = ""
 
@@ -128,12 +136,13 @@ class ArchConfig:
         return self.block_pattern or DEFAULT_BLOCK_PATTERN
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer block kind sequence: ``dense`` layers; for the MoE
-        family ``moe`` layers after a ``dense0`` first layer when
-        ``moe.first_dense_ff`` is set; ``ssm`` layers; for the hybrid
-        family the pattern repeated and cut to ``n_layers``."""
+        """Per-layer block kind sequence: ``dense`` layers (the
+        encoder-decoder family's decoder layers too, as the reference counts
+        them); for the MoE family ``moe`` layers after a ``dense0`` first
+        layer when ``moe.first_dense_ff`` is set; ``ssm`` layers; for the
+        hybrid family the pattern repeated and cut to ``n_layers``."""
         if self.family not in PORTED_FAMILIES:
-            raise NotImplementedError(f"family {self.family!r}: {NOT_PORTED}")
+            raise ValueError(f"unknown family {self.family!r}; known: {', '.join(PORTED_FAMILIES)}")
         if self.family == "ssm":
             return ("ssm",) * self.n_layers
         if self.family == "hybrid":

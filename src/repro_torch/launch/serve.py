@@ -12,7 +12,9 @@ random weights (seed 0) through ``Engine``, greedy decoding over
 
 ``--arch`` is any served config (``SERVED_IDS``: the dense family, the MoE
 family, deepseek-moe-16b and deepseek-v2-lite-16b with MLA, and the
-recurrent ones, mamba2-370m and recurrentgemma-2b). The default device is
+recurrent ones, mamba2-370m and recurrentgemma-2b); the encoder-decoder
+whisper-tiny is refused, as the reference refuses it: it is served through
+the ``whisper_*`` entry points (``repro_torch.models``). The default device is
 the card (the hand-written RMSNorm and flash-attention kernels, built at
 first use); there it also prints both kernels' launch counts
 (``norms_per_forward`` RMSNorms per prefill or decode step, one flash
@@ -35,7 +37,7 @@ from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.kernels import rmsnorm as rmsnorm_ops
 from repro_torch.models import init_lm_params
 from repro_torch.models.transformer import attention_layers, norms_per_forward
-from repro_torch.serve import Engine, Request
+from repro_torch.serve import SERVABLE_FAMILIES, Engine, Request
 
 
 def main(argv=None):
@@ -48,10 +50,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
 
+    cfg = reduced(get_arch(args.arch))
+    if cfg.family not in SERVABLE_FAMILIES:
+        # fail here, with the fix, instead of deep inside runner setup
+        raise SystemExit(
+            f"--arch {args.arch} (family {cfg.family!r}) is not servable by "
+            f"the token engine; supported families: "
+            f"{', '.join(SERVABLE_FAMILIES)}. Encoder-decoder archs are "
+            f"served via the whisper_* entry points (repro_torch.models)."
+        )
     try:
-        cfg = reduced(get_arch(args.arch))
         device = resolve_device(args.device)
-    except (NotImplementedError, RuntimeError) as exc:
+    except RuntimeError as exc:
         raise SystemExit(f"--arch {args.arch}: {exc}")
     if device.type == "cuda":
         # bf16 GEMMs accumulate in f32 and round once, as the reference's XLA ones

@@ -265,8 +265,8 @@ def _refuse_unported(args) -> None:
     if args.online and args.mode != "fno":
         raise SystemExit("--online is an fno-mode flag")
     if args.mode == "lm":
-        raise SystemExit("--mode lm is not ported yet (ROADMAP Queue 1 item 5, "
-                         "the LLM family)")
+        raise SystemExit("--mode lm is not ported yet (ROADMAP Queue 1 item 5d, "
+                         "LM training)")
 
 
 def _check_layout(args) -> None:

@@ -2,13 +2,14 @@
 
 Port of ``repro.models.attention`` less its distributed parts:
 ``_project_qkv`` (with ``qkv_bias``, ``qk_norm`` and partial RoPE),
-``_windowed_attention``, ``init_kv_cache``, ``attn_decode`` and
-``decode_attention`` (``attention.py:55-74``, ``:136-259``,
+``attn_forward`` (full-sequence attention, causal or not, under the local
+policy), ``_windowed_attention``, ``init_kv_cache``, ``attn_decode`` and
+``decode_attention`` (``attention.py:55-74``, ``:101-259``,
 ``:333-345``), and DeepSeek-V2's multi-head latent attention:
 ``init_mla_params``, ``_mla_qkr``, ``mla_forward``, ``init_mla_cache`` and
 ``mla_decode`` on its unsplit cache (``:354-479``). Split and quantised
 caches, which only a distributed policy takes, are not ported (ROADMAP
-Queue 1 item 5).
+Queue 1 item 5d).
 
 Layouts as in the reference: residual stream [b, s, d]; heads [b, h, s,
 hd]; the cache {"k": [b, kvh, S, hd], "v": ...}; the MLA cache {"ckv":
@@ -28,7 +29,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import layers
 
@@ -58,10 +58,25 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def dense_only(cfg):
-    """Refuse the layer variant that is not ported: LayerNorm (whisper's)."""
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r}: {NOT_PORTED}")
+def attend(q, k, v, cfg, *, causal: bool = True):
+    """q: [b, h, s, hd]; k/v: [b, kvh, s, hd] -> [b, h, s, hd]: through
+    the flash kernel, or for a prompt past a sliding window through
+    ``_windowed_attention`` (which the reference takes there, causal)."""
+    if cfg.window is not None and q.shape[2] > cfg.window:
+        return _windowed_attention(q, k, v, cfg.window)
+    return flash_ops.flash_attention(q, k, v, causal=causal)
+
+
+def attn_forward(p, x, cfg, *, causal: bool = True):
+    """Full-sequence attention (training, or an encoder) at positions
+    0..s-1: x [b, s, d] -> [b, s, d], one flash launch within a window.
+    q, k and v go to the kernel as the strided [b, h, s, hd] views they
+    are."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device))
+    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg, causal=causal)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
+    return o @ p["wo"].to(x.dtype)
 
 
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:
@@ -79,7 +94,6 @@ def cache_shapes(cfg, batch: int, max_len: int) -> dict:
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """Plain cache: one zeroed [batch, kvh, S, hd] buffer per k/v (S =
     max_len, or the ring's min(max_len, window))."""
-    dense_only(cfg)
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, shape in cache_shapes(cfg, batch, max_len).items()}
 
@@ -128,7 +142,6 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None):
     index: int tensor [b], the number of tokens already in each row's
     cache; ``n_keys`` = max(index) + 1 when the caller knows it (else it is
     read from the device). Returns (out [b, 1, d], cache)."""
-    dense_only(cfg)
     b = x.shape[0]
     hd = cfg.head_dim_
     s_max = cache["k"].shape[2]

@@ -1,8 +1,8 @@
-"""Shared LM layers: RMSNorm, RoPE, embeddings, MLPs, last-token logits.
+"""Shared LM layers: norms, RoPE, embeddings, MLPs, chunked cross-entropy, last-token logits.
 
-Port of ``repro.models.layers`` (``layers.py:16-138`` less the chunked
-cross-entropy, which only training uses), and the depthwise causal conv
-that the reference's SSM and RG-LRU mixers each define. Weights are cast to the
+Port of ``repro.models.layers`` (``layers.py:16-138``; the chunked
+cross-entropy forward only), and the depthwise causal conv that the
+reference's SSM and RG-LRU mixers each define. Weights are cast to the
 activation dtype at each matmul as in the reference (``.to(x.dtype)``,
 a no-op when the serving runner already holds them in that dtype).
 """
@@ -11,7 +11,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.kernels import rmsnorm as rmsnorm_ops
 
 
@@ -22,6 +21,16 @@ from repro_torch.kernels import rmsnorm as rmsnorm_ops
 def rms_norm(x, w, *, eps=1e-6):
     """RMSNorm through the fused kernel (its plain version for CPU tensors)."""
     return rmsnorm_ops.rmsnorm(x, w, eps=eps)
+
+
+def layer_norm(x, w, b, *, eps=1e-5):
+    """LayerNorm (whisper's) in plain PyTorch, as the reference computes
+    it: f32 mean and population variance, ``rsqrt(var + eps) * w + b``,
+    cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +107,40 @@ def glu_mlp(x, w_gate, w_up, w_down, *, act: str = "swiglu"):
     return (g * u) @ w_down.to(x.dtype)
 
 
-def gelu_mlp(x, w1, b1, w2, b2, *, act: str = "relu2"):
-    """Biased two-matrix MLP; only minitron's squared ReLU is ported (the
-    reference's plain-gelu variant serves whisper, ROADMAP Queue 1 item 5)."""
-    if act != "relu2":
-        raise NotImplementedError(f"mlp act {act!r}: {NOT_PORTED}")
-    h = torch.square(F.relu(x @ w1.to(x.dtype) + b1.to(x.dtype)))
+def gelu_mlp(x, w1, b1, w2, b2, *, act: str = "gelu"):
+    """Biased two-matrix MLP: the exact (erf) GELU (whisper's) or
+    minitron's squared ReLU."""
+    h = x @ w1.to(x.dtype) + b1.to(x.dtype)
+    if act == "gelu":
+        h = F.gelu(h)
+    elif act == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        raise ValueError(act)
     return h @ w2.to(x.dtype) + b2.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked softmax cross-entropy (forward): never builds [b, s, V] logits, only
+# [b, chunk, V] at a time.
+# ---------------------------------------------------------------------------
+
+def chunked_cross_entropy(h, lm_head, targets, *, chunk: int = 512):
+    """Mean token cross-entropy of ``h @ lm_head`` against ``targets``.
+    h: [b, s, d]; lm_head: [d, V]; targets: int [b, s]. As the reference:
+    the sequence in chunks of min(chunk, s) (which must divide s), f32
+    logits, ``logsumexp - logit[target]`` summed in f32 chunk by chunk."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = lm_head.to(h.dtype)
+    for i in range(0, s, chunk):
+        logits = (h[:, i:i + chunk] @ w).float()
+        tgt = logits.gather(-1, targets[:, i:i + chunk, None].long())[..., 0]
+        total = total + (torch.logsumexp(logits, dim=-1) - tgt).sum()
+    return total / (b * s)
 
 
 def logits_last(h_last, lm_head):

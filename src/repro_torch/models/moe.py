@@ -7,7 +7,7 @@ Port of the local path of ``repro.models.moe`` (``moe.py:42-190``):
 output: ``moe_apply`` returns y, and the load-balance loss is
 ``_aux_loss`` of ``_route``'s outputs for a caller that trains. The expert-parallel
 all-to-all (``_moe_ep_shard``) waits with LM training (ROADMAP Queue 1
-item 5); ``moe_apply`` serves one device.
+item 5d); ``moe_apply`` serves one device.
 
 No [T, E, C] one-hot tensor is formed: an entry's position in its
 expert's buffer is an exclusive cumulative count over the token-major

@@ -50,7 +50,6 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
@@ -138,6 +137,25 @@ def _init_layer(cfg, kind: str, mk: _Makers) -> dict:
     return p
 
 
+def leaf_makers(lead: tuple, generator, device, finish) -> _Makers:
+    """Makers of float32 leaves stacked on ``lead``, drawn from
+    ``generator`` on ``device``; ``finish(name, leaf)`` returns what is
+    kept (the leaf itself, or its serving cast)."""
+    def normal(name, shape, std):
+        return finish(name, _normal(lead + tuple(shape), std, generator, device))
+
+    def const(name, shape, value):
+        full = lead + tuple(shape)
+        if isinstance(value, torch.Tensor):
+            return finish(name, value.to(device=device, dtype=torch.float32).expand(full).clone())
+        return finish(name, torch.full(full, value, dtype=torch.float32, device=device))
+
+    def uniform(name, shape, lo, hi, fn):
+        u = torch.rand(lead + tuple(shape), generator=generator, device=device)
+        return finish(name, fn(u * (hi - lo) + lo))
+    return _Makers(normal, const, uniform)
+
+
 def _serving_dtype(name: str, cfg) -> torch.dtype:
     return torch.float32 if name in F32_LEAVES else cfg.activation_dtype
 
@@ -157,24 +175,11 @@ def init_lm_params(cfg, *, generator: torch.Generator, device=None, serving: boo
     float32 masters never coexist: the peak is the cast tree plus one
     float32 leaf."""
     device = resolve_device(device)
-    attn_lib.dense_only(cfg)
     v, d = cfg.vocab, cfg.d_model
     finish = (lambda name, t: t.to(_serving_dtype(name, cfg))) if serving else (lambda name, t: t)
 
     def makers(lead):
-        def normal(name, shape, std):
-            return finish(name, _normal(lead + tuple(shape), std, generator, device))
-
-        def const(name, shape, value):
-            full = lead + tuple(shape)
-            if isinstance(value, torch.Tensor):
-                return finish(name, value.to(device=device, dtype=torch.float32).expand(full).clone())
-            return finish(name, torch.full(full, value, dtype=torch.float32, device=device))
-
-        def uniform(name, shape, lo, hi, fn):
-            u = torch.rand(lead + tuple(shape), generator=generator, device=device)
-            return finish(name, fn(u * (hi - lo) + lo))
-        return _Makers(normal, const, uniform)
+        return leaf_makers(lead, generator, device, finish)
 
     params = {
         "embed": finish("embed", _normal((v, d), d ** -0.5, generator, device)),
@@ -240,6 +245,8 @@ def layer_params(stacked: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _norm(x, w, cfg):
+    if cfg.norm == "ln":  # as the reference: LayerNorm with a zero bias
+        return layers.layer_norm(x, w, torch.zeros_like(w), eps=cfg.norm_eps)
     return layers.rms_norm(x, w, eps=cfg.norm_eps)
 
 
@@ -262,9 +269,11 @@ def norms_per_forward(cfg) -> int:
     """RMSNorm launches of one prefill or decode step: two per layer (ln1
     and ln2, or an SSM layer's ln1 and its mixer's gated norm), the final
     norm, q- and k-norm per layer with ``qk_norm``, and the latent's
-    kv_norm per layer under MLA."""
+    kv_norm per layer under MLA. Under ``norm="ln"`` ln1, ln2 and the
+    final norm are LayerNorms, which launch no kernel."""
     n = len(cfg.layer_kinds())
-    return 2 * n + 1 + (2 * n if cfg.qk_norm else 0) + (n if cfg.mla is not None else 0)
+    layer_norms = 2 * n + 1 if cfg.norm == "rms" else 0
+    return layer_norms + (2 * n if cfg.qk_norm else 0) + (n if cfg.mla is not None else 0)
 
 
 def attention_layers(cfg) -> int:
@@ -341,7 +350,6 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
     "tail"} with rings of min(max_len, window) positions (``dtype``) and
     the RG-LRU's conv and h (float32)."""
     device = resolve_device(device)
-    attn_lib.dense_only(cfg)
     return _new_cache(cfg, batch, max_len, dtype, device, torch.zeros)
 
 
@@ -380,11 +388,7 @@ def _attn_prefill(p, h, cfg, positions, lc):
     b, s, _ = h.shape
     q, k, v = attn_lib._project_qkv(p, h, cfg, positions)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    if cfg.window is not None and s > cfg.window:
-        o = attn_lib._windowed_attention(q.transpose(1, 2), kt, vt, cfg.window)
-    else:
-        # q, k, v go to the kernel as the strided [b, h, s, hd] views they are
-        o = flash_ops.flash_attention(q.transpose(1, 2), kt, vt, causal=True)
+    o = attn_lib.attend(q.transpose(1, 2), kt, vt, cfg)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
     if cfg.window is None:
         lc["k"][:, :, :s] = kt
@@ -439,7 +443,6 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
     layers, the other attention leaves past the prompt zeroed here. The
     MoE layers route the whole prompt at once, so its capacity (and what
     it drops) is the reference's for this prompt."""
-    attn_lib.dense_only(cfg)
     b, s = tokens.shape
     if cache is None:
         dtype = torch.bfloat16 if cfg.mla is not None else cfg.activation_dtype
@@ -490,7 +493,6 @@ def lm_decode_step(params, token, cache, index, cfg):
     float32, cache), the cache updated in place. The MoE layers route the
     b tokens together with room for all b on every expert, so they drop
     none, as the reference's one-token steps drop none, for any b."""
-    attn_lib.dense_only(cfg)
     x = _embed_in(params, token, cfg)
     idx, n_keys = _decode_index(index, token.shape[0], x.device)
     for lp, lc, kind in _layers(cfg, params, cache):

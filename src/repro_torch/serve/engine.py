@@ -1,7 +1,9 @@
 """Token-family ModelRunner and the LLM serving engine.
 
 Port of ``repro.serve.engine`` for the dense, MoE, SSM and hybrid
-families (``SERVABLE_FAMILIES``, the reference's). ``TransformerRunner``
+families (``SERVABLE_FAMILIES``, the reference's; the encoder-decoder
+family goes through the ``whisper_*`` entry points, as in the
+reference). ``TransformerRunner``
 prefills a request's cache on admission and advances every active slot by
 one greedy decode step per scheduler tick, on the shared slot scheduler.
 Per-slot sequence positions differ, so the decode step runs all slots as
@@ -34,14 +36,12 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.models import transformer as tf_lib
 from repro_torch.serve.scheduler import Scheduler
 
-# Families Engine can decode with lm_prefill/lm_decode_step: the ported
-# ones, the reference's four ("encdec", whisper, waits in ROADMAP Queue 1
-# item 5 and has its own entry points there).
-SERVABLE_FAMILIES = PORTED_FAMILIES
+# Families Engine can decode with lm_prefill/lm_decode_step. "encdec"
+# (whisper) has a separate encoder pass and its own entry points.
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -71,8 +71,8 @@ class TransformerRunner:
         if cfg.family not in SERVABLE_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} is not servable by the token engine "
-                f"(supported: {', '.join(SERVABLE_FAMILIES)}; the others wait in "
-                f"ROADMAP Queue 1 item 5)"
+                f"(supported: {', '.join(SERVABLE_FAMILIES)}); encoder-"
+                f"decoder models go through the whisper_* entry points"
             )
         self.device = resolve_device(device)
         self.cfg = cfg

@@ -130,20 +130,32 @@ def test_gemma_7b_full_width_numbers():
 
 @pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(SERVED_IDS)))
 def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        get_arch(arch)
+    """The one arch the token engine does not serve, whisper-tiny, is
+    ported: its full-width numbers, as the reference's."""
+    cfg = get_arch(arch)
+    assert (cfg.family, cfg.n_layers, cfg.encoder.n_layers, cfg.encoder.frames) == ("encdec", 4, 4, 1500)
+    assert (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab) == (
+        384, 6, 6, 64, 1536, 51865)
+    assert (cfg.norm, cfg.norm_eps, cfg.mlp_act, cfg.qkv_bias, cfg.rope_fraction) == (
+        "ln", 1e-5, "gelu", True, 0.0)
+    assert cfg.approx_params() == jget_arch(arch).approx_params() == 46_910_208
 
 
 def test_unknown_arch_and_other_family_refusals():
+    """An unknown arch or family is refused; the encoder-decoder family is
+    cut and laid out as the reference's, and the token engine refuses it in
+    the reference's words."""
     with pytest.raises(KeyError):
         get_arch("gpt-2")
-    encdec = dataclasses.replace(reduced(get_arch("gemma-7b")), family="encdec")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        reduced(encdec)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        encdec.layer_kinds()
-    with pytest.raises(ValueError, match="not servable"):
-        TransformerRunner(encdec, {}, device="cpu")
+    encdec = dataclasses.replace(get_arch("gemma-7b"), family="encdec")
+    jencdec = dataclasses.replace(jget_arch("gemma-7b"), family="encdec")
+    assert dataclasses.asdict(reduced(encdec)) == dataclasses.asdict(jreduced(jencdec))
+    assert encdec.layer_kinds() == jencdec.layer_kinds() == ("dense",) * 28
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        dataclasses.replace(encdec, family="rnn").layer_kinds()
+    with pytest.raises(ValueError, match="not servable by the token engine .*; encoder-decoder "
+                                         "models go through the whisper_\\* entry points"):
+        TransformerRunner(reduced(encdec), {}, device="cpu")
     assert SERVABLE_FAMILIES == ("dense", "moe", "ssm", "hybrid")
     with pytest.raises(ValueError, match="activation dtype"):
         ArchConfig("x", "dense", 1, 8, 1, 1, 8, 8, dtype="float16").activation_dtype
@@ -213,7 +225,7 @@ def test_rope_matches(fraction, theta, pos2d, dtype):
     np.testing.assert_allclose(inv.numpy(), np.asarray(jinv), rtol=1e-6)
 
 
-@pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "gelu"])
 def test_mlps_match(act):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 5, 8)).astype(np.float32)
@@ -232,17 +244,26 @@ def test_mlps_match(act):
 
 
 def test_unported_layer_variants_name_their_roadmap_item():
-    """Whisper's LayerNorm and plain-gelu MLP raise."""
-    x = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tlayers.gelu_mlp(x, torch.zeros(8, 4), torch.zeros(4), torch.zeros(4, 8), torch.zeros(8),
-                         act="gelu")
-    _, cfg = _cfgs("gemma-7b")
-    bad = dataclasses.replace(cfg, norm="ln")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        init_cache(bad, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        lm_prefill({"layer0": None}, torch.zeros(1, 2, dtype=torch.long), bad)
+    """Whisper's LayerNorm and plain-gelu MLP compute, in the decoder LM
+    too: reduced gemma-7b with ``norm="ln"`` (each norm a LayerNorm with a
+    zero bias, as the reference's ``_norm``) and the plain GELU against the
+    reference's prefill at f32 within 1e-4 of max|ref|; its cache is made,
+    and its norms launch no RMSNorm kernel."""
+    x = torch.linspace(-3, 3, 16).reshape(1, 2, 8)
+    w = (torch.eye(8, 4), torch.zeros(4), torch.eye(4, 8), torch.zeros(8))
+    y = tlayers.gelu_mlp(x, *w)  # act defaults to "gelu", as the reference's
+    assert torch.equal(y, tlayers.gelu_mlp(x, *w, act="gelu"))
+    torch.testing.assert_close(y[..., :4], torch.nn.functional.gelu(x[..., :4]), rtol=1e-5, atol=1e-5)
+    jcfg, cfg = _cfgs("gemma-7b", "float32")
+    jcfg, cfg = (dataclasses.replace(c, norm="ln", mlp_act="gelu") for c in (jcfg, cfg))
+    assert init_cache(cfg, 1, 8, device="cpu")["layers"]["k"].shape == (2, 1, 2, 8, 16)
+    from repro_torch.models.transformer import norms_per_forward
+    assert norms_per_forward(cfg) == 0
+    tree = _np_params(jcfg, 21)
+    tokens = _tokens(22, 2, 7, cfg.vocab)
+    (jl, jc), (tl, tc), _ = _prefill_both(jcfg, cfg, tree, tokens, 9)
+    _close(tl, jl, F32_PREFILL, "LayerNorm gemma prefill logits")
+    _close(tc["layers"]["k"], jc["layers"]["k"], F32_PREFILL, "LayerNorm gemma prefill cache")
 
 
 def test_windowed_gemma_matches_the_reference():
@@ -506,7 +527,9 @@ def test_serve_cli_refuses_without_a_card_and_names_unported_archs():
     out = _cli("--requests", "1", env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     out = _cli("--arch", "whisper-tiny", "--device", "cpu")
-    assert out.returncode != 0 and "Queue 1 item 5" in out.stderr
+    assert out.returncode != 0 and "Queue 1 item 5" not in out.stderr
+    assert ("--arch whisper-tiny (family 'encdec') is not servable by the token engine" in out.stderr
+            and "Encoder-decoder archs are served via the whisper_* entry points" in out.stderr)
 
 
 # ---------------------------------------------------------------------------
