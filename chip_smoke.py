@@ -23,7 +23,10 @@ Phases, each failing hard:
  2b. the flattened-K op ``spectral_apply``: its mix kernel (forward and
      dx on conj(W^T)) and weight-cotangent kernel against
      ``spectral_apply_ref`` / ``spectral_dw_ref`` over 1-4 mode dims,
-     ragged K, ci != co, b = 1-6 and permuted batch/channel strides; its
+     ragged K (K at the mix kernel's tile and 16-byte pair edges, odd K on
+     its 8-byte path), ci != co, co past its 40-channel chunk, b = 1-6,
+     permuted batch/channel strides and the P = 4 shard's mode shape, the
+     mix kernel's forward and dx bitwise the same over two runs; its
      autograd backward against plain autograd; the mix kernel against the
      fused kernel on pre-truncated modes; one forward + backward through
      the op at the Sleipner FNO's full kept-mode width (ci = co = 40,
@@ -31,7 +34,10 @@ Phases, each failing hard:
      timed there at b = 2 and b = 1 and at the 1-D model-parallel shard
      (48,8,16,10), against their bound, the plain version (one
      ``torch.einsum``, also the library call) and ``torch.bmm`` on the
-     K-leading layout;
+     K-leading layout; the mix kernel between CUDA events around one call,
+     as its first version's recorded time (``FLAT_FIRST_MS``, printed
+     beside) was taken, and a call back to back (CUDA events around 20
+     calls);
   3. serve the Sleipner FNO (width 40, modes (24,16,8,10), 4 blocks) on
      grid (128,64,32,88) through ``FNORunner`` and the ``Scheduler``,
      checking every output against the plain unfused forward;
@@ -129,12 +135,15 @@ Phases, each failing hard:
      loss's causal self-attention, prefill and decode norms at gemma's d
      3072, deepseek-v2-lite's d_model 2048 (also mamba2-370m's gated
      norm), its MLA latent's 512, mamba2-370m's d_model 1024 and
-     recurrentgemma-2b's 2560), with bf16 held to one rounding of the
-     output, and time each against its bound, its plain version and one
-     PyTorch call (``F.rms_norm``, ``F.scaled_dot_product_attention``,
-     masked only when causal) as a yardstick, and an empty kernel between
-     two CUDA events beside rmsnorm's decode reading, the floor of any
-     launch;
+     recurrentgemma-2b's 2560; RMSNorm also at a d of no whole 16-byte
+     vectors and on x offset by one element, its scalar path, each output
+     bitwise the same over two runs), with bf16 held to one rounding of
+     the output, and time each against its bound, its plain version and
+     one PyTorch call (``F.rms_norm``, ``F.scaled_dot_product_attention``,
+     masked only when causal) as a yardstick, RMSNorm beside its launch
+     plan and its first version's recorded time (``RMSNORM_FIRST_US``), and
+     an empty kernel between two CUDA events beside rmsnorm's decode
+     reading, the floor of any launch;
   9. serve gemma-7b at full width (28 layers, d_model 3072, random
      weights) through ``Engine``: 8 requests of 200-1000 prompt tokens on 4
      slots, 16 tokens each; then, for 2 of the prompts, the prefill's
@@ -262,7 +271,19 @@ FLAT_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:101"
 FLAT_DW_SOURCE = "src/repro_torch/kernels/spectral_conv/csrc/spectral_dw.cu"
 FLAT_DW_REPLACES = "src/repro/kernels/spectral_conv/kernel.py:140"
 # sources whose ptxas report (registers, shared memory, spills) phase 1 prints
-REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE, DW_SOURCE)
+REPORTED_SOURCES = (FLASH_SOURCE, KERNEL_SOURCE, DW_SOURCE, FLAT_SOURCE, RMSNORM_SOURCE)
+# The first versions' recorded times (PERF.md §6 rows 3 and 5; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside the redesigned kernels' in phases 2b
+# and 8: the flattened-K mix (between CUDA events around one call, ms:
+# forward, dx) and RMSNorm (device time from torch.profiler, us: low, high
+# of the recorded runs)
+FLAT_FIRST_MS = {"full b=2": (1.799, 1.815), "full b=1": (1.408, 1.299),
+                 "shard P=4 b=2": (0.572, 0.513)}
+RMSNORM_FIRST_US = {(1000, 3072): (4.36, 4.36), (4, 3072): (2.36, 2.44),
+                    (1000, 2048): (3.37, 3.37), (4, 2048): (1.98, 1.98),
+                    (1000, 512): (2.70, 2.72), (4, 512): (1.91, 1.93),
+                    (1000, 1024): (2.70, 2.73), (4, 1024): (1.71, 1.73),
+                    (1000, 2560): (4.65, 4.70), (4, 2560): (2.74, 2.87)}
 # An empty kernel, built in phase 1 beside the port's and timed in phase 8:
 # what any launch costs, the floor under a kernel of microseconds (not a
 # kernel of the port)
@@ -324,37 +345,60 @@ def cuda_loop_ms(fn, n: int = 50, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Device time per call of ``fn`` in milliseconds: the union of its
-    kernels' spans in a ``torch.profiler`` trace of ``n`` calls, over ``n``.
-    For a kernel of microseconds the host's launch overhead outlasts the
-    kernel, so CUDA events around back-to-back calls time the host; the
-    trace times the device alone. A trace that holds no kernel (the
-    profiler can lose its events) is taken again; after two such, the
-    time comes from CUDA events around back-to-back calls, an upper bound,
-    and the script says so."""
-    import tempfile
-
+def _kernel_trace(fn, calls: int) -> tuple:
+    """(ms, kernels): the union of the kernels' spans and their number over
+    ``calls`` calls of ``fn`` under ``torch.profiler``. The profiler can hand
+    a trace's kernel events to the next trace instead, so an empty trace
+    before takes what earlier traces left, and one after is read with this
+    one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.profile_forward import busy_ms
+    from repro_torch.launch.profile_forward import profile_spans, union_ms
+
+    def empty():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+        return prof
+
+    empty()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted(profile_spans(prof) + profile_spans(empty()))
+    return union_ms(spans), len(spans)
+
+
+def device_ms(fn, n: int = 20) -> tuple:
+    """(ms, timed_by): device time per call of ``fn`` in milliseconds, the
+    union of its kernels' spans in a ``torch.profiler`` trace of ``n``
+    calls, over ``n``, and ``"profiler"``. For a kernel of microseconds the
+    host's launch overhead outlasts the kernel, so CUDA events around
+    back-to-back calls time the host; the trace times the device alone.
+    A trace can miss kernel events: a one-call trace is taken again while
+    it holds none, and an ``n``-call trace is used only when it holds at
+    least ``n`` times the kernels of the one-call trace (which, missing
+    some itself, may hold fewer than a call launches), and is taken again
+    otherwise; after three such, the time comes from CUDA events around
+    back-to-back calls, an upper bound, with ``"events"``, and the script
+    says so."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            trace = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(trace)
-            busy = busy_ms(trace, ("kernel",))
-        if busy > 0:
-            return busy / n
-    print("[timing] two profiler traces held no kernel; timed by CUDA events instead")
-    return cuda_loop_ms(fn, n=n)
+    for _ in range(3):
+        per_call = _kernel_trace(fn, 1)[1]
+        if per_call:
+            break
+    for _ in range(3):
+        busy, kernels = _kernel_trace(fn, n)
+        if per_call and kernels >= n * per_call:
+            return busy / n, "profiler"
+        print(f"[timing] a trace of {n} calls held {kernels} kernels, want at least {n} x "
+              f"{per_call}: taken again")
+    print("[timing] three traces missed kernel events; timed by CUDA events instead")
+    return cuda_loop_ms(fn, n=n), "events"
 
 
 def _ptxas_reports(tmp: str) -> list:
@@ -772,7 +816,10 @@ def phase_flat_kernels(gpu: str) -> tuple:
         return z.transpose(0, 1).contiguous().transpose(0, 1)
 
     # (name, b, ci, co, modes, channels outermost): 2-4 mode dims, K not a
-    # multiple of 32 or 128, ci != co, b = 1-3 and past the batch chunk of 4
+    # multiple of 32 or 128, ci != co, b = 1-3 and past the batch chunk of 4;
+    # K at the mix kernel's 64-mode tile and 16-byte pair edges (odd K takes
+    # its 8-byte path), co past its 40-channel chunk, the P = 4 shard's mode
+    # shape at reduced channels
     cases = [
         ("2 modes K=133", 1, 3, 5, (7, 19), False),
         ("3 modes K=165 permuted", 2, 9, 10, (3, 5, 11), True),
@@ -780,16 +827,26 @@ def phase_flat_kernels(gpu: str) -> tuple:
         ("2 modes K=99 b=3 permuted", 3, 11, 9, (3, 33), True),
         ("4 modes K=1000 permuted", 2, 6, 13, (5, 4, 5, 10), True),
         ("1 mode K=300 b=6", 6, 5, 3, (300,), False),
+        ("K=63 tile-1", 2, 7, 40, (63,), False),
+        ("K=64 tile", 1, 40, 40, (8, 8), False),
+        ("K=65 tile+1 permuted", 2, 5, 6, (5, 13), True),
+        ("K=1 b=5", 5, 3, 41, (1,), False),
+        ("K=2 co=81", 2, 3, 81, (2,), False),
+        ("shard modes (48,8,16,10) at 8 channels", 2, 8, 8, (48, 8, 16, 10), False),
     ]
     for name, b, ci, co, modes, permuted in cases:
         x, w, g = rand((b, ci) + modes), rand((ci, co) + modes), rand((b, co) + modes)
         if permuted:
             x, w, g = channels_outermost(x), channels_outermost(w), channels_outermost(g)
-        _gate(f"flat {name} forward", spectral_apply(x, w), spectral_apply_ref(x, w))
-        _gate(f"flat {name} dx", spectral_apply_dx(g, w),
-              spectral_apply_ref(g, w.transpose(0, 1).conj()))
+        y = spectral_apply(x, w)
+        _gate(f"flat {name} forward", y, spectral_apply_ref(x, w))
+        dx = spectral_apply_dx(g, w)
+        _gate(f"flat {name} dx", dx, spectral_apply_ref(g, w.transpose(0, 1).conj()))
         _gate(f"flat {name} dW", spectral_apply_dw(x, g), spectral_dw_ref(x, g))
-        print(f"[flat] {name}: x strides {x.stride()}, w strides {w.stride()}")
+        if not (torch.equal(y, spectral_apply(x, w)) and torch.equal(dx, spectral_apply_dx(g, w))):
+            raise SystemExit(f"[flat] {name}: two runs of the mix kernel differ")
+        print(f"[flat] {name}: x strides {x.stride()}, w strides {w.stride()}; forward and dx "
+              f"bitwise the same over two runs")
 
     def grads(op, inputs, a):
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
@@ -843,6 +900,8 @@ def phase_flat_kernels(gpu: str) -> tuple:
         raise SystemExit("[flat] full-width output has a wrong shape or non-finite values")
     y_ref, want_grads = grads(spectral_apply_ref, [xs, w], a)
     errs = {"forward": _gate("flat full width b=2 forward", y, y_ref)}
+    if not torch.equal(y, spectral_apply(xs, w)):
+        raise SystemExit("[flat] full width b=2: two forwards differ")
     for tag, gk, gp in zip(("dx", "dW"), got, want_grads):
         errs[tag] = _gate(f"flat full width b=2 {tag} (autograd vs plain autograd)", gk, gp)
     del y, y_ref, got, want_grads, a
@@ -856,8 +915,16 @@ def phase_flat_kernels(gpu: str) -> tuple:
         x = xs[:b] if modes == full else rand((b, ci) + modes)
         wt = w if modes == full else rand((ci, co) + modes)
         g = rand((b, co) + modes)
+        # the mix kernel between CUDA events around one call, as its first
+        # version was timed (which also times the wrapper's host work before
+        # the launch), and back to back (CUDA events around 20 calls: the
+        # device's pace, as its 0.3-1.3 ms outlast the wrapper's host work;
+        # no torch.profiler here, whose first use in the process leaves the
+        # traces of phase 8 missing kernels)
         fwd = cuda_ms(lambda: spectral_apply(x, wt))
         dx = cuda_ms(lambda: spectral_apply_dx(g, wt))
+        fwd_loop = cuda_loop_ms(lambda: spectral_apply(x, wt), n=20, reps=3)
+        dx_loop = cuda_loop_ms(lambda: spectral_apply_dx(g, wt), n=20, reps=3)
         dw = cuda_ms(lambda: spectral_apply_dw(x, g))
         plain_fwd = cuda_ms(lambda: spectral_apply_ref(x, wt))
         plain_dw = cuda_ms(lambda: spectral_dw_ref(x, g))
@@ -872,9 +939,15 @@ def phase_flat_kernels(gpu: str) -> tuple:
         bound, by = _flat_bound_ms(b, ci, co, k)
         timed[tag] = dict(shape=f"x [{b}, {ci}, {', '.join(map(str, modes))}], w [{ci}, {co}, ...], "
                                 f"K={k}, complex64",
-                          ms=fwd, dx_ms=dx, dw_ms=dw, plain_ms=plain_fwd, dw_plain_ms=plain_dw,
+                          ms=fwd, dx_ms=dx, loop_ms=fwd_loop, dx_loop_ms=dx_loop,
+                          dw_ms=dw, plain_ms=plain_fwd, dw_plain_ms=plain_dw,
                           bmm_ms=bmm_fwd, dw_bmm_ms=bmm_dw, bound_ms=bound, bound_by=by)
-        print(f"[flat] {tag} K={k}: mix kernel {fwd:.3f} ms, dx {dx:.3f} ms, dW kernel {dw:.3f} ms; "
+        first = FLAT_FIRST_MS[tag]
+        print(f"[flat] {tag} K={k}: mix kernel {fwd:.3f} ms between events around one call "
+              f"({bound / fwd:.0%} of bound), dx {dx:.3f} ms ({bound / dx:.0%}) (the first "
+              f"version's record, taken so: {first[0]:.3f}, dx {first[1]:.3f} ms); a call back "
+              f"to back {fwd_loop:.3f} ms ({bound / fwd_loop:.0%}), dx {dx_loop:.3f} ms "
+              f"({bound / dx_loop:.0%}); dW kernel {dw:.3f} ms; "
               f"plain (torch.einsum) {plain_fwd:.3f} / dW {plain_dw:.3f} ms; torch.bmm on the "
               f"K-leading layout {bmm_fwd:.3f} / dW {bmm_dw:.3f} ms; bound {bound:.3f} ms ({by}); {gpu}")
         del x, wt, g
@@ -899,6 +972,8 @@ def phase_flat_kernels(gpu: str) -> tuple:
     flat = record("spectral_apply", FLAT_SOURCE, FLAT_REPLACES, "", errs["forward"],
                   launches["spectral_apply"])
     flat["dx_ms"] = {tag: v["dx_ms"] for tag, v in timed.items()}
+    flat["loop_ms"] = {tag: {"forward": v["loop_ms"], "dx": v["dx_loop_ms"]}
+                       for tag, v in timed.items()}
     flat["dx_max_abs_err"] = errs["dx"]
     flat_dw = record("spectral_dw", FLAT_DW_SOURCE, FLAT_DW_REPLACES, "dw_", errs["dW"],
                      launches["spectral_dw"])
@@ -3310,8 +3385,8 @@ def _launch_floor(gpu: str, decode: dict) -> dict:
         if err:
             raise SystemExit(f"[launch floor] the empty kernel did not launch (CUDA error {err})")
 
-    floor = {"events_one": cuda_ms(empty), "events_loop": cuda_loop_ms(empty),
-             "device": device_ms(empty)}
+    floor = {"events_one": cuda_ms(empty), "events_loop": cuda_loop_ms(empty)}
+    floor["device"], floor["device_timed_by"] = device_ms(empty)
     print(f"[launch floor] empty kernel: {floor['events_one'] * 1e3:.2f} us between two CUDA "
           f"events around one launch, {floor['events_loop'] * 1e3:.2f} us a launch back to back, "
           f"{floor['device'] * 1e3:.2f} us device time (profiler); rmsnorm at decode [4, 3072] "
@@ -3332,6 +3407,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
         flash_attention_cuda,
         flash_attention_ref,
     )
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 
     dev = torch.device("cuda")
@@ -3355,32 +3431,49 @@ def phase_lm_kernels(gpu: str) -> tuple:
                  (1000, 2048, "float32"), (1000, 2048, "bfloat16"), (4, 2048, "bfloat16"),
                  (1000, 512, "float32"), (1000, 512, "bfloat16"), (4, 512, "bfloat16"),
                  (1000, 1024, "float32"), (1000, 1024, "bfloat16"), (4, 1024, "bfloat16"),
-                 (1000, 2560, "float32"), (1000, 2560, "bfloat16"), (4, 2560, "bfloat16")]
+                 (1000, 2560, "float32"), (1000, 2560, "bfloat16"), (4, 2560, "bfloat16"),
+                 # a d that is no whole number of 16-byte vectors: the scalar path
+                 (4, 100, "bfloat16"), (1000, 100, "float32")]
     rms = {}
-    for rows, d, dtype in rms_cases:
-        x = randn((rows, d), dtype, 3.0)
+    for rows, d, dtype in rms_cases + [(rows, d, dtype + " offset by one element")
+                                       for rows, d, dtype in ((4, 3072, "bfloat16"),
+                                                              (1000, 1024, "float32"))]:
+        if dtype.endswith(" offset by one element"):
+            # a contiguous view whose base is not 16-byte aligned: the scalar path
+            x = randn((rows * d + 1,), dtype.split()[0], 3.0)[1:].view(rows, d)
+        else:
+            x = randn((rows, d), dtype, 3.0)
         w = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         got = rmsnorm(x, w)
         torch.cuda.synchronize()
         err = _lm_check(f"rmsnorm {rows}x{d} {dtype}", got, rmsnorm_ref(x, w))
+        if not torch.equal(got, rmsnorm(x, w)):
+            raise SystemExit(f"[rmsnorm] {rows}x{d} {dtype}: two runs differ")
         if d in timed_d and dtype == "bfloat16" and rows in (1000, 4):
-            ms = device_ms(lambda: rmsnorm(x, w))
-            plain = device_ms(lambda: rmsnorm_ref(x, w))
-            lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
+            (ms, by_ms), (plain, by_plain), (lib, by_lib) = (
+                device_ms(lambda: rmsnorm(x, w)), device_ms(lambda: rmsnorm_ref(x, w)),
+                device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype)))
             call = cuda_loop_ms(lambda: rmsnorm(x, w))
             bound, by = _rmsnorm_bound_ms(rows, d, 2)
-            print(f"[rmsnorm] {rows}x{d} bf16, device time: kernel {ms * 1e3:.2f} us, plain "
+            lo, hi = RMSNORM_FIRST_US[rows, d]
+            first = f"{lo:.2f}" if lo == hi else f"{lo:.2f}-{hi:.2f}"
+            plan = rmsnorm_ops.launch_plan(rows, d, 2, True)
+            print(f"[rmsnorm] {rows}x{d} bf16, device time: kernel {ms * 1e3:.2f} us "
+                  f"({bound / ms:.0%} of bound; vec {plan.vec}, nv {plan.nv}, tpr {plan.tpr}, "
+                  f"rpc {plan.rpc}), first version (recorded) {first} us, plain "
                   f"{plain * 1e3:.2f} us, F.rms_norm {lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
                   f"({by}); back-to-back calls of the wrapper {call * 1e3:.2f} us each; {gpu}")
             rms[rows, d] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=bound, bound_by=by, call_ms=call)
+                                bound_ms=bound, bound_by=by, call_ms=call,
+                                timed_by={"ms": by_ms, "plain_ms": by_plain, "library_ms": by_lib})
     prefill, decode = rms[1000, 3072], rms[4, 3072]
     floor = _launch_floor(gpu, decode)
     rms_record = {
         "name": "rmsnorm", "route": "cuda", "source": RMSNORM_SOURCE,
         "replaces": RMSNORM_REPLACES, "launches": None, **prefill,
         "shape": "x [1000, 3072] bf16 (a 1000-token prefill)",
-        "decode_shape": "x [4, 3072] bf16", "decode_ms": decode["ms"], "decode_call_ms": decode["call_ms"],
+        "decode_shape": "x [4, 3072] bf16", "decode_ms": decode["ms"],
+        "decode_timed_by": decode["timed_by"], "decode_call_ms": decode["call_ms"],
         "decode_plain_ms": decode["plain_ms"], "decode_library_ms": decode["library_ms"],
         "decode_bound_ms": decode["bound_ms"], "decode_launch_floor_ms": floor,
         "kv_norm_shapes": {f"x [{rows}, {d}] bf16": {k: v for k, v in rms[rows, d].items()
@@ -3454,10 +3547,10 @@ def phase_lm_kernels(gpu: str) -> tuple:
                         flash_attention_ref(q, k, v, causal=causal))
         if not timed:
             continue
-        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
-        plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal), n=5)
+        ms, by_ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
+        plain, by_plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal), n=5)
         mask = causal_lower_right(sq, sk) if causal else None
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
+        lib, by_lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), n=10)
         bound, by = _flash_bound_ms(b, h, kvh, sq, sk, d, causal, 2)
         extra = {}
@@ -3470,7 +3563,8 @@ def phase_lm_kernels(gpu: str) -> tuple:
         print(f"[flash] {name}, device time: kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
               f"{lib:.3f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us ({by}); {gpu}")
         flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound, bound_by=by.split(";")[0], **extra)
+                           bound_ms=bound, bound_by=by.split(";")[0], **extra,
+                           timed_by={"ms": by_ms, "plain_ms": by_plain, "library_ms": by_lib})
         del q, k, v, got
         torch.cuda.empty_cache()
     flash_record = {
@@ -3478,7 +3572,7 @@ def phase_lm_kernels(gpu: str) -> tuple:
         "replaces": FLASH_REPLACES, "launches": None, **flash["gemma-7b prefill"],
         "shape": "q/k/v [1, 16, 1000, 256] bf16 causal (a gemma-7b prefill layer)",
         "other_shapes": {k: {key: v[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "function_bound_ms") if key in v}
+                                                     "function_bound_ms", "timed_by") if key in v}
                          for k, v in flash.items() if k != "gemma-7b prefill"},
     }
     return rms_record, flash_record
@@ -3848,7 +3942,7 @@ def phase_whisper_serving(gpu: str) -> dict:
         logits, cache = whisper_prefill(params, prompt, frames, cfg, max_len=max_len)
         whisper_decode_step(params, torch.argmax(logits, -1)[:, None], cache, s, cfg)
         enc_ms = cuda_ms(lambda: encode(params, frames, cfg), iters=5, warmup=1)
-        enc_busy_ms = device_ms(lambda: encode(params, frames, cfg), n=5)
+        enc_busy_ms, enc_busy_by = device_ms(lambda: encode(params, frames, cfg), n=5)
         del logits, cache
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3875,7 +3969,7 @@ def phase_whisper_serving(gpu: str) -> dict:
         raise SystemExit(f"[{tag}] non-finite logits or a token id out of range")
     print(f"[{tag}] batch {b}, {s}-token prompts, {steps} greedy decode steps, max_len {max_len}: "
           f"encoder {enc_ms:.3f} ms (CUDA events, median of 5; its kernels busy the device "
-          f"{enc_busy_ms:.3f} ms, profiler); prefill {prefill_s * 1e3:.2f} ms; "
+          f"{enc_busy_ms:.3f} ms, {enc_busy_by}); prefill {prefill_s * 1e3:.2f} ms; "
           f"decode step mean {np.mean(decode_s) * 1e3:.2f} ms, median "
           f"{np.median(decode_s) * 1e3:.2f} ms; {tokens} tokens in {dt:.3f}s: {tokens / dt:.1f} "
           f"tok/s; weights {held / 1e9:.3f} GB, cache {cache_gb:.3f} GB; max_memory_allocated "
@@ -3986,7 +4080,8 @@ def phase_whisper_serving(gpu: str) -> dict:
             del hidden
     del params
     _free_cuda()
-    stats = {"encoder_ms": enc_ms, "encoder_busy_ms": enc_busy_ms, "prefill_ms": prefill_s * 1e3,
+    stats = {"encoder_ms": enc_ms, "encoder_busy_ms": enc_busy_ms,
+             "encoder_busy_timed_by": enc_busy_by, "prefill_ms": prefill_s * 1e3,
              "decode_ms_mean": float(np.mean(decode_s) * 1e3),
              "decode_ms_median": float(np.median(decode_s) * 1e3), "tokens": tokens, "seconds": dt,
              "tok_per_s": tokens / dt, "peak_gib": peak, "held_weights_gb": held / 1e9,

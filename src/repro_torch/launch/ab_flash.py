@@ -15,15 +15,13 @@ bf16 gate), "__expf" takes the fast exponential. Needs a CUDA card.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
-import tempfile
 
 import torch
 
 from repro_torch.kernels.build import build_variants
 from repro_torch.kernels.flash_attention import LIBRARY, flash_attention_ref
-from repro_torch.launch.profile_forward import busy_ms
+from repro_torch.launch.profile_forward import profile_spans, union_ms
 
 VARIANTS = {
     "as committed": [],
@@ -72,10 +70,7 @@ def device_ms(fn, n: int = 10) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        trace = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(trace)
-        busy = busy_ms(trace, ("kernel",))
+    busy = union_ms(profile_spans(prof))
     if busy <= 0:
         raise SystemExit("the profiler trace held no kernel")
     return busy / n

@@ -63,22 +63,42 @@ LM_GROUPS = (("flash attention", ("flash_kernel",)), ("rmsnorm", ("rmsnorm_kerne
              ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")))
 
 
-def busy_ms(trace_path: str, cats=DEVICE_SPANS) -> float:
-    """Milliseconds covered by the union of the trace's device spans of the
-    given categories (a Chrome trace as ``export_chrome_trace`` writes it)."""
+def device_spans(trace_path: str, cats=DEVICE_SPANS) -> list:
+    """Sorted (start, end) in microseconds of the device spans of the given
+    categories in a Chrome trace as ``export_chrome_trace`` writes it."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted(
+    return sorted(
         (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
         for e in events
         if e.get("ph") == "X" and e.get("cat") in cats
     )
+
+
+def profile_spans(prof, cats=("kernel",)) -> list:
+    """``device_spans`` of a finished ``torch.profiler`` profile (kernels
+    only by default)."""
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        return device_spans(trace, cats)
+
+
+def union_ms(spans) -> float:
+    """Milliseconds covered by the union of sorted (start, end) spans in
+    microseconds."""
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy += e - max(s, end)
             end = e
     return busy / 1e3
+
+
+def busy_ms(trace_path: str, cats=DEVICE_SPANS) -> float:
+    """Milliseconds covered by the union of the trace's device spans of the
+    given categories (a Chrome trace as ``export_chrome_trace`` writes it)."""
+    return union_ms(device_spans(trace_path, cats))
 
 
 def kernel_ms_by_name(trace_path: str) -> dict:

@@ -235,13 +235,22 @@ def test_fno_gradients_on_card_match_unfused(cuda):
 
 
 # (b, ci, co, modes, channels outermost): 2-4 mode dims, K not a multiple of
-# 32 or 128, ragged channel tiles, b past the kernels' batch chunk of 4
+# 32 or 128, ragged channel tiles, b past the kernels' batch chunk of 4; K at
+# the mix kernel's 64-mode tile and its 16-byte pair edges (K = 63, 64, 65,
+# 1, 2: an odd K takes its 8-byte path), co past its 40-channel chunk, and
+# the P = 4 shard's mode shape at reduced channels
 FLAT_CASES = [
     (1, 3, 5, (7, 19), False),
     (2, 9, 10, (3, 5, 11), True),
     (3, 4, 17, (2, 3, 5, 7), False),
     (6, 11, 9, (3, 33), True),
     (2, 40, 40, (6, 4, 4, 10), True),
+    (2, 7, 40, (63,), False),
+    (1, 40, 40, (8, 8), False),
+    (2, 5, 6, (5, 13), True),
+    (5, 3, 41, (1,), False),
+    (2, 3, 81, (2,), False),
+    (2, 8, 8, (48, 8, 16, 10), False),
 ]
 
 
@@ -252,8 +261,9 @@ def _channels_outermost(z):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,ci,co,modes,permuted", FLAT_CASES)
 def test_flat_kernels_match_plain(cuda, b, ci, co, modes, permuted):
-    """The mix kernel (forward and dx on conj(W^T)) and the weight-cotangent
-    kernel vs their plain versions; repeated dW runs agree bitwise."""
+    """The mix kernel (forward and dx on conj(W^T), through swapped weight
+    strides) and the weight-cotangent kernel vs their plain versions;
+    repeated runs of each agree bitwise."""
     rng = np.random.default_rng(sum(modes) + b)
     x = _cplx(rng, (b, ci) + modes, cuda)
     w = _cplx(rng, (ci, co) + modes, cuda)
@@ -271,6 +281,7 @@ def test_flat_kernels_match_plain(cuda, b, ci, co, modes, permuted):
     torch.testing.assert_close(dx, spectral_apply_ref(g, w.transpose(0, 1).conj()), rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(dw, spectral_dw_ref(x, g), rtol=RTOL, atol=ATOL)
     assert torch.equal(dw, dw_again)
+    assert torch.equal(y, spectral_apply(x, w)) and torch.equal(dx, spectral_apply_dx(g, w))
 
 
 @pytest.mark.cuda

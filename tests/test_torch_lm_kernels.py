@@ -16,7 +16,9 @@ with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_kernels.py
 """
+import contextlib
 import os
+import types
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -35,6 +37,8 @@ from repro_torch.kernels.flash_attention import (
     kernel_head_dim,
 )
 from repro_torch.kernels.flash_attention.ops import tma_alignment_error
+from repro_torch.configs import SERVED_IDS, get_arch
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_ref
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -99,6 +103,161 @@ def test_rmsnorm_keeps_leading_dims_and_eps():
 def test_rmsnorm_rejects_a_weight_of_the_wrong_width():
     with pytest.raises(ValueError, match="w shape"):
         rmsnorm(torch.ones(3, 8), torch.ones(7))
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm: the launch plan and what the wrapper hands the C interface
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plan,d,itemsize,ok", [
+    ((8, 2, 32, 4), 512, 2, True), ((8, 6, 64, 2), 3072, 2, True), ((1, 2, 64, 1), 100, 2, True),
+    ((4, 2, 128, 1), 1024, 4, True), ((8, 0, 1024, 1), 40000, 2, True),
+    ((8, 2, 32, 4), 100, 2, False),   # d no whole vectors
+    ((4, 2, 32, 4), 512, 2, False),   # a vector not 16 bytes
+    ((8, 9, 32, 1), 2304, 2, False),  # more vectors a thread than registers hold
+    ((8, 2, 24, 4), 384, 2, False),   # threads a row neither a power of two nor whole warps
+    ((8, 2, 48, 2), 768, 2, False),   # the same past a warp
+    ((8, 2, 16, 1), 256, 2, False),   # a CTA of half a warp
+    ((8, 2, 256, 4), 4096, 2, False),  # a CTA past MAX_BLOCK
+    ((8, 1, 32, 1), 512, 2, False),   # the row not covered
+    ((8, 0, 1000, 1), 40000, 2, False),  # two-pass kernel: not whole warps
+    ((8, 0, 1024, 2), 40000, 2, False),  # two-pass kernel: one row a CTA
+])
+def test_plan_ok_mirrors_the_c_launcher(plan, d, itemsize, ok):
+    """``ops.plan_ok``, which the A/B tool and these tests use, takes what
+    ``rmsnorm_launch`` (csrc/rmsnorm.cu ``plan_ok``) takes and refuses what
+    it refuses."""
+    assert rms_ops.plan_ok(rms_ops.LaunchPlan(*plan), d, itemsize) is ok
+
+
+def _served_norm_shapes():
+    """(rows, d) of every RMSNorm the served configs run, for a decode step of
+    1 and 4 slots and a 1000-token prefill: d_model, the q/k norms at head
+    dim (rows: tokens x heads), MLA's kv_norm and the SSM's gated norm."""
+    shapes = set()
+    for name in SERVED_IDS:
+        cfg = get_arch(name)
+        for tokens in (1, 4, 1000):
+            shapes.add((tokens, cfg.d_model))
+            if cfg.qk_norm:
+                shapes.add((tokens * cfg.n_heads, cfg.head_dim_))
+                shapes.add((tokens * cfg.kv_heads, cfg.head_dim_))
+            if cfg.mla is not None:
+                shapes.add((tokens, cfg.mla.kv_lora))
+            if cfg.ssm is not None:
+                shapes.add((tokens, cfg.ssm.d_inner(cfg.d_model)))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("rows,d", _served_norm_shapes())
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_launch_plan_of_every_served_norm(rows, d, dtype):
+    """16-byte vectors, the row in registers, a plan the kernel takes; a CTA
+    a row of at most two vectors a thread (more only in a CTA of the most
+    threads) while the rows are fewer than the SMs, else at least as many CTAs as SMs, or the fewest rows a CTA that
+    make whole warps."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    plan = rms_ops.launch_plan(rows, d, itemsize, True)
+    assert plan.vec == 16 // itemsize and plan.nv >= 1
+    assert rms_ops.plan_ok(plan, d, itemsize)
+    assert (plan.nv - 1) * plan.tpr * plan.vec < d  # no thread left without a vector
+    if rows < rms_ops.SMS:
+        assert plan.tpr < 32 or plan.rpc == 1
+        assert plan.nv <= rms_ops.DECODE_NV or plan.tpr == rms_ops.MAX_BLOCK
+    else:
+        assert -(-rows // plan.rpc) >= rms_ops.SMS or plan.rpc == max(1, 32 // plan.tpr)
+
+
+@pytest.mark.parametrize("rows,d,itemsize,aligned", [
+    (4, 100, 2, True), (1000, 102, 4, True), (1000, 3074, 2, True),  # d no whole vectors
+    (4, 3072, 2, False), (1000, 1024, 4, False), (1, 8, 2, False),   # a pointer off 16 bytes
+])
+def test_launch_plan_takes_the_scalar_path(rows, d, itemsize, aligned):
+    plan = rms_ops.launch_plan(rows, d, itemsize, aligned)
+    assert plan.vec == 1 and rms_ops.plan_ok(plan, d, itemsize)
+
+
+@pytest.mark.parametrize("d,itemsize,aligned", [(32768 + 8, 2, True), (16384 + 4, 4, True),
+                                                (4096 + 1, 2, False)])
+def test_launch_plan_sends_long_rows_to_the_two_pass_kernel(d, itemsize, aligned):
+    plan = rms_ops.launch_plan(3, d, itemsize, aligned)
+    assert plan.nv == 0 and rms_ops.plan_ok(plan, d, itemsize)
+    assert rms_ops.launch_plan(3, d - (d % 8 or 8), itemsize, True).nv > 0
+
+
+@pytest.mark.parametrize("rows", [1000, 4])
+@pytest.mark.parametrize("d", [512, 1024, 2048, 2560, 3072])
+def test_ab_tool_plans_are_plans_the_kernel_takes(rows, d):
+    """``launch/ab_rmsnorm.py`` launches every candidate plan through the C
+    interface: each must be one the launcher accepts, ``launch_plan``'s
+    own first, none twice."""
+    from repro_torch.launch.ab_rmsnorm import candidate_plans
+
+    plans = candidate_plans(rows, d, 2)
+    assert plans[0] == rms_ops.launch_plan(rows, d, 2, True) and len(set(plans)) == len(plans)
+    assert all(rms_ops.plan_ok(p, d, 2) for p in plans)
+
+
+@pytest.fixture
+def rms_fake_card(monkeypatch):
+    """Let ``rmsnorm_cuda`` run its host side on CPU tensors: a null raw
+    stream, a current device that is x's (None for a CPU tensor) unless a
+    test sets another, a device context that records its entries, and a
+    launcher that records its arguments."""
+    state = types.SimpleNamespace(current=None, entered=[], calls=[], err=0, sms=rms_ops.SMS)
+
+    @contextlib.contextmanager
+    def device(d):
+        state.entered.append(d)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: state.current)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
+    lib = types.SimpleNamespace(
+        rmsnorm_launch=lambda *a: state.calls.append(a) or state.err,
+        rmsnorm_error_string=lambda err: b"too many resources requested for launch")
+    monkeypatch.setattr(rms_ops, "load_library", lambda: lib)
+    monkeypatch.setattr(rms_ops, "sm_count", lambda index: state.sms)
+    return state
+
+
+@pytest.mark.parametrize("shape,dtype,sms", [((2, 500, 3072), torch.bfloat16, 132),
+                                             ((2, 500, 3072), torch.bfloat16, 1000),
+                                             ((4, 2048), torch.float32, 132),
+                                             ((3, 100), torch.bfloat16, 132)])
+def test_wrapper_passes_the_plan_and_sizes(rms_fake_card, shape, dtype, sms):
+    """The plan is the one for the card's own SM count."""
+    rms_fake_card.sms = sms
+    x = torch.ones(shape, dtype=dtype)
+    w = torch.ones(shape[-1])
+    before = rmsnorm_cuda.launches
+    y = rmsnorm_cuda(x, w, 1e-5)
+    assert y.shape == x.shape and y.dtype == dtype and rmsnorm_cuda.launches == before + 1
+    rows, d = x.numel() // shape[-1], shape[-1]
+    aligned = (x.data_ptr() | w.data_ptr() | y.data_ptr()) % 16 == 0
+    plan = rms_ops.launch_plan(rows, d, x.element_size(), aligned, sms)
+    (call,) = rms_fake_card.calls
+    assert call[:3] == (x.data_ptr(), w.data_ptr(), y.data_ptr())
+    assert call[3:5] == (rows, d) and call[5] == pytest.approx(1e-5)
+    assert call[6:] == ({torch.bfloat16: 1, torch.float32: 0}[dtype], plan.vec, plan.nv,
+                        plan.tpr, plan.rpc, 0)
+    assert rms_fake_card.entered == []  # x on the current device: no device context
+
+
+def test_wrapper_enters_the_device_only_off_the_current_one(rms_fake_card):
+    x, w = torch.ones(4, 64), torch.ones(64)
+    rms_fake_card.current = 1  # another device than x's
+    rmsnorm_cuda(x, w, 1e-6)
+    assert rms_fake_card.entered == [x.device.index] and len(rms_fake_card.calls) == 1
+
+
+def test_wrapper_raises_on_a_failed_launch_and_counts_none(rms_fake_card):
+    rms_fake_card.err = 701
+    before = rmsnorm_cuda.launches
+    with pytest.raises(RuntimeError, match="rmsnorm kernel launch failed: too many resources"):
+        rmsnorm_cuda(torch.ones(4, 64), torch.ones(64), 1e-6)
+    assert rmsnorm_cuda.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -261,22 +420,32 @@ def _close_to_plain(got, want, dtype):
     assert float(excess.max()) <= 0, f"max|d| {float((g - r).abs().max()):.3e} past the bf16 gate"
 
 
+# every served width (kv_norm 512, mamba2 1024, v2-lite and mamba2's gated
+# norm 2048, recurrentgemma 2560, gemma 3072) at 1, 4 and 1000 rows in both
+# dtypes, and a d that is no whole number of 16-byte vectors
+RMS_CARD_CASES = RMS_CASES + [
+    (rows, d, dtype) for d in (512, 1024, 2048, 2560, 3072) for rows in (1, 4, 1000)
+    for dtype in ("bfloat16", "float32") if (rows, d, dtype) not in RMS_CASES
+] + [(4, 100, "bfloat16"), (1000, 100, "float32"), (37, 100, "bfloat16")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype", RMS_CASES + [
-    (1000, 3072, "bfloat16"),
-    # mamba2-370m's d_model (ln1, final norm) and recurrentgemma-2b's, prefill and decode
-    (1000, 1024, "bfloat16"), (4, 1024, "bfloat16"), (1000, 1024, "float32"),
-    (1000, 2560, "bfloat16"), (4, 2560, "bfloat16"), (1000, 2560, "float32"),
-])
+@pytest.mark.parametrize("rows,d,dtype", RMS_CARD_CASES)
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
+    """The kernel vs its plain version on x as allocated and on a contiguous
+    view of x offset by one element (not 16-byte aligned: the scalar path);
+    a second launch on the same x agrees bitwise."""
     rng = np.random.default_rng(rows + d)
-    x = _torch(_np(rng, (rows, d), dtype)).to(cuda)
+    flat = _torch(_np(rng, (rows * d + 1,), dtype)).to(cuda)
     w = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
-    before = rmsnorm_cuda.launches
-    got = rmsnorm(x, w)
-    torch.cuda.synchronize()
-    assert rmsnorm_cuda.launches == before + 1
-    _close_to_plain(got, rmsnorm_ref(x, w), dtype)
+    for x in (flat[:-1].view(rows, d), flat[1:].view(rows, d)):
+        before = rmsnorm_cuda.launches
+        got = rmsnorm(x, w)
+        again = rmsnorm(x, w)
+        torch.cuda.synchronize()
+        assert rmsnorm_cuda.launches == before + 2
+        _close_to_plain(got, rmsnorm_ref(x, w), dtype)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

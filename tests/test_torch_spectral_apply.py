@@ -49,6 +49,10 @@ CASES = [
     (2, 3, 4, (5, 3), 7),         # K=15
     (1, 5, 3, (3, 4, 5), 16),     # K=60
     (3, 2, 7, (6, 5), 4),         # K=30
+    # K at the CUDA mix kernel's 64-mode tile and pair edges
+    (2, 7, 9, (63,), 16),         # K=63
+    (1, 5, 4, (8, 8), 64),        # K=64
+    (2, 3, 6, (5, 13), 32),       # K=65
 ]
 IDS = [f"b{c[0]}-ci{c[1]}-co{c[2]}-m{'x'.join(map(str, c[3]))}-bk{c[4]}" for c in CASES]
 

@@ -220,6 +220,19 @@ def test_dw_variants_of_the_ab_tool_apply_to_the_source():
             assert old in text, (name, old)
 
 
+def test_mix_variants_of_the_ab_tool_apply_to_the_source():
+    """``launch/ab_apply.py`` builds its variants by textual substitution in
+    ``spectral_apply.cu``; each substitution must still find its text."""
+    from repro_torch.launch.ab_apply import SOURCE, VARIANTS
+
+    with open(SOURCE) as f:
+        text = f.read()
+    assert os.path.basename(SOURCE) == "spectral_apply.cu"
+    for name, subs in VARIANTS.items():
+        for old, _ in subs:
+            assert old in text, (name, old)
+
+
 @pytest.mark.parametrize("name,dims,t_in,kt,t_out,with_add", CASES, ids=[c[0] for c in CASES])
 def test_fused_grads_match_jax_vjp(name, dims, t_in, kt, t_out, with_add):
     """dx, dW (and d add) of the port's autograd Function against
