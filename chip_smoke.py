@@ -179,7 +179,21 @@ Phases, each failing hard:
      hidden states on those tokens held the same way;
  10. the LM serving CLI on the card, as five subprocesses at once, for
      reduced gemma-7b, deepseek-v2-lite-16b (flash at head dim 24, padded
-     to 32), deepseek-moe-16b, mamba2-370m and recurrentgemma-2b.
+     to 32), deepseek-moe-16b, mamba2-370m and recurrentgemma-2b;
+ 11. lm train: gemma-7b at full width with its depth cut to 4 layers
+     (2.68 B params, f32 masters): every leaf's gradient through the
+     kernels against the plain versions' with f32 activations on one
+     micro-batch of 1024 tokens (within 1e-4 of the leaf's max|ref|, no
+     leaf zero or missing; a run with the kernels' outputs cut from the
+     graph must be refused), then 3 AdamW steps (batch 2 x 1024 as 2
+     micro-batches, remat on, bf16 activations: step ms, tokens/s, peak
+     memory, the init loss within 1.5 of ln(vocab)); the same gate for
+     ``whisper_loss`` on whisper-tiny at full width (batch 4, 1500
+     frames, 448 tokens, f32); the two kernels' forward and backward (the
+     plain version's gradient) by device time at the training shapes;
+     then ``train --mode lm`` for each arch of the LM CLI through a fault
+     (its losses against an uninterrupted run of the entry point in this
+     process) and reduced gemma-7b on 2 ranks.
 
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
@@ -204,7 +218,10 @@ Whisper's prefill launches flash once per encoder layer and once per
 decoder layer (the cross-attention; the decoder's self-attention there
 is the plain version, as in the reference), a decode step once per
 decoder layer, a ``whisper_loss`` 3 times per layer pair; none of them
-the RMSNorm kernel (whisper's norms are LayerNorms).
+the RMSNorm kernel (whisper's norms are LayerNorms). A training pass
+(forward + backward of ``lm_loss``) launches each layer's kernels twice
+(the forward and remat's recompute) and the final norm once
+(``train_launches``); the backward, the plain versions' gradient, none.
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -4138,6 +4155,380 @@ def phase_lm_cli(gpu: str) -> dict:
     return {arch: _lm_cli_check(gpu, arch, out) for arch, out in zip(CLI_ARCHS, runs)}
 
 
+# ---------------------------------------------------------------------------
+# Phase lm train: LM training at full width (gemma-7b, depth cut), the
+# gradient gate of the two LM kernels, and the training CLI for --mode lm.
+# ---------------------------------------------------------------------------
+
+# gemma-7b's training shape on one card (configs/gemma_7b.py ONE_CARD_TRAIN_*:
+# 4 of its 28 layers, batch 2 of 1024 tokens as 2 micro-batches, remat on),
+# bf16 activations, 3 AdamW steps
+LM_TRAIN_STEPS = 3
+# every leaf's gradient through the kernels against the plain versions',
+# float32 activations: within this share of that leaf's max|ref|
+LM_GRAD_GATE = 1e-4
+# the reference's test_arch_smoke: the first loss within this of ln(vocab)
+LM_INIT_LOSS_SLACK = 1.5
+WHISPER_TRAIN_BATCH = 4
+LM_TRAIN_CLI_STEPS, LM_TRAIN_CLI_FAULT = 4, 2
+# --devices 2 against one rank: bf16 activations, each rank's products half
+# the rows, so sums round differently (tests/test_torch_train.py: 1e-3)
+LM_TRAIN_CLI_DEVICES_RTOL = 1e-3
+
+
+def _tree_pairs(ref, got, prefix=""):
+    """(name, ref leaf, got leaf or None) over ``ref``'s tree (dicts, lists,
+    None an empty subtree)."""
+    if ref is None:
+        return []
+    if isinstance(ref, dict):
+        return [t for k in ref for t in _tree_pairs(ref[k], None if got is None else got.get(k),
+                                                    f"{prefix}.{k}")]
+    if isinstance(ref, list):
+        return [t for i, r in enumerate(ref)
+                for t in _tree_pairs(r, None if got is None else got[i], f"{prefix}.{i}")]
+    return [(prefix.lstrip("."), ref, got)]
+
+
+def _grad_gate_faults(got, ref) -> tuple:
+    """(faults, worst): the leaves of ``got`` that miss ``ref`` by more
+    than ``LM_GRAD_GATE`` x max|ref| of the leaf (of the query bias's for
+    a key bias), are all zeros, not finite, or missing where ``ref`` is not
+    zero; and the largest max|d| / max|ref| of the leaves that pass."""
+    faults, worst = [], (0.0, "")
+    pairs = _tree_pairs(ref, got)
+    scales = {name: float(r.abs().max()) for name, r, _ in pairs}
+    for name, r, g in pairs:
+        # a key bias shifts every logit of a query by the same q . bk, which
+        # the softmax cancels: its exact gradient is zero and both runs' are
+        # rounding noise, held at the scale of the query bias's gradient
+        scale = scales[name[:-2] + "bq"] if name.endswith(".bk") else scales[name]
+        if g is None:
+            if scale > 0:
+                faults.append(f"{name}: no gradient (max|ref| {scale:.3e})")
+            continue
+        if not _finite(g) or float(g.abs().max()) == 0.0:
+            faults.append(f"{name}: {'all zeros' if _finite(g) else 'not finite'}")
+            continue
+        err = float((g.float() - r.float()).abs().max())
+        if not err <= LM_GRAD_GATE * scale:
+            faults.append(f"{name}: max|d| {err:.3e} > {LM_GRAD_GATE} x max|ref| {scale:.3e}")
+        else:
+            worst = max(worst, (err / scale if scale else 0.0, name))
+    return faults, worst
+
+
+@contextlib.contextmanager
+def cut_kernels():
+    """Within the block the two LM kernels' outputs leave the graph, as the
+    wrappers returned them before they were differentiable: the gradient
+    gate must refuse what such a run computes."""
+    import repro_torch.kernels.flash_attention as flash_pkg
+    import repro_torch.kernels.rmsnorm as rms_pkg
+
+    saved = rms_pkg.rmsnorm, flash_pkg.flash_attention
+    rms_pkg.rmsnorm = lambda *a, **k: saved[0](*a, **k).detach()
+    flash_pkg.flash_attention = lambda *a, **k: saved[1](*a, **k).detach()
+    try:
+        yield
+    finally:
+        rms_pkg.rmsnorm, flash_pkg.flash_attention = saved
+
+
+def _kernel_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    return {"rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+
+
+def _gated_grads(tag, loss_fn, params, batch, want: dict, gpu: str) -> float:
+    """The gradient gate: ``loss_fn``'s gradients of every leaf through the
+    kernels (whose launches must be ``want``) against the same through the
+    plain versions, then a run with the kernels' outputs cut from the
+    graph, which the gate must refuse. Returns the worst passing leaf's
+    max|d| / max|ref|."""
+    import torch
+
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    grads = {}
+    for name, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+        grads[name] = zeros_like_tree(params)
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        with ctx():
+            loss, _ = accumulate_grads(loss_fn, params, batch, grads[name])
+        torch.cuda.synchronize()
+        launched = _kernel_counts()
+        print(f"[{tag}] forward + backward through the {name}: loss {float(loss):.6f}, "
+              f"{time.perf_counter() - t0:.3f}s, launches {launched}; {gpu}")
+        if name == "kernels" and launched != want:
+            raise SystemExit(f"[{tag}] launches {launched}, want {want}")
+        if name == "plain" and any(launched.values()):
+            raise SystemExit(f"[{tag}] the plain run launched kernels: {launched}")
+    faults, worst = _grad_gate_faults(grads.pop("kernels"), grads["plain"])
+    if faults:
+        raise SystemExit(f"[{tag}] gradient gate: " + "; ".join(faults[:8]))
+    print(f"[{tag}] gradient gate passed: every leaf within {LM_GRAD_GATE} x its max|ref| "
+          f"(worst {worst[0]:.3e}, {worst[1]}), none zero or missing")
+    cut = zeros_like_tree(params)
+    with cut_kernels():
+        accumulate_grads(loss_fn, params, batch, cut)
+    faults, _ = _grad_gate_faults(cut, grads["plain"])
+    print(f"[{tag}] the gate on a run with the kernels' outputs cut from the graph: "
+          f"{len(faults)} leaves refused, e.g. {faults[:3]}")
+    if not faults:
+        raise SystemExit(f"[{tag}] the gradient gate did not refuse a cut graph")
+    del grads, cut
+    _free_cuda()
+    return worst[0]
+
+
+def _backward_times(gpu: str, seq: int) -> dict:
+    """Device time of the two kernels' forward and of their backward (the
+    plain versions' gradient, recomputed from the saved inputs) at the
+    training shapes: gemma-7b's norm rows and attention layer of one
+    micro-batch, and whisper-tiny's encoder attention."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(shape, grad=True):
+        t = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return t.requires_grad_(grad)
+
+    out = {}
+    x, w = randn((seq, 3072)), torch.ones(3072, device=dev, requires_grad=True)
+    y = rmsnorm(x, w)
+    dy = torch.randn_like(y)
+    with torch.no_grad():
+        fwd, fwd_by = device_ms(lambda: rmsnorm(x, w))
+    bwd, bwd_by = device_ms(lambda: torch.autograd.grad(y, (x, w), dy, retain_graph=True))
+    out["rmsnorm"] = {f"[{seq}, 3072] bf16": {
+        "forward_ms": fwd, "backward_ms": bwd, "timed_by": [fwd_by, bwd_by]}}
+    out["flash"] = {}
+    for name, shape, causal in ((f"gemma-7b (1,16,16,{seq},256) causal", (1, 16, seq, 256), True),
+                                ("whisper-tiny encoder (4,6,6,1500,64)", (4, 6, 1500, 64), False)):
+        q, k, v = (randn(shape) for _ in range(3))
+        o = flash_attention(q, k, v, causal=causal)
+        do = torch.randn_like(o)
+        with torch.no_grad():
+            fwd, fwd_by = device_ms(lambda: flash_attention(q, k, v, causal=causal))
+        bwd, bwd_by = device_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), n=10)
+        out["flash"][name] = {"forward_ms": fwd, "backward_ms": bwd, "timed_by": [fwd_by, bwd_by]}
+        del q, k, v, o, do
+    for kernel, shapes in out.items():
+        for shape, t in shapes.items():
+            print(f"[lm train] {kernel} {shape}: forward (the kernel) {t['forward_ms']:.4f} ms, "
+                  f"backward (the plain version's gradient) {t['backward_ms']:.4f} ms, device time "
+                  f"({'/'.join(t['timed_by'])}); {gpu}")
+    _free_cuda()
+    return out
+
+
+def _lm_train_cli_run(flags: list) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mode", "lm", *flags]
+    return subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+
+
+def _lm_train_cli_check(tag: str, out: subprocess.CompletedProcess, want: list, rtol: float,
+                        gpu: str) -> dict:
+    """A ``--mode lm`` run's lines checked: its exit, the losses against
+    ``want`` (an uninterrupted run's) within ``rtol`` (0: bitwise), its
+    launches against its executed steps; returns the launches."""
+    print("\n".join(f"[lm_train_cli] {tag}: " + line for line in out.stdout.strip().splitlines()))
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"[lm_train_cli] {tag} exited {out.returncode}")
+    losses = json.loads(re.search(r"^losses: (.*)$", out.stdout, re.M).group(1))
+    m = re.search(r"kernel launches: rmsnorm (\d+), flash (\d+) over (\d+) train steps x (\d+) "
+                  r"micro-batches \(a pass: rmsnorm (\d+), flash (\d+)\)", out.stdout)
+    if m is None:
+        raise SystemExit(f"[lm_train_cli] {tag} printed no kernel launch counts")
+    rms, flash, steps, accum, per_rms, per_flash = map(int, m.groups())
+    if steps == 0 or rms != steps * accum * per_rms or flash != steps * accum * per_flash:
+        raise SystemExit(f"[lm_train_cli] {tag}: launches rmsnorm {rms}, flash {flash} do not "
+                         f"match {steps} steps x {accum} micro-batches")
+    a, b = np.asarray(losses), np.asarray(want)
+    rel = float(np.max(np.abs(a - b) / np.abs(b))) if a.shape == b.shape else float("inf")
+    same = "bitwise" if losses == want else f"max relative difference {rel:.3e}"
+    print(f"[lm_train_cli] {tag}: losses vs the uninterrupted run's: {same}; launches rmsnorm "
+          f"{rms}, flash {flash} over {steps} executed steps; {gpu}")
+    if not np.isfinite(a).all() or not rel <= rtol:
+        raise SystemExit(f"[lm_train_cli] {tag}: losses {losses} != uninterrupted {want}")
+    return {"rmsnorm": rms, "flash": flash, "steps": steps, "losses_bitwise": losses == want,
+            "losses_max_rel": rel}
+
+
+def _lm_train_cli(gpu: str) -> dict:
+    """``train --mode lm`` on the card for each of ``CLI_ARCHS`` through a
+    fault (restored from its checkpoint), against an uninterrupted run of
+    the entry point in this process, and for gemma-7b on 2 ranks."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    base = ["--steps", str(LM_TRAIN_CLI_STEPS), "--save-every", "2"]
+    with tempfile.TemporaryDirectory() as d:
+        jobs = {arch: [*base, "--arch", arch, "--inject-fault", str(LM_TRAIN_CLI_FAULT),
+                       "--ckpt-dir", os.path.join(d, arch)] for arch in CLI_ARCHS}
+        jobs["devices2"] = [*base, "--arch", LM_ARCH, "--devices", "2",
+                            "--ckpt-dir", os.path.join(d, "devices2")]
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            runs = {tag: pool.submit(_lm_train_cli_run, flags) for tag, flags in jobs.items()}
+            want = {}
+            for arch in CLI_ARCHS:
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    train_cli.main(["--mode", "lm", *base, "--arch", arch,
+                                    "--ckpt-dir", os.path.join(d, f"{arch}-plain")])
+                want[arch] = json.loads(re.search(r"^losses: (.*)$", text.getvalue(), re.M).group(1))
+            runs = {tag: f.result() for tag, f in runs.items()}
+    out = {}
+    for arch in CLI_ARCHS:
+        if "failures=1 restores=1" not in runs[arch].stdout:
+            print(runs[arch].stdout, runs[arch].stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"[lm_train_cli] {arch}: the fault was not restored from a checkpoint")
+        out[arch] = _lm_train_cli_check(arch, runs[arch], want[arch], 1e-6, gpu)
+    out["devices2"] = _lm_train_cli_check(f"{LM_ARCH} --devices 2", runs["devices2"], want[LM_ARCH],
+                                          LM_TRAIN_CLI_DEVICES_RTOL, gpu)
+    return out
+
+
+def phase_lm_train(gpu: str) -> dict:
+    """gemma-7b training at full width on one card: the gradient gate of
+    the kernels against the plain versions at f32 activations (one
+    micro-batch, every leaf), then ``LM_TRAIN_STEPS`` AdamW steps in bf16
+    (batch 2 as 2 micro-batches, remat on) with exact launches; the same
+    gate for ``whisper_loss`` on whisper-tiny at full width; the kernels'
+    backward timed beside their forward; then the training CLI. Returns
+    the launch counts by path and the measurements."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models import init_lm_params, init_whisper_params, lm_loss, whisper_loss
+    from repro_torch.models.transformer import train_launches
+    from repro_torch.models.whisper import flash_per_loss
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.train.train_loop import make_train_step
+
+    from repro_torch.configs.gemma_7b import (
+        ONE_CARD_TRAIN_ACCUM as LM_TRAIN_ACCUM,
+        ONE_CARD_TRAIN_BATCH as LM_TRAIN_BATCH,
+        ONE_CARD_TRAIN_LAYERS as LM_TRAIN_LAYERS,
+        ONE_CARD_TRAIN_SEQ as LM_TRAIN_SEQ,
+    )
+
+    tag = "lm train"
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    state_gb = full.approx_params() * 16 / 1e9
+    print(f"reduced: {LM_ARCH} layers {full.n_layers} -> {LM_TRAIN_LAYERS} (training state of "
+          f"{full.n_layers} layers is {full.approx_params() / 1e9:.2f} B params x 16 B = "
+          f"{state_gb:.0f} GB)")
+    print(f"[{tag}] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff} ({cfg.mlp_act}), vocab {cfg.vocab}, {LM_TRAIN_LAYERS} layers: "
+          f"{cfg.approx_params() / 1e9:.3f} B params; batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens "
+          f"as {LM_TRAIN_ACCUM} micro-batches, remat on, bf16 activations, f32 masters")
+    dev = torch.device("cuda")
+    _free_cuda()
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    data = SyntheticTokens(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(v).to(dev, torch.long) for k, v in batch.items()}
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    micro = {k: v[:1] for k, v in on_card(data.batch(0)).items()}
+    worst = {"lm": _gated_grads(f"{tag} f32 grad", lambda p, b: lm_loss(p, b, cfg32), params, micro,
+                                train_launches(cfg32, LM_TRAIN_SEQ), gpu)}
+
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg),
+                           AdamWConfig(lr=warmup_cosine(1e-4, 10, LM_TRAIN_STEPS)),
+                           grad_accum=LM_TRAIN_ACCUM)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    times, metrics = [], []
+    for i in range(LM_TRAIN_STEPS):
+        batch = on_card(data.batch(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # params, their gradients and both moments, all f32
+    held = 4 * sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        print(f"[{tag}] step {i}: loss {m['loss']:.6f} (xent {m['xent']:.6f}) grad_norm "
+              f"{m['grad_norm']:.4e} lr {m['lr']:.3e} in {t * 1e3:.1f} ms")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    step_ms = float(np.mean(times[1:]) * 1e3)
+    print(f"[{tag}] step {step_ms:.1f} ms after the first ({times[0] * 1e3:.1f} ms), "
+          f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak {peak:.2f} GiB (max_memory_allocated; "
+          f"params, gradients and moments {held:.1f} GB); {gpu}")
+    ln_v = math.log(cfg.vocab)
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        raise SystemExit(f"[{tag}] a loss or grad norm is not finite")
+    if not abs(metrics[0]["loss"] - ln_v) <= LM_INIT_LOSS_SLACK:
+        raise SystemExit(f"[{tag}] init loss {metrics[0]['loss']:.4f} not within "
+                         f"{LM_INIT_LOSS_SLACK} of ln({cfg.vocab}) = {ln_v:.4f}")
+    per = train_launches(cfg, LM_TRAIN_SEQ)
+    want = {k: LM_TRAIN_STEPS * LM_TRAIN_ACCUM * v for k, v in per.items()}
+    print(f"[{tag}] launches over {LM_TRAIN_STEPS} steps: {launches} (want {want}: a pass "
+          f"{per}, each layer's kernels twice with remat's recompute, the final norm once)")
+    if launches != want:
+        raise SystemExit(f"[{tag}] the training steps did not launch the kernels as expected")
+    del params, opt, step
+    _free_cuda()
+
+    wcfg = dataclasses.replace(get_arch(WHISPER_ARCH), dtype="float32")
+    wparams = init_whisper_params(wcfg, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    teacher = torch.randint(1, wcfg.vocab, (WHISPER_TRAIN_BATCH, WHISPER_LOSS_TOKENS + 1),
+                            generator=gen, device=dev)
+    wbatch = {"frames": torch.randn((WHISPER_TRAIN_BATCH, wcfg.encoder.frames, wcfg.d_model),
+                                    generator=gen, device=dev),
+              "tokens": teacher[:, :-1], "targets": teacher[:, 1:]}
+    print(f"[{tag}] {wcfg.name} at full width, f32 activations: whisper_loss over "
+          f"{WHISPER_TRAIN_BATCH} x {wcfg.encoder.frames} frames and {WHISPER_LOSS_TOKENS} tokens")
+    whisper_want = {"rmsnorm": 0, "flash": flash_per_loss(wcfg)}
+    worst["whisper"] = _gated_grads(f"{tag} whisper f32 grad", lambda p, b: whisper_loss(p, b, wcfg),
+                                    wparams, wbatch, whisper_want, gpu)
+    del wparams, wbatch
+    _free_cuda()
+
+    backward = _backward_times(gpu, LM_TRAIN_SEQ)
+    cli = _lm_train_cli(gpu)
+    return {"launches": launches, "whisper_launches": whisper_want, "cli": cli,
+            "backward": backward, "stats": {
+                "step_ms": step_ms, "first_step_ms": times[0] * 1e3, "tokens_per_s": tokens / (step_ms / 1e3),
+                "peak_gib": peak, "held_gb": held, "losses": [m["loss"] for m in metrics],
+                "grad_gate_worst": worst, "layers": LM_TRAIN_LAYERS}}
+
+
 def main() -> int:
     import torch
 
@@ -4177,6 +4568,7 @@ def main() -> int:
     recurrent = phase("recurrent serving", phase_recurrent_serving, gpu)
     whisper = phase("whisper serving", phase_whisper_serving, gpu)
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
+    lm_train = phase("lm train", phase_lm_train, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -4211,6 +4603,12 @@ def main() -> int:
     flash["recurrent_serving"] = {arch: recurrent[arch]["stats"] for arch in recurrent_archs}
     flash["launches_by_path"]["whisper_loss"] = whisper["loss_flash"]
     flash["whisper_serving"] = whisper["stats"]
+    for record, key in ((rms, "rmsnorm"), (flash, "flash")):
+        record["launches_by_path"].update({
+            "lm_train": lm_train["launches"][key], "whisper_train": lm_train["whisper_launches"][key],
+            "lm_train_cli": sum(run[key] for run in lm_train["cli"].values())})
+        record["backward"] = lm_train["backward"][key]
+    flash["lm_train"] = lm_train["stats"]
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

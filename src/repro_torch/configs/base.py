@@ -8,8 +8,8 @@ defaults, so a config prints and compares like the reference's. The
 families: dense, MoE (DeepSeek's fine-grained experts, with MLA or plain
 attention), SSM (Mamba-2), hybrid (RecurrentGemma's RG-LRU and local
 attention) and encoder-decoder (Whisper, served through the ``whisper_*``
-entry points of ``models/whisper.py``). What the port still lacks (LM
-training and the distributed LM paths) raises with ``NOT_PORTED``.
+entry points of ``models/whisper.py``). What the port still lacks (the
+distributed LM paths) raises with ``NOT_PORTED``.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5d: LM training and the distributed LM paths)"
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5d: the distributed LM paths)"
 
 # the families the port computes (every family of the reference)
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")

@@ -1,4 +1,4 @@
-"""Public wrapper of flash attention (forward).
+"""Public wrapper of flash attention (the kernel's forward, the plain version's backward).
 
 Port of ``repro.kernels.flash_attention.ops.flash_attention`` on its
 ``use_pallas=True`` path. The path is chosen by where the tensors lie, and
@@ -15,6 +15,9 @@ output's extra columns are zeros and are sliced off, and the scale stays
 the one of the true head dim. The operands' dtype picks the kernel: bf16
 runs on the tensor cores with TMA loads, which need 16-byte aligned base
 pointers and strides (``tma_alignment_error``); f32 runs the FFMA kernel.
+Under autograd the kernel's output is differentiable: its backward is the
+gradient of the plain version, as the JAX package, which has no backward
+kernel, differentiates its plain path.
 """
 from __future__ import annotations
 
@@ -119,6 +122,61 @@ def _validate(q, k, v, causal):
                          f"float32 or bfloat16 for all three")
 
 
+def _differentiable(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward under autograd. The JAX package differentiates
+    its plain path and has no backward kernel; neither has the port: the
+    backward runs the plain version (``flash_attention_ref``) again on the
+    saved q, k and v and returns its gradient, launching no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, launch):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return launch(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, want)]
+            o = flash_attention_ref(*ins, causal=ctx.causal, scale=ctx.scale)
+            grads = iter(torch.autograd.grad(o, [t for t in ins if t.requires_grad], do))
+        return tuple(next(grads) if w else None for w in want) + (None, None, None)
+
+
+def flash_attention_on_card(q, k, v, *, causal: bool, scale: float,
+                            launch=flash_attention_cuda) -> torch.Tensor:
+    """``flash_attention``'s path for validated operands on the card:
+    a head dim without an instance padded to the next one (the pad's
+    copies and the output's slice are differentiable), the layout checks,
+    then ``launch`` (the kernel). When autograd records (grad mode on and
+    an operand that requires grad) the launch goes through an
+    ``autograd.Function`` whose backward is the plain version's gradient;
+    otherwise it is called as is."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    if dk != d:
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k and v need unit stride along the head dim")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            reason = tma_alignment_error(name, t)
+            if reason is not None:
+                raise ValueError(f"the bf16 kernel's TMA loads need 16-byte alignment: {reason}")
+    if q.numel() == 0:
+        return torch.empty(q.shape[:3] + (d,), dtype=q.dtype, device=q.device)
+    if _differentiable(q, k, v):
+        o = _FlashAttention.apply(q, k, v, causal, scale, launch)
+    else:
+        o = launch(q, k, v, causal=causal, scale=scale)
+    return o if dk == d else o[..., :d]
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -134,7 +192,8 @@ def flash_attention(
     to d**-0.5. On the card d must be at most 256 (``kernel_head_dim``);
     at one of ``KERNEL_HEAD_DIMS`` each operand must have unit stride along
     d, and bf16 operands must pass ``tma_alignment_error``; another d is
-    padded into contiguous copies (one launch all the same)."""
+    padded into contiguous copies (one launch all the same). Differentiable
+    on both paths: on the card through ``flash_attention_on_card``."""
     _validate(q, k, v, causal)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -142,18 +201,4 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    d = q.shape[-1]
-    dk = kernel_head_dim(d)
-    if dk != d:
-        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("q, k and v need unit stride along the head dim")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            reason = tma_alignment_error(name, t)
-            if reason is not None:
-                raise ValueError(f"the bf16 kernel's TMA loads need 16-byte alignment: {reason}")
-    if q.numel() == 0:
-        return torch.empty(q.shape[:3] + (d,), dtype=q.dtype, device=q.device)
-    o = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    return o if dk == d else o[..., :d]
+    return flash_attention_on_card(q, k, v, causal=causal, scale=scale)

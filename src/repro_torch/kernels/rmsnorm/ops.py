@@ -6,7 +6,9 @@ kernel (``csrc/rmsnorm.cu``), a CPU tensor — which only a caller that asked
 for the CPU has — to the plain version in ``ref``. A failed build or launch
 raises; there is no fallback. Unlike the TPU wrapper, nothing is padded:
 the kernel takes any number of rows and any width. How the kernel maps rows
-onto threads is chosen here, by ``launch_plan``, and passed to it.
+onto threads is chosen here, by ``launch_plan``, and passed to it. Under
+autograd the kernel's output is differentiable, with the plain version's
+gradient (``rmsnorm_on_card``).
 """
 from __future__ import annotations
 
@@ -157,9 +159,42 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 rmsnorm_cuda.launches = 0
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The kernel's forward under autograd; the backward runs the plain
+    version (``rmsnorm_ref``) again on the saved x and w and returns its
+    gradient (f32 statistics, each gradient in its input's dtype),
+    launching no kernel: the JAX package has no backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, launch):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return launch(x, w.float().contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        want = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, want)]
+            y = rmsnorm_ref(*ins, ctx.eps)
+            grads = iter(torch.autograd.grad(y, [t for t in ins if t.requires_grad], dy))
+        return tuple(next(grads) if n else None for n in want) + (None, None)
+
+
+def rmsnorm_on_card(x: torch.Tensor, w: torch.Tensor, eps: float,
+                    launch=rmsnorm_cuda) -> torch.Tensor:
+    """``rmsnorm``'s path for a validated x on the card: ``launch`` (the
+    kernel) on x and the f32 w, through an ``autograd.Function`` whose
+    backward is the plain version's gradient when autograd records (grad
+    mode on and x or w requires grad), else called as is."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps, launch)
+    return launch(x, w.float().contiguous(), eps)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x: [..., d] bf16 or f32; w: [d]. ``x * rsqrt(mean(x^2) + eps) * w``
-    with f32 statistics, in x's dtype."""
+    with f32 statistics, in x's dtype. Differentiable on both paths."""
     if x.dim() < 1 or tuple(w.shape) != (x.shape[-1],):
         raise ValueError(f"w shape {tuple(w.shape)} != ({x.shape[-1] if x.dim() else '?'},)")
     device = x.device
@@ -175,4 +210,4 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
         raise ValueError("x must be contiguous for the CUDA kernel")
     if x.numel() == 0:
         return torch.empty_like(x)
-    return rmsnorm_cuda(x, w.float().contiguous(), eps)
+    return rmsnorm_on_card(x, w, eps)

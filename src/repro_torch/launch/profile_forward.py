@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_forward --out profile.txt
     PYTHONPATH=src python -m repro_torch.launch.profile_forward --lm --out lm.txt
+    PYTHONPATH=src python -m repro_torch.launch.profile_forward --lm-train --out lm_train.txt
 
 Serves the Sleipner config (width 40, modes (24,16,8,10), 4 blocks) with
 random weights at the shape ``chip_smoke.py`` serves (``ONE_CARD_GRID``,
@@ -25,6 +26,13 @@ each the wall time, device busy time, idle share, the number of kernel
 launches and of top-level host operations, device time by kernel group
 (flash attention, RMSNorm, GEMMs, the rest) and the kernels with the most
 device time.
+
+With ``--lm-train`` it traces one LM training step at the shape
+``chip_smoke.py`` trains: gemma-7b at full width with its depth cut to 4
+layers, batch 2 x 1024 tokens as 2 micro-batches, remat on, bf16
+activations, AdamW on f32 masters, after a warm-up step. It prints the
+same report, and the step's parts between CUDA events: the micro-batches'
+forwards and backwards, and the AdamW update.
 """
 from __future__ import annotations
 
@@ -196,6 +204,55 @@ def _profile_lm(dev, gpu) -> str:
     return report
 
 
+def _profile_lm_train(dev, gpu) -> str:
+    """Trace one gemma-7b training step (``configs/gemma_7b.py``'s
+    ``ONE_CARD_TRAIN_*``) after a warm-up step; the report, and the step's
+    parts between CUDA events."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gemma_7b import (
+        ONE_CARD_TRAIN_ACCUM as LM_TRAIN_ACCUM,
+        ONE_CARD_TRAIN_BATCH as LM_TRAIN_BATCH,
+        ONE_CARD_TRAIN_LAYERS as LM_TRAIN_LAYERS,
+        ONE_CARD_TRAIN_SEQ as LM_TRAIN_SEQ,
+    )
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models import init_lm_params, lm_loss
+
+    cfg = dataclasses.replace(get_arch("gemma-7b"), n_layers=LM_TRAIN_LAYERS)
+    params = init_lm_params(cfg, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    opt = init_opt_state(params)
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), AdamWConfig(lr=1e-4),
+                           grad_accum=LM_TRAIN_ACCUM, mark=mark)
+    data = SyntheticTokens(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev, torch.long) for k, v in data.batch(i).items()}
+
+    params, opt, _ = step(params, opt, batch(0))
+    second = batch(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mark("start")
+        params, opt, _ = step(params, opt, second)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    parts = (f"  between CUDA events: {LM_TRAIN_ACCUM} micro-batches' forward + backward "
+             f"{events['start'].elapsed_time(events['backward']):.2f} ms, AdamW "
+             f"{events['backward'].elapsed_time(events['updated']):.2f} ms; max_memory_allocated "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    tag = (f"gemma-7b train step, {LM_TRAIN_LAYERS} of 28 layers, batch {LM_TRAIN_BATCH} x "
+           f"{LM_TRAIN_SEQ} as {LM_TRAIN_ACCUM} micro-batches, remat on")
+    return _lm_report(tag, prof, wall, gpu) + "\n" + parts
+
+
 def _profile_train_step(dev) -> tuple:
     """Trace one full-width training step after a warm-up step; returns
     (wall_ms, busy_ms, kernel_ms, peak_gib, table)."""
@@ -228,6 +285,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the report here")
     ap.add_argument("--lm", action="store_true", help="profile the LM serving path instead")
+    ap.add_argument("--lm-train", action="store_true",
+                    help="profile an LM training step (gemma-7b, 4 layers) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
@@ -236,10 +295,10 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    if args.lm:
+    if args.lm or args.lm_train:
         # bf16 GEMMs accumulate in f32 and round once, as the reference's XLA ones
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        report = _profile_lm(dev, gpu)
+        report = _profile_lm_train(dev, gpu) if args.lm_train else _profile_lm(dev, gpu)
         print(report)
         if args.out:
             with open(args.out, "w") as f:

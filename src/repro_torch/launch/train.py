@@ -1,10 +1,12 @@
-"""Train the FNO surrogate, with checkpoints and restarts, on one device or
-across ranks.
+"""Train the FNO surrogate, or a reduced LM, with checkpoints and restarts,
+on one device or across ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode fno --steps 6 \
         --ckpt-dir CKPT [--x-store DS/x --y-store DS/y] [--device cpu] \
         [--devices N --model-shards P | PX PY] [--comm-chunks C] \
         [--online --out DS [--pde two_phase] [--datagen-backend process]]
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+        [--arch gemma-7b] --steps 6 --ckpt-dir CKPT [--devices N] [--device cpu]
 
 The port of the reference's ``train.py --mode fno``: the same flags and
 defaults, the same ``FNOConfig`` (modes ``max(2, g // 4)``, 4 blocks,
@@ -41,6 +43,20 @@ seeded ``torch.Generator`` (the reference draws its own with
 failures=... restores=... loss A -> B stragglers=...`` and, on the card,
 the spectral kernels' launch counts (of rank 0, per rank). Runs on the
 card unless ``--device`` names another device; with no card it raises.
+
+``--mode lm`` is the reference's (``train.py:350-373``): ``reduced(arch)``
+of ``--arch`` (a decoder; default gemma-7b) trained through ``lm_loss``
+under the local policy (remat on) on the reference's tokens,
+``np.random.default_rng(0)``'s (n_data, batch, 33) draw, step s taking
+entry s % n_data; the params come from a seeded ``torch.Generator``.
+``--devices N`` is data parallelism, as the reference's replicated
+params make it: N ranks (gloo, sharing the card) each take their rows of
+the batch, the gradients are averaged (``reduce_grads``) and the moments
+split by ZeRO-1. Each rank routes an MoE arch's tokens alone, where the
+reference routes the whole batch at once, so an MoE arch refuses
+``--devices`` above 1 (the distributed LM paths). Prints the ``done:``
+line, ``losses:`` with every step's loss, and on the card both LM kernels'
+launch counts.
 """
 from __future__ import annotations
 
@@ -52,18 +68,26 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.tree import tree_map
+from repro_torch.configs import ENCDEC_IDS, get_arch, reduced
+from repro_torch.configs.base import NOT_PORTED
 from repro_torch.core.fno import (
     FNOConfig, forward_and_specs, group_names, init_params, mse_loss, param_shapes,
 )
 from repro_torch.core.partition import shard_tree
 from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader, StreamingSchedule
 from repro_torch.data.store import ArrayStore
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.spectral_conv import spectral_fused_cuda, spectral_fused_dw_cuda
 from repro_torch.launch.mesh import build_fno_groups, fno_layout, launch_ranks
+from repro_torch.models import LOCAL, init_lm_params, lm_loss
+from repro_torch.models.transformer import train_launches
 from repro_torch.train.fault import FaultInjector, SupervisorResult, run_supervised
 from repro_torch.train.optimizer import (
     AdamWConfig, init_opt_state, state_layout, warmup_cosine,
@@ -207,6 +231,7 @@ def write_fno_serving_config(ckpt_dir: str, cfg: FNOConfig, args, x_src, y_src,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("fno", "lm"), default="fno")
+    ap.add_argument("--arch", default="gemma-7b", help="lm mode: assigned arch id")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -264,9 +289,16 @@ def _refuse_unported(args) -> None:
     words), and on what a later slice of the port brings."""
     if args.online and args.mode != "fno":
         raise SystemExit("--online is an fno-mode flag")
-    if args.mode == "lm":
-        raise SystemExit("--mode lm is not ported yet (ROADMAP Queue 1 item 5d, "
-                         "LM training)")
+    if args.mode != "lm":
+        return
+    if args.arch in ENCDEC_IDS:
+        raise SystemExit(f"--arch {args.arch}: --mode lm trains the decoder archs "
+                         f"(the encoder-decoder family's loss is whisper_loss)")
+    if args.batch % args.devices:
+        raise SystemExit(f"--batch {args.batch} not divisible by --devices {args.devices}")
+    if args.devices > 1 and get_arch(args.arch).moe is not None:
+        raise SystemExit(f"--devices {args.devices} with the MoE arch {args.arch}: routing "
+                         f"the ranks' tokens together is {NOT_PORTED}")
 
 
 def _check_layout(args) -> None:
@@ -412,9 +444,111 @@ def _train_rank(rank, world_size, device, args):
     return train(args, device, world_size)
 
 
+def lm_tokens(vocab: int, n_data: int, batch: int) -> np.ndarray:
+    """The reference's LM training tokens: (n_data, batch, 33) int32."""
+    return np.random.default_rng(0).integers(0, vocab, size=(n_data, batch, 33), dtype=np.int32)
+
+
+def train_lm(args, device, world_size: int = 1) -> dict:
+    """``--mode lm`` on this rank (of ``world_size``, its process group
+    already joined when > 1): the supervised training of ``reduced(arch)``;
+    returns the supervisor's result and the LM kernels' launches."""
+    cfg = reduced(get_arch(args.arch))
+    tokens = lm_tokens(cfg.vocab, args.n_data, args.batch)
+    rank = dist.get_rank() if world_size > 1 else 0
+    local = args.batch // world_size
+    opt_cfg = AdamWConfig(lr=warmup_cosine(args.lr, warmup=10, total=args.steps), weight_decay=0.0)
+
+    def init_lm():
+        return init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                              device=device)
+
+    layout = None
+    if world_size > 1:
+        data_group, model, _ = build_fno_groups(world_size, [1])
+        shapes = tree_map(lambda p: tuple(p.shape), init_lm())
+        replicated = tree_map(lambda _: None, shapes)
+        layout = state_layout(group_names(data_group, model), replicated, shapes)
+
+    def loss_fn(params, batch):
+        return lm_loss(params, batch, cfg, LOCAL)
+
+    step_fn = make_train_step(loss_fn, opt_cfg, grad_accum=args.grad_accum, layout=layout)
+
+    def init_state():
+        params = init_lm()
+        return {"params": params, "opt": init_opt_state(params, layout)}
+
+    def batches(step):
+        t = torch.from_numpy(tokens[step % args.n_data, rank * local:(rank + 1) * local])
+        t = t.to(device=device, dtype=torch.long)
+        return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+    executed = []
+
+    def train_step(state, batch):
+        params, opt, metrics = step_fn(state["params"], state["opt"], batch)
+        executed.append(1)
+        return {"params": params, "opt": opt}, metrics
+
+    rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+    result = run_supervised(
+        init_state=init_state,
+        train_step=train_step,
+        batch_iter=batches,
+        total_steps=args.steps,
+        ckpt_dir=args.ckpt_dir,
+        save_every=args.save_every,
+        injector=FaultInjector([args.inject_fault]) if args.inject_fault is not None else None,
+        async_save=True,
+        layout=layout,
+    )
+    return {"result": dataclasses.asdict(result), "executed": len(executed),
+            "rmsnorm": rmsnorm_cuda.launches, "flash": flash_attention_cuda.launches,
+            "per_pass": train_launches(cfg, tokens.shape[-1] - 1)}
+
+
+def _train_lm_rank(rank, world_size, device, args):
+    """One rank of ``--mode lm --devices N`` (run by ``launch_ranks``)."""
+    return train_lm(args, device, world_size)
+
+
+def _print_done(result: SupervisorResult) -> None:
+    first = result.metrics_log[0][1]["loss"] if result.metrics_log else float("nan")
+    last = result.metrics_log[-1][1]["loss"] if result.metrics_log else float("nan")
+    print(
+        f"done: steps={result.final_step} failures={result.failures} "
+        f"restores={result.restores} loss {first:.3e} -> {last:.3e} "
+        f"stragglers={len(result.straggler_steps)}"
+    )
+
+
+def main_lm(args, device):
+    """``--mode lm``: train on one device, or on ``--devices`` ranks."""
+    if args.devices == 1:
+        out = train_lm(args, device)
+    else:
+        out = launch_ranks(_train_lm_rank, args.devices, tempfile.gettempdir(), args=(args,),
+                           collective_timeout_s=RANK_TIMEOUT_S, device=device)[0]
+    result = SupervisorResult(**out["result"])
+    _print_done(result)
+    print("losses: " + json.dumps([m["loss"] for _, m in result.metrics_log]))
+    if device.type == "cuda":
+        per = out["per_pass"]
+        print(
+            f"kernel launches: rmsnorm {out['rmsnorm']}, flash {out['flash']} over "
+            f"{out['executed']} train steps x {args.grad_accum} micro-batches (a pass: rmsnorm "
+            f"{per['rmsnorm']}, flash {per['flash']})"
+            + (f" (rank 0 of {args.devices})" if args.devices > 1 else "")
+        )
+    return result
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.mode == "lm":
+        return main_lm(args, resolve_device(args.device))
     _check_layout(args)
     device = resolve_device(args.device)
     dg_thread = dg_err = None
@@ -434,13 +568,7 @@ def main(argv=None):
         if dg_err:
             raise RuntimeError("online datagen failed") from dg_err[0]
     result = SupervisorResult(**out["result"])
-    first = result.metrics_log[0][1]["loss"] if result.metrics_log else float("nan")
-    last = result.metrics_log[-1][1]["loss"] if result.metrics_log else float("nan")
-    print(
-        f"done: steps={result.final_step} failures={result.failures} "
-        f"restores={result.restores} loss {first:.3e} -> {last:.3e} "
-        f"stragglers={len(result.straggler_steps)}"
-    )
+    _print_done(result)
     if device.type == "cuda":
         print(
             f"spectral kernel launches: fused {out['fused']}, "

@@ -3,11 +3,12 @@
 Port of the local path of ``repro.models.moe`` (``moe.py:42-190``):
 ``init_moe_params``, ``_route``, the load-balance statistics, ``_dispatch``,
 ``_combine``, ``_expert_ffn``, ``_capacity``, ``_moe_local`` and
-``moe_apply`` with DeepSeek's shared experts. Serving needs only the
-output: ``moe_apply`` returns y, and the load-balance loss is
-``_aux_loss`` of ``_route``'s outputs for a caller that trains. The expert-parallel
-all-to-all (``_moe_ep_shard``) waits with LM training (ROADMAP Queue 1
-item 5d); ``moe_apply`` serves one device.
+``moe_apply`` with DeepSeek's shared experts. ``moe_apply`` returns the
+reference's ``(y, aux)``: the output and the load-balance loss times
+``aux_coef`` (from this call's routes, differentiable through the router
+probabilities), which training adds to the loss and serving drops. The
+expert-parallel all-to-all (``_moe_ep_shard``) waits with the distributed
+LM paths (ROADMAP Queue 1 item 5d); ``moe_apply`` runs on one device.
 
 No [T, E, C] one-hot tensor is formed: an entry's position in its
 expert's buffer is an exclusive cumulative count over the token-major
@@ -69,8 +70,11 @@ def _route(x_flat, router_w, moe: MoEConfig):
 
 def _aux_stats(topi, probs, moe: MoEConfig):
     """Sufficient statistics of the load-balance loss: per-expert routing
-    counts, summed probabilities, and the number of tokens."""
-    counts = torch.bincount(topi.reshape(-1), minlength=moe.n_experts).float()
+    counts (a scatter of ones, which, unlike ``bincount``, does not wait
+    for the device), summed probabilities, and the number of tokens."""
+    flat = topi.reshape(-1)
+    counts = torch.zeros(moe.n_experts, dtype=torch.float32, device=topi.device)
+    counts.scatter_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32, device=topi.device))
     return counts, probs.sum(dim=0), float(probs.shape[0])
 
 
@@ -132,32 +136,35 @@ def _capacity(t: int, moe: MoEConfig) -> int:
 
 
 def _moe_local(params, x, moe: MoEConfig, dropless: bool):
-    """Single-device routed-experts pass. x: [b, s, d] -> y."""
+    """Single-device routed-experts pass. x: [b, s, d] -> (y, the
+    load-balance loss of its routes)."""
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
-    topi, topv, _ = _route(x_flat, params["router"], moe)
+    topi, topv, probs = _route(x_flat, params["router"], moe)
     cap = t if dropless else _capacity(t, moe)
     buf, e_flat, pos, keep = _dispatch(x_flat, topi, cap, moe.n_experts)
     y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
-    return _combine(y_buf, e_flat, pos, keep, topv, t, cap).reshape(b, s, d)
+    y = _combine(y_buf, e_flat, pos, keep, topv, t, cap).reshape(b, s, d)
+    return y, _aux_loss(topi, probs, moe)
 
 
 def moe_apply(params: dict, x, moe: MoEConfig, *, dropless: bool = False, expert_group=None):
-    """Routed experts plus shared experts. x: [b, s, d] -> y.
+    """Routed experts plus shared experts. x: [b, s, d] -> (y, aux), aux
+    the load-balance loss times ``moe.aux_coef`` (float32 scalar).
 
     ``dropless`` gives every expert room for all b*s tokens: a batch of
     tokens that the reference routes one at a time (its decode, one slot
     a step under ``vmap``, where a capacity of 1 drops nothing) keeps every
     entry whatever the batch. Otherwise the capacity is ``_capacity``'s, and
-    entries past it drop as in the reference's prefill.
+    entries past it drop as in the reference's prefill and training.
 
     One device only: an ``expert_group`` to spread the experts over (the
     reference's expert-parallel all-to-all dispatch) is refused."""
     if expert_group is not None:
         raise NotImplementedError(f"expert-parallel MoE (the all-to-all dispatch): {NOT_PORTED}")
-    y = _moe_local(params, x, moe, dropless)
+    y, aux = _moe_local(params, x, moe, dropless)
     if "shared" in params:
         sh = params["shared"]
         y = y + layers.glu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"], act="swiglu")
-    return y
+    return y, aux * moe.aux_coef

@@ -1,11 +1,15 @@
-"""Decoder-LM serving for the dense, MoE, SSM and hybrid families: parameters, prefill, decode.
+"""Decoder LMs (dense, MoE, SSM, hybrid): parameters, training loss, prefill, decode.
 
-Port of the serving part of ``repro.models.transformer``:
-``init_lm_params``, ``_init_layer``, ``_norm``, the prefill layer,
-``lm_prefill``, ``_attn_prefill`` (with the sliding window's ring),
-``_mla_prefill``, ``_rglru_prefill``, ``init_cache``, ``_decode_layer``
-and ``lm_decode_step``. Parameters keep the reference's tree and leaf
-names, with the layers stacked on a leading layer dim::
+Port of ``repro.models.transformer`` under the local policy:
+``init_lm_params``, ``_init_layer``, ``_norm``; training's
+``_apply_layer``, ``_remat``, ``lm_hidden`` and ``lm_loss``; serving's
+prefill layer, ``lm_prefill``, ``_attn_prefill`` (with the sliding
+window's ring), ``_mla_prefill``, ``_rglru_prefill``, ``init_cache``,
+``_decode_layer`` and ``lm_decode_step``. The sharding specs
+(``param_specs``, ``cache_specs``) and the split caches wait with the
+distributed LM paths (ROADMAP Queue 1 item 5d). Parameters keep the
+reference's tree and leaf names, with the layers stacked on a leading
+layer dim::
 
     {"embed": [V, d], "final_norm": [d], "lm_head": [d, V], "layer0": None,
      "layers": {"ln1": [L, d], "attn": {"wq": [L, d, h*hd], ...},
@@ -40,7 +44,8 @@ attention within the window through the flash-attention kernel (their
 plain versions for CPU tensors): ``norms_per_forward(cfg)`` norms per
 prefill or decode step (2 L + 1, plus 2 L with qk-norm and L with MLA's
 latent norm; an SSM layer's second norm is its mixer's gated norm) and
-``flash_per_prefill(cfg, s)`` flash launches per prefill of s tokens.
+``flash_per_prefill(cfg, s)`` flash launches per prefill of s tokens;
+``train_launches(cfg, s)`` both per forward + backward of ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.policy import LOCAL, ParallelPolicy
 
 # leaves that stay float32 when the serving runner casts the rest to the
 # activation dtype (the reference casts every other weight at its matmul).
@@ -250,14 +256,18 @@ def _norm(x, w, cfg):
     return layers.rms_norm(x, w, eps=cfg.norm_eps)
 
 
-def _ffn(h, lp, kind, cfg, dropless=False):
-    """The layer's feed-forward half: routed + shared experts, or an MLP."""
-    if kind == "moe":
-        return moe_lib.moe_apply(lp["moe"], h, cfg.moe, dropless=dropless)
-    p = lp["mlp"]
+def _mlp(h, p, cfg):
     if cfg.mlp_act in ("swiglu", "geglu"):
         return layers.glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], act=cfg.mlp_act)
     return layers.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"], act=cfg.mlp_act)
+
+
+def _ffn(h, lp, kind, cfg, dropless=False):
+    """The layer's feed-forward half when serving: routed + shared experts
+    (their load-balance loss dropped), or an MLP."""
+    if kind == "moe":
+        return moe_lib.moe_apply(lp["moe"], h, cfg.moe, dropless=dropless)[0]
+    return _mlp(h, lp["mlp"], cfg)
 
 
 def _embed_in(params, tokens, cfg):
@@ -288,6 +298,17 @@ def flash_per_prefill(cfg, s: int) -> int:
     return 0 if cfg.window is not None and s > cfg.window else attention_layers(cfg)
 
 
+def _check_layer0(cfg, params) -> bool:
+    """Whether the first layer is the unstacked dense ``layer0``; raises
+    when the params and the config disagree on it."""
+    kinds = cfg.layer_kinds()
+    first = kinds[0] == "dense0"
+    if first != (params.get("layer0") is not None):
+        raise ValueError(f"{cfg.name}: layer0 params {'missing' if first else 'given'} for "
+                         f"layer kinds {kinds[:2]}...")
+    return first
+
+
 def _layers(cfg, params, cache):
     """(layer params, layer cache, kind) of every layer in order; the
     stacked ones as views."""
@@ -304,15 +325,142 @@ def _layers(cfg, params, cache):
         return out + [(lp, lc, pat[i % len(pat)])
                       for i, (lp, lc) in enumerate(zip(params["tail"], cache["tail"]))]
     kinds = cfg.layer_kinds()
-    first = kinds[0] == "dense0"
-    if first != (params.get("layer0") is not None):
-        raise ValueError(f"{cfg.name}: layer0 params {'missing' if first else 'given'} for "
-                         f"layer kinds {kinds[:2]}...")
+    first = _check_layer0(cfg, params)
     out = [(params["layer0"], cache["layer0"], kinds[0])] if first else []
     stacked = cache["layers"]
     for i in range(len(kinds) - first):
         out.append((layer_params(params["layers"], i), {n: c[i] for n, c in stacked.items()},
                     kinds[first + i]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+# what ``remat_policy="dots"`` keeps from a layer's forward for its backward:
+# the outputs of the matrix products (every ``@`` and einsum lands on one of
+# these), as the reference's ``dots_saveable`` keeps its dot_generals'
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _keep_dots(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if func in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy):
+    """``body`` as the reference's ``_remat`` wraps its scan body:
+    unchanged without ``policy.remat``, else under a non-reentrant
+    ``torch.utils.checkpoint``, which keeps none of its activations (with
+    ``remat_policy="dots"``, the matrix products' outputs) and runs it
+    again in the backward."""
+    if not policy.remat:
+        return body
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {"use_reentrant": False}
+    if policy.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_keep_dots)
+    return lambda *args: checkpoint(body, *args, **kw)
+
+
+def _apply_layer(x, aux, lp, kind, cfg):
+    """One block of the training forward (the reference's
+    ``_apply_layer``): returns (x, aux plus the block's load-balance loss).
+    The MoE blocks route with capacity (``_capacity``: entries past it
+    drop), as the reference's training does."""
+    h = _norm(x, lp["ln1"], cfg)
+    if kind == "ssm":
+        return x + ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm), aux
+    if kind == "rec":
+        x = x + rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model)
+    elif cfg.mla is not None:
+        x = x + attn_lib.mla_forward(lp["attn"], h, cfg)
+    else:
+        x = x + attn_lib.attn_forward(lp["attn"], h, cfg)
+    h = _norm(x, lp["ln2"], cfg)
+    if kind == "moe":
+        y, a = moe_lib.moe_apply(lp["moe"], h, cfg.moe)
+        return x + y, aux + a
+    return x + _mlp(h, lp["mlp"], cfg), aux
+
+
+def _train_layers(cfg) -> list:
+    """(kind, whether the reference's layer scan holds it, so that remat
+    wraps it) of every layer in order: the hybrid's superblocks but not its
+    tail, every stacked layer but not ``layer0``."""
+    kinds = cfg.layer_kinds()
+    if cfg.family == "hybrid":
+        pat, n_super, _ = hybrid_layout(cfg)
+        return [(kind, i < n_super * len(pat)) for i, kind in enumerate(kinds)]
+    return [(kind, kind != "dense0") for kind in kinds]
+
+
+def lm_hidden(params, tokens, cfg, policy: ParallelPolicy = LOCAL):
+    """Token ids [b, s] -> (final-norm hidden states [b, s, d] in the
+    activation dtype, the layers' summed load-balance loss, float32).
+
+    The reference's scan over the stacked layers is a loop over their
+    views (or over the per-layer views the train step hands in), each
+    layer (the hybrid's each superblock) under ``policy``'s remat; the
+    hybrid's tail and ``layer0`` run outside it, as there. Weights are cast
+    to the activation dtype at each use; the masters keep theirs."""
+    x = _embed_in(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        pat, n_super, tail = hybrid_layout(cfg)
+        if len(params["tail"]) != tail:
+            raise ValueError(f"{cfg.name}: {len(params['tail'])} tail layers given, "
+                             f"{tail} expected")
+
+        def super_body(x, aux, sb):
+            for i, kind in enumerate(pat):
+                x, aux = _apply_layer(x, aux, sb[f"b{i}_{kind}"], kind, cfg)
+            return x, aux
+
+        body = _remat(super_body, policy)
+        for j in range(n_super):
+            x, aux = body(x, aux, layer_params(params["superblocks"], j))
+        for i, lp in enumerate(params["tail"]):
+            x, aux = _apply_layer(x, aux, lp, pat[i % len(pat)], cfg)
+    else:
+        kinds = cfg.layer_kinds()
+        first = _check_layer0(cfg, params)
+        if first:
+            x, aux = _apply_layer(x, aux, params["layer0"], kinds[0], cfg)
+        body = _remat(lambda x, aux, lp: _apply_layer(x, aux, lp, kinds[-1], cfg), policy)
+        for i in range(len(kinds) - first):
+            x, aux = body(x, aux, layer_params(params["layers"], i))
+    return _norm(x, params["final_norm"], cfg), aux
+
+
+def lm_loss(params, batch: dict, cfg, policy: ParallelPolicy = LOCAL):
+    """The training loss of ``batch`` {"tokens": [b, s], "targets": [b,
+    s]}: (mean token cross-entropy + load-balance loss, {"xent", "aux"}),
+    as the reference's ``lm_loss``."""
+    h, aux = lm_hidden(params, batch["tokens"], cfg, policy)
+    xent = layers.chunked_cross_entropy(h, params["lm_head"], batch["targets"])
+    return xent + aux, {"xent": xent, "aux": aux}
+
+
+def train_launches(cfg, s: int) -> dict:
+    """Kernel launches of one forward + backward of ``lm_loss`` with remat
+    on, on sequences of ``s`` tokens: each layer's norms and attention as
+    in a prefill (``norms_per_forward``, ``flash_per_prefill``), twice for
+    a layer that remat runs again in the backward, the final norm once;
+    the backward itself launches no kernel (the kernels' gradients are
+    their plain versions')."""
+    layer_norms = ((2 if cfg.norm == "rms" else 0) + (2 if cfg.qk_norm else 0)
+                   + (1 if cfg.mla is not None else 0))
+    attends = cfg.window is None or s <= cfg.window
+    out = {"rmsnorm": 1 if cfg.norm == "rms" else 0, "flash": 0}
+    for kind, scanned in _train_layers(cfg):
+        runs = 2 if scanned else 1
+        out["rmsnorm"] += runs * layer_norms
+        out["flash"] += runs * (attends and kind not in ("ssm", "rec"))
     return out
 
 

@@ -8,10 +8,12 @@ The same layout as ``repro.train.checkpoint``, so each side reads what the
 other wrote — a whole training state ``{"params", "opt": {"mu", "nu",
 "count"}}`` included, so each side resumes the other's run. Leaf names join
 the nested dict keys with dots (``params.blocks.w_spec``,
-``opt.mu.blocks.w_spec``, ``opt.count``). ``save`` writes each leaf as one
-shard; ``restore`` and ``restore_into`` reassemble however many shards a
-leaf has, so a checkpoint the JAX trainer wrote model-parallel loads onto
-one card. Publication is atomic: written into step_N.tmp, then renamed.
+``opt.mu.blocks.w_spec``, ``opt.count``; an LM's ``params.tail.0.ln1``,
+list entries by index, no file for a None such as ``layer0``). ``save``
+writes each leaf as one shard; ``restore`` and ``restore_into`` reassemble
+however many shards a leaf has, so a checkpoint the JAX trainer wrote
+model-parallel loads onto one card. Publication is atomic: written into
+step_N.tmp, then renamed.
 
 Across ranks (``parts``, a tree of ``CartPartition`` over the state, and
 ``groups``), ``save`` gathers every sharded leaf to its global tensor, with
@@ -37,10 +39,15 @@ from repro_torch.core.partition import CartPartition, gather
 
 
 def _flatten(tree, prefix=()):
+    """(name, leaf) of every leaf, named as the reference names them: dict
+    keys and list indices joined with dots, None an empty subtree."""
     if isinstance(tree, dict):
         for k in tree:
             yield from _flatten(tree[k], prefix + (str(k),))
-    else:
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (str(i),))
+    elif tree is not None:
         yield ".".join(prefix) or "leaf", tree
 
 
@@ -82,7 +89,7 @@ def _gathered_into(tmp: str, tree: dict, parts: dict, groups) -> Optional[list]:
     part_of = dict(_flatten(parts))
     out = []
     for name, leaf in _flatten(tree):
-        part = part_of[name]
+        part = part_of.get(name)
         if part is None or not part.sharded_dims():
             out.append((name, _snapshot(leaf) if rank0 else None))
             continue
@@ -232,7 +239,9 @@ def restore(ckpt_dir: str, shapes: dict, *, step: Optional[int] = None):
     def walk(node, prefix):
         if isinstance(node, dict):
             return {k: walk(v, prefix + (str(k),)) for k, v in node.items()}
-        return load(".".join(prefix), node)
+        if isinstance(node, list):
+            return [walk(v, prefix + (str(i),)) for i, v in enumerate(node)]
+        return None if node is None else load(".".join(prefix), node)
 
     return walk(shapes, ()), step, manifest["extra"]
 

@@ -35,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.common.tree import (
-    chunks, global_norm, norm_of, sum_sq_real, tree_leaves, tree_map,
+    chunks, global_norm, norm_of, stacked_leaves, sum_sq_real, tree_leaves, tree_leaves_like,
+    tree_map,
 )
 from repro_torch.core.partition import CartPartition, gather_dim, local_slice
 
@@ -115,7 +116,7 @@ def zero1_partitions(param_parts: dict, shapes: dict, dp_size: int, dp_axis: str
         dims[best] = dp_axis
         return CartPartition(tuple(dims))
 
-    return tree_map(one, param_parts, shapes)
+    return tree_map(lambda shape, part: one(part, shape), shapes, param_parts)
 
 
 def state_layout(groups: Mapping[str, object], param_parts: dict, shapes: dict, *,
@@ -177,7 +178,7 @@ def _update_zero1(p, g, mu, nu, dim: int, group, stacked: bool, **kw):
     """ZeRO-1 update of one leaf: this data rank updates its slice of ``p``
     along ``dim`` (``mu``/``nu`` are that slice) and the slices are
     all-gathered over ``group`` back into ``p``. A leaf ``stacked`` per
-    block (under ``params["blocks"]``) split along a later dim goes block by
+    block (under one of ``STACKED_KEYS``) split along a later dim goes block by
     block, so the temporaries stay a block's size; any other leaf goes in
     one slice and one all-gather."""
     blocks = [(p, g, mu, nu, dim)] if dim == 0 or not stacked else [
@@ -205,7 +206,7 @@ def _global_norm(grads: dict, layout: Optional[StateLayout]) -> torch.Tensor:
         return sq
 
     return norm_of(share(g, part) for g, part in zip(tree_leaves(grads),
-                                                       tree_leaves(layout.params)))
+                                                       tree_leaves_like(layout.params, grads)))
 
 
 @torch.no_grad()
@@ -237,10 +238,9 @@ def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: AdamWConfig,
               wd=cfg.weight_decay)
     leaves = tree_leaves(params)
     dims = ([None] * len(leaves) if layout is None else
-            [layout.zero_dim(a, b) for a, b in zip(tree_leaves(layout.params),
-                                                    tree_leaves(layout.moments))])
-    # in tree_leaves' order: sorted top-level keys, then each one's leaves
-    stacked = [k == "blocks" for k in sorted(params) for _ in tree_leaves(params[k])]
+            [layout.zero_dim(a, b) for a, b in zip(tree_leaves_like(layout.params, params),
+                                                    tree_leaves_like(layout.moments, params))])
+    stacked = stacked_leaves(params)
     for p, g, mu, nu, dim, per_block in zip(
         leaves, tree_leaves(grads),
         tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"]), dims, stacked,

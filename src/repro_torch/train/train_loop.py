@@ -12,12 +12,15 @@ partitioner reduces them (``reduce_grads``) before the AdamW step.
 
 The gradient buffers are the one subtle part. The FNO stacks its blocks'
 weights in one leaf (``blocks.w_spec`` is 12.6 GB at the paper's width),
-and indexing a leaf per block makes autograd's select-backward form a
-zero-filled gradient of the whole leaf for every block. So the step hands
-``loss_fn`` a params tree of fresh leaf views instead: each leaf of
-``params["blocks"]`` becomes a list of per-block views, every view's
-``.grad`` is bound to the matching slice of one preallocated buffer, and
-autograd accumulates into those slices in place.
+an LM its layers' (gemma-7b's ``layers.mlp.w_gate`` is 1.2 GB at 4
+layers), and indexing a leaf per block makes autograd's select-backward
+form a zero-filled gradient of the whole leaf for every block. So the step
+hands ``loss_fn`` a params tree of fresh leaf views instead: each leaf
+under ``blocks``, ``layers`` or ``superblocks`` becomes a list of per-block
+views, every view's ``.grad`` is bound to the matching slice of one
+preallocated buffer, and autograd accumulates into those slices in place.
+LM trees also hold lists (a hybrid's ``tail``) and None (``layer0`` of a
+model whose first layer is not dense), which every walk here keeps.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.tree import chunks, tree_leaves, tree_map
+from repro_torch.common.tree import STACKED_KEYS, chunks, tree_leaves, tree_leaves_like, tree_map
 from repro_torch.train.optimizer import AdamWConfig, StateLayout, adamw_update
 
 
@@ -37,7 +40,9 @@ def zeros_like_tree(params: dict) -> dict:
 def _grad_views(params: dict, grads: dict) -> dict:
     """A params tree of leaves that share the params' memory, require grad
     and accumulate their gradients into ``grads`` (same tree, same shapes).
-    Leaves under ``"blocks"`` are split into per-block views along dim 0."""
+    Leaves under one of ``STACKED_KEYS`` (the FNO's blocks, an LM's layers
+    and superblocks) are split into per-block views along dim 0, which a
+    model indexes as it indexes the stacked tensor."""
 
     def leaf(p, g):
         v = p.detach().requires_grad_()
@@ -47,10 +52,16 @@ def _grad_views(params: dict, grads: dict) -> dict:
     def per_block(p, g):
         return [leaf(p[i], g[i]) for i in range(p.shape[0])]
 
-    return {
-        k: tree_map(per_block if k == "blocks" else leaf, params[k], grads[k])
-        for k in params
-    }
+    def walk(p, g, stacked):
+        if isinstance(p, dict):
+            return {k: walk(p[k], g[k], stacked or k in STACKED_KEYS) for k in p}
+        if isinstance(p, list):
+            return [walk(a, b, stacked) for a, b in zip(p, g)]
+        if p is None:
+            return None
+        return per_block(p, g) if stacked else leaf(p, g)
+
+    return walk(params, grads, False)
 
 
 def accumulate_grads(loss_fn: Callable, params: dict, batch, grads: dict):
@@ -85,7 +96,7 @@ def reduce_grads(grads: dict, layout: StateLayout) -> None:
     world size D*P.
     """
     world = dist.get_world_size()
-    for g, part in zip(tree_leaves(grads), tree_leaves(layout.params)):
+    for g, part in zip(tree_leaves(grads), tree_leaves_like(layout.params, grads)):
         _all_reduce(g, layout.groups["data"] if part is not None else None)
         g.div_(world)
 

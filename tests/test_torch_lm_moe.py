@@ -253,12 +253,13 @@ def test_moe_apply_matches_float32(n_shared, norm_topk, t, hot):
     x = np.random.default_rng(12).standard_normal((2, t // 2, d)).astype(np.float32)
     jy, jaux = jmoe.moe_apply(_jtree(p), jnp.asarray(x), jm)
     tp = lm_params_from_numpy(p, device="cpu")
-    y = tmoe.moe_apply(tp, torch.from_numpy(x), tm)
+    y, aux = tmoe.moe_apply(tp, torch.from_numpy(x), tm)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
-    # serving takes y only; the load-balance loss comes from the routes
-    topi, _, probs = tmoe._route(torch.from_numpy(x).reshape(-1, d), tp["router"], tm)
-    aux = tmoe._aux_loss(topi, probs, tm) * tm.aux_coef
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    # the load-balance loss is the one of the routes
+    topi, _, probs = tmoe._route(torch.from_numpy(x).reshape(-1, d), tp["router"], tm)
+    np.testing.assert_allclose(float(tmoe._aux_loss(topi, probs, tm) * tm.aux_coef), float(jaux),
+                               rtol=1e-5)
     if hot:  # the same entries were dropped on both sides
         _, _, _, keep = tmoe._dispatch(torch.from_numpy(x).reshape(-1, d), topi,
                                        tmoe._capacity(t, tm), tm.n_experts)
@@ -279,7 +280,7 @@ def test_dropless_moe_keeps_every_entry_past_128_tokens(n_shared):
     jy = jax.vmap(lambda xi: jmoe.moe_apply(_jtree(p), xi[None], jm)[0][0])(jnp.asarray(x))
     tp = lm_params_from_numpy(p, device="cpu")
     tx = torch.from_numpy(x)
-    y = tmoe.moe_apply(tp, tx, tm, dropless=True)
+    y, _ = tmoe.moe_apply(tp, tx, tm, dropless=True)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
     topi, _, _ = tmoe._route(tx.reshape(t, d), tp["router"], tm)
     assert bool((topi == 0).any(-1).all()) and tmoe._capacity(t, tm) < t

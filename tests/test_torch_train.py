@@ -8,6 +8,8 @@ conjugate of JAX's); params, moments, losses, grad norms and learning rates
 compare directly. Gate: rtol=1e-4, atol=1e-5 (float32 sums in another
 order); restarts within the port are bitwise.
 """
+import contextlib
+import io
 import json
 import os
 import re
@@ -51,6 +53,7 @@ from repro_torch.train.optimizer import (
     warmup_cosine,
 )
 from repro_torch.train.train_loop import accumulate_grads, make_train_step
+from torch_dist_checks import one_launch_at_a_time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5
@@ -433,7 +436,6 @@ def test_cli_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,words", [
-    (["--mode", "lm"], "ROADMAP Queue 1 item 5"),
     (["--online"], "--online needs --out (or --x-store/--y-store)"),
     (["--online", "--mode", "lm"], "--online is an fno-mode flag"),
     (["--online", "--x-store", "D/inputs", "--y-store", "D/y"],
@@ -442,11 +444,79 @@ def test_cli_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
      "--online: stores must be <root>/x and <root>/y"),
     (["--devices", "3", "--model-shards", "2"], "--devices/--model-shards: 3 devices not divisible"),
     (["--model-shards", "2", "2", "2"], "--devices/--model-shards: model shards take 1"),
-], ids=["lm", "online-needs-out", "online-fno-only", "online-not-x", "online-two-roots",
+], ids=["online-needs-out", "online-fno-only", "online-not-x", "online-two-roots",
         "devices", "model-shards"])
 def test_cli_refuses_what_is_not_ported(flags, words, tmp_path):
-    """What a later slice brings (the LLM family), ``--online`` without a
-    dataset root or in datagen's layout, and the (data x model) layouts no
-    slice can make, in the reference's words."""
+    """``--online`` without a dataset root or in datagen's layout, or in lm
+    mode, and the (data x model) layouts no slice can make, in the
+    reference's words."""
     with pytest.raises(SystemExit, match=re.escape(words)):
         ttrain_cli.main(flags + ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# --mode lm
+# ---------------------------------------------------------------------------
+
+def _lm_cli(tmp_path, name, *flags):
+    """``--mode lm`` on the CPU; returns (result, the done line, the losses)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = ttrain_cli.main(["--mode", "lm", "--device", "cpu", "--ckpt-dir", str(tmp_path / name),
+                               *flags])
+    text = out.getvalue()
+    done = next(line for line in text.splitlines() if line.startswith("done: "))
+    losses = json.loads(next(line for line in text.splitlines() if line.startswith("losses: "))[8:])
+    return res, done, losses
+
+
+def test_lm_cli_tokens_are_the_references():
+    """The reference's ``--mode lm`` draws its tokens so (train.py:354-355)."""
+    want = np.random.default_rng(0).integers(0, 512, size=(16, 2, 33), dtype=np.int32)
+    np.testing.assert_array_equal(ttrain_cli.lm_tokens(512, 16, 2), want)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-moe-16b", "recurrentgemma-2b"])
+def test_lm_cli_trains_a_dense_an_moe_and_a_hybrid_arch(arch, tmp_path):
+    res, done, losses = _lm_cli(tmp_path, arch, "--arch", arch, "--steps", "3", "--grad-accum", "2")
+    assert res.final_step == 3 and "steps=3 failures=0 restores=0" in done
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    # a reduced config's init loss near ln(vocab), as the reference's test_arch_smoke requires
+    assert abs(losses[0] - np.log(512)) < 1.5
+    assert f"loss {losses[0]:.3e} -> {losses[-1]:.3e}" in done
+
+
+def test_lm_cli_restored_run_ends_on_the_uninterrupted_losses(tmp_path):
+    """A fault at step 2 restores the step-0 checkpoint and replays step 1:
+    on the CPU every step's loss is the uninterrupted run's, bitwise."""
+    flags = ("--arch", "recurrentgemma-2b", "--steps", "4", "--save-every", "2")
+    _, _, want = _lm_cli(tmp_path, "plain", *flags)
+    res, done, got = _lm_cli(tmp_path, "fault", *flags, "--inject-fault", "2")
+    assert "failures=1 restores=1" in done and res.final_step == 4
+    assert got == want
+
+
+@pytest.mark.timeout(300)
+def test_lm_cli_on_two_ranks_matches_one_rank(tmp_path):
+    """``--devices 2`` at the same global batch: each rank takes one row,
+    the gradients are averaged, the moments split by ZeRO-1. bf16
+    activations, and each rank's products have half the rows, so the sums
+    round differently: every step's loss within 1e-3 relative."""
+    flags = ("--steps", "3", "--batch", "2", "--save-every", "1")
+    _, _, want = _lm_cli(tmp_path, "one", *flags)
+    with one_launch_at_a_time():
+        res, done, got = _lm_cli(tmp_path, "two", *flags, "--devices", "2")
+    assert res.final_step == 3 and "failures=0" in done
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert got[0] == pytest.approx(want[0], rel=1e-6)  # the same params: only the sums' order
+    assert tckpt.latest_step(str(tmp_path / "two")) == 2
+
+
+@pytest.mark.parametrize("flags,words", [
+    (["--batch", "3", "--devices", "2"], "--batch 3 not divisible by --devices 2"),
+    (["--arch", "deepseek-moe-16b", "--devices", "2"], "ROADMAP Queue 1 item 5d"),
+    (["--arch", "whisper-tiny"], "the encoder-decoder family's loss is whisper_loss"),
+], ids=["indivisible-batch", "moe-ranks", "encdec"])
+def test_lm_cli_refuses(flags, words, tmp_path):
+    with pytest.raises(SystemExit, match=re.escape(words)):
+        ttrain_cli.main(["--mode", "lm", *flags, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
