@@ -193,7 +193,28 @@ Phases, each failing hard:
      plain version's gradient) by device time at the training shapes;
      then ``train --mode lm`` for each arch of the LM CLI through a fault
      (its losses against an uninterrupted run of the entry point in this
-     process) and reduced gemma-7b on 2 ranks.
+     process) and reduced gemma-7b on 2 ranks;
+ 12. dist lm: the distributed LM on 4 gloo ranks sharing the card, at full
+     width with the depth cut (chatglm3-6b 2 of 28 layers; deepseek-moe-16b
+     its dense layer 0 and 1 MoE layer), batch 2 x 1024, f32: the serial
+     loss and gradient on the card through the kernels first (the MoE
+     routing each (data, model) shard's tokens with that shard's capacity,
+     as the expert-parallel path does), shared with the ranks by CUDA IPC;
+     then on (1 x 4) with seq_shard and on (2 x 2) without, each rank's
+     shards (``shard_params``) and rows through ``lm_loss`` under the mesh
+     policy (tensor-parallel attention with chatglm3-6b's 2 kv heads
+     gathered, the all-to-all MoE with the serial run's routes replayed,
+     the vocab-parallel loss), its gradients reduced by ``reduce_grads``:
+     the loss within the reference's rtol 3e-3, every leaf of every rank at
+     rtol 5e-3 with an atol of 1e-3 of the leaf's max|ref| (the gate must
+     refuse zeros, the next rank's shard and a run with the kernels' outputs
+     cut), exact launches equal on every rank; Ulysses over chatglm3-6b's
+     heads at s = 4096 through the flash kernel against serial flash (bf16
+     and f32); 3 bf16 AdamW steps on (1 x 4) timed (step ms, the
+     collectives' share, peak memory, tokens/s); both kernels by device
+     time at the ranks' shard shapes beside bound, plain, SDPA and
+     ``F.rms_norm``; then ``train --mode lm --arch deepseek-moe-16b
+     --devices 2`` through a fault against one rank.
 
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
@@ -222,6 +243,9 @@ the RMSNorm kernel (whisper's norms are LayerNorms). A training pass
 (forward + backward of ``lm_loss``) launches each layer's kernels twice
 (the forward and remat's recompute) and the final norm once
 (``train_launches``); the backward, the plain versions' gradient, none.
+In phase dist lm every rank launches the same: a gate pass (remat off)
+RMSNorm 2 L + 1 times and flash once per attention layer, a timed step
+as a training pass, a Ulysses call flash once.
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -3634,8 +3658,8 @@ def counted_drops():
 
     seen, dispatch = [], moe_lib._dispatch
 
-    def counted(x_flat, topi, capacity, n_experts):
-        out = dispatch(x_flat, topi, capacity, n_experts)
+    def counted(x_flat, topi, capacity, n_experts, **kw):
+        out = dispatch(x_flat, topi, capacity, n_experts, **kw)
         seen.append((topi.shape[0], topi.shape[1], (~out[3]).sum()))
         return out
 
@@ -4529,6 +4553,661 @@ def phase_lm_train(gpu: str) -> dict:
                 "grad_gate_worst": worst, "layers": LM_TRAIN_LAYERS}}
 
 
+# ---------------------------------------------------------------------------
+# Phase `dist lm`: the distributed LM's forward, loss and gradient on 4 gloo
+# ranks sharing the card (tensor parallelism over a model group, data
+# parallelism over a data group, the MoE's all-to-all, Ulysses), against
+# serial runs on the card; a timed bf16 training step; the CLI on 2 ranks.
+# ---------------------------------------------------------------------------
+
+# the archs of the reference's dist_lm_loss_matches_local at full width,
+# with their depth cut: chatglm3-6b 2 of 28 layers; deepseek-moe-16b its
+# dense layer 0 and 1 MoE layer
+DIST_LM_ARCHS = {"chatglm3-6b": 2, "deepseek-moe-16b": 2}
+DIST_LM_BATCH, DIST_LM_SEQ = 2, 1024
+# (name, ranks to a model group, seq_shard): the gates run on both
+DIST_LM_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
+DIST_LM_SEED = 17
+DIST_LM_LOSS_RTOL = 3e-3   # tests/distributed_checks.py: dist_lm_loss_matches_local
+DIST_LM_GRAD_RTOL = 5e-3   # with an atol of DIST_GRAD_LEAF_ATOL x the leaf's max|ref|
+# Ulysses over chatglm3-6b's attention heads (32 q, 2 kv, head dim 128) at
+# this batch and sequence, through the flash kernel on every rank
+DIST_LM_ULYSSES = (1, 4096)
+# the bf16 training steps timed on (1 x 4) with seq_shard (the first
+# warms up and is not counted), then one step with the collectives timed
+DIST_LM_STEPS = 3
+DIST_LM_CLI_STEPS, DIST_LM_CLI_FAULT, DIST_LM_CLI_RTOL = 4, 2, 1e-3
+
+
+def _dist_lm_cfg(arch: str, dtype: str):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=DIST_LM_ARCHS[arch], dtype=dtype)
+
+
+def _dist_lm_params(cfg, device):
+    import torch
+
+    from repro_torch.models import init_lm_params
+
+    return init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(DIST_LM_SEED),
+                          device=device)
+
+
+def _dist_lm_batch(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(DIST_LM_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (DIST_LM_BATCH, DIST_LM_SEQ + 1), generator=gen,
+                         device=device)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+@contextlib.contextmanager
+def per_shard_moe(shards: tuple, recorded: dict, drops: list):
+    """Within the block the serial MoE layer routes as the expert-parallel
+    path does on a (data x model) = ``shards`` layout: each shard's tokens
+    (its rows, its slice of the sequence) routed on their own with that
+    shard's capacity (``_capacity`` of its token count), the experts all on
+    this device, the load-balance loss from the statistics of every shard.
+    Each shard's routes are appended to ``recorded[(d, m)]``, the entries
+    it drops (a device tensor) and routes to ``drops``."""
+    import torch
+
+    from repro_torch.models import LOCAL
+    from repro_torch.models import layers as layers_lib
+    from repro_torch.models import moe as moe_lib
+
+    saved = moe_lib.moe_apply
+    dp, mp = shards
+
+    def sharded(params, x, moe, policy=LOCAL, **kw):
+        b, s, d = x.shape
+        rows, stats = [], []
+        for di, xr in enumerate(x.chunk(dp, 0)):
+            pieces = []
+            for mi, xs in enumerate(xr.chunk(mp, 1)):
+                flat = xs.reshape(-1, d)
+                t = flat.shape[0]
+                topi, topv, probs = moe_lib._route(flat, params["router"], moe)
+                recorded.setdefault((di, mi), []).append(topi)
+                cap = moe_lib._capacity(t, moe)
+                buf, e_flat, pos, keep = moe_lib._dispatch(flat, topi, cap, moe.n_experts)
+                drops.append(((~keep).sum(), keep.numel()))
+                y_buf = moe_lib._expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
+                pieces.append(moe_lib._combine(y_buf, e_flat, pos, keep, topv, t, cap)
+                              .reshape(xs.shape))
+                stats.append(moe_lib._aux_stats(topi, probs, moe))
+            rows.append(torch.cat(pieces, 1))
+        y = torch.cat(rows, 0)
+        aux = moe_lib._aux_from_stats(sum(st[0] for st in stats), sum(st[1] for st in stats),
+                                      sum(st[2] for st in stats), moe)
+        sh = params["shared"]
+        y = y + layers_lib.glu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"], act="swiglu")
+        return y, aux * moe.aux_coef
+
+    moe_lib.moe_apply = sharded
+    try:
+        yield
+    finally:
+        moe_lib.moe_apply = saved
+
+
+def _dist_lm_serial(arch: str, shards, gpu: str, dev) -> dict:
+    """The serial f32 loss and gradient of ``arch`` on the card through
+    the kernels (remat off, as the gate's distributed run), the MoE layers
+    routing per shard of ``shards`` (``per_shard_moe``); returns them with
+    each leaf's max|ref| and the shards' routes."""
+    import torch
+
+    from repro_torch.models import ParallelPolicy, lm_loss
+    from repro_torch.models.transformer import attention_layers, norms_per_forward
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    cfg = _dist_lm_cfg(arch, "float32")
+    params = _dist_lm_params(cfg, dev)
+    batch = _dist_lm_batch(cfg, dev)
+    grads = zeros_like_tree(params)
+    recorded, drops = {}, []
+    ctx = per_shard_moe(shards, recorded, drops) if cfg.moe else contextlib.nullcontext()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    with ctx:
+        loss, metrics = accumulate_grads(
+            lambda p, b: lm_loss(p, b, cfg, ParallelPolicy(remat=False)), params, batch, grads)
+    torch.cuda.synchronize()
+    launched = _kernel_counts()
+    want = {"rmsnorm": norms_per_forward(cfg), "flash": attention_layers(cfg)}
+    if launched != want:
+        raise SystemExit(f"[dist lm] serial {arch}: launches {launched}, want {want}")
+    dropped = sum(int(n) for n, _ in drops)
+    routed = sum(e for _, e in drops)
+    what = (f", MoE per {shards[0]} x {shards[1]} shard: {dropped} of {routed} entries dropped "
+            f"({dropped / max(routed, 1):.2%})" if cfg.moe else "")
+    print(f"[dist lm] serial {arch} f32 ({cfg.n_layers} layers, batch {DIST_LM_BATCH} x "
+          f"{DIST_LM_SEQ}): loss {float(loss):.6f} (xent {float(metrics['xent']):.6f}, aux "
+          f"{float(metrics['aux']):.3e}) in {time.perf_counter() - t0:.2f}s, launches "
+          f"{launched}{what}; {gpu}")
+    del params
+    scale = {name: float(g.abs().max()) for name, g, _ in _tree_pairs(grads, None)}
+    return {"loss": float(loss), "xent": float(metrics["xent"]), "grads": grads, "scale": scale,
+            "routes": recorded, "drop_share": dropped / max(routed, 1)}
+
+
+def _dist_lm_setup(world_size: int) -> dict:
+    """A rank's start: the parent's float32 settings and the groups of the
+    gate layouts."""
+    import torch
+
+    from repro_torch.launch.mesh import build_lm_groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {name: build_lm_groups(world_size, p) for name, p, _ in DIST_LM_LAYOUTS}
+
+
+def _dist_lm_local(cfg, pol, device) -> dict:
+    """This rank's shards of the seeded weights. The ranks draw the whole
+    tree in turns, so that one whole copy exists at a time."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import shard_params
+
+    local = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            local = shard_params(_dist_lm_params(cfg, device), cfg, pol)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return local
+
+
+def _dist_lm_leaf_gate(g, ref, spec, pol, scale) -> dict:
+    """One leaf of this rank's reduced gradient against its slice of the
+    serial one, at rtol ``DIST_LM_GRAD_RTOL`` and an atol of
+    ``DIST_GRAD_LEAF_ATOL`` x the whole leaf's max|ref|; the same gate must
+    refuse zeros and, for a split leaf, the next rank's slice."""
+    import torch
+
+    from repro_torch.core.partition import local_slice
+    from repro_torch.models.policy import MODEL_AXIS
+
+    tol = (DIST_LM_GRAD_RTOL, DIST_GRAD_LEAF_ATOL * scale)
+    group = pol.model_group
+    dim = spec.index(MODEL_AXIS) if MODEL_AXIS in spec and pol.model_size() > 1 else None
+    want = ref if dim is None else local_slice(ref, dim, group)
+    ok, max_d, _ = _close(g, want, tol)
+    wrong = {"zeros": torch.zeros_like(g)}
+    if dim is not None:
+        n = want.shape[dim]
+        wrong["neighbouring shard"] = ref.narrow(dim, (group.rank() + 1) % group.size() * n, n)
+    passed_wrong = [what for what, t in wrong.items() if _close(t, want, tol)[0]]
+    return {"ok": ok and _finite(g), "max_d": max_d, "max_ref": scale, "passed_wrong": passed_wrong}
+
+
+def _dist_lm_gate(arch: str, pol, serial: dict, recorded, device, cut: bool) -> dict:
+    """One f32 forward + backward of ``lm_loss`` on this rank's shards and
+    rows (remat off; the MoE routes replayed from the serial run's shard),
+    its gradients reduced (``reduce_grads``, the LM's rule) and each leaf
+    gated against the serial gradient; with ``cut``, the same run with the
+    kernels' outputs cut from the graph, which the gate must refuse."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.partition import local_slice
+    from repro_torch.models import lm_loss
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.train.train_loop import accumulate_grads, reduce_grads, zeros_like_tree
+
+    cfg = _dist_lm_cfg(arch, "float32")
+    local = _dist_lm_local(cfg, pol, device)
+    batch = {k: local_slice(v, 0, pol.data_group) for k, v in _dist_lm_batch(cfg, device).items()}
+    layout = _dist_lm_layout(cfg, pol)
+    specs = {name: spec for name, spec, _ in _tree_pairs(param_specs(cfg, pol), None)}
+    refs = {name: ref for name, ref, _ in _tree_pairs(serial["grads"], None)}
+
+    def run(ctx):
+        grads = zeros_like_tree(local)
+        _zero_kernel_counts()
+        with ctx, (routes(recorded) if recorded is not None else contextlib.nullcontext()) as rt:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, metrics = accumulate_grads(lambda p, b: lm_loss(p, b, cfg, pol), local, batch,
+                                             grads)
+            torch.cuda.synchronize()
+            fwd_bwd = time.perf_counter() - t0
+        launched = _kernel_counts()
+        reduce_grads(grads, layout)
+        mean = torch.stack([loss, metrics["xent"]])
+        dist.all_reduce(mean, group=pol.data_group)
+        mean = (mean / pol.dp_size()).tolist()
+        gates = {name: _dist_lm_leaf_gate(g, refs[name], specs[name], pol, serial["scale"][name])
+                 for name, g, _ in _tree_pairs(grads, None)}
+        flips = None if rt is None else {k: rt[k] for k in ("flips", "tied", "tokens")}
+        return {"loss": mean[0], "xent": mean[1], "s": fwd_bwd, "launches": launched,
+                "gates": gates, "flips": flips}
+
+    out = run(contextlib.nullcontext())
+    if cut:
+        out["cut"] = run(cut_kernels())["gates"]
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_lm_layout(cfg, pol):
+    """The training state's layout over ``pol``'s groups: each leaf's
+    partition by the specs, ZeRO-1 moments, the LM's gradient rule."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import init_lm_params
+    from repro_torch.models.transformer import param_parts
+    from repro_torch.train.optimizer import state_layout
+
+    whole = init_lm_params(cfg, generator=None, device="meta")  # shapes only
+    return state_layout(pol.mesh, param_parts(cfg, pol, whole),
+                        tree_map(lambda p: tuple(p.shape), whole), grads_complete=True)
+
+
+def _dist_lm_ulysses(group, job, device) -> dict:
+    """``ulysses_attention`` through the flash kernel on this rank's
+    sequence shard of chatglm3-6b's q/k/v at ``DIST_LM_ULYSSES``, bf16 and
+    f32: its output shard (on the host) and the kernels' launches, the
+    counts zeroed just before each call and read just after it."""
+    import torch
+
+    from repro_torch.core.partition import local_slice
+    from repro_torch.core.ulysses import flash_attn_fn, ulysses_attention
+
+    out = {}
+    for dtype, (q, k, v) in job["ulysses"].items():
+        q, k, v = (local_slice(t, 1, group).to(device).contiguous() for t in (q, k, v))
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        o = ulysses_attention(q, k, v, group, causal=True, attn_fn=flash_attn_fn)
+        torch.cuda.synchronize()
+        out[dtype] = {"out": o.cpu(), "s": time.perf_counter() - t0,
+                      "launches": _kernel_counts()}
+    return out
+
+
+def _dist_lm_step(groups, device) -> dict:
+    """``DIST_LM_STEPS`` bf16 training steps of chatglm3-6b on (1 x 4) with
+    seq_shard and remat (AdamW; each rank its shards), timed after the
+    first, with the kernels' launches; then one step with every
+    collective timed (``core.collectives.timed``: each waits for the
+    card before and after), whose collectives' share of the step is
+    reported. Peak memory of this rank."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.core.partition import local_slice
+    from repro_torch.models import ParallelPolicy, lm_loss
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = _dist_lm_cfg("chatglm3-6b", "bfloat16")
+    pol = ParallelPolicy(mesh=groups, seq_shard=True)
+    local = _dist_lm_local(cfg, pol, device)
+    layout = _dist_lm_layout(cfg, pol)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg, pol), AdamWConfig(lr=1e-4), layout=layout)
+    opt = init_opt_state(local, layout)
+    batch = {k: local_slice(v, 0, pol.data_group) for k, v in _dist_lm_batch(cfg, device).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(DIST_LM_STEPS):
+        if i == 1:
+            _zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launched = _kernel_counts()
+    with collectives.timed() as count:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+    return {"times": times, "losses": losses, "launches": launched,
+            "counted_steps": DIST_LM_STEPS - 1, "timed_step_s": timed,
+            "collectives_s": count["seconds"], "collectives_calls": count["calls"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _dist_lm_rank(rank, world_size, device, job):
+    """One rank of phase `dist lm` (``_dist_lm_rank_work``). The job's CUDA
+    tensors are the parent's, mapped by CUDA IPC: the rank drops every
+    reference to them before it returns, so that the parent's count of
+    their users falls to zero before it frees them (a producer that exits
+    with users still counted warns, and its exit can crash)."""
+    import gc
+
+    import torch
+
+    try:
+        return _dist_lm_rank_work(rank, world_size, device, job)
+    finally:
+        job.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+
+
+def _dist_lm_rank_work(rank, world_size, device, job):
+    """The gates of every arch on every layout, Ulysses, the timed bf16
+    steps, then on rank 0 alone (the others wait) both kernels timed at
+    the shard shapes: in a process that has run no profiler before, whose
+    traces keep every kernel (late in the script's own process they miss
+    some, and the timing falls back to events)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import ParallelPolicy
+
+    groups = _dist_lm_setup(world_size)
+    out = {"gates": {}}
+    for arch in DIST_LM_ARCHS:
+        for name, p, sp in DIST_LM_LAYOUTS:
+            pol = ParallelPolicy(mesh=groups[name], seq_shard=sp, remat=False)
+            d, m = pol.data_group.rank(), pol.model_group.rank()
+            serial = job["serial"][arch, name]
+            recorded = serial["routes"].get((d, m)) if serial["routes"] else None
+            t = time.perf_counter()
+            out["gates"][arch, name] = _dist_lm_gate(arch, pol, serial, recorded, device,
+                                                     cut=(arch, name) == job["cut"])
+            out["gates"][arch, name]["wall_s"] = time.perf_counter() - t
+    out["ulysses"] = _dist_lm_ulysses(groups["1x4"]["model"], job, device)
+    torch.cuda.empty_cache()
+    out["step"] = _dist_lm_step(groups["1x4"], device)
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["times"] = _dist_lm_kernel_times(job["gpu"])
+    dist.barrier()
+    return out
+
+
+def _dist_lm_check_gates(ranks, serial: dict, gpu: str) -> dict:
+    """Every rank's gate results of every (arch, layout): the loss within
+    ``DIST_LM_LOSS_RTOL`` of the serial one, every leaf at the gradient
+    gate, no wrong answer passing it, the cut run refused, the launches
+    exact and equal on every rank; returns what is printed."""
+    from repro_torch.models.transformer import attention_layers, norms_per_forward
+
+    out = {}
+    for key in ranks[0]["gates"]:
+        arch, layout = key
+        cfg = _dist_lm_cfg(arch, "float32")
+        runs = [r["gates"][key] for r in ranks]
+        ref = serial[key]
+        want = {"rmsnorm": norms_per_forward(cfg), "flash": attention_layers(cfg)}
+        launches = [run["launches"] for run in runs]
+        if any(n != want for n in launches):
+            raise SystemExit(f"[dist lm] {arch} {layout}: launches per rank {launches}, want {want}")
+        rel = max(abs(run["loss"] - ref["loss"]) / abs(ref["loss"]) for run in runs)
+        faults, worst, wrong = [], (0.0, ""), []
+        for r, run in enumerate(runs):
+            for name, g in run["gates"].items():
+                if not g["ok"]:
+                    faults.append(f"rank {r} {name}: max|d| {g['max_d']:.3e} (max|ref| "
+                                  f"{g['max_ref']:.3e})")
+                worst = max(worst, (g["max_d"] / g["max_ref"] if g["max_ref"] else 0.0, name))
+                wrong += [f"rank {r} {name}: {w}" for w in g["passed_wrong"]]
+        flips = [run["flips"] for run in runs if run["flips"] is not None]
+        routed = ""
+        if flips:
+            n, tied, tokens = (sum(f[k] for f in flips) for k in ("flips", "tied", "tokens"))
+            routed = (f"; MoE routes replayed from the serial run's shards: {n} of {tokens} tokens' "
+                      f"own top-k differ ({tied} on exact ties), the serial per-shard capacity "
+                      f"dropped {ref['drop_share']:.2%} of the entries")
+        n_leaves = len(runs[0]["gates"])
+        print(f"[dist lm] {arch} on {layout}: loss {runs[0]['loss']:.6f} vs serial "
+              f"{ref['loss']:.6f} (max relative difference {rel:.3e} over the ranks, gate "
+              f"{DIST_LM_LOSS_RTOL}); {n_leaves} leaves a rank at rtol {DIST_LM_GRAD_RTOL}, atol "
+              f"{DIST_GRAD_LEAF_ATOL} x max|ref|: worst max|d|/max|ref| {worst[0]:.3e} ({worst[1]}); "
+              f"launches a rank {launches[0]} (exact, equal on the {len(runs)} ranks); "
+              f"forward + backward {max(run['s'] for run in runs):.2f}s{routed}; {gpu}")
+        if not rel <= DIST_LM_LOSS_RTOL or faults or wrong:
+            raise SystemExit(f"[dist lm] {arch} on {layout}: loss rel {rel:.3e}; "
+                             + "; ".join((faults + wrong)[:8]))
+        if "cut" in runs[0]:
+            refused = sum(not g["ok"] for run in runs for g in run["cut"].values())
+            print(f"[dist lm] {arch} on {layout}: the gate on a run with the kernels' outputs cut "
+                  f"from the graph refuses {refused} leaves over the ranks")
+            if not refused:
+                raise SystemExit(f"[dist lm] the gradient gate did not refuse a cut graph")
+        out[f"{arch} {layout}"] = {"loss": runs[0]["loss"], "serial_loss": ref["loss"],
+                                   "loss_rel": rel, "grad_worst": worst[0],
+                                   "launches": launches[0],
+                                   "flips": sum(f["flips"] for f in flips) if flips else None}
+    return out
+
+
+def _dist_lm_check_ulysses(ranks, job: dict, gpu: str) -> dict:
+    """The ranks' Ulysses outputs, concatenated along the sequence, against
+    the serial flash kernel on the whole sequence (``_lm_check``: one bf16
+    rounding, or 1e-5 in f32); one flash launch a rank and call, and no
+    RMSNorm launch."""
+    import torch
+
+    out = {}
+    for dtype, want in job["ulysses_ref"].items():
+        got = torch.cat([r["ulysses"][dtype]["out"] for r in ranks], 1)
+        launches = [r["ulysses"][dtype]["launches"] for r in ranks]
+        if launches != [{"rmsnorm": 0, "flash": 1}] * len(ranks):
+            raise SystemExit(f"[dist lm] ulysses {dtype}: launches per rank {launches}")
+        b, s = DIST_LM_ULYSSES
+        err = _lm_check(f"dist lm ulysses {dtype} (b {b}, s {s}, 32 q / 2 kv heads, 8 q heads "
+                        f"and 1 kv head a rank)", got, want.cpu())
+        wall = max(r["ulysses"][dtype]["s"] for r in ranks)
+        print(f"[dist lm] ulysses {dtype}: {wall * 1e3:.1f} ms on the slowest rank (two "
+              f"all-to-alls and an all-gather through gloo, the flash kernel); {gpu}")
+        out[dtype] = {"max_abs_err": err, "wall_s": wall, "launches": launches[0]}
+    return out
+
+
+def _dist_lm_report_step(ranks, gpu: str) -> dict:
+    """The timed bf16 steps of every rank: step ms, the collectives' share,
+    peak memory, tokens/s; the launches exact and equal on every rank."""
+    from repro_torch.models.transformer import train_launches
+
+    cfg = _dist_lm_cfg("chatglm3-6b", "bfloat16")
+    per = train_launches(cfg, DIST_LM_SEQ)
+    steps = [r["step"] for r in ranks]
+    want = {k: steps[0]["counted_steps"] * v for k, v in per.items()}
+    if any(st["launches"] != want for st in steps):
+        raise SystemExit(f"[dist lm] step launches per rank {[st['launches'] for st in steps]}, "
+                         f"want {want} (a pass {per})")
+    if not all(np.isfinite(st["losses"]).all() for st in steps):
+        raise SystemExit("[dist lm] a training loss is not finite")
+    step_ms = [float(np.mean(st["times"][1:]) * 1e3) for st in steps]
+    share = [st["collectives_s"] / st["timed_step_s"] for st in steps]
+    tokens = DIST_LM_BATCH * DIST_LM_SEQ
+    for r, st in enumerate(steps):
+        print(f"[dist lm] step rank {r}: {step_ms[r]:.1f} ms after the first "
+              f"({st['times'][0] * 1e3:.1f} ms); collectives {st['collectives_s'] * 1e3:.1f} ms "
+              f"({st['collectives_calls']} calls) of a {st['timed_step_s'] * 1e3:.1f} ms step with "
+              f"each one timed ({share[r]:.1%}); peak {st['peak_gib']:.2f} GiB; losses "
+              f"{[round(x, 6) for x in st['losses']]}")
+    print(f"[dist lm] chatglm3-6b bf16 on 1 x 4 (seq_shard, remat, AdamW): "
+          f"{tokens / (max(step_ms) / 1e3):.0f} tokens/s at the slowest rank's step "
+          f"({max(step_ms):.1f} ms); launches a rank {steps[0]['launches']} over "
+          f"{steps[0]['counted_steps']} steps (a pass {per}); {gpu}")
+    return {"step_ms": step_ms, "collectives_share": share,
+            "peak_gib": [st["peak_gib"] for st in steps], "tokens_per_s": tokens / (max(step_ms) / 1e3),
+            "launches": steps[0]["launches"]}
+
+
+def _dist_lm_kernel_times(gpu: str) -> dict:
+    """Both kernels at the shard shapes the dist paths give each rank, bf16:
+    held to their plain versions and timed by device time beside their
+    bound and the library call (SDPA, ``F.rms_norm``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(DIST_LM_SEED + 2)
+
+    def randn(shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    flash = {}
+    for name, (b, h, kvh, s) in {
+            "chatglm3-6b 1x4 (b 2, 8 q heads, kv 1)": (2, 8, 1, DIST_LM_SEQ),
+            "chatglm3-6b 2x2 (b 1, 16 q heads, kv 1)": (1, 16, 1, DIST_LM_SEQ),
+            "deepseek-moe-16b 1x4 (b 2, 4 heads)": (2, 4, 4, DIST_LM_SEQ),
+            "deepseek-moe-16b 2x2 (b 1, 8 heads)": (1, 8, 8, DIST_LM_SEQ),
+            "chatglm3-6b ulysses (b 1, 8 q heads, kv 1, s 4096)": (1, 8, 1, DIST_LM_ULYSSES[1]),
+    }.items():
+        q = randn((b, s, h, 128)).transpose(1, 2)
+        k, v = (randn((b, s, kvh, 128)).transpose(1, 2) for _ in range(2))
+        err = _lm_check(f"dist lm flash {name}", flash_attention(q, k, v), flash_attention_ref(q, k, v))
+        ms, by_ms = device_ms(lambda: flash_attention(q, k, v), n=10)
+        plain, by_plain = device_ms(lambda: flash_attention_ref(q, k, v), n=5)
+        lib, by_lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_lower_right(s, s), enable_gqa=True), n=10)
+        bound, by = _flash_bound_ms(b, h, kvh, s, s, 128, True, 2)
+        print(f"[dist lm] flash {name}, device time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us "
+              f"({by}); {gpu}")
+        flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, timed_by={"ms": by_ms, "plain_ms": by_plain,
+                                                  "library_ms": by_lib})
+        del q, k, v
+    rms = {}
+    for name, (rows, d) in {
+            "chatglm3-6b 1x4 seq_shard [512, 4096]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 4096),
+            "chatglm3-6b 2x2 [1024, 4096]": (DIST_LM_SEQ, 4096),
+            "deepseek-moe-16b 1x4 seq_shard [512, 2048]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 2048),
+            "deepseek-moe-16b 2x2 [1024, 2048]": (DIST_LM_SEQ, 2048),
+    }.items():
+        x, w = randn((rows, d)), 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+        err = _lm_check(f"dist lm rmsnorm {name}", rmsnorm(x, w), rmsnorm_ref(x, w))
+        ms, by_ms = device_ms(lambda: rmsnorm(x, w))
+        plain, by_plain = device_ms(lambda: rmsnorm_ref(x, w))
+        lib, by_lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
+        bound, by = _rmsnorm_bound_ms(rows, d, 2)
+        print(f"[dist lm] rmsnorm {name} bf16, device time: kernel {ms * 1e3:.2f} us "
+              f"({bound / ms:.0%} of bound), plain {plain * 1e3:.2f} us, F.rms_norm "
+              f"{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}); {gpu}")
+        rms[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                         bound_by=by, timed_by={"ms": by_ms, "plain_ms": by_plain,
+                                                "library_ms": by_lib})
+    _free_cuda()
+    return {"flash": flash, "rmsnorm": rms}
+
+
+def _dist_lm_cli(gpu: str) -> dict:
+    """``train --mode lm --arch deepseek-moe-16b`` (reduced) on 2 ranks
+    through a fault, its data ranks routing together, against one rank
+    uninterrupted: the final loss within ``DIST_LM_CLI_RTOL``."""
+    import tempfile
+
+    base = ["--arch", "deepseek-moe-16b", "--steps", str(DIST_LM_CLI_STEPS), "--save-every", "2"]
+    with tempfile.TemporaryDirectory() as d:
+        jobs = {"one": [*base, "--ckpt-dir", os.path.join(d, "one")],
+                "two": [*base, "--devices", "2", "--inject-fault", str(DIST_LM_CLI_FAULT),
+                        "--ckpt-dir", os.path.join(d, "two")]}
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            runs = {tag: f.result() for tag, f in
+                    {tag: pool.submit(_lm_train_cli_run, flags) for tag, flags in jobs.items()}.items()}
+    for tag, run in runs.items():
+        if run.returncode != 0:
+            print(run.stdout, run.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"[dist lm cli] {tag} exited {run.returncode}")
+    if "failures=1 restores=1" not in runs["two"].stdout:
+        raise SystemExit("[dist lm cli] the 2-rank run's fault was not restored from a checkpoint")
+    want = json.loads(re.search(r"^losses: (.*)$", runs["one"].stdout, re.M).group(1))
+    out = _lm_train_cli_check("deepseek-moe-16b --devices 2", runs["two"], want, float("inf"), gpu)
+    got = json.loads(re.search(r"^losses: (.*)$", runs["two"].stdout, re.M).group(1))
+    final = abs(got[-1] - want[-1]) / abs(want[-1])
+    print(f"[dist lm cli] deepseek-moe-16b on 2 ranks through a fault: final loss {got[-1]:.6f} "
+          f"vs one rank's {want[-1]:.6f} (relative {final:.3e}, gate {DIST_LM_CLI_RTOL}); "
+          f"first {got[0]:.6f} vs {want[0]:.6f}; {gpu}")
+    if not final <= DIST_LM_CLI_RTOL:
+        raise SystemExit("[dist lm cli] the 2-rank run did not end on one rank's loss")
+    return dict(out, final_rel=final)
+
+
+def phase_dist_lm(gpu: str) -> dict:
+    """The distributed LM at full width (``DIST_LM_ARCHS``, depth cut) on
+    ``DIST_RANKS`` gloo ranks sharing this card: the serial f32 loss and
+    gradient on the card first (shared with the ranks by CUDA IPC), then
+    one launch of the ranks (``_dist_lm_rank``): the gates on every layout,
+    Ulysses with the flash kernel, the timed bf16 steps, both kernels
+    timed at the shard shapes; then the CLI on 2 ranks. Returns the launch
+    counts by path and the measurements."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import launch_ranks
+
+    _free_cuda()
+    dev = torch.device("cuda")
+    for arch, n in DIST_LM_ARCHS.items():
+        full, cfg = get_arch(arch), _dist_lm_cfg(arch, "float32")
+        print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "
+              f"{'layer 0 (dense) and 1 MoE layer' if cfg.moe else f'{n} layers'}; "
+              f"{cfg.approx_params() / 1e9:.3f} B params, {cfg.approx_params() * 4 / 1e9:.1f} GB "
+              f"in f32; {full.n_layers} layers are {full.approx_params() / 1e9:.2f} B)")
+    t0 = time.perf_counter()
+    serial = {}
+    for arch in DIST_LM_ARCHS:
+        moe = _dist_lm_cfg(arch, "float32").moe is not None
+        shared = None if moe else _dist_lm_serial(arch, None, gpu, dev)
+        for name, p, _ in DIST_LM_LAYOUTS:
+            serial[arch, name] = _dist_lm_serial(arch, (DIST_RANKS // p, p), gpu, dev) if moe else shared
+    gen = torch.Generator(device=dev).manual_seed(DIST_LM_SEED + 3)
+    b, s = DIST_LM_ULYSSES
+    ulysses, ulysses_ref = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, s, 32, 128), device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn((b, s, 2, 128), device=dev, generator=gen).to(dtype) for _ in range(2))
+        name = str(dtype).split(".")[-1]
+        ulysses[name] = (q, k, v)
+        ulysses_ref[name] = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                            v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    print(f"[dist lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
+          f"{_memory_line()}")
+    job = {"serial": serial, "cut": ("chatglm3-6b", "1x4"), "ulysses": ulysses, "gpu": gpu}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = launch_ranks(_dist_lm_rank, DIST_RANKS, d, args=(job,),
+                             collective_timeout_s=DIST_TIMEOUT_S, deadline_s=DIST_TIMEOUT_S,
+                             device="cuda")
+    print(f"[dist lm] {DIST_RANKS} gloo ranks on one card, layouts "
+          f"{[(n, f'{DIST_RANKS // p} x {p}', 'seq_shard' if sp else '') for n, p, sp in DIST_LM_LAYOUTS]}: "
+          f"{time.perf_counter() - t0:.1f}s for the launch")
+    gates = _dist_lm_check_gates(ranks, serial, gpu)
+    uly = _dist_lm_check_ulysses(ranks, {"ulysses_ref": ulysses_ref}, gpu)
+    step = _dist_lm_report_step(ranks, gpu)
+    del job, serial, ulysses, ulysses_ref
+    torch.cuda.ipc_collect()
+    _free_cuda()
+    times = ranks[0]["times"]
+    cli = _dist_lm_cli(gpu)
+    launches = {
+        "dist_lm": {k: sum(g["launches"][k] for g in gates.values()) + step["launches"][k]
+                    for k in ("rmsnorm", "flash")},
+        "dist_lm_ulysses": {k: sum(u["launches"][k] for u in uly.values())
+                            for k in ("rmsnorm", "flash")},
+        "dist_lm_cli": {"rmsnorm": cli["rmsnorm"], "flash": cli["flash"]}}
+    return {"launches": launches, "gates": gates, "ulysses": uly, "step": step, "times": times,
+            "cli": cli}
+
+
 def main() -> int:
     import torch
 
@@ -4569,6 +5248,7 @@ def main() -> int:
     whisper = phase("whisper serving", phase_whisper_serving, gpu)
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
     lm_train = phase("lm train", phase_lm_train, gpu)
+    dist_lm = phase("dist lm", phase_dist_lm, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -4608,7 +5288,10 @@ def main() -> int:
             "lm_train": lm_train["launches"][key], "whisper_train": lm_train["whisper_launches"][key],
             "lm_train_cli": sum(run[key] for run in lm_train["cli"].values())})
         record["backward"] = lm_train["backward"][key]
+        record["launches_by_path"].update({path: n[key] for path, n in dist_lm["launches"].items()})
+        record["dist_shapes"] = dist_lm["times"][key]
     flash["lm_train"] = lm_train["stats"]
+    flash["dist_lm"] = {k: dist_lm[k] for k in ("gates", "ulysses", "step")}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

@@ -1,4 +1,4 @@
-"""Process groups for the model-parallel FNO, and a launcher for its ranks.
+"""Process groups for the model-parallel FNO and the distributed LM, and a launcher for their ranks.
 
 Port of ``repro.launch.mesh``'s ``build_fno_mesh``: where the reference
 lays devices on a ("data", "model") or ("data", "mx", "my") mesh, the port
@@ -91,6 +91,16 @@ def build_fno_groups(world_size: int, model_shards: Sequence[int]):
     my_groups = {(dd, ii): dist.new_group([dd * n_model + ii * py + jj for jj in range(py)])
                  for dd in range(n_dp) for ii in range(px)}
     return data_group, (mx_groups[d, j], my_groups[d, i]), n_model
+
+
+def build_lm_groups(world_size: int, model_shards: int) -> dict:
+    """The ("data", "model") groups of a distributed LM on ``world_size``
+    ranks with ``model_shards`` ranks to a model group, as a mesh policy
+    takes them (``models.policy.ParallelPolicy(mesh=...)``): the ranks lie
+    row-major on (data, model), as ``build_fno_groups`` lays them for one
+    shard value, with ``fno_layout``'s checks and words."""
+    data_group, model_group, _ = build_fno_groups(world_size, [model_shards])
+    return {"data": data_group, "model": model_group}
 
 
 def dp_axes_for(groups: Mapping[str, object]) -> tuple:

@@ -51,11 +51,13 @@ under the local policy (remat on) on the reference's tokens,
 entry s % n_data; the params come from a seeded ``torch.Generator``.
 ``--devices N`` is data parallelism, as the reference's replicated
 params make it: N ranks (gloo, sharing the card) each take their rows of
-the batch, the gradients are averaged (``reduce_grads``) and the moments
-split by ZeRO-1. Each rank routes an MoE arch's tokens alone, where the
-reference routes the whole batch at once, so an MoE arch refuses
-``--devices`` above 1 (the distributed LM paths). Prints the ``done:``
-line, ``losses:`` with every step's loss, and on the card both LM kernels'
+the batch under a data-only mesh policy (``launch.mesh.build_lm_groups``
+with one rank to a model group), the gradients are averaged
+(``reduce_grads``) and the moments split by ZeRO-1. An MoE arch's ranks
+route their tokens together, as the reference's jit routes the whole
+batch: the capacity is the global token count's and the load-balance loss
+the global statistics' (``models/moe.py``). Prints the ``done:`` line,
+``losses:`` with every step's loss, and on the card both LM kernels'
 launch counts.
 """
 from __future__ import annotations
@@ -75,7 +77,6 @@ import torch.distributed as dist
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.configs import ENCDEC_IDS, get_arch, reduced
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.core.fno import (
     FNOConfig, forward_and_specs, group_names, init_params, mse_loss, param_shapes,
 )
@@ -85,8 +86,8 @@ from repro_torch.data.store import ArrayStore
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.spectral_conv import spectral_fused_cuda, spectral_fused_dw_cuda
-from repro_torch.launch.mesh import build_fno_groups, fno_layout, launch_ranks
-from repro_torch.models import LOCAL, init_lm_params, lm_loss
+from repro_torch.launch.mesh import build_fno_groups, build_lm_groups, fno_layout, launch_ranks
+from repro_torch.models import LOCAL, ParallelPolicy, init_lm_params, lm_loss
 from repro_torch.models.transformer import train_launches
 from repro_torch.train.fault import FaultInjector, SupervisorResult, run_supervised
 from repro_torch.train.optimizer import (
@@ -296,9 +297,6 @@ def _refuse_unported(args) -> None:
                          f"(the encoder-decoder family's loss is whisper_loss)")
     if args.batch % args.devices:
         raise SystemExit(f"--batch {args.batch} not divisible by --devices {args.devices}")
-    if args.devices > 1 and get_arch(args.arch).moe is not None:
-        raise SystemExit(f"--devices {args.devices} with the MoE arch {args.arch}: routing "
-                         f"the ranks' tokens together is {NOT_PORTED}")
 
 
 def _check_layout(args) -> None:
@@ -463,15 +461,16 @@ def train_lm(args, device, world_size: int = 1) -> dict:
         return init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
                               device=device)
 
-    layout = None
+    layout, policy = None, LOCAL
     if world_size > 1:
-        data_group, model, _ = build_fno_groups(world_size, [1])
+        groups = build_lm_groups(world_size, 1)
+        policy = ParallelPolicy(mesh=groups)
         shapes = tree_map(lambda p: tuple(p.shape), init_lm())
         replicated = tree_map(lambda _: None, shapes)
-        layout = state_layout(group_names(data_group, model), replicated, shapes)
+        layout = state_layout(groups, replicated, shapes, grads_complete=True)
 
     def loss_fn(params, batch):
-        return lm_loss(params, batch, cfg, LOCAL)
+        return lm_loss(params, batch, cfg, policy)
 
     step_fn = make_train_step(loss_fn, opt_cfg, grad_accum=args.grad_accum, layout=layout)
 

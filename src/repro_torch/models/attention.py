@@ -1,15 +1,28 @@
 """GQA/MQA/MHA (with sliding windows) and MLA attention with a KV cache.
 
-Port of ``repro.models.attention`` less its distributed parts:
-``_project_qkv`` (with ``qkv_bias``, ``qk_norm`` and partial RoPE),
-``attn_forward`` (full-sequence attention, causal or not, under the local
-policy), ``_windowed_attention``, ``init_kv_cache``, ``attn_decode`` and
-``decode_attention`` (``attention.py:55-74``, ``:101-259``,
-``:333-345``), and DeepSeek-V2's multi-head latent attention:
-``init_mla_params``, ``_mla_qkr``, ``mla_forward``, ``init_mla_cache`` and
-``mla_decode`` on its unsplit cache (``:354-479``). Split and quantised
-caches, which only a distributed policy takes, are not ported (ROADMAP
-Queue 1 item 5d).
+Port of ``repro.models.attention``: ``_project_qkv`` (with ``qkv_bias``,
+``qk_norm`` and partial RoPE), ``attn_forward`` (full-sequence attention,
+causal or not; under a mesh policy tensor-parallel over heads with the
+reference's head padding, ``_pad_heads``), ``_windowed_attention``,
+``init_kv_cache``, ``attn_decode`` and ``decode_attention``
+(``attention.py:55-74``, ``:77-259``, ``:333-345``), and DeepSeek-V2's
+multi-head latent attention: ``init_mla_params``, ``_mla_qkr``,
+``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on its unsplit
+cache (``:354-479``). Split and quantised caches, which only a distributed
+policy takes, are not ported (ROADMAP Queue 1 item 5d).
+
+Tensor parallelism (``_attn_tp``): wq/wk/wv are column-parallel and wo
+row-parallel over the model group (``param_specs``). The heads are
+zero-padded to a multiple of P (``padded_heads``), rank m takes padded
+heads m hp/P .. and the padded heads' outputs are sliced away, as the
+reference's ``_pad_heads`` makes GSPMD do. Where a rank's heads are not
+its columns of a weight (P does not divide the heads; the kv heads of a
+GQA config that P does not divide, chatglm3-6b's 2 on 4 ranks), the rank
+all-gathers that weight and takes its heads' columns (its rows of wo):
+the gather's backward reduce-scatters, so two ranks reading one kv head
+both send it their gradient. A GQA config keeps its groups where the
+rank's q heads hold whole runs of a kv head or lie inside one
+(``core.ulysses.kv_heads_for``), else each q head gets its kv head.
 
 Layouts as in the reference: residual stream [b, s, d]; heads [b, h, s,
 hd]; the cache {"k": [b, kvh, S, hd], "v": ...}; the MLA cache {"ckv":
@@ -29,8 +42,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import all_gather, copy_to
+from repro_torch.core.ulysses import kv_heads_for
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import layers
+from repro_torch.models.policy import LOCAL
 
 NEG_INF = -1e30
 
@@ -67,16 +83,84 @@ def attend(q, k, v, cfg, *, causal: bool = True):
     return flash_ops.flash_attention(q, k, v, causal=causal)
 
 
-def attn_forward(p, x, cfg, *, causal: bool = True):
+def attn_forward(p, x, cfg, policy=LOCAL, *, causal: bool = True, seq_sharded: bool = False):
     """Full-sequence attention (training, or an encoder) at positions
     0..s-1: x [b, s, d] -> [b, s, d], one flash launch within a window.
     q, k and v go to the kernel as the strided [b, h, s, hd] views they
-    are."""
+    are. Under a policy whose model group has more than one rank, ``p``
+    holds this rank's shards and x the residual stream as the block holds
+    it (this rank's slice of the sequence with ``seq_sharded``):
+    ``_attn_tp``."""
+    if policy.model_size() > 1:
+        return _attn_tp(p, x, cfg, policy, causal, seq_sharded)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device))
     o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg, causal=causal)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
     return o @ p["wo"].to(x.dtype)
+
+
+def padded_heads(n_heads: int, p_size: int) -> int:
+    """The head count zero-padded to a multiple of the model group's size."""
+    return -(-n_heads // p_size) * p_size
+
+
+def _columns(w, heads, hd: int, aligned: bool, group, dim: int = -1):
+    """The columns (rows with ``dim=0``) of heads ``heads`` (a 1-D index
+    tensor) of a weight the group shards along ``dim``: this rank's shard
+    itself when ``aligned``, else picked from the all-gathered weight."""
+    if aligned:
+        return w
+    full = all_gather(w, dim, group)
+    cols = (heads[:, None] * hd + torch.arange(hd, device=w.device)).reshape(-1)
+    return full.index_select(dim, cols)
+
+
+def _project(x, w, b, heads, hd, aligned, group):
+    """x @ W[:, heads] (+ bias) for a column-parallel W -> [b, s, n, hd]."""
+    y = x @ _columns(w, heads, hd, aligned, group).to(x.dtype)
+    if b is not None:
+        y = y + _columns(b, heads, hd, aligned, group).to(x.dtype)
+    return y.reshape(x.shape[0], x.shape[1], heads.numel(), hd)
+
+
+def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool):
+    """``attn_forward`` over the model group: see the module's docstring."""
+    group = policy.model_group
+    size, rank = group.size(), group.rank()
+    h, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    n_loc = padded_heads(h, size) // size
+    first = rank * n_loc
+    n_real = max(0, min(n_loc, h - first))
+    xin = layers.tp_in(x, group, seq_sharded)
+    b, s, _ = xin.shape
+    dev = x.device
+    q_heads = torch.arange(first, first + n_real, device=dev)
+    per_q = kvh == h or n_real < n_loc
+    if per_q:  # MHA, or a GQA rank with padded heads: one kv head per q head
+        kv_heads = q_heads if kvh == h else q_heads // (h // kvh)
+    else:
+        kv_heads = kv_heads_for(first, n_loc, h, kvh, dev)
+    q_aligned = h % size == 0
+    kv_aligned = q_aligned and kvh % size == 0
+    bias = cfg.qkv_bias
+    q = _project(xin, p["wq"], p["bq"] if bias else None, q_heads, hd, q_aligned, group)
+    k = _project(xin, p["wk"], p["bk"] if bias else None, kv_heads, hd, kv_aligned, group)
+    v = _project(xin, p["wv"], p["bv"] if bias else None, kv_heads, hd, kv_aligned, group)
+    if cfg.qk_norm:  # whole weights on this rank's heads: their gradient is a part
+        q = layers.rms_norm(q, copy_to(p["q_norm"], group))
+        k = layers.rms_norm(k, copy_to(p["k_norm"], group))
+    if cfg.rope_fraction > 0:
+        positions = torch.arange(s, device=dev)
+        q = layers.apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        k = layers.apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+    pad = n_loc - n_real
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg, causal=causal)
+    o = o[:, :n_real].transpose(1, 2).reshape(b, s, n_real * hd)
+    wo = _columns(p["wo"], q_heads, hd, q_aligned, group, dim=0)
+    return layers.tp_out(o @ wo.to(x.dtype), group, seq_sharded)
 
 
 def cache_shapes(cfg, batch: int, max_len: int) -> dict:

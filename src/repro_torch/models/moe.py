@@ -1,14 +1,29 @@
 """Mixture-of-Experts: routing, capacity dispatch, expert FFNs, combine.
 
-Port of the local path of ``repro.models.moe`` (``moe.py:42-190``):
-``init_moe_params``, ``_route``, the load-balance statistics, ``_dispatch``,
-``_combine``, ``_expert_ffn``, ``_capacity``, ``_moe_local`` and
-``moe_apply`` with DeepSeek's shared experts. ``moe_apply`` returns the
-reference's ``(y, aux)``: the output and the load-balance loss times
-``aux_coef`` (from this call's routes, differentiable through the router
-probabilities), which training adds to the loss and serving drops. The
-expert-parallel all-to-all (``_moe_ep_shard``) waits with the distributed
-LM paths (ROADMAP Queue 1 item 5d); ``moe_apply`` runs on one device.
+Port of ``repro.models.moe`` (``moe.py:42-234``): ``init_moe_params``,
+``moe_param_specs``, ``_route``, the load-balance statistics,
+``_dispatch``, ``_combine``, ``_expert_ffn``, ``_capacity``,
+``_moe_local``, the expert-parallel ``_moe_ep_shard`` and ``moe_apply``
+with DeepSeek's shared experts. ``moe_apply`` returns the reference's
+``(y, aux)``: the output and the load-balance loss times ``aux_coef``
+(differentiable through the router probabilities), which training adds to
+the loss and serving drops.
+
+Under a mesh policy (``models/policy.py``) the reference's condition picks
+the expert-parallel path: P > 1 model ranks, P dividing the sequence and
+the experts (the reference's ``moe_a2a``, which has no other working
+value here, is not a field of the port's policy). Each (data, model) rank
+then routes its own tokens (its rows, its slice of the sequence) with its
+own capacity, one all-to-all over the model group sends every expert's
+buffer to the rank that holds it ([E, C, d] -> [E/P, P C, d]: the paper's
+repartition on the expert dim), the experts run there, and the reverse
+all-to-all brings the results home; the load-balance loss comes from the
+routing statistics summed over every rank. On a data-only mesh (P = 1) the data ranks route
+their tokens together, as the reference's jit routes the global batch:
+the capacity is that of the global token count, each entry's place in
+its expert's buffer counts the entries of the lower data ranks
+(``_dispatch``'s ``before``), and the statistics are summed. The shared
+experts run tensor-parallel (``layers.tp_mlp``).
 
 No [T, E, C] one-hot tensor is formed: an entry's position in its
 expert's buffer is an exclusive cumulative count over the token-major
@@ -32,7 +47,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import NOT_PORTED, MoEConfig
+from repro_torch.core.collectives import (
+    all_reduce_sum, copy_to, gather_from, reduce_from, scatter_to, sum_copies,
+)
+from repro_torch.core.partition import gather_dim
+from repro_torch.core.repartition import repartition
 from repro_torch.models import layers
+from repro_torch.models.policy import LOCAL, MODEL_AXIS
 
 
 def init_moe_params(d_model: int, moe: MoEConfig, normal) -> dict:
@@ -53,6 +74,17 @@ def init_moe_params(d_model: int, moe: MoEConfig, normal) -> dict:
             "w_up": normal("w_up", (d_model, fs), std_d),
             "w_down": normal("w_down", (fs, d_model), fs ** -0.5),
         }
+    return p
+
+
+def moe_param_specs(moe: MoEConfig) -> dict:
+    """The reference's specs as tuples: the experts split over the model
+    axis, the shared experts column/row-parallel, the router whole."""
+    p = {"router": (), "w_gate": (MODEL_AXIS, None, None), "w_up": (MODEL_AXIS, None, None),
+         "w_down": (MODEL_AXIS, None, None)}
+    if moe.n_shared:
+        p["shared"] = {"w_gate": (None, MODEL_AXIS), "w_up": (None, MODEL_AXIS),
+                       "w_down": (MODEL_AXIS, None)}
     return p
 
 
@@ -89,19 +121,26 @@ def _aux_loss(topi, probs, moe: MoEConfig):
     return _aux_from_stats(*_aux_stats(topi, probs, moe), moe)
 
 
-def _dispatch(x_flat, topi, capacity: int, n_experts: int):
+def _dispatch(x_flat, topi, capacity: int, n_experts: int, before=None):
     """Scatter tokens into per-expert capacity buffers.
 
     Returns (buf [E, C, D], entry_expert [T*k], entry_pos [T*k], keep
     [T*k]). Entries are taken token-major; an entry's position is the
     number of earlier entries routed to its expert, and an entry at or past
-    ``capacity`` is dropped (its token gets nothing from that expert)."""
+    ``capacity`` is dropped (its token gets nothing from that expert).
+    ``before`` [E], if given, counts each expert's entries that come ahead
+    of these (the lower data ranks'): they hold their places in the
+    capacity, and C is then the most of it these entries can fill."""
     t, k = topi.shape
     d = x_flat.shape[-1]
     e_flat = topi.reshape(-1)
     onehot = F.one_hot(e_flat, n_experts)
     pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, e_flat[:, None])[:, 0]
-    keep = pos < capacity
+    if before is None:
+        keep = pos < capacity
+    else:
+        keep = pos + before[e_flat] < capacity
+        capacity = min(capacity, t * k)
     # dropped entries all go to one spare row past the buffers
     slot = torch.where(keep, e_flat * capacity + pos, n_experts * capacity)
     buf = x_flat.new_zeros((n_experts * capacity + 1, d))
@@ -149,7 +188,63 @@ def _moe_local(params, x, moe: MoEConfig, dropless: bool):
     return y, _aux_loss(topi, probs, moe)
 
 
-def moe_apply(params: dict, x, moe: MoEConfig, *, dropless: bool = False, expert_group=None):
+def _global_aux(topi, probs, moe: MoEConfig, policy):
+    """The load-balance loss from the routing statistics summed over every
+    rank of the mesh (each rank routes its own tokens), so it equals the
+    one-device loss of all of them. The probabilities' sum carries the
+    gradient: over the model group one loss among the ranks, over the data
+    group each rank's term (``core/collectives.py``)."""
+    counts, prob_sum, n = _aux_stats(topi, probs, moe)
+    counts = all_reduce_sum(all_reduce_sum(counts, policy.model_group), policy.data_group)
+    prob_sum = sum_copies(reduce_from(prob_sum, policy.model_group), policy.data_group)
+    return _aux_from_stats(counts, prob_sum, n * policy.model_size() * policy.dp_size(), moe)
+
+
+def _moe_ep_shard(params, x, moe: MoEConfig, policy):
+    """The expert-parallel pass on this rank's token shard x [b, s/P, d]
+    (its rows and its slice of the sequence) and its E/P experts' weights:
+    all-to-all #1 [E, C, d] -> [E/P, P C, d] (experts home), all-to-all #2
+    its adjoint (results back to the tokens' ranks). The capacity is this
+    shard's, as the reference's shard_map computes it."""
+    group = policy.model_group
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    t = x_flat.shape[0]
+    # the router sees this rank's tokens only: its gradient here is a part
+    topi, topv, probs = _route(x_flat, copy_to(params["router"], group), moe)
+    cap = _capacity(t, moe)
+    buf, e_flat, pos, keep = _dispatch(x_flat, topi, cap, moe.n_experts)
+    buf = repartition(buf, 1, 0, group)
+    y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
+    y_buf = repartition(y_buf, 0, 1, group)
+    y = _combine(y_buf, e_flat, pos, keep, topv, t, cap)
+    return y.reshape(b, s, d), _global_aux(topi, probs, moe, policy)
+
+
+def _moe_routed_together(params, x, moe: MoEConfig, policy):
+    """The data ranks' tokens routed as one batch (a data-only mesh): each
+    rank routes its rows, the capacity is the global token count's, and an
+    entry keeps its place behind the lower data ranks' entries to its
+    expert (their per-expert counts, all-gathered). The experts run on
+    this rank's kept entries."""
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    t = x_flat.shape[0]
+    topi, topv, probs = _route(x_flat, params["router"], moe)
+    group = policy.data_group
+    cap = _capacity(t * policy.dp_size(), moe)
+    counts = torch.zeros(moe.n_experts, dtype=torch.long, device=x.device)
+    counts.scatter_add_(0, topi.reshape(-1), torch.ones_like(topi.reshape(-1)))
+    every = gather_dim(counts[None], 0, group) if group.size() > 1 else counts[None]
+    before = every[:group.rank()].sum(dim=0)
+    buf, e_flat, pos, keep = _dispatch(x_flat, topi, cap, moe.n_experts, before=before)
+    y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
+    y = _combine(y_buf, e_flat, pos, keep, topv, t, buf.shape[1])
+    return y.reshape(b, s, d), _global_aux(topi, probs, moe, policy)
+
+
+def moe_apply(params: dict, x, moe: MoEConfig, policy=LOCAL, *, dropless: bool = False,
+              seq_sharded: bool = False):
     """Routed experts plus shared experts. x: [b, s, d] -> (y, aux), aux
     the load-balance loss times ``moe.aux_coef`` (float32 scalar).
 
@@ -159,12 +254,36 @@ def moe_apply(params: dict, x, moe: MoEConfig, *, dropless: bool = False, expert
     entry whatever the batch. Otherwise the capacity is ``_capacity``'s, and
     entries past it drop as in the reference's prefill and training.
 
-    One device only: an ``expert_group`` to spread the experts over (the
-    reference's expert-parallel all-to-all dispatch) is refused."""
-    if expert_group is not None:
-        raise NotImplementedError(f"expert-parallel MoE (the all-to-all dispatch): {NOT_PORTED}")
-    y, aux = _moe_local(params, x, moe, dropless)
+    Under a mesh policy x is the residual stream as this rank holds it
+    (its rows; its slice of the sequence with ``seq_sharded``) and
+    ``params`` this rank's shards: the expert-parallel path on the
+    reference's condition, else on a data-only mesh the ranks' tokens
+    routed together (see the module's docstring). Routed experts over a
+    model group whose size does not divide the sequence or the experts
+    raise ``NOT_PORTED``."""
+    if not policy.distributed:
+        y, aux = _moe_local(params, x, moe, dropless)
+    else:
+        size = policy.model_size()
+        s = x.shape[1] * (size if seq_sharded else 1)
+        if dropless:
+            raise NotImplementedError(f"dropless MoE (serving) under a mesh: {NOT_PORTED}")
+        if size > 1 and s % size == 0 and moe.n_experts % size == 0:
+            group = policy.model_group
+            xs = x if seq_sharded else scatter_to(x, 1, group)
+            y, aux = _moe_ep_shard(params, xs, moe, policy)
+            if not seq_sharded:
+                y = gather_from(y, 1, group)
+        elif size == 1:
+            y, aux = _moe_routed_together(params, x, moe, policy)
+        else:
+            raise NotImplementedError(
+                f"routed experts over {size} model ranks that do not divide the sequence ({s}) "
+                f"or the experts ({moe.n_experts}): {NOT_PORTED}")
     if "shared" in params:
         sh = params["shared"]
-        y = y + layers.glu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"], act="swiglu")
+        if policy.model_size() > 1:
+            y = y + layers.tp_mlp(x, sh, "swiglu", policy.model_group, seq_sharded)
+        else:
+            y = y + layers.glu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"], act="swiglu")
     return y, aux * moe.aux_coef

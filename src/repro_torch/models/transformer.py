@@ -5,11 +5,14 @@ Port of ``repro.models.transformer`` under the local policy:
 ``_apply_layer``, ``_remat``, ``lm_hidden`` and ``lm_loss``; serving's
 prefill layer, ``lm_prefill``, ``_attn_prefill`` (with the sliding
 window's ring), ``_mla_prefill``, ``_rglru_prefill``, ``init_cache``,
-``_decode_layer`` and ``lm_decode_step``. The sharding specs
-(``param_specs``, ``cache_specs``) and the split caches wait with the
-distributed LM paths (ROADMAP Queue 1 item 5d). Parameters keep the
-reference's tree and leaf names, with the layers stacked on a leading
-layer dim::
+``_decode_layer`` and ``lm_decode_step``; the tensor-parallel specs
+(``param_specs``, ``_layer_specs``, ``_mlp_specs``, ``_stack_specs``) as
+tuples, with ``shard_params``/``gather_params`` that cut a tree into a
+rank's shards by them and put it back, and ``lm_hidden``/``lm_loss`` under
+a mesh policy (``models/policy.py``). ``cache_specs`` and the split caches
+wait with the distributed serving path (ROADMAP Queue 1 item 5d).
+Parameters keep the reference's tree and leaf names, with the layers
+stacked on a leading layer dim::
 
     {"embed": [V, d], "final_norm": [d], "lm_head": [d, V], "layer0": None,
      "layers": {"ln1": [L, d], "attn": {"wq": [L, d, h*hd], ...},
@@ -45,7 +48,23 @@ plain versions for CPU tensors): ``norms_per_forward(cfg)`` norms per
 prefill or decode step (2 L + 1, plus 2 L with qk-norm and L with MLA's
 latent norm; an SSM layer's second norm is its mixer's gated norm) and
 ``flash_per_prefill(cfg, s)`` flash launches per prefill of s tokens;
-``train_launches(cfg, s)`` both per forward + backward of ``lm_loss``.
+``train_launches(cfg, s)`` both per forward + backward of ``lm_loss``
+(on every rank of a mesh alike).
+
+Under a mesh policy whose model group has P > 1 ranks each rank holds its
+shards (``shard_params``) and its rows of the batch, and the blocks run
+Megatron-style: the embedding table split over d_model columns (an
+all-gather of the looked-up columns, or under ``seq_shard`` an all-to-all
+to this rank's slice of the sequence), attention and the MLPs column- then
+row-parallel (``attention._attn_tp``, ``layers.tp_mlp``), the MoE's
+routed experts over the all-to-all, the cross-entropy vocab-parallel. The
+residual stream is whole on every rank, or under ``seq_shard`` this
+rank's slice of the sequence, where the norms run on its rows (their
+weights' gradient then a part, summed over the group by ``copy_to``'s
+backward). So every rank's gradient of every leaf is the whole of it for
+the rows of its data rank: ``train.train_loop.reduce_grads`` averages it
+over the data group. MLA, SSM, RG-LRU and the hybrid family run on a
+data-only mesh (P = 1), not over a model group (``check_mesh_arch``).
 """
 from __future__ import annotations
 
@@ -55,12 +74,16 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.configs.base import NOT_PORTED
+from repro_torch.core.collectives import copy_to, gather_from, scatter_to
+from repro_torch.core.partition import CartPartition, gather_dim, local_slice
+from repro_torch.core.repartition import repartition
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.policy import LOCAL, ParallelPolicy
+from repro_torch.models.policy import LOCAL, MODEL_AXIS, ParallelPolicy
 
 # leaves that stay float32 when the serving runner casts the rest to the
 # activation dtype (the reference casts every other weight at its matmul).
@@ -205,15 +228,18 @@ def init_lm_params(cfg, *, generator: torch.Generator, device=None, serving: boo
     return params
 
 
-def _tree_map(fn, tree, name=None):
+def _tree_map(fn, tree, name=None, leaf=lambda t: False):
     """``fn(leaf, name)`` over a tree of dicts and lists (None stays None);
-    ``name`` is the key of the dict that holds the leaf."""
+    ``name`` is the key of the dict that holds the leaf; ``leaf(t)`` marks
+    a node to take as a leaf (a spec tuple)."""
     if tree is None:
         return None
+    if leaf(tree):
+        return fn(tree, name)
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, k) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, k, leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v, name) for v in tree]
+        return [_tree_map(fn, v, name, leaf) for v in tree]
     return fn(tree, name)
 
 
@@ -247,16 +273,168 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Partition specs (tensor parallelism over the model axis) and shards
+# ---------------------------------------------------------------------------
+
+def _mlp_specs(act: str, mx: str) -> dict:
+    if act in ("swiglu", "geglu"):
+        return {"w_gate": (None, mx), "w_up": (None, mx), "w_down": (mx, None)}
+    return {"w1": (None, mx), "b1": (mx,), "w2": (mx, None), "b2": ()}
+
+
+def _layer_specs(cfg, kind: str, mx: str) -> dict:
+    """One layer's specs, the reference's (``transformer.py:124-173``):
+    an SSM mixer's inner width split, an RG-LRU mixer whole."""
+    s = {"ln1": ()}
+    if kind == "ssm":
+        s["mixer"] = {
+            "w_z": (None, mx), "w_x": (None, mx), "w_B": (), "w_C": (),
+            "w_dt": (), "conv_x": (None, mx), "conv_B": (), "conv_C": (),
+            "conv_bx": (mx,), "conv_bB": (), "conv_bC": (),
+            "A_log": (), "D": (), "dt_bias": (), "norm_w": (mx,),
+            "out_proj": (mx, None),
+        }
+        return s
+    if kind == "rec":
+        s["mixer"] = {name: () for name in ("w_x", "w_gate", "conv_w", "conv_b", "w_r", "b_r",
+                                            "w_i", "b_i", "lambda", "w_out")}
+        s["ln2"] = ()
+        s["mlp"] = _mlp_specs(cfg.mlp_act, mx)
+        return s
+    if cfg.mla is not None:
+        s["attn"] = {"wq": (None, mx), "w_dkv": (None, None), "kv_norm": (),
+                     "k_up": (None, mx), "v_up": (None, mx), "wo": (mx, None)}
+    else:
+        a = {"wq": (None, mx), "wk": (None, mx), "wv": (None, mx), "wo": (mx, None)}
+        if cfg.qkv_bias:
+            a.update({"bq": (mx,), "bk": (mx,), "bv": (mx,)})
+        if cfg.qk_norm:
+            a.update({"q_norm": (), "k_norm": ()})
+        s["attn"] = a
+    s["ln2"] = ()
+    if kind == "moe":
+        s["moe"] = moe_lib.moe_param_specs(cfg.moe)
+    else:
+        s["mlp"] = _mlp_specs(cfg.mlp_act, mx)
+    return s
+
+
+def _stack_specs(spec_tree):
+    """Every leaf spec prefixed with None for the stacked layer dim."""
+    return _tree_map(lambda p, _: (None, *p), spec_tree, leaf=lambda t: isinstance(t, tuple))
+
+
+def param_specs(cfg, policy: ParallelPolicy) -> dict:
+    """The reference's ``param_specs`` (``transformer.py:179-207``) for
+    every decoder family, a ``PartitionSpec`` as the tuple of its entries:
+    (None, "model") for P(None, mx), () for P(). The embedding splits its
+    d_model columns and lm_head its vocab where P divides them."""
+    mx = MODEL_AXIS
+    p_model = policy.model_size()
+    specs = {
+        "embed": (None, mx) if cfg.d_model % p_model == 0 else (None, None),
+        "final_norm": (),
+        "lm_head": (None, mx) if cfg.vocab % p_model == 0 else (None, None),
+    }
+    if cfg.family == "hybrid":
+        pat, _, tail = hybrid_layout(cfg)
+        specs["superblocks"] = _stack_specs(
+            {f"b{i}_{kind}": _layer_specs(cfg, kind, mx) for i, kind in enumerate(pat)})
+        specs["tail"] = [_layer_specs(cfg, pat[i % len(pat)], mx) for i in range(tail)]
+        return specs
+    kinds = cfg.layer_kinds()
+    specs["layer0"] = _layer_specs(cfg, "dense0", mx) if kinds[0] == "dense0" else None
+    specs["layers"] = _stack_specs(_layer_specs(cfg, kinds[-1], mx))
+    return specs
+
+
+def _walk(fn, params, specs):
+    """``fn(leaf, spec)`` over a parameter tree beside its spec tree."""
+    if params is None:
+        return None
+    if isinstance(params, dict):
+        return {k: _walk(fn, v, specs[k]) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_walk(fn, v, sp) for v, sp in zip(params, specs)]
+    return fn(params, specs)
+
+
+def _model_dim(spec, axis: str) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
+
+
+def param_parts(cfg, policy: ParallelPolicy, params: dict) -> dict:
+    """The ``CartPartition`` of each leaf of ``params`` over the groups'
+    names (None: whole on every rank), for a ``StateLayout``."""
+    def part(leaf, spec):
+        if _model_dim(spec, MODEL_AXIS) is None or policy.model_size() == 1:
+            return None
+        return CartPartition(tuple(spec) + (None,) * (leaf.dim() - len(spec)))
+
+    return _walk(part, params, param_specs(cfg, policy))
+
+
+def shard_params(params: dict, cfg, policy: ParallelPolicy) -> dict:
+    """This rank's shards of a whole (serial, or converted-from-JAX)
+    parameter tree: each leaf split by ``param_specs`` cut to this rank's
+    slice of its model-axis dim (a copy), the others as they are."""
+    group = policy.model_group
+
+    def cut(leaf, spec):
+        dim = _model_dim(spec, MODEL_AXIS)
+        if dim is None or policy.model_size() == 1:
+            return leaf
+        return local_slice(leaf, dim, group).clone()
+
+    return _walk(cut, params, param_specs(cfg, policy))
+
+
+def gather_params(local: dict, cfg, policy: ParallelPolicy) -> dict:
+    """The inverse of ``shard_params`` (a collective over the model
+    group): every leaf whole, bitwise the tree it was cut from."""
+    group = policy.model_group
+
+    def whole(leaf, spec):
+        dim = _model_dim(spec, MODEL_AXIS)
+        if dim is None or policy.model_size() == 1:
+            return leaf
+        return gather_dim(leaf, dim, group)
+
+    return _walk(whole, local, param_specs(cfg, policy))
+
+
+def check_mesh_arch(cfg, policy: ParallelPolicy) -> None:
+    """Raise for what a mesh policy does not run yet: MLA, the SSM and
+    RG-LRU mixers (and so the hybrid family) and the encoder-decoder
+    family over a model group of more than one rank."""
+    if policy.model_size() == 1:
+        return
+    what = ("the encoder-decoder family" if cfg.family == "encdec" else
+            "MLA attention" if cfg.mla is not None else
+            f"the {cfg.family} family's mixers" if cfg.family in ("ssm", "hybrid") else None)
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name}: {what} over {policy.model_size()} model ranks: "
+                                  f"{NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
 
-def _norm(x, w, cfg):
+def _norm(x, w, cfg, part_of=None):
+    """The block's norm; ``part_of``: the model group when x is this
+    rank's slice of the sequence, so that w's gradient here is a part of
+    it, summed over the group in the backward."""
+    if part_of is not None:
+        w = copy_to(w, part_of)
     if cfg.norm == "ln":  # as the reference: LayerNorm with a zero bias
         return layers.layer_norm(x, w, torch.zeros_like(w), eps=cfg.norm_eps)
     return layers.rms_norm(x, w, eps=cfg.norm_eps)
 
 
-def _mlp(h, p, cfg):
+def _mlp(h, p, cfg, policy: ParallelPolicy = LOCAL, seq_sharded: bool = False):
+    if policy.model_size() > 1:
+        return layers.tp_mlp(h, p, cfg.mlp_act, policy.model_group, seq_sharded)
     if cfg.mlp_act in ("swiglu", "geglu"):
         return layers.glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], act=cfg.mlp_act)
     return layers.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"], act=cfg.mlp_act)
@@ -270,9 +448,21 @@ def _ffn(h, lp, kind, cfg, dropless=False):
     return _mlp(h, lp["mlp"], cfg)
 
 
-def _embed_in(params, tokens, cfg):
-    x = layers.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale)
-    return x.to(cfg.activation_dtype)
+def _embed_in(params, tokens, cfg, policy: ParallelPolicy = LOCAL, seq_sharded: bool = False):
+    """Token ids -> the residual stream in the activation dtype. Over a
+    model group: a table of this rank's d_model columns looks up its
+    columns, all-gathered (or under ``seq_shard`` moved by one all-to-all
+    to this rank's slice of the sequence); a whole table looks up every
+    token, this rank keeping its slice under ``seq_shard``."""
+    x = layers.embed(params["embed"], tokens, scale_by_sqrt_dim=cfg.embed_scale,
+                     dim=cfg.d_model).to(cfg.activation_dtype)
+    if policy.model_size() == 1:
+        return x
+    group = policy.model_group
+    if policy.splits(cfg.d_model):
+        # contiguous: the norm kernel takes the stream as rows
+        return repartition(x, 2, 1, group).contiguous() if seq_sharded else gather_from(x, 2, group)
+    return scatter_to(x, 1, group) if seq_sharded else x
 
 
 def norms_per_forward(cfg) -> int:
@@ -367,12 +557,14 @@ def _remat(body, policy):
     return lambda *args: checkpoint(body, *args, **kw)
 
 
-def _apply_layer(x, aux, lp, kind, cfg):
+def _apply_layer(x, aux, lp, kind, cfg, policy: ParallelPolicy = LOCAL, sp: bool = False):
     """One block of the training forward (the reference's
     ``_apply_layer``): returns (x, aux plus the block's load-balance loss).
     The MoE blocks route with capacity (``_capacity``: entries past it
-    drop), as the reference's training does."""
-    h = _norm(x, lp["ln1"], cfg)
+    drop), as the reference's training does. ``sp``: x is this rank's
+    slice of the sequence (``seq_shard`` under a mesh)."""
+    part_of = policy.model_group if sp else None
+    h = _norm(x, lp["ln1"], cfg, part_of)
     if kind == "ssm":
         return x + ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm), aux
     if kind == "rec":
@@ -380,12 +572,12 @@ def _apply_layer(x, aux, lp, kind, cfg):
     elif cfg.mla is not None:
         x = x + attn_lib.mla_forward(lp["attn"], h, cfg)
     else:
-        x = x + attn_lib.attn_forward(lp["attn"], h, cfg)
-    h = _norm(x, lp["ln2"], cfg)
+        x = x + attn_lib.attn_forward(lp["attn"], h, cfg, policy, seq_sharded=sp)
+    h = _norm(x, lp["ln2"], cfg, part_of)
     if kind == "moe":
-        y, a = moe_lib.moe_apply(lp["moe"], h, cfg.moe)
+        y, a = moe_lib.moe_apply(lp["moe"], h, cfg.moe, policy, seq_sharded=sp)
         return x + y, aux + a
-    return x + _mlp(h, lp["mlp"], cfg), aux
+    return x + _mlp(h, lp["mlp"], cfg, policy, sp), aux
 
 
 def _train_layers(cfg) -> list:
@@ -407,8 +599,14 @@ def lm_hidden(params, tokens, cfg, policy: ParallelPolicy = LOCAL):
     views (or over the per-layer views the train step hands in), each
     layer (the hybrid's each superblock) under ``policy``'s remat; the
     hybrid's tail and ``layer0`` run outside it, as there. Weights are cast
-    to the activation dtype at each use; the masters keep theirs."""
-    x = _embed_in(params, tokens, cfg)
+    to the activation dtype at each use; the masters keep theirs.
+
+    Under a mesh policy ``params`` are this rank's shards and ``tokens``
+    its rows; the hidden states are this rank's slice of the sequence when
+    ``policy.seq_sharded(s)``."""
+    check_mesh_arch(cfg, policy)
+    sp = policy.seq_sharded(tokens.shape[1])
+    x = _embed_in(params, tokens, cfg, policy, sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         pat, n_super, tail = hybrid_layout(cfg)
@@ -418,31 +616,49 @@ def lm_hidden(params, tokens, cfg, policy: ParallelPolicy = LOCAL):
 
         def super_body(x, aux, sb):
             for i, kind in enumerate(pat):
-                x, aux = _apply_layer(x, aux, sb[f"b{i}_{kind}"], kind, cfg)
+                x, aux = _apply_layer(x, aux, sb[f"b{i}_{kind}"], kind, cfg, policy, sp)
             return x, aux
 
         body = _remat(super_body, policy)
         for j in range(n_super):
             x, aux = body(x, aux, layer_params(params["superblocks"], j))
         for i, lp in enumerate(params["tail"]):
-            x, aux = _apply_layer(x, aux, lp, pat[i % len(pat)], cfg)
+            x, aux = _apply_layer(x, aux, lp, pat[i % len(pat)], cfg, policy, sp)
     else:
         kinds = cfg.layer_kinds()
         first = _check_layer0(cfg, params)
         if first:
-            x, aux = _apply_layer(x, aux, params["layer0"], kinds[0], cfg)
-        body = _remat(lambda x, aux, lp: _apply_layer(x, aux, lp, kinds[-1], cfg), policy)
+            x, aux = _apply_layer(x, aux, params["layer0"], kinds[0], cfg, policy, sp)
+        body = _remat(lambda x, aux, lp: _apply_layer(x, aux, lp, kinds[-1], cfg, policy, sp),
+                      policy)
         for i in range(len(kinds) - first):
             x, aux = body(x, aux, layer_params(params["layers"], i))
-    return _norm(x, params["final_norm"], cfg), aux
+    return _norm(x, params["final_norm"], cfg, policy.model_group if sp else None), aux
 
 
 def lm_loss(params, batch: dict, cfg, policy: ParallelPolicy = LOCAL):
     """The training loss of ``batch`` {"tokens": [b, s], "targets": [b,
     s]}: (mean token cross-entropy + load-balance loss, {"xent", "aux"}),
-    as the reference's ``lm_loss``."""
+    as the reference's ``lm_loss``.
+
+    Under a mesh policy ``batch`` holds this rank's rows, ``params`` its
+    shards, and the loss is that of its data rank's rows (the same on
+    every rank of its model group): lm_head's vocab split over the group
+    makes the cross-entropy vocab-parallel (the whole sequence's hidden
+    states all-gathered first under ``seq_shard``); a whole lm_head sees
+    the whole sequence on every rank."""
     h, aux = lm_hidden(params, batch["tokens"], cfg, policy)
-    xent = layers.chunked_cross_entropy(h, params["lm_head"], batch["targets"])
+    targets = batch["targets"]
+    if policy.model_size() == 1:
+        xent = layers.chunked_cross_entropy(h, params["lm_head"], targets)
+    else:
+        group, sp = policy.model_group, policy.seq_sharded(targets.shape[1])
+        if policy.splits(cfg.vocab):
+            xent = layers.chunked_cross_entropy(layers.tp_in(h, group, sp), params["lm_head"],
+                                                targets, vocab_group=group)
+        else:
+            h = gather_from(h, 1, group) if sp else h
+            xent = layers.chunked_cross_entropy(h, params["lm_head"], targets)
     return xent + aux, {"xent": xent, "aux": aux}
 
 

@@ -1,8 +1,9 @@
 """Whisper-style encoder-decoder (audio frontend stubbed): parameters, loss, prefill, decode.
 
-Port of ``repro.models.whisper`` under the local policy (the sharding
-specs, ``whisper_param_specs``, wait with the distributed LM paths in
-ROADMAP Queue 1 item 5d). The conv/mel frontend is a stub: the inputs are
+Port of ``repro.models.whisper`` under the local policy, and its
+tensor-parallel specs (``whisper_param_specs``, as tuples); a mesh policy
+over a model group of more than one rank raises ``NOT_PORTED`` (ROADMAP
+Queue 1 item 5d). The conv/mel frontend is a stub: the inputs are
 precomputed frame embeddings [b, frames, d_model]. Encoder: bidirectional
 self-attention + GELU MLP, sinusoidal positions. Decoder: causal
 self-attention + cross-attention + GELU MLP, sinusoidal positions too.
@@ -45,6 +46,7 @@ from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models.policy import LOCAL, MODEL_AXIS, ParallelPolicy
 
 # leaves that stay float32 in a serving draw: the embedding table and the
 # LayerNorms' weight and bias (the reference computes the norm in f32 with
@@ -182,9 +184,32 @@ def decode_train(params, tokens, enc_out, cfg):
     return _ln(x, dec["final_ln"])
 
 
-def whisper_loss(params, batch, cfg):
+def whisper_param_specs(cfg) -> dict:
+    """The reference's ``whisper_param_specs`` (``whisper.py:91-110``) as
+    tuples: attention and MLP column/row-parallel on the stacked layers,
+    the norms, the embedding and lm_head whole (51865 tokens divide no
+    model axis)."""
+    mx = MODEL_AXIS
+    a = {"wq": (None, None, mx), "wk": (None, None, mx), "wv": (None, None, mx),
+         "wo": (None, mx, None)}
+    if cfg.qkv_bias:
+        a.update({"bq": (None, mx), "bk": (None, mx), "bv": (None, mx)})
+    mlp = {"w1": (None, None, mx), "b1": (None, mx), "w2": (None, mx, None), "b2": ()}
+    ln = {"w": (), "b": ()}
+    return {
+        "enc": {"layers": {"attn": a, "mlp": mlp, "ln1": ln, "ln2": ln}, "final_ln": ln},
+        "dec": {"embed": (None, None),
+                "layers": {"self_attn": a, "cross_attn": a, "mlp": mlp, "ln1": ln, "ln2": ln,
+                           "ln3": ln},
+                "final_ln": ln, "lm_head": (None, None)},
+    }
+
+
+def whisper_loss(params, batch, cfg, policy: ParallelPolicy = LOCAL):
     """Mean token cross-entropy of the teacher-forced decoder on
-    ``batch`` {"frames", "tokens", "targets"}; returns (xent, {"xent"})."""
+    ``batch`` {"frames", "tokens", "targets"}; returns (xent, {"xent"}).
+    A mesh policy over more than one model rank raises."""
+    tf_lib.check_mesh_arch(cfg, policy)
     enc_out = encode(params, batch["frames"], cfg)
     h = decode_train(params, batch["tokens"], enc_out, cfg)
     xent = layers.chunked_cross_entropy(h, params["dec"]["lm_head"], batch["targets"])

@@ -76,12 +76,16 @@ class StateLayout:
     ``groups`` maps the names the partitions use ("data", and "model" or
     "mx"/"my") to groups; ``params`` and ``moments`` are trees of
     ``CartPartition`` (None: replicated) over the params and over AdamW's
-    ``mu``/``nu``.
+    ``mu``/``nu``. ``grads_complete``: each rank's gradient of each leaf
+    is already the whole of it for its data rank's loss (the LM's
+    tensor-parallel layers); else the FNO's, where a replicated leaf's is
+    a part (``train_loop.reduce_grads``).
     """
 
     groups: Mapping[str, object]
     params: dict
     moments: dict
+    grads_complete: bool = False
 
     def state(self) -> dict:
         """The partitions of a whole training state ``{"params", "opt"}``."""
@@ -120,12 +124,12 @@ def zero1_partitions(param_parts: dict, shapes: dict, dp_size: int, dp_axis: str
 
 
 def state_layout(groups: Mapping[str, object], param_parts: dict, shapes: dict, *,
-                 zero1: bool = True) -> StateLayout:
+                 zero1: bool = True, grads_complete: bool = False) -> StateLayout:
     """The ``StateLayout`` of params partitioned by ``param_parts`` (global
     leaf shapes ``shapes``), with ZeRO-1 moments unless ``zero1=False``."""
     dp = dist.get_world_size(groups["data"])
     moments = zero1_partitions(param_parts, shapes, dp) if zero1 else param_parts
-    return StateLayout(dict(groups), param_parts, moments)
+    return StateLayout(dict(groups), param_parts, moments, grads_complete)
 
 
 def init_opt_state(params: dict, layout: Optional[StateLayout] = None) -> dict:

@@ -85,16 +85,35 @@ def _all_reduce(t: torch.Tensor, group) -> None:
 @torch.no_grad()
 def reduce_grads(grads: dict, layout: StateLayout) -> None:
     """The global gradient from every rank's gradient of its local mean
-    loss, in place.
+    loss, in place. Two rules, by what a rank's gradient holds.
 
-    The reduction rule: each rank backpropagates the mean over its own
-    points, so the global mean's gradient is the mean of the local means'
-    (equal shards). A replicated leaf is summed over every rank (world);
-    a sharded leaf (``w_spec``) over the data group only, since the
-    all-to-alls' backward has already brought its model group's
-    cotangents to the rank that owns the shard. Then all divide by the
-    world size D*P.
+    The FNO's: each rank backpropagates the mean over its own points (its
+    rows, its part of the domain), so the global mean's gradient is the
+    mean of the local means' (equal shards). A replicated leaf is summed
+    over every rank (world); a sharded leaf (``w_spec``) over the data
+    group only, since the all-to-alls' backward has already brought its
+    model group's cotangents to the rank that owns the shard. Then all
+    divide by the world size D*P.
+
+    The LM's over (data x model), ``layout.grads_complete``: every rank of
+    a model group holds the same loss, that of its data rank's rows, and
+    each rank's gradient of a leaf is the whole of it for that loss. A
+    leaf split over the model group is complete on its rank: the column-
+    and row-parallel products, the all-to-alls and the all-gathers of
+    weights bring every cotangent to the rank that owns the shard. A
+    whole (replicated) leaf is a copy on every rank of the group; where a
+    rank uses it on its part only (the norms on its slice of the sequence
+    under ``seq_shard``, the router on its tokens, q/k-norm on its heads),
+    the layer's ``copy_to`` sums the group's parts in the backward. So
+    every leaf is averaged over the data group alone: summed there and
+    divided by D.
     """
+    if layout.grads_complete:
+        data = layout.groups["data"]
+        for g in tree_leaves(grads):
+            _all_reduce(g, data)
+            g.div_(dist.get_world_size(data))
+        return
     world = dist.get_world_size()
     for g, part in zip(tree_leaves(grads), tree_leaves_like(layout.params, grads)):
         _all_reduce(g, layout.groups["data"] if part is not None else None)

@@ -277,3 +277,18 @@ def check_whisper_loss(dtype, rel):
     assert float(loss) == pytest.approx(float(jloss), rel=LOSS_RTOL if dtype == "float32" else BF16)
     assert float(metrics["xent"]) == float(loss)
     _grads_close(jgrads, _port_grads(params), rel, f"whisper {dtype} grad", f32_grads=jgrads32)
+
+
+class StandInGroup:
+    """A stand-in process group of ``n`` ranks, for what reads only a
+    group's size and rank (the specs; refusals that come before any
+    collective)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def size(self) -> int:
+        return self.n
+
+    def rank(self) -> int:
+        return 0

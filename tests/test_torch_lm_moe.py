@@ -289,9 +289,18 @@ def test_dropless_moe_keeps_every_entry_past_128_tokens(n_shared):
 
 
 def test_expert_parallel_moe_names_its_roadmap_item():
+    """Routed experts split over a model group whose size does not divide
+    the sequence (the reference computes them where the tokens are) are
+    not ported: the refusal names ROADMAP's item. The all-to-all itself is
+    held against the reference on 4 ranks in
+    ``tests/test_torch_dist_lm.py``."""
+    from lm_train_common import StandInGroup
+    from repro_torch.models import ParallelPolicy as TPolicy
+
     _, tm = _moe_cfg()
+    policy = TPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(2)})
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tmoe.moe_apply({}, torch.zeros(1, 2, 16), tm, expert_group=object())
+        tmoe.moe_apply({}, torch.zeros(1, 3, 16), tm, policy)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ from repro_torch.train import checkpoint as tckpt
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step, zeros_like_tree
 from lm_train_common import (
-    DECODER_IDS, SEQ, _batch, _jbatch, _leaf_pairs, _lm_tree, _np_tree, _port_loss_and_grads,
-    _tbatch, cfgs,
+    DECODER_IDS, SEQ, StandInGroup, _batch, _jbatch, _leaf_pairs, _lm_tree, _np_tree,
+    _port_loss_and_grads, _tbatch, cfgs,
 )
 
 
@@ -49,11 +49,30 @@ def test_remat_on_off_and_dots_give_the_same_gradients(arch):
 
 
 def test_a_policy_over_a_mesh_is_the_distributed_slice():
+    """A policy over process groups runs the dense and MoE decoders
+    (``tests/test_torch_dist_lm.py``). Over a model group of more than one
+    rank, MLA, the SSM mixer, the hybrid family's RG-LRU and the
+    encoder-decoder family still raise ROADMAP's item, and so do int8
+    caches; a mesh without a group for an axis is refused."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import whisper_loss
+
+    mesh = {"data": StandInGroup(1), "model": StandInGroup(2)}
+    policy = ParallelPolicy(mesh=mesh)
+    assert policy.distributed and policy.model_size() == 2 and policy.dp_size() == 1
+    for arch in ("deepseek-v2-lite-16b", "mamba2-370m", "recurrentgemma-2b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
+            lm_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, reduced(get_arch(arch)),
+                    policy)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-        ParallelPolicy(mesh=object())
+        whisper_loss({}, {}, reduced(get_arch("whisper-tiny")), policy)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
+        ParallelPolicy(mesh=mesh, kv_quant=True)
+    with pytest.raises(ValueError, match="no group for axes"):
+        ParallelPolicy(mesh={"model": StandInGroup(2)})
     x = torch.ones(2, 3, 4)
     assert LOCAL.shard_act(x) is x and LOCAL.shard(x, "data") is x
-    assert LOCAL.remat and LOCAL.remat_policy is None
+    assert LOCAL.remat and LOCAL.remat_policy is None and not LOCAL.distributed
 
 
 @pytest.mark.parametrize("arch", DECODER_IDS)

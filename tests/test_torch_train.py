@@ -512,11 +512,28 @@ def test_lm_cli_on_two_ranks_matches_one_rank(tmp_path):
     assert tckpt.latest_step(str(tmp_path / "two")) == 2
 
 
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b"])
+def test_lm_cli_moe_on_two_ranks_routes_together_and_ends_on_one_rank(arch, tmp_path):
+    """``--devices 2`` on an MoE arch: the two data ranks route their
+    tokens as one batch (the global capacity and load-balance statistics,
+    as the reference's jit routes the whole batch), so the first step's
+    loss, on the same params, is one rank's to float rounding; through a
+    fault restored from a checkpoint, the run ends within 1e-3 of one
+    rank's (bf16 activations: each rank's products have half the rows)."""
+    flags = ("--arch", arch, "--steps", "3", "--batch", "2", "--save-every", "1")
+    _, _, want = _lm_cli(tmp_path, "one", *flags)
+    with one_launch_at_a_time():
+        res, done, got = _lm_cli(tmp_path, "two", *flags, "--devices", "2", "--inject-fault", "2")
+    assert res.final_step == 3 and "failures=1 restores=1" in done
+    assert got[0] == pytest.approx(want[0], rel=1e-6)
+    assert got[-1] == pytest.approx(want[-1], rel=1e-3)
+
+
 @pytest.mark.parametrize("flags,words", [
     (["--batch", "3", "--devices", "2"], "--batch 3 not divisible by --devices 2"),
-    (["--arch", "deepseek-moe-16b", "--devices", "2"], "ROADMAP Queue 1 item 5d"),
     (["--arch", "whisper-tiny"], "the encoder-decoder family's loss is whisper_loss"),
-], ids=["indivisible-batch", "moe-ranks", "encdec"])
+], ids=["indivisible-batch", "encdec"])
 def test_lm_cli_refuses(flags, words, tmp_path):
     with pytest.raises(SystemExit, match=re.escape(words)):
         ttrain_cli.main(["--mode", "lm", *flags, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
