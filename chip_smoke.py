@@ -4611,7 +4611,9 @@ def per_shard_moe(shards: tuple, recorded: dict, drops: list):
     shard's capacity (``_capacity`` of its token count), the experts all on
     this device, the load-balance loss from the statistics of every shard.
     Each shard's routes are appended to ``recorded[(d, m)]``, the entries
-    it drops (a device tensor) and routes to ``drops``."""
+    it drops (a device tensor) and routes to ``drops``. A dropless call and
+    a sequence that the model shards do not divide go through unchanged, as
+    the expert-parallel path leaves them to ``_moe_together``."""
     import torch
 
     from repro_torch.models import LOCAL
@@ -4623,6 +4625,8 @@ def per_shard_moe(shards: tuple, recorded: dict, drops: list):
 
     def sharded(params, x, moe, policy=LOCAL, **kw):
         b, s, d = x.shape
+        if kw.get("dropless") or s % mp:
+            return saved(params, x, moe, policy, **kw)
         rows, stats = [], []
         for di, xr in enumerate(x.chunk(dp, 0)):
             pieces = []
@@ -5208,6 +5212,656 @@ def phase_dist_lm(gpu: str) -> dict:
             "cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# Phase `dist serve lm`: LM serving over (data x model) ranks: Engine under
+# a mesh policy on 4 gloo ranks sharing the card (split caches, the prefix
+# sharded by kv heads or by sequence, int8 prefixes), against the serial
+# Engine on the card; bf16 serving timed; both kernels at the shard shapes.
+# ---------------------------------------------------------------------------
+
+# full width, depth cut: gemma-7b (16 kv heads: a head-sharded prefix) and
+# chatglm3-6b (2 kv heads: sequence-sharded on 4 model ranks) 2 of 28
+# layers; deepseek-moe-16b its dense layer 0 and 1 MoE layer
+DIST_SERVE_ARCHS = {"gemma-7b": 2, "chatglm3-6b": 2, "deepseek-moe-16b": 2}
+DIST_SERVE_MAX_LEN, DIST_SERVE_SLOTS = 2048, 4
+# (prompt length, max_tokens) of the 8 requests: one prompt of 1536, lengths
+# that 4 divides and that it does not (the MoE's all-to-all and its other
+# path), one request decoding past TAIL_LEN (a tail flush mid-run)
+DIST_SERVE_REQUESTS = ((1536, 8), (5, 80), (300, 8), (1027, 8), (64, 8), (777, 8), (130, 8),
+                       (12, 8))
+# (layout, ranks to a model group, seq_shard) of every arch's gate runs;
+# DIST_SERVE_EXTRA also on (4 x 1) and with kv_quant on (1 x 4)
+DIST_SERVE_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
+DIST_SERVE_EXTRA = "chatglm3-6b"
+DIST_SERVE_CUT = ("chatglm3-6b", "1x4")  # sequence-sharded: the combine's sum cut
+DIST_SERVE_SEED = 23
+# f32 activations and f32 caches: the serial gate of the reference, 1e-4 of
+# max|ref|, on prefill and decode logits; int8 prefixes at 3e-2 of max|ref|
+# (3x the reference's "~1e-2 relative logit error", policy.py:45-46)
+DIST_SERVE_F32, DIST_SERVE_INT8 = 1e-4, 3e-2
+# bf16 weights and the reference's bf16 caches against the serial bf16
+# Engine: the split decode rounds unnormalised softmax weights to bf16
+# where the plain decode rounds normalised ones (the reference's two
+# arithmetics), held at the bf16 gate up to a request's first differing token
+# or, in the MoE, its first decode step whose routed experts differ: a
+# different expert is another function, not a rounding apart. Each such
+# flip must be a near tie of the serial run's router, its k-th and
+# (k+1)-th logits within 1/16 (eight bf16 spacings of a logit in [1, 2))
+DIST_SERVE_BF16 = 3e-2
+DIST_SERVE_NEAR_TIE = 2.0 ** -4
+
+
+def _dist_serve_cfg(arch: str, dtype: str):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=DIST_SERVE_ARCHS[arch], dtype=dtype)
+
+
+def _dist_serve_requests(cfg) -> list:
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(DIST_SERVE_SEED)
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=n).tolist(), max_tokens=m)
+            for i, (n, m) in enumerate(DIST_SERVE_REQUESTS)]
+
+
+def _dist_serve_params(cfg, device):
+    import torch
+
+    from repro_torch.models import init_lm_params
+
+    return init_lm_params(cfg, generator=torch.Generator(device=device).manual_seed(DIST_SERVE_SEED),
+                          device=device)
+
+
+@contextlib.contextmanager
+def _serve_log(engine, log: dict):
+    """Within the block ``engine``'s prefills log {rid: logits [V]}, its
+    decode steps the logits of this rank's rows and, per step, (slot, rid,
+    outputs so far) of every active slot."""
+    import repro_torch.models.transformer as tf_lib
+
+    runner = engine.runner
+    prefill, decode = tf_lib.lm_prefill, tf_lib.lm_decode_step
+    admit, step = runner.admit, runner.step
+    current = {}
+
+    def admitted(slot, req):
+        current["rid"] = req.rid
+        return admit(slot, req)
+
+    def stepped(slots, active):
+        log["active"].append([(i, slots[i].rid, len(slots[i].output)) for i in active])
+        return step(slots, active)
+
+    def prefilled(*args, **kw):
+        out = prefill(*args, **kw)
+        log["prefill"][current["rid"]] = out[0][0]
+        return out
+
+    def decoded(*args, **kw):
+        out = decode(*args, **kw)
+        log["decode"].append(out[0])
+        return out
+
+    runner.admit, runner.step = admitted, stepped
+    tf_lib.lm_prefill, tf_lib.lm_decode_step = prefilled, decoded
+    try:
+        yield
+    finally:
+        tf_lib.lm_prefill, tf_lib.lm_decode_step = prefill, decode
+        del runner.admit, runner.step
+
+
+@contextlib.contextmanager
+def _decode_routes(out: list):
+    """Within the block each decode step appends to ``out`` the list of its
+    MoE layers' routes: (top-k experts [rows, k], the router's margin
+    log p_k - log p_k+1 [rows]), kept on the device."""
+    import repro_torch.models.moe as moe_lib
+    import repro_torch.models.transformer as tf_lib
+
+    route, decode = moe_lib._route, tf_lib.lm_decode_step
+    step = []
+
+    def routed(x_flat, router_w, moe):
+        topi, topv, probs = route(x_flat, router_w, moe)
+        if step:
+            top = probs.topk(moe.top_k + 1, dim=-1).values.log()
+            step[-1].append((topi, top[:, -2] - top[:, -1]))
+        return topi, topv, probs
+
+    def decoded(*args, **kw):
+        step.append([])
+        try:
+            return decode(*args, **kw)
+        finally:
+            out.append(step.pop())
+
+    moe_lib._route, tf_lib.lm_decode_step = routed, decoded
+    try:
+        yield
+    finally:
+        moe_lib._route, tf_lib.lm_decode_step = route, decode
+
+
+def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32") -> dict:
+    """The serial Engine on the card, f32 activations and f32 caches (or
+    bf16 weights and the reference's bf16 caches), the requests' tokens and
+    every prefill's and decode step's logits; the MoE layers route the
+    prompts that ``p`` model ranks divide per slice, as the expert-parallel
+    path does (``per_shard_moe`` on 1 x ``p``)."""
+    import torch
+
+    from repro_torch.models import LOCAL
+    from repro_torch.serve import Engine
+
+    cfg = _dist_serve_cfg(arch, dtype)
+    engine = Engine(cfg, _dist_serve_params(cfg, dev), max_len=DIST_SERVE_MAX_LEN,
+                    max_batch=DIST_SERVE_SLOTS, device=dev, policy=LOCAL,
+                    cache_dtype=getattr(torch, dtype))
+    log = {"prefill": {}, "decode": [], "active": []}
+    for req in _dist_serve_requests(cfg):
+        engine.submit(req)
+    t0 = time.perf_counter()
+    drops = []
+    routed = per_shard_moe((1, p), {}, drops) if cfg.moe else contextlib.nullcontext()
+    routes = []
+    with routed, _serve_log(engine, log), _decode_routes(routes):
+        done = engine.run_until_done()
+    torch.cuda.synchronize()
+    what = ""
+    if cfg.moe:
+        dropped, entries = sum(int(n) for n, _ in drops), sum(e for _, e in drops)
+        what = (f", the prompts that {p} divides routed per slice of s/{p}: {dropped} of "
+                f"{entries} entries dropped")
+    print(f"[dist serve lm] serial {arch} {dtype}: {len(done)} requests, {engine.steps} decode steps "
+          f"in {time.perf_counter() - t0:.2f}s{what}; {gpu}")
+    out = {"tokens": {r.rid: list(r.output) for r in done}, "prefill": log["prefill"],
+           "decode": torch.stack(log["decode"]), "active": log["active"],
+           "routes": [[(t.cpu(), m.cpu()) for t, m in step] for step in routes]}
+    del engine
+    _free_cuda()
+    return out
+
+
+def _drawn_shards(cfg, pol, device) -> dict:
+    """This rank's shards of the seeded f32 weights, the ranks drawing the
+    whole tree in turns so that one whole copy exists at a time."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import shard_params
+
+    local = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            local = shard_params(_dist_serve_params(cfg, device), cfg, pol)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return local
+
+
+def _prefix_bytes(cache) -> int:
+    from repro_torch.models.transformer import _leaves as cache_leaves
+
+    return sum(t.numel() * t.element_size() for name, t in cache_leaves(cache)
+               if name in ("k", "v", "k_scale", "v_scale"))
+
+
+def _serve_launches(cfg, log: dict) -> dict:
+    """The kernels' launches of a served run on one rank: every norm of a
+    prefill or a decode step (``norms_per_forward``), one flash launch per
+    attention layer of each prefill this rank ran."""
+    from repro_torch.models.transformer import flash_per_prefill, norms_per_forward
+
+    prompts = {i: n for i, (n, _) in enumerate(DIST_SERVE_REQUESTS)}
+    return {"rmsnorm": norms_per_forward(cfg) * (len(log["prefill"]) + len(log["decode"])),
+            "flash": sum(flash_per_prefill(cfg, prompts[rid]) for rid in log["prefill"])}
+
+
+def _rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
+
+
+def _held_to_serial(serial: dict, log: dict, tokens: dict, runner, routes=None) -> dict:
+    """A served run's logits against the serial run's: every prefill this
+    rank ran, and each decode row of this rank's slots while the request's
+    tokens so far equal the serial ones (the step's inputs are the same)
+    and, with ``routes`` (``_decode_routes`` of both runs), while its
+    routed experts are the serial ones: each row where they differ is
+    listed as (request, step, the serial router's margin there), and the
+    worst logits of those rows kept apart, not held."""
+    first, rows = runner.first, runner.rows
+    decode_rel, compared, flips, flipped_rel, parted = 0.0, 0, [], 0.0, set()
+    for i, (got, active) in enumerate(zip(log["decode"], log["active"])):
+        for slot, rid, n in active:
+            if not (first <= slot < first + rows and rid not in parted
+                    and tokens[rid][:n] == serial["tokens"][rid][:n]):
+                continue
+            rel = _rel(got[slot - first], serial["decode"][i, slot])
+            moved = [] if routes is None else [
+                float(margin[slot]) for (ti, margin), (tg, _) in zip(serial["routes"][i], routes[i])
+                if sorted(ti[slot].tolist()) != sorted(tg[slot - first].tolist())]
+            if moved:
+                flips.append((rid, i, max(moved)))
+                flipped_rel = max(flipped_rel, rel)
+                parted.add(rid)
+                continue
+            decode_rel = max(decode_rel, rel)
+            compared += 1
+    return {"tokens_equal": tokens == serial["tokens"],
+            "equal_tokens": sum(a == b for rid in tokens
+                                for a, b in zip(tokens[rid], serial["tokens"][rid])),
+            "all_tokens": sum(len(t) for t in serial["tokens"].values()),
+            "prefill_rel": max((_rel(l, serial["prefill"][rid])
+                                for rid, l in log["prefill"].items()), default=0.0),
+            "decode_rel": decode_rel, "compared": compared, "flips": flips,
+            "flipped_rel": flipped_rel}
+
+
+def _dist_serve_gate(arch: str, groups, sp: bool, quant: bool, serial: dict, device,
+                     cut: bool) -> dict:
+    """The requests through ``Engine(policy=)`` on this rank's shards, f32
+    activations and f32 caches (the prefix int8 under ``quant``): tokens,
+    prefill and decode logits held against the serial run's (each decode
+    row while the request's tokens so far equal the serial ones), the
+    kernels' launches, the flushes, the prefix bytes held; with ``cut``
+    also one step with the sequence-sharded combine's sum cut."""
+    import torch
+
+    import repro_torch.models.attention as attn_lib
+    from repro_torch.models import ParallelPolicy
+    from repro_torch.serve import Engine
+
+    cfg = _dist_serve_cfg(arch, "float32")
+    pol = ParallelPolicy(mesh=groups, seq_shard=sp, kv_quant=quant)
+    local = _drawn_shards(cfg, pol, device)
+
+    def serve(max_tokens=None):
+        engine = Engine(cfg, local, max_len=DIST_SERVE_MAX_LEN, max_batch=DIST_SERVE_SLOTS,
+                        device=device, policy=pol, cache_dtype=torch.float32)
+        log = {"prefill": {}, "decode": [], "active": []}
+        for req in _dist_serve_requests(cfg):
+            req.max_tokens = max_tokens or req.max_tokens
+            engine.submit(req)
+        _zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _serve_log(engine, log):
+            done = engine.run_until_done()
+        torch.cuda.synchronize()
+        return engine, log, {r.rid: list(r.output) for r in done}, time.perf_counter() - t0
+
+    engine, log, tokens, wall = serve()
+    launched, runner = _kernel_counts(), engine.runner
+    first, rows = runner.first, runner.rows
+    out = {**_held_to_serial(serial, log, tokens, runner), "launches": launched,
+           "want": _serve_launches(cfg, log), "flushes": runner.flushes,
+           "prefix_bytes": _prefix_bytes(runner.cache), "rows": rows, "wall_s": wall,
+           "prefills": len(log["prefill"]), "steps": len(log["decode"])}
+    del engine, log
+    if cut:  # the first decode step with each rank's own chunk only
+        saved = attn_lib.all_reduce_sum
+        attn_lib.all_reduce_sum = lambda x, group: x
+        try:
+            engine, log, _, _ = serve(max_tokens=2)
+        finally:
+            attn_lib.all_reduce_sum = saved
+        got, active = log["decode"][0], log["active"][0]
+        out["cut_rel"] = max(_rel(got[slot - first], serial["decode"][0, slot])
+                             for slot, _, _ in active if first <= slot < first + rows)
+        del engine, log
+    del local
+    _free_cuda()
+    return out
+
+
+def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
+    """The requests through ``Engine(policy=)`` in bf16 (weights and the
+    reference's bf16 caches) on (1 x 4) with seq_shard: each prefill's and
+    decode step's wall time (each ends in a read of the chosen tokens),
+    decoded tokens, peak memory, the logits held against the serial bf16
+    run's (``_held_to_serial``); then the same traffic with every
+    collective timed (``core.collectives.timed``: each waits for the card
+    before and after), for their share of the run."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.models import ParallelPolicy
+    from repro_torch.serve import Engine
+
+    cfg = _dist_serve_cfg(arch, "bfloat16")
+    pol = ParallelPolicy(mesh=groups, seq_shard=True)
+    local = _drawn_shards(cfg, pol, device)
+    out = {}
+    for timed in (False, True):
+        engine = Engine(cfg, local, max_len=DIST_SERVE_MAX_LEN, max_batch=DIST_SERVE_SLOTS,
+                        device=device, policy=pol)
+        log = {"prefill": {}, "decode": [], "active": []}
+        for req in _dist_serve_requests(cfg):
+            engine.submit(req)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        ctx = collectives.timed() if timed else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        routes = []
+        with ctx as count, _serve_log(engine, log), _decode_routes(routes):
+            done = engine.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runner = engine.runner
+        if timed:
+            out.update(collectives_s=count["seconds"], collectives_calls=count["calls"],
+                       timed_wall_s=wall)
+        else:
+            out.update(_held_to_serial(serial, log, {r.rid: list(r.output) for r in done}, runner,
+                                       routes))
+            out.update(prefill_s=list(runner.prefill_s), decode_s=list(runner.decode_s),
+                       tokens=sum(len(a) for a in log["active"]), wall_s=wall,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       prefix_bytes=_prefix_bytes(runner.cache), launches=_kernel_counts(),
+                       want=_serve_launches(cfg, log))
+        del engine, log
+    del local
+    _free_cuda()
+    return out
+
+
+def _dist_serve_kernel_times(gpu: str) -> dict:
+    """Both kernels at the shard shapes serving gives a rank on (1 x 4),
+    bf16: flash at each arch's prefill of 1536 tokens on the rank's heads,
+    RMSNorm on the decode rows and on a seq_shard prompt's rows; held to
+    the plain versions and timed by device time beside their bound and the
+    library call (SDPA, ``F.rms_norm``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(DIST_SERVE_SEED + 1)
+
+    def randn(shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    s = max(n for n, _ in DIST_SERVE_REQUESTS)
+    flash = {}
+    for name, (h, kvh, hd) in {
+            f"gemma-7b 1x4 prefill (b 1, s {s}, 4 heads x 256)": (4, 4, 256),
+            f"chatglm3-6b 1x4 prefill (b 1, s {s}, 8 q heads, kv 1, x 128)": (8, 1, 128),
+            f"deepseek-moe-16b 1x4 prefill (b 1, s {s}, 4 heads x 128)": (4, 4, 128),
+    }.items():
+        q = randn((1, s, h, hd)).transpose(1, 2)
+        k, v = (randn((1, s, kvh, hd)).transpose(1, 2) for _ in range(2))
+        err = _lm_check(f"dist serve lm flash {name}", flash_attention(q, k, v),
+                        flash_attention_ref(q, k, v))
+        ms, by_ms = device_ms(lambda: flash_attention(q, k, v), n=10)
+        plain, by_plain = device_ms(lambda: flash_attention_ref(q, k, v), n=5)
+        lib, by_lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_lower_right(s, s), enable_gqa=True), n=10)
+        bound, by = _flash_bound_ms(1, h, kvh, s, s, hd, True, 2)
+        print(f"[dist serve lm] flash {name}, device time: kernel {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us "
+              f"({by}); {gpu}")
+        flash[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, timed_by={"ms": by_ms, "plain_ms": by_plain,
+                                                  "library_ms": by_lib})
+        del q, k, v
+    rms = {}
+    shapes = {}
+    for arch in DIST_SERVE_ARCHS:
+        d = _dist_serve_cfg(arch, "bfloat16").d_model
+        shapes[f"{arch} 1x4 decode rows [{DIST_SERVE_SLOTS}, {d}]"] = (DIST_SERVE_SLOTS, d)
+        shapes[f"{arch} 1x4 seq_shard prompt rows [{s // 4}, {d}]"] = (s // 4, d)
+    for name, (rows, d) in shapes.items():
+        x, w = randn((rows, d)), 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+        err = _lm_check(f"dist serve lm rmsnorm {name}", rmsnorm(x, w), rmsnorm_ref(x, w))
+        ms, by_ms = device_ms(lambda: rmsnorm(x, w))
+        plain, by_plain = device_ms(lambda: rmsnorm_ref(x, w))
+        lib, by_lib = device_ms(lambda: F.rms_norm(x.float(), (d,), w, eps=1e-6).to(x.dtype))
+        bound, by = _rmsnorm_bound_ms(rows, d, 2)
+        print(f"[dist serve lm] rmsnorm {name} bf16, device time: kernel {ms * 1e3:.2f} us "
+              f"({bound / ms:.0%} of bound), plain {plain * 1e3:.2f} us, F.rms_norm "
+              f"{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}); {gpu}")
+        rms[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                         bound_by=by, timed_by={"ms": by_ms, "plain_ms": by_plain,
+                                                "library_ms": by_lib})
+    _free_cuda()
+    return {"flash": flash, "rmsnorm": rms}
+
+
+def _dist_serve_runs(arch: str) -> list:
+    """(layout, seq_shard, kv_quant) of ``arch``'s gate runs."""
+    runs = [(name, sp, False) for name, _, sp in DIST_SERVE_LAYOUTS]
+    if arch == DIST_SERVE_EXTRA:
+        runs += [("4x1", False, False), ("1x4", True, True)]
+    return runs
+
+
+def _dist_serve_rank(rank, world_size, device, job):
+    """One rank of phase `dist serve lm` (``_dist_serve_rank_work``); drops
+    its references to the job's CUDA tensors (the parent's, by CUDA IPC)
+    before it returns."""
+    import gc
+
+    import torch
+
+    try:
+        return _dist_serve_rank_work(rank, world_size, device, job)
+    finally:
+        job.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+
+
+def _dist_serve_rank_work(rank, world_size, device, job):
+    """Every arch's gate runs, the bf16 timed runs, then on rank 0 alone
+    (the others wait) both kernels timed at the shard shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_lm_groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    groups = {name: build_lm_groups(world_size, p) for name, p in (("1x4", 4), ("2x2", 2),
+                                                                   ("4x1", 1))}
+    out = {"gates": {}, "timed": {}}
+    for arch in DIST_SERVE_ARCHS:
+        for layout, sp, quant in _dist_serve_runs(arch):
+            out["gates"][arch, layout, quant] = _dist_serve_gate(
+                arch, groups[layout], sp, quant, job["serial"][arch, layout], device,
+                cut=(arch, layout) == DIST_SERVE_CUT and not quant)
+    for arch in DIST_SERVE_ARCHS:
+        out["timed"][arch] = _dist_serve_timed(arch, groups["1x4"], job["serial"][arch, "bf16"],
+                                               device)
+    if rank == 0:
+        out["times"] = _dist_serve_kernel_times(job["gpu"])
+    dist.barrier()
+    return out
+
+
+def _dist_serve_check(ranks, gpu: str) -> dict:
+    """Every rank's gate runs: tokens equal (f32 caches), logits within
+    the gates, exactly one flush, the launches exact, a cut combine
+    refused; prints the prefix bytes a rank holds against the serial
+    cache's. Returns the launches summed over the gate runs and what is
+    recorded."""
+    out, launches = {}, {"rmsnorm": 0, "flash": 0}
+    for key in ranks[0]["gates"]:
+        arch, layout, quant = key
+        cfg = _dist_serve_cfg(arch, "float32")
+        runs = [r["gates"][key] for r in ranks]
+        tag = f"{arch} on {layout}{' kv_quant' if quant else ''}"
+        tol = DIST_SERVE_INT8 if quant else DIST_SERVE_F32
+        faults = [f"rank {r}: launches {g['launches']}, want {g['want']}"
+                  for r, g in enumerate(runs) if g["launches"] != g["want"]]
+        faults += [f"rank {r}: {g['flushes']} flushes" for r, g in enumerate(runs)
+                   if g["flushes"] != 1]
+        faults += [f"rank {r}: tokens differ ({g['equal_tokens']} of {g['all_tokens']} equal)"
+                   for r, g in enumerate(runs) if not quant and not g["tokens_equal"]]
+        worst_p = max(g["prefill_rel"] for g in runs)
+        worst_d = max(g["decode_rel"] for g in runs)
+        if not worst_p <= DIST_SERVE_F32:
+            faults.append(f"prefill logits {worst_p:.3e} of max|ref|")
+        if not worst_d <= tol:
+            faults.append(f"decode logits {worst_d:.3e} of max|ref|")
+        d = int(layout.split("x")[0])
+        p = DIST_RANKS // d
+        # the serial engine's bf16 prefix: every slot, every kv head, S positions, k and v
+        serial_bf16 = (2 * cfg.n_layers * DIST_SERVE_SLOTS * cfg.kv_heads * DIST_SERVE_MAX_LEN
+                       * cfg.head_dim_ * 2)
+        held = runs[0]["prefix_bytes"]
+        # f32 prefixes twice bf16's; int8 with a bf16 scale per head dim's values
+        expect = ((cfg.head_dim_ + 2) / (2 * cfg.head_dim_) if quant else 2.0) / p
+        if any(abs(g["prefix_bytes"] / (serial_bf16 / d) - expect) > 1e-9 for g in runs):
+            faults.append(f"prefix bytes per rank {[g['prefix_bytes'] for g in runs]}, not "
+                          f"{expect:.4f} of the serial bf16 cache's {serial_bf16 / d} for its rows")
+        print(f"[dist serve lm] {tag}: tokens {'equal' if runs[0]['tokens_equal'] else 'differ'} "
+              f"({runs[0]['equal_tokens']} of {runs[0]['all_tokens']} equal); prefill logits "
+              f"{worst_p:.3e}, decode logits {worst_d:.3e} of max|ref| (gates {DIST_SERVE_F32}, "
+              f"{tol}; {sum(g['compared'] for g in runs)} decode rows held over the ranks); "
+              f"flushes {[g['flushes'] for g in runs]}; launches per rank "
+              f"{[g['launches'] for g in runs]} (exact); a rank holds "
+              f"{held / 2**20:.1f} MiB of prefix ({'int8 + bf16 scales' if quant else 'f32'}) for "
+              f"its {runs[0]['rows']} slot rows: {held / (serial_bf16 / d):.4f} of the serial bf16 "
+              f"cache's for those rows (P = {p}; 1/P at bf16); served in "
+              f"{max(g['wall_s'] for g in runs):.2f}s; {gpu}")
+        if "cut_rel" in runs[0]:
+            cut = max(g["cut_rel"] for g in runs)
+            print(f"[dist serve lm] {tag} with the combine's sum cut: the first decode step's "
+                  f"logits {cut:.3e} of max|ref| from the serial ones (gate {tol}): refused")
+            if cut <= tol:
+                faults.append("a cut combine passed the gate")
+        if faults:
+            raise SystemExit(f"[dist serve lm] {tag}: " + "; ".join(faults[:8]))
+        for k in launches:
+            launches[k] += runs[0]["launches"][k]
+        out[tag] = {"prefill_rel": worst_p, "decode_rel": worst_d,
+                    "tokens_equal": runs[0]["tokens_equal"], "prefix_bytes": held,
+                    "launches": runs[0]["launches"]}
+    return {"launches": launches, "gates": out}
+
+
+def _dist_serve_report_timed(ranks, gpu: str) -> dict:
+    out, launches = {}, {"rmsnorm": 0, "flash": 0}
+    for arch in DIST_SERVE_ARCHS:
+        runs = [r["timed"][arch] for r in ranks]
+        faults = [f"rank {r}: launches {t['launches']}, want {t['want']}"
+                  for r, t in enumerate(runs) if t["launches"] != t["want"]]
+        worst_p = max(t["prefill_rel"] for t in runs)
+        worst_d = max(t["decode_rel"] for t in runs)
+        if not worst_p <= DIST_SERVE_BF16:
+            faults.append(f"prefill logits {worst_p:.3e} of max|ref|")
+        if not worst_d <= DIST_SERVE_BF16:
+            faults.append(f"decode logits {worst_d:.3e} of max|ref|")
+        flips = [f for t in runs for f in t["flips"]]
+        faults += [f"request {rid} step {i}: routed experts differ at a router margin {m:.3e}"
+                   for rid, i, m in flips if not m <= DIST_SERVE_NEAR_TIE]
+        print(f"[dist serve lm] bf16 {arch} on 1x4 seq_shard against the serial bf16 Engine: "
+              f"prefill logits {worst_p:.3e}, decode logits {worst_d:.3e} of max|ref| (gate "
+              f"{DIST_SERVE_BF16}; {sum(t['compared'] for t in runs)} decode rows held over the "
+              f"ranks, each up to its request's first differing token or routed expert); "
+              f"tokens {runs[0]['equal_tokens']} of {runs[0]['all_tokens']} equal; routed-expert "
+              f"flips {len(runs[0]['flips'])} on rank 0 (serial router margins "
+              f"{sorted(round(m, 6) for _, _, m in runs[0]['flips'])}, gate "
+              f"{DIST_SERVE_NEAR_TIE} on every rank; their "
+              f"rows' logits {max((t['flipped_rel'] for t in runs), default=0.0):.3e} of "
+              f"max|ref|, not gated); {gpu}")
+        if faults:
+            raise SystemExit(f"[dist serve lm] bf16 {arch}: " + "; ".join(faults))
+        for r, t in enumerate(runs):
+            pre = [s * 1e3 for s in t["prefill_s"]]
+            step = [s * 1e3 for s in t["decode_s"][1:]]
+            share = t["collectives_s"] / t["timed_wall_s"]
+            print(f"[dist serve lm] bf16 {arch} on 1x4 seq_shard, rank {r}: prefix "
+                  f"{t['prefix_bytes'] / 2**20:.1f} MiB (bf16, 1/4 of the serial cache's); prefills "
+                  f"{[round(x, 1) for x in pre]} ms (prompts {[n for n, _ in DIST_SERVE_REQUESTS]}), "
+                  f"decode step {np.mean(step):.2f} ms (median {np.median(step):.2f}, "
+                  f"{len(step)} steps after the first, {t['decode_s'][0] * 1e3:.1f} ms); "
+                  f"{t['tokens'] / sum(t['decode_s']):.1f} decoded tok/s; collectives "
+                  f"{t['collectives_s'] * 1e3:.1f} ms ({t['collectives_calls']} calls) of a "
+                  f"{t['timed_wall_s'] * 1e3:.1f} ms run with each one timed ({share:.1%}); peak "
+                  f"{t['peak_gib']:.2f} GiB; {gpu}")
+        for k in launches:
+            launches[k] += runs[0]["launches"][k]
+        t = runs[0]
+        out[arch] = {"prefill_ms": [s * 1e3 for s in t["prefill_s"]],
+                     "decode_step_ms": float(np.mean(t["decode_s"][1:]) * 1e3),
+                     "tokens_per_s": t["tokens"] / sum(t["decode_s"]),
+                     "collectives_share": [r["collectives_s"] / r["timed_wall_s"] for r in runs],
+                     "peak_gib": [r["peak_gib"] for r in runs], "prefix_bytes": t["prefix_bytes"],
+                     "prefill_rel": worst_p, "decode_rel": worst_d,
+                     "equal_tokens": t["equal_tokens"], "flips": t["flips"],
+                     "flipped_rel": max(r["flipped_rel"] for r in runs)}
+    return {"launches": launches, "timed": out}
+
+
+def _dist_serve_references(gpu: str, dev) -> dict:
+    """{(arch, layout): the serial f32 run} of every gate run's layout: one
+    run an arch, or for the MoE one a layout (its prompts' routing); and
+    {(arch, "bf16"): the serial bf16 run} for the timed runs on (1 x 4)."""
+    serial = {}
+    for arch in DIST_SERVE_ARCHS:
+        moe = _dist_serve_cfg(arch, "float32").moe is not None
+        shared = None if moe else _dist_serve_serial(arch, 1, gpu, dev)
+        for layout, _, _ in _dist_serve_runs(arch):
+            p = DIST_RANKS // int(layout.split("x")[0])
+            serial[arch, layout] = _dist_serve_serial(arch, p, gpu, dev) if moe else shared
+        serial[arch, "bf16"] = _dist_serve_serial(arch, DIST_RANKS, gpu, dev, "bfloat16")
+    return serial
+
+
+def phase_dist_serve_lm(gpu: str) -> dict:
+    """LM serving at full width (``DIST_SERVE_ARCHS``, depth cut) on
+    ``DIST_RANKS`` gloo ranks sharing this card: the serial Engine's f32
+    runs on the card first (shared with the ranks by CUDA IPC), then one
+    launch of the ranks (``_dist_serve_rank``): the gate runs of every arch
+    on (1 x 4) and (2 x 2), one arch also on (4 x 1) and with kv_quant, a
+    cut combine, the bf16 runs timed, both kernels at the shard shapes.
+    Returns the launch counts and the measurements."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import launch_ranks
+
+    _free_cuda()
+    dev = torch.device("cuda")
+    for arch, n in DIST_SERVE_ARCHS.items():
+        full, cfg = get_arch(arch), _dist_serve_cfg(arch, "float32")
+        print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "
+              f"{'layer 0 (dense) and 1 MoE layer' if cfg.moe else f'{n} layers'}; "
+              f"{cfg.approx_params() / 1e9:.3f} B params; {cfg.n_heads} heads over "
+              f"{cfg.kv_heads} kv heads x {cfg.head_dim_}, d_model {cfg.d_model}, vocab {cfg.vocab})")
+    t0 = time.perf_counter()
+    serial = _dist_serve_references(gpu, dev)
+    print(f"[dist serve lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
+          f"{_memory_line()}")
+    job = {"serial": serial, "gpu": gpu}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = launch_ranks(_dist_serve_rank, DIST_RANKS, d, args=(job,),
+                             collective_timeout_s=DIST_TIMEOUT_S, deadline_s=DIST_TIMEOUT_S,
+                             device="cuda")
+    print(f"[dist serve lm] {DIST_RANKS} gloo ranks on one card: "
+          f"{time.perf_counter() - t0:.1f}s for the launch")
+    gates = _dist_serve_check(ranks, gpu)
+    timed = _dist_serve_report_timed(ranks, gpu)
+    del job, serial
+    torch.cuda.ipc_collect()
+    _free_cuda()
+    launches = {k: gates["launches"][k] + timed["launches"][k] for k in ("rmsnorm", "flash")}
+    return {"launches": {"dist_serve_lm": launches}, "gates": gates["gates"],
+            "timed": timed["timed"], "times": ranks[0]["times"]}
+
+
 def main() -> int:
     import torch
 
@@ -5249,6 +5903,7 @@ def main() -> int:
     lm_cli = phase("lm cli", phase_lm_cli, gpu)
     lm_train = phase("lm train", phase_lm_train, gpu)
     dist_lm = phase("dist lm", phase_dist_lm, gpu)
+    dist_serve = phase("dist serve lm", phase_dist_serve_lm, gpu)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -5290,8 +5945,12 @@ def main() -> int:
         record["backward"] = lm_train["backward"][key]
         record["launches_by_path"].update({path: n[key] for path, n in dist_lm["launches"].items()})
         record["dist_shapes"] = dist_lm["times"][key]
+        record["launches_by_path"].update(
+            {path: n[key] for path, n in dist_serve["launches"].items()})
+        record["dist_serve_shapes"] = dist_serve["times"][key]
     flash["lm_train"] = lm_train["stats"]
     flash["dist_lm"] = {k: dist_lm[k] for k in ("gates", "ulysses", "step")}
+    flash["dist_serve_lm"] = {k: dist_serve[k] for k in ("gates", "timed")}
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

@@ -4,12 +4,12 @@ Port of ``repro.models.attention``: ``_project_qkv`` (with ``qkv_bias``,
 ``qk_norm`` and partial RoPE), ``attn_forward`` (full-sequence attention,
 causal or not; under a mesh policy tensor-parallel over heads with the
 reference's head padding, ``_pad_heads``), ``_windowed_attention``,
-``init_kv_cache``, ``attn_decode`` and ``decode_attention``
-(``attention.py:55-74``, ``:77-259``, ``:333-345``), and DeepSeek-V2's
-multi-head latent attention: ``init_mla_params``, ``_mla_qkr``,
-``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on its unsplit
-cache (``:354-479``). Split and quantised caches, which only a distributed
-policy takes, are not ported (ROADMAP Queue 1 item 5d).
+``init_kv_cache`` (with the split and int8 layouts), ``quantize_kv``,
+``attn_decode``, ``_attn_decode_split``, ``flush_tail`` and
+``decode_attention`` (``attention.py:55-74``, ``:77-345``), and
+DeepSeek-V2's multi-head latent attention: ``init_mla_params``,
+``_mla_qkr``, ``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on
+its unsplit cache (``:354-479``).
 
 Tensor parallelism (``_attn_tp``): wq/wk/wv are column-parallel and wo
 row-parallel over the model group (``param_specs``). The heads are
@@ -36,42 +36,71 @@ reference vmaps a batch-1 step over the slots: each row gets its own RoPE
 position, its own cache row (and ring slot) to write and its own valid
 keys. The cache is updated in place (the reference returns a new one);
 ``attn_decode`` returns the same dict.
+
+Split caches (every attention cache without a window under a mesh
+policy): a read-only prefix of S positions, int8 under ``kv_quant``, and
+a ``TAIL_LEN`` tail that each decode step writes and ``flush_tail``
+empties into the prefix. Each row attends over its valid prefix length
+and its tail entries, where the reference attends over the whole prefix
+(see ``_attn_decode_split``). Over a model group the prefix is sharded by
+kv heads where P divides them, else by sequence, each rank a contiguous
+chunk of S/P positions of every kv head, the softmax combined over the
+group: the paper's domain decomposition applied to decode. The tail is
+whole on every rank of a sequence-sharded layout (the reference's spec);
+in a head-sharded layout it holds the rank's kv heads, the only ones the
+rank reads (the reference's spec replicates it, which its GSPMD fills by
+an all-gather of every step's k and v).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import all_gather, copy_to
+from repro_torch.core.collectives import (
+    all_gather, all_reduce_max, all_reduce_sum, copy_to, gather_from, reduce_from, scatter_to,
+)
 from repro_torch.core.ulysses import kv_heads_for
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.policy import LOCAL
 
 NEG_INF = -1e30
+TAIL_LEN = 64  # a split cache's tail (flushed into the prefix every TAIL_LEN steps)
 
 
 def _project_qkv(p, x, cfg, positions):
     """x: [b, s, d] -> q [b, s, h, hd], k and v [b, s, kvh, hd]."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim_
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.kv_heads, hd)
-    v = v.reshape(b, s, cfg.kv_heads, hd)
+    q, k, v = _projections(p, x, cfg, "qkv")
+    return (_heads(p, q, cfg, positions, "q_norm"), _heads(p, k, cfg, positions, "k_norm"),
+            _heads(p, v, cfg, positions))
+
+
+def _projections(p, x, cfg, which: str, group=None):
+    """x @ w (+ bias) for each of ``which``'s projections ("q", "k", "v"),
+    each all-gathered over ``group`` when one is given (the rank's columns
+    of it -> all of them)."""
+    out = []
+    for c in which:
+        y = x @ p["w" + c].to(x.dtype)
+        if cfg.qkv_bias:
+            y = y + p["b" + c].to(x.dtype)
+        out.append(y if group is None else gather_from(y, -1, group))
+    return out
+
+
+def _heads(p, y, cfg, positions, norm=None):
+    """A projection [b, s, n * hd] as heads [b, s, n, hd]; q's and k's
+    (``norm``: their qk-norm weight's name) normed and rotated."""
+    b, s, _ = y.shape
+    y = y.reshape(b, s, -1, cfg.head_dim_)
+    if norm is None:
+        return y
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p["q_norm"])
-        k = layers.rms_norm(k, p["k_norm"])
+        y = layers.rms_norm(y, p[norm])
     if cfg.rope_fraction > 0:
-        q = layers.apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        k = layers.apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-    return q, k, v
+        y = layers.apply_rope(y, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+    return y
 
 
 def attend(q, k, v, cfg, *, causal: bool = True):
@@ -124,8 +153,10 @@ def _project(x, w, b, heads, hd, aligned, group):
     return y.reshape(x.shape[0], x.shape[1], heads.numel(), hd)
 
 
-def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool):
-    """``attn_forward`` over the model group: see the module's docstring."""
+def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool, with_kv: bool = False):
+    """``attn_forward`` over the model group: see the module's docstring.
+    With ``with_kv`` also returns the whole sequence's x as the rank took
+    it in, and the k and v [b, s, n, hd] of the kv heads it attended with."""
     group = policy.model_group
     size, rank = group.size(), group.rank()
     h, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
@@ -160,26 +191,58 @@ def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool):
     o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg, causal=causal)
     o = o[:, :n_real].transpose(1, 2).reshape(b, s, n_real * hd)
     wo = _columns(p["wo"], q_heads, hd, q_aligned, group, dim=0)
-    return layers.tp_out(o @ wo.to(x.dtype), group, seq_sharded)
+    out = layers.tp_out(o @ wo.to(x.dtype), group, seq_sharded)
+    return (out, xin, k[:, :, :len(kv_heads)], v[:, :, :len(kv_heads)]) if with_kv else out
 
 
-def cache_shapes(cfg, batch: int, max_len: int) -> dict:
-    """The leaf shapes of one layer's plain cache, the sequence dim second
-    to last: the latent and the RoPE key under MLA, else k and v (a ring
-    of min(max_len, window) positions under a sliding window)."""
+def cache_leaves(cfg, batch: int, max_len: int, dtype, *, split: bool = False,
+                 quant: bool = False) -> dict:
+    """{name: (shape, dtype)} of one layer's cache, the reference's leaves
+    (``init_kv_cache``, ``init_mla_cache``): the prefix k and v in
+    ``dtype``, int8 with ``quant`` on a split cache without a window, and
+    then k_scale and v_scale [b, kvh, S] bf16; the split cache's tail tk
+    and tv [b, kvh, TAIL_LEN, hd] in ``dtype`` (MLA's plain cache only:
+    its split one is not ported)."""
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": (batch, max_len, m.kv_lora), "kr": (batch, max_len, m.dh_rope)}
+        return {"ckv": ((batch, max_len, m.kv_lora), dtype),
+                "kr": ((batch, max_len, m.dh_rope), dtype)}
     length = max_len if cfg.window is None else min(max_len, cfg.window)
+    split = split and cfg.window is None
+    kv_dtype = torch.int8 if quant and split else dtype
     shape = (batch, cfg.kv_heads, length, cfg.head_dim_)
-    return {"k": shape, "v": shape}
+    out = {"k": (shape, kv_dtype), "v": (shape, kv_dtype)}
+    if kv_dtype == torch.int8:
+        out.update(k_scale=(shape[:3], torch.bfloat16), v_scale=(shape[:3], torch.bfloat16))
+    if split:
+        tail = (batch, cfg.kv_heads, TAIL_LEN, cfg.head_dim_)
+        out.update(tk=(tail, dtype), tv=(tail, dtype))
+    return out
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None, *,
+                  split: bool = False, quant: bool = False) -> dict:
     """Plain cache: one zeroed [batch, kvh, S, hd] buffer per k/v (S =
-    max_len, or the ring's min(max_len, window))."""
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, shape in cache_shapes(cfg, batch, max_len).items()}
+    max_len, or the ring's min(max_len, window)).
+
+    ``split`` (no window): the reference's prefix/tail layout. The prefix
+    is read-only inside a decode step, so that it can be sharded over the
+    model group; each step's k/v go to a ``TAIL_LEN`` tail, which
+    ``flush_tail`` writes into the prefix. ``quant`` (with ``split``): the
+    prefix is int8 with per-token, per-head max-abs scales (bf16), which
+    fold into the logits and the softmax weights."""
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_leaves(cfg, batch, max_len, dtype, split=split,
+                                                   quant=quant).items()}
+
+
+def quantize_kv(x):
+    """x: [..., s, hd] -> (int8 values, bf16 per-token scales [..., s]):
+    the reference's max-abs rounding, value for value."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def _windowed_attention(q, k, v, window: int):
@@ -216,7 +279,7 @@ def _windowed_attention(q, k, v, window: int):
     return o.reshape(b, h, s + pad, hd)[:, :, :s]
 
 
-def attn_decode(p, x, cache, index, cfg, n_keys=None):
+def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_len=None):
     """One decode step for every row: write its k/v at its own ``index``
     (under a window at its ring slot index % S) and attend over its valid
     keys: the prefix up to ``index``, or under a window the ring's slots up
@@ -225,7 +288,15 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None):
     x: [b, 1, d]; cache {"k", "v"}: [b, kvh, S, hd], updated in place;
     index: int tensor [b], the number of tokens already in each row's
     cache; ``n_keys`` = max(index) + 1 when the caller knows it (else it is
-    read from the device). Returns (out [b, 1, d], cache)."""
+    read from the device). Returns (out [b, 1, d], cache).
+
+    A split cache (a "tk" leaf) goes to ``_attn_decode_split``, with each
+    row's valid prefix length ``prefix_len``; under a policy whose model
+    group has more than one rank every attention cache is split."""
+    if "tk" in cache:
+        return _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len)
+    if policy.model_size() > 1:
+        raise ValueError("a decode step over a model group takes a split cache")
     b = x.shape[0]
     hd = cfg.head_dim_
     s_max = cache["k"].shape[2]
@@ -242,6 +313,159 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None):
     o = decode_attention(q.transpose(1, 2), cache["k"][:, :, :n], cache["v"][:, :, :n], valid)
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd)
     return o @ p["wo"].to(x.dtype), cache
+
+
+def prefix_by_sequence(cfg, policy) -> bool:
+    """Whether a split cache's prefix is sharded over the model group by
+    sequence (the model group does not divide the kv heads) rather than by
+    kv heads: the reference's ``cache_specs``."""
+    p = policy.model_size()
+    return p > 1 and cfg.kv_heads % p != 0
+
+
+def _decode_qkv(p, x, cfg, policy, positions):
+    """The decode step's q, k and v [b, 1, n, hd] on this rank: every head
+    on one rank or with a sequence-sharded prefix (the rank's columns of
+    each projection all-gathered), else the rank's heads (its columns)."""
+    group = policy.model_group if prefix_by_sequence(cfg, policy) else None
+    q, k, v = _projections(p, x, cfg, "qkv", group)
+    return (_heads(p, q, cfg, positions, "q_norm"), _heads(p, k, cfg, positions, "k_norm"),
+            _heads(p, v, cfg, positions))
+
+
+def kv_all_heads(p, x, cfg, policy, positions):
+    """Every kv head's k and v [b, s, kvh, hd] at ``positions`` from this
+    rank's column shards of wk and wv (each projection's columns
+    all-gathered over the model group): what a sequence-sharded prefix
+    stores of each position."""
+    k, v = _projections(p, x, cfg, "kv", policy.model_group)
+    return _heads(p, k, cfg, positions, "k_norm"), _heads(p, v, cfg, positions)
+
+
+def row_values(values, b: int):
+    """An int for every row, or one per row, as a list of b ints (None for
+    a tensor, which stays on its device)."""
+    if isinstance(values, torch.Tensor):
+        return None
+    return [int(values)] * b if np.ndim(values) == 0 else [int(v) for v in values]
+
+
+def rows_tensor(values, b: int, device):
+    """(an int tensor [b], its max) of an int for every row or one per row
+    (a sequence, or a tensor, whose max is then read from the device)."""
+    vals = row_values(values, b)
+    if vals is None:
+        t = values.to(device=device, dtype=torch.long).reshape(-1).expand(b)
+        return t, int(t.max())
+    return torch.tensor(vals, dtype=torch.long, device=device), max(vals)
+
+
+def _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len):
+    """Decode against a read-only prefix and a small tail (the reference's
+    ``_attn_decode_split``, ``attention.py:262-315``), each row masked to
+    its valid part: prefix positions below its ``prefix_len`` (default the
+    whole prefix, the reference's assumption) and tail slots up to its new
+    token, which goes to slot index - prefix_len. The reference attends
+    over every prefix position and writes slot index - S, which clamps to
+    0 until the prompt fills the prefix: right only for a full prefix.
+
+    As the reference: the cache operands in their storage dtype (int8
+    dequantized to bf16), logits accumulated in f32 and scaled, the int8
+    prefix's k scales folded into its logits and its v scales into its
+    softmax weights after their sum, the two segments combined flash-decode
+    style, the weights cast to the cache dtype before P.V.
+
+    Over a model group the prefix is sharded by kv heads (this rank's q
+    heads attend its kv heads; ``wo`` row-parallel) or by sequence
+    (``prefix_by_sequence``): every rank takes every head, attends over its
+    chunk of the prefix, and the group combines the chunks (the max, then
+    the rescaled sums and P.V); the replicated tail is counted once, after
+    the sum. ``wo`` is then fed this rank's heads of the combined output."""
+    b = x.shape[0]
+    hd = cfg.head_dim_
+    dev = x.device
+    by_seq = prefix_by_sequence(cfg, policy)
+    group = policy.model_group
+    s_loc = cache["k"].shape[2]
+    plen, max_plen = rows_tensor(s_loc * policy.model_size() if prefix_len is None else prefix_len,
+                                 b, dev)
+    q, k, v = _decode_qkv(p, x, cfg, policy, index[:, None])
+    slot = index - plen
+    rows = torch.arange(b, device=dev)
+    cache["tk"][rows, :, slot] = k[:, 0].to(cache["tk"].dtype)
+    cache["tv"][rows, :, slot] = v[:, 0].to(cache["tv"].dtype)
+    # the prefix positions this rank holds that some row attends to
+    lo = policy.model_rank() * s_loc if by_seq else 0
+    n_p = max(0, min(s_loc, max_plen - lo))
+    quant = "k_scale" in cache
+    kv_compute = torch.bfloat16 if quant else cache["k"].dtype
+    nq, nkv = q.shape[2], k.shape[2]
+    qg = q[:, 0].reshape(b, nkv, nq // nkv, hd).to(kv_compute)
+    scale = hd ** -0.5
+    kp, vp = cache["k"][:, :, :n_p], cache["v"][:, :, :n_p]
+    tk, tv = cache["tk"], cache["tv"]
+    # a product of two values of the compute dtype is exact in f32
+    lp = torch.einsum("bkgd,bksd->bkgs", qg.float(), kp.float()) * scale
+    if quant:
+        lp = lp * cache["k_scale"][:, :, None, :n_p].float()
+    valid = (lo + torch.arange(n_p, device=dev))[None, :] < plen[:, None]
+    lp = lp.masked_fill(~valid[:, None, None, :], NEG_INF)
+    lt = torch.einsum("bkgd,bktd->bkgt", qg.to(tk.dtype).float(), tk.float()) * scale
+    valid = torch.arange(tk.shape[2], device=dev)[None, :] <= slot[:, None]
+    lt = lt.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = lt.amax(dim=-1, keepdim=True)
+    if n_p:
+        m = torch.maximum(m, lp.amax(dim=-1, keepdim=True))
+    if by_seq:
+        m = all_reduce_max(m, group)
+    wp, wt = torch.exp(lp - m), torch.exp(lt - m)
+    denom = wp.sum(dim=-1, keepdim=True)
+    if quant:
+        wp = wp * cache["v_scale"][:, :, None, :n_p].float()
+    o = torch.einsum("bkgs,bksd->bkgd", wp.to(kv_compute).float(), vp.float())
+    if by_seq:  # the chunks' sums over the group, then the tail's once
+        both = all_reduce_sum(torch.cat([o, denom], dim=-1), group)
+        o, denom = both[..., :hd], both[..., hd:]
+    o = o + torch.einsum("bkgt,bktd->bkgd", wt.to(tv.dtype).float(), tv.float())
+    denom = denom + wt.sum(dim=-1, keepdim=True)
+    o = (o / denom).reshape(b, 1, nq * hd).to(x.dtype)
+    if policy.model_size() == 1:
+        return o @ p["wo"].to(x.dtype), cache
+    if by_seq:  # this rank's heads: its rows of wo
+        o = scatter_to(o, -1, group)
+    return reduce_from(o @ p["wo"].to(x.dtype), group), cache
+
+
+def flush_tail(cache, prefix_valid, *, chunk=(0, 1)):
+    """Write the tail into the prefix (the reference's ``flush_tail``,
+    ``attention.py:318-330``), each row's ``TAIL_LEN`` tail entries at its
+    valid prefix length ``prefix_valid`` (an int or one per row), then
+    zero the tail. An int8 prefix takes the entries quantized (``quantize_kv``) with
+    their scales; the reference's flush writes bf16 values into it, which
+    raises, and returns no scales. ``chunk`` = (m, P): this cache holds
+    chunk m of P of a sequence-sharded prefix, and writes only the
+    positions in it. In place; returns the cache."""
+    b, _, s_loc, _ = cache["k"].shape
+    t = cache["tk"].shape[2]
+    m, parts = chunk
+    quant = "k_scale" in cache
+    lo_c = m * s_loc
+    for r, start in enumerate(row_values(prefix_valid, b)):
+        if start + t > s_loc * parts:
+            raise ValueError(f"row {r}: a tail of {t} at {start} overflows a prefix of "
+                             f"{s_loc * parts}")
+        lo, hi = max(start, lo_c), min(start + t, lo_c + s_loc)
+        if hi <= lo:
+            continue
+        for name, tail in (("k", "tk"), ("v", "tv")):
+            src = cache[tail][r, :, lo - start:hi - start]
+            if quant:
+                src, sc = quantize_kv(src)
+                cache[name + "_scale"][r, :, lo - lo_c:hi - lo_c] = sc
+            cache[name][r, :, lo - lo_c:hi - lo_c] = src.to(cache[name].dtype)
+    cache["tk"].zero_()
+    cache["tv"].zero_()
+    return cache
 
 
 def decode_attention(q, k, v, valid):
@@ -325,9 +549,10 @@ def mla_forward(p, x, cfg, *, positions=None, return_latents=False):
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """Plain MLA cache: zeroed latent [batch, max_len, kv_lora] and RoPE key
-    [batch, max_len, dh_rope]."""
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, shape in cache_shapes(cfg, batch, max_len).items()}
+    [batch, max_len, dh_rope]. (Its split layout, which a mesh policy
+    takes, is not ported: ``transformer.check_mesh_serving``.)"""
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_leaves(cfg, batch, max_len, dtype).items()}
 
 
 def mla_decode(p, x, cache, index, cfg, n_keys=None):

@@ -11,19 +11,24 @@ the loss and serving drops.
 
 Under a mesh policy (``models/policy.py``) the reference's condition picks
 the expert-parallel path: P > 1 model ranks, P dividing the sequence and
-the experts (the reference's ``moe_a2a``, which has no other working
-value here, is not a field of the port's policy). Each (data, model) rank
+the experts. Each (data, model) rank
 then routes its own tokens (its rows, its slice of the sequence) with its
 own capacity, one all-to-all over the model group sends every expert's
 buffer to the rank that holds it ([E, C, d] -> [E/P, P C, d]: the paper's
 repartition on the expert dim), the experts run there, and the reverse
 all-to-all brings the results home; the load-balance loss comes from the
-routing statistics summed over every rank. On a data-only mesh (P = 1) the data ranks route
-their tokens together, as the reference's jit routes the global batch:
-the capacity is that of the global token count, each entry's place in
-its expert's buffer counts the entries of the lower data ranks
-(``_dispatch``'s ``before``), and the statistics are summed. The shared
-experts run tensor-parallel (``layers.tp_mlp``).
+routing statistics summed over every rank. Where that condition fails (a
+decode step, which routes dropless; a prompt or training sequence that P
+does not divide; a data-only mesh, P = 1) the path is the reference's
+``_moe_local`` on the global batch, as its jit routes it
+(``_moe_together``): the data ranks route their tokens together, the
+capacity that of the global token count, each entry's place in its
+expert's buffer counting the entries of the lower data ranks
+(``_dispatch``'s ``before``), the statistics summed over the data group;
+every rank of a model group routes and dispatches the same tokens, runs
+its E/P experts' buffers, and the group sums the partial outputs (in
+f32, rounded once). The shared experts run tensor-parallel
+(``layers.tp_mlp``).
 
 No [T, E, C] one-hot tensor is formed: an entry's position in its
 expert's buffer is an exclusive cumulative count over the token-major
@@ -46,7 +51,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import NOT_PORTED, MoEConfig
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core.collectives import (
     all_reduce_sum, copy_to, gather_from, reduce_from, scatter_to, sum_copies,
 )
@@ -148,15 +153,17 @@ def _dispatch(x_flat, topi, capacity: int, n_experts: int, before=None):
     return buf[:-1].reshape(n_experts, capacity, d), e_flat, pos, keep
 
 
-def _combine(y_buf, e_flat, pos, keep, topv, t: int, capacity: int):
+def _combine(y_buf, e_flat, pos, keep, topv, t: int, capacity: int, f32: bool = False):
     """Gather each entry's expert output and mix a token's k entries with
-    its router weights (a dropped entry weighs 0); [T, D]."""
+    its router weights (a dropped entry weighs 0); [T, D], the f32 sum
+    rounded to the buffer's dtype, or kept f32 with ``f32``."""
     k = topv.shape[-1]
     d = y_buf.shape[-1]
     slot = torch.where(keep, e_flat * capacity + pos, 0)
     gathered = y_buf.reshape(-1, d)[slot]
     w = (topv.reshape(-1) * keep).to(gathered.dtype)
-    return (gathered * w[:, None]).reshape(t, k, d).float().sum(dim=1).to(gathered.dtype)
+    y = (gathered * w[:, None]).reshape(t, k, d).float().sum(dim=1)
+    return y if f32 else y.to(gathered.dtype)
 
 
 def _expert_ffn(buf, w_gate, w_up, w_down):
@@ -221,26 +228,46 @@ def _moe_ep_shard(params, x, moe: MoEConfig, policy):
     return y.reshape(b, s, d), _global_aux(topi, probs, moe, policy)
 
 
-def _moe_routed_together(params, x, moe: MoEConfig, policy):
-    """The data ranks' tokens routed as one batch (a data-only mesh): each
-    rank routes its rows, the capacity is the global token count's, and an
-    entry keeps its place behind the lower data ranks' entries to its
-    expert (their per-expert counts, all-gathered). The experts run on
-    this rank's kept entries."""
+def _moe_together(params, x, moe: MoEConfig, policy, dropless: bool):
+    """The reference's ``_moe_local`` over a mesh (see the module's
+    docstring): the data ranks' tokens routed as one batch, each rank
+    running its E/P experts on every token its data rank holds, the model
+    group summing the partial outputs. x [b, s, d] is whole on every rank
+    of the model group."""
+    group, data = policy.model_group, policy.data_group
+    p, e = policy.model_size(), moe.n_experts
+    if e % p:
+        raise ValueError(f"{e} experts do not split over {p} model ranks")
     b, s, d = x.shape
-    x_flat = x.reshape(-1, d)
+    # every rank of the model group uses x and the router for its own
+    # experts: their gradients here are parts, summed over the group
+    x_flat = copy_to(x, group).reshape(-1, d)
     t = x_flat.shape[0]
-    topi, topv, probs = _route(x_flat, params["router"], moe)
-    group = policy.data_group
-    cap = _capacity(t * policy.dp_size(), moe)
-    counts = torch.zeros(moe.n_experts, dtype=torch.long, device=x.device)
-    counts.scatter_add_(0, topi.reshape(-1), torch.ones_like(topi.reshape(-1)))
-    every = gather_dim(counts[None], 0, group) if group.size() > 1 else counts[None]
-    before = every[:group.rank()].sum(dim=0)
-    buf, e_flat, pos, keep = _dispatch(x_flat, topi, cap, moe.n_experts, before=before)
-    y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
-    y = _combine(y_buf, e_flat, pos, keep, topv, t, buf.shape[1])
-    return y.reshape(b, s, d), _global_aux(topi, probs, moe, policy)
+    topi, topv, probs = _route(x_flat, copy_to(params["router"], group), moe)
+    before = None
+    if dropless:
+        cap = t
+    else:
+        cap = _capacity(t * policy.dp_size(), moe)
+        counts = torch.zeros(e, dtype=torch.long, device=x.device)
+        counts.scatter_add_(0, topi.reshape(-1), torch.ones_like(topi.reshape(-1)))
+        every = gather_dim(counts[None], 0, data) if data.size() > 1 else counts[None]
+        before = every[:data.rank()].sum(dim=0)
+    buf, e_flat, pos, keep = _dispatch(x_flat, topi, cap, e, before=before)
+    lo = policy.model_rank() * (e // p)
+    y_buf = _expert_ffn(buf[lo:lo + e // p], params["w_gate"], params["w_up"], params["w_down"])
+    if p > 1:  # the other ranks' experts give nothing here
+        y_buf = F.pad(y_buf, (0, 0, 0, 0, lo, e - lo - e // p))
+    y = _combine(y_buf, e_flat, pos, keep, topv, t, buf.shape[1], f32=True)
+    y = reduce_from(y, group).to(x.dtype).reshape(b, s, d)
+    # the load-balance loss from the data ranks' statistics; the model
+    # ranks hold the same routes, so one of them carries its gradient
+    counts, prob_sum, n = _aux_stats(topi, probs, moe)
+    if policy.model_rank():
+        prob_sum = prob_sum.detach()
+    counts = all_reduce_sum(counts, data)
+    prob_sum = sum_copies(prob_sum, data)
+    return y, _aux_from_stats(counts, prob_sum, n * policy.dp_size(), moe)
 
 
 def moe_apply(params: dict, x, moe: MoEConfig, policy=LOCAL, *, dropless: bool = False,
@@ -256,30 +283,25 @@ def moe_apply(params: dict, x, moe: MoEConfig, policy=LOCAL, *, dropless: bool =
 
     Under a mesh policy x is the residual stream as this rank holds it
     (its rows; its slice of the sequence with ``seq_sharded``) and
-    ``params`` this rank's shards: the expert-parallel path on the
-    reference's condition, else on a data-only mesh the ranks' tokens
-    routed together (see the module's docstring). Routed experts over a
-    model group whose size does not divide the sequence or the experts
-    raise ``NOT_PORTED``."""
+    ``params`` this rank's shards: the expert-parallel all-to-all on the
+    reference's condition (P > 1 model ranks dividing the sequence and the
+    experts, not ``dropless``), else ``_moe_together``
+    (see the module's docstring)."""
     if not policy.distributed:
         y, aux = _moe_local(params, x, moe, dropless)
     else:
-        size = policy.model_size()
+        size, group = policy.model_size(), policy.model_group
         s = x.shape[1] * (size if seq_sharded else 1)
-        if dropless:
-            raise NotImplementedError(f"dropless MoE (serving) under a mesh: {NOT_PORTED}")
-        if size > 1 and s % size == 0 and moe.n_experts % size == 0:
-            group = policy.model_group
+        if not dropless and size > 1 and s % size == 0 and moe.n_experts % size == 0:
             xs = x if seq_sharded else scatter_to(x, 1, group)
             y, aux = _moe_ep_shard(params, xs, moe, policy)
             if not seq_sharded:
                 y = gather_from(y, 1, group)
-        elif size == 1:
-            y, aux = _moe_routed_together(params, x, moe, policy)
         else:
-            raise NotImplementedError(
-                f"routed experts over {size} model ranks that do not divide the sequence ({s}) "
-                f"or the experts ({moe.n_experts}): {NOT_PORTED}")
+            y, aux = _moe_together(params, gather_from(x, 1, group) if seq_sharded else x, moe,
+                                   policy, dropless)
+            if seq_sharded:
+                y = scatter_to(y, 1, group)
     if "shared" in params:
         sh = params["shared"]
         if policy.model_size() > 1:

@@ -21,17 +21,20 @@ tensor stays whole: ``splits`` answers it. Under ``seq_shard`` the
 residual stream between blocks holds this rank's slice of the sequence.
 The port's meshes have two axes, ``"data"`` and ``"model"``.
 
-What the mesh does not run yet (the split and int8 caches, MLA, the SSM
-and RG-LRU mixers and the encoder-decoder family spread over a model group
-of more than one rank) raises ``NOT_PORTED``: ``kv_quant`` here, the rest
-where the model meets it (``check_mesh_arch``).
+Serving under a mesh keeps split KV caches (``models/attention.py``), with
+the prefix int8 under ``kv_quant``. The reference's ``moe_a2a`` has no
+counterpart: the MoE takes its all-to-all wherever the reference's
+condition allows it (``models/moe.py``). Nor has its ``unroll_decode``:
+the port's decode step is already a Python loop over the layers, which
+holds no layer's cache in a loop carry. What the mesh
+does not run yet (MLA, the SSM and RG-LRU mixers and the encoder-decoder
+family spread over a model group of more than one rank) raises
+``NOT_PORTED`` where the model meets it (``check_mesh_arch``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping, Optional
-
-from repro_torch.configs.base import NOT_PORTED
 
 REMAT_POLICIES = (None, "dots")
 DATA_AXIS, MODEL_AXIS = "data", "model"
@@ -46,6 +49,8 @@ class ParallelPolicy:
     remat: bool = True
     remat_policy: Optional[str] = None
     use_pallas: bool = False
+    # int8 KV-cache prefix with per-token, per-head bf16 scales (split
+    # caches: every attention cache under a mesh without a window)
     kv_quant: bool = False
 
     def __post_init__(self):
@@ -56,8 +61,6 @@ class ParallelPolicy:
         missing = [a for a in (DATA_AXIS, MODEL_AXIS) if a not in self.mesh]
         if missing:
             raise ValueError(f"the mesh {sorted(self.mesh)} has no group for axes {missing}")
-        if self.kv_quant:
-            raise NotImplementedError(f"int8 KV caches (kv_quant) under a mesh: {NOT_PORTED}")
 
     @property
     def distributed(self) -> bool:
@@ -90,6 +93,20 @@ class ParallelPolicy:
         rank's slice of it (``seq_shard``, and the model axis divides s)."""
         return self.seq_shard and self.splits(s)
 
+    def data_rank(self) -> int:
+        return 0 if self.mesh is None else self.data_group.rank()
+
+    def model_rank(self) -> int:
+        return 0 if self.mesh is None else self.model_group.rank()
+
+    def model_only(self) -> "ParallelPolicy":
+        """This policy with a data group of one rank (``ONE_RANK``): what
+        one data rank's model group runs alone, such as a serving runner's
+        prefill of a slot that its data rank holds."""
+        if self.mesh is None:
+            return self
+        return dataclasses.replace(self, mesh={DATA_AXIS: ONE_RANK, MODEL_AXIS: self.model_group})
+
     def shard(self, x, *spec):
         """The identity: a rank holds its shard already, and the layers
         call the collectives that move it."""
@@ -99,4 +116,16 @@ class ParallelPolicy:
         return x
 
 
+class _OneRank:
+    """A group of one rank: every collective over it is the identity
+    (``core/collectives.py``), so nothing is sent."""
+
+    def size(self) -> int:
+        return 1
+
+    def rank(self) -> int:
+        return 0
+
+
+ONE_RANK = _OneRank()
 LOCAL = ParallelPolicy()

@@ -9,8 +9,9 @@ window's ring), ``_mla_prefill``, ``_rglru_prefill``, ``init_cache``,
 (``param_specs``, ``_layer_specs``, ``_mlp_specs``, ``_stack_specs``) as
 tuples, with ``shard_params``/``gather_params`` that cut a tree into a
 rank's shards by them and put it back, and ``lm_hidden``/``lm_loss`` under
-a mesh policy (``models/policy.py``). ``cache_specs`` and the split caches
-wait with the distributed serving path (ROADMAP Queue 1 item 5d).
+a mesh policy (``models/policy.py``); serving under one:
+``use_split_cache``, ``cache_specs``, ``init_cache``, ``lm_prefill`` and
+``lm_decode_step`` with a policy, and ``flush_tails``.
 Parameters keep the reference's tree and leaf names, with the layers
 stacked on a leading layer dim::
 
@@ -41,6 +42,11 @@ None or one layer's, "layers": {"k", "v"}: [L, b, kvh, S, hd]} (under MLA
 hybrid family {"superblocks": {"b0_rec": {"conv", "h"}, ..., "b2_attn":
 {"k", "v"}}, "tail": [...]}, the attention caches rings of
 min(max_len, window) positions. ``lm_decode_step`` updates them in place.
+Under a mesh policy the attention caches without a window are split, a
+prefix and a ``TAIL_LEN`` tail ({"k", "v", ("k_scale", "v_scale"), "tk",
+"tv"}, ``attention.init_kv_cache``), and a rank holds its part of them
+(``cache_specs``): its data rank's rows, its kv heads of the prefix or,
+where P does not divide them, its chunk of the prefix's positions.
 
 Every RMSNorm goes through the fused RMSNorm kernel and every prefill
 attention within the window through the flash-attention kernel (their
@@ -64,7 +70,16 @@ weights' gradient then a part, summed over the group by ``copy_to``'s
 backward). So every rank's gradient of every leaf is the whole of it for
 the rows of its data rank: ``train.train_loop.reduce_grads`` averages it
 over the data group. MLA, SSM, RG-LRU and the hybrid family run on a
-data-only mesh (P = 1), not over a model group (``check_mesh_arch``).
+data-only mesh (P = 1), not over a model group (``check_mesh_arch``); MLA
+is not served under a mesh at all (its split cache, ``check_mesh_serving``).
+
+Serving under such a policy runs the same blocks without their backward:
+the prefill tensor-parallel as ``lm_hidden``, each attention layer writing
+this rank's part of its prefix; the decode step's attention over the
+split cache (``attention._attn_decode_split``: by kv heads, or by
+sequence with the softmax combined over the model group), the MoE's
+experts split over the group where the all-to-all's condition fails
+(``moe._moe_together``), the vocab-split logits all-gathered.
 """
 from __future__ import annotations
 
@@ -83,7 +98,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.policy import LOCAL, MODEL_AXIS, ParallelPolicy
+from repro_torch.models.policy import DATA_AXIS, LOCAL, MODEL_AXIS, ParallelPolicy
 
 # leaves that stay float32 when the serving runner casts the rest to the
 # activation dtype (the reference casts every other weight at its matmul).
@@ -417,6 +432,77 @@ def check_mesh_arch(cfg, policy: ParallelPolicy) -> None:
                                   f"{NOT_PORTED}")
 
 
+def check_mesh_serving(cfg, policy: ParallelPolicy) -> None:
+    """``check_mesh_arch``, and MLA's split cache, which any mesh policy
+    takes (``use_split_cache``) and which is not ported."""
+    check_mesh_arch(cfg, policy)
+    if use_split_cache(cfg, policy) and cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA's split cache under a mesh: {NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Cache specs (the serving caches over the mesh)
+# ---------------------------------------------------------------------------
+
+def use_split_cache(cfg, policy: ParallelPolicy) -> bool:
+    """Split prefix/tail caches for every attention decode under a mesh
+    without a sliding window (``attention.init_kv_cache``): the reference's
+    rule."""
+    return policy.distributed and cfg.window is None
+
+
+def _layer_cache_specs(cfg, policy: ParallelPolicy, kind: str) -> dict:
+    """The spec of each leaf of one layer's cache (``cache_specs``)."""
+    mx, dp, p_size = MODEL_AXIS, DATA_AXIS, policy.model_size()
+    split = use_split_cache(cfg, policy)
+    if kind == "ssm":
+        h = cfg.ssm.n_heads(cfg.d_model)
+        return {"conv": (dp, None, None), "state": (dp, mx if h % p_size == 0 else None, None, None)}
+    if kind == "rec":
+        w = mx if cfg.rglru.width(cfg.d_model) % p_size == 0 else None
+        return {"conv": (dp, None, w), "h": (dp, w)}
+    if cfg.mla is not None:
+        s = {"ckv": (dp, mx, None), "kr": (dp, mx, None)}
+        if split:
+            s.update(tckv=(dp, None, None), tkr=(dp, None, None))
+        return s
+    if attn_lib.prefix_by_sequence(cfg, policy):
+        s, sc, t = (dp, None, mx, None), (dp, None, mx), (dp, None, None, None)
+    else:
+        s, sc = (dp, mx, None, None), (dp, mx, None)
+        t = s
+    if not split:
+        return {"k": s, "v": s}
+    spec = {"k": s, "v": s, "tk": t, "tv": t}
+    if policy.kv_quant:
+        spec.update(k_scale=sc, v_scale=sc)
+    return spec
+
+
+def cache_specs(cfg, policy: ParallelPolicy) -> dict:
+    """The cache tree's layout over the mesh, a spec as the tuple of its
+    entries, matching ``init_cache``'s tree (which allocates by it): the
+    reference's ``cache_specs`` (``transformer.py:369-446``) but for a
+    split cache's tail. The batch over the data axis; a split cache's
+    prefix over the model axis by kv heads where it divides them, else by
+    sequence (each model rank a contiguous chunk, the softmax combined over
+    the group). The tail is whole beside a sequence-sharded prefix, as the
+    reference's, and cut by kv heads beside a head-sharded one, where the
+    reference replicates it: a rank's decode attends over its kv heads
+    alone. The SSM and RG-LRU caches as the reference shards them."""
+    def one(kind):
+        return _layer_cache_specs(cfg, policy, kind)
+
+    if cfg.family == "hybrid":
+        pat, _, tail = hybrid_layout(cfg)
+        return {"superblocks": _stack_specs({f"b{i}_{kind}": one(kind) for i, kind in enumerate(pat)}),
+                "tail": [one(pat[i % len(pat)]) for i in range(tail)]}
+    kinds = cfg.layer_kinds()
+    if kinds[0] == "dense0":
+        return {"layer0": one("attn"), "layers": _stack_specs(one(kinds[1]))}
+    return {"layer0": None, "layers": _stack_specs(one(kinds[0]))}
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
@@ -440,12 +526,13 @@ def _mlp(h, p, cfg, policy: ParallelPolicy = LOCAL, seq_sharded: bool = False):
     return layers.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"], act=cfg.mlp_act)
 
 
-def _ffn(h, lp, kind, cfg, dropless=False):
+def _ffn(h, lp, kind, cfg, dropless=False, policy: ParallelPolicy = LOCAL, sp: bool = False):
     """The layer's feed-forward half when serving: routed + shared experts
     (their load-balance loss dropped), or an MLP."""
     if kind == "moe":
-        return moe_lib.moe_apply(lp["moe"], h, cfg.moe, dropless=dropless)[0]
-    return _mlp(h, lp["mlp"], cfg)
+        return moe_lib.moe_apply(lp["moe"], h, cfg.moe, policy, dropless=dropless,
+                                 seq_sharded=sp)[0]
+    return _mlp(h, lp["mlp"], cfg, policy, sp)
 
 
 def _embed_in(params, tokens, cfg, policy: ParallelPolicy = LOCAL, seq_sharded: bool = False):
@@ -684,17 +771,44 @@ def train_launches(cfg, s: int) -> dict:
 # Serving: prefill + decode over stacked caches
 # ---------------------------------------------------------------------------
 
-def _new_cache(cfg, batch: int, max_len: int, dtype, device, alloc) -> dict:
-    """The cache tree, each leaf from ``alloc``: attention leaves in
-    ``dtype``, recurrent ones (SSM, RG-LRU) float32, as the reference's."""
+def _part_shape(name: str, shape: tuple, spec: tuple, cfg, policy: ParallelPolicy) -> tuple:
+    """This rank's part of a cache leaf of ``shape`` (its rows already
+    this rank's) over the model group: the dim that ``spec`` puts on the
+    model axis cut by P."""
+    p = policy.model_size()
+    if p == 1 or MODEL_AXIS not in spec:
+        return shape
+    dim = spec.index(MODEL_AXIS)
+    if shape[dim] % p:
+        raise ValueError(f"{cfg.name}: the {shape[dim]} entries of the cache leaf {name}'s dim "
+                         f"{dim} do not split over {p} model ranks")
+    return shape[:dim] + (shape[dim] // p,) + shape[dim + 1:]
+
+
+def _new_cache(cfg, batch: int, max_len: int, dtype, device, alloc,
+               policy: ParallelPolicy = LOCAL) -> dict:
+    """The cache tree of ``batch`` rows as this rank holds them, each leaf
+    from ``alloc`` and cut over the model group by its spec
+    (``cache_specs``): attention leaves in ``dtype`` (split under a mesh,
+    ``use_split_cache``; the prefix int8 and its scales bf16 under
+    ``kv_quant``), recurrent ones (SSM, RG-LRU) float32, as the
+    reference's."""
+    split = use_split_cache(cfg, policy)
+
     def make(kind, lead):
         if kind == "ssm":
-            shapes, dt = ssm_lib.cache_shapes(cfg.d_model, cfg.ssm, batch), torch.float32
+            leaves = {n: (sh, torch.float32)
+                      for n, sh in ssm_lib.cache_shapes(cfg.d_model, cfg.ssm, batch).items()}
         elif kind == "rec":
-            shapes, dt = rglru_lib.cache_shapes(cfg.d_model, cfg.rglru, batch), torch.float32
+            leaves = {n: (sh, torch.float32)
+                      for n, sh in rglru_lib.cache_shapes(cfg.d_model, cfg.rglru, batch).items()}
         else:
-            shapes, dt = attn_lib.cache_shapes(cfg, batch, max_len), dtype
-        return {name: alloc(lead + shape, dtype=dt, device=device) for name, shape in shapes.items()}
+            leaves = attn_lib.cache_leaves(cfg, batch, max_len, dtype, split=split,
+                                           quant=policy.kv_quant)
+        specs = _layer_cache_specs(cfg, policy, kind)
+        return {name: alloc(lead + _part_shape(name, shape, specs[name], cfg, policy), dtype=dt,
+                            device=device)
+                for name, (shape, dt) in leaves.items()}
 
     if cfg.family == "hybrid":
         pat, n_super, tail = hybrid_layout(cfg)
@@ -706,15 +820,25 @@ def _new_cache(cfg, batch: int, max_len: int, dtype, device, alloc) -> dict:
             "layers": make(kinds[-1], (len(kinds) - first,))}
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+               policy: ParallelPolicy = LOCAL) -> dict:
     """The zeroed cache: {"layer0": one layer's or None, "layers": stacked},
     k and v [L, batch, kvh, max_len, hd], or under MLA ckv [L, batch,
     max_len, kv_lora] and kr [L, batch, max_len, dh_rope], or for SSM
     layers conv and state, float32; for the hybrid family {"superblocks",
     "tail"} with rings of min(max_len, window) positions (``dtype``) and
-    the RG-LRU's conv and h (float32)."""
+    the RG-LRU's conv and h (float32).
+
+    Under a mesh policy the attention caches are split (a prefix, int8
+    with scales under ``kv_quant``, and a ``TAIL_LEN`` tail) and this rank
+    holds its part of the tree (``cache_specs``): its data rank's
+    batch/D rows, and 1/P of each prefix, by kv heads or by sequence."""
+    check_mesh_serving(cfg, policy)
     device = resolve_device(device)
-    return _new_cache(cfg, batch, max_len, dtype, device, torch.zeros)
+    d = policy.dp_size()
+    if batch % d:
+        raise ValueError(f"{batch} cache rows do not split over {d} data ranks")
+    return _new_cache(cfg, batch // d, max_len, dtype, device, torch.zeros, policy)
 
 
 def cache_rows(cache: dict, start: int, stop: int) -> dict:
@@ -736,27 +860,98 @@ def _leaves(tree, name=None):
     return [] if tree is None else [(name, tree)]
 
 
+def _split_caches(cache: dict) -> list:
+    """Every layer's split attention cache (a dict with a tail), the
+    stacked ones as views."""
+    out = []
+
+    def visit(tree, stacked):
+        if isinstance(tree, dict) and "tk" in tree:
+            n = tree["tk"].shape[0]
+            out.extend([{k: c[i] for k, c in tree.items()} for i in range(n)] if stacked else [tree])
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, stacked or k in ("layers", "superblocks"))
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                visit(v, stacked)
+
+    visit(cache, False)
+    return out
+
+
+def _chunk(cfg, policy: ParallelPolicy) -> tuple:
+    """(m, P) of a sequence-sharded prefix, else (0, 1)."""
+    if attn_lib.prefix_by_sequence(cfg, policy):
+        return policy.model_rank(), policy.model_size()
+    return 0, 1
+
+
+def flush_tails(cache: dict, cfg, row: int, prefix_valid: int,
+                policy: ParallelPolicy = LOCAL) -> None:
+    """``attention.flush_tail`` of row ``row`` (of the rows this rank
+    holds) in every layer's split cache: its tail written into its prefix
+    at ``prefix_valid``, then zeroed."""
+    chunk = _chunk(cfg, policy)
+    for lc in _split_caches(cache_rows(cache, row, row + 1)):
+        attn_lib.flush_tail(lc, prefix_valid, chunk=chunk)
+
+
 def _write(lc: dict, new: dict) -> None:
     """Overwrite a layer's recurrent cache (or ring) whole."""
     for name, t in new.items():
         lc[name].copy_(t)
 
 
-def _attn_prefill(p, h, cfg, positions, lc):
+def _write_prefix(lc: dict, kt, vt, lo: int) -> None:
+    """Write the prompt's k/v [b, kvh, s, hd] (positions 0..s-1) into the
+    prefix positions ``lo`` .. that ``lc`` holds, zeros past the prompt, as
+    the reference pads its prefill's cache; an int8 prefix takes the
+    padded prefix quantized (``quantize_kv``), scales included; a split
+    cache's tail is zeroed."""
+    s_loc = lc["k"].shape[2]
+    n = max(0, min(s_loc, kt.shape[2] - lo))
+    for name, t in (("k", kt), ("v", vt)):
+        if name + "_scale" in lc:
+            padded = t.new_zeros(t.shape[:2] + (s_loc, t.shape[3]))
+            padded[:, :, :n] = t[:, :, lo:lo + n]
+            values, scales = attn_lib.quantize_kv(padded)
+            lc[name].copy_(values)
+            lc[name + "_scale"].copy_(scales)
+        else:
+            lc[name][:, :, :n] = t[:, :, lo:lo + n]
+            lc[name][:, :, n:] = 0
+    for name in ("tk", "tv"):
+        if name in lc:
+            lc[name].zero_()
+
+
+def _attn_prefill(p, h, cfg, positions, lc, policy: ParallelPolicy = LOCAL, sp: bool = False):
     """Causal self-attention over the prompt: through the flash kernel, or
     past a sliding window through ``_windowed_attention``. The prompt's k/v
-    are written into the first s positions of the layer's cache ``lc``
-    {"k", "v"}: [b, kvh, S, hd]; under a window the ring is written whole:
-    the prompt and zeros past it when it is shorter than the ring, else
-    its last S positions, position t at slot t % S."""
+    are written into the layer's cache ``lc`` {"k", "v", ...}: [b, kvh, S,
+    hd] (``_write_prefix``); under a window the ring is written whole: the
+    prompt and zeros past it when it is shorter than the ring, else its
+    last S positions, position t at slot t % S.
+
+    Over a model group attention is ``attention._attn_tp``; this rank
+    writes its kv heads of the prefix, or under ``prefix_by_sequence`` its
+    chunk of the positions of every kv head."""
+    if policy.model_size() > 1:
+        out, xin, k, v = attn_lib._attn_tp(p, h, cfg, policy, True, sp, with_kv=True)
+        lo = 0
+        if attn_lib.prefix_by_sequence(cfg, policy):
+            k, v = attn_lib.kv_all_heads(p, xin, cfg, policy, positions)
+            lo = policy.model_rank() * lc["k"].shape[2]
+        _write_prefix(lc, k.transpose(1, 2), v.transpose(1, 2), lo)
+        return out
     b, s, _ = h.shape
     q, k, v = attn_lib._project_qkv(p, h, cfg, positions)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     o = attn_lib.attend(q.transpose(1, 2), kt, vt, cfg)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
     if cfg.window is None:
-        lc["k"][:, :, :s] = kt
-        lc["v"][:, :, :s] = vt
+        _write_prefix(lc, kt, vt, 0)
     else:
         w = lc["k"].shape[2]
         for name, t in (("k", kt), ("v", vt)):
@@ -770,15 +965,17 @@ def _attn_prefill(p, h, cfg, positions, lc):
 
 def _mla_prefill(p, h, cfg, positions, lc):
     """MLA over the prompt; its latent and RoPE key are written into the
-    first s positions of ``lc`` {"ckv", "kr"}: [b, S, ...]."""
+    first s positions of ``lc`` {"ckv", "kr"}: [b, S, ...], zeros past it."""
     s = h.shape[1]
     out, ckv, k_rope = attn_lib.mla_forward(p, h, cfg, positions=positions, return_latents=True)
-    lc["ckv"][:, :s] = ckv
-    lc["kr"][:, :s] = k_rope
+    for name, t in (("ckv", ckv), ("kr", k_rope)):
+        lc[name][:, :s] = t
+        lc[name][:, s:] = 0
     return out
 
 
-def _prefill_layer(x, lp, kind, cfg, positions, lc):
+def _prefill_layer(x, lp, kind, cfg, positions, lc, policy: ParallelPolicy = LOCAL,
+                   sp: bool = False):
     h = _norm(x, lp["ln1"], cfg)
     if kind == "ssm":
         y, new = ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm, return_cache=True)
@@ -787,15 +984,38 @@ def _prefill_layer(x, lp, kind, cfg, positions, lc):
     if kind == "rec":
         y, new = rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, return_cache=True)
         _write(lc, new)
+    elif cfg.mla is not None:
+        y = _mla_prefill(lp["attn"], h, cfg, positions, lc)
     else:
-        attend = _mla_prefill if cfg.mla is not None else _attn_prefill
-        y = attend(lp["attn"], h, cfg, positions, lc)
+        y = _attn_prefill(lp["attn"], h, cfg, positions, lc, policy, sp)
     x = x + y
     h = _norm(x, lp["ln2"], cfg)
-    return x + _ffn(h, lp, kind, cfg)
+    return x + _ffn(h, lp, kind, cfg, policy=policy, sp=sp)
 
 
-def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None):
+def _last_logits(h_last, params, cfg, policy: ParallelPolicy):
+    """Logits [b, V] float32 of the last positions' hidden states [b, d]:
+    over a model group that splits lm_head's vocab, each rank's columns
+    all-gathered."""
+    logits = layers.logits_last(h_last, params["lm_head"])
+    if policy.model_size() > 1 and policy.splits(cfg.vocab):
+        return gather_from(logits, -1, policy.model_group)
+    return logits
+
+
+def _prefix_room(cfg, cache, policy: ParallelPolicy) -> Optional[int]:
+    """How many positions the cache's prefix holds (over the model group),
+    or None for rings and recurrent states."""
+    if cfg.window is not None:
+        return None
+    leaves = [t for name, t in _leaves(cache) if name in _SEQ_LEAVES]
+    if not leaves:
+        return None
+    return leaves[0].shape[-2] * _chunk(cfg, policy)[1]
+
+
+def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None,
+               policy: ParallelPolicy = LOCAL):
     """Process a prompt, returning (last-token logits [b, V] float32, cache
     at len(prompt), zero past it). The prompt's k/v (or MLA latents) are
     written into ``cache`` when one is given (a cache of b rows, such as a
@@ -804,62 +1024,92 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
     as the reference's: attention leaves in the activation dtype, bf16
     under MLA, recurrent ones float32. Every leaf of the cache is written:
     the recurrent states and the sliding window's rings whole by their
-    layers, the other attention leaves past the prompt zeroed here. The
-    MoE layers route the whole prompt at once, so its capacity (and what
-    it drops) is the reference's for this prompt."""
+    layers, the other attention leaves past the prompt zeroed. The MoE
+    layers route the whole prompt at once, so its capacity (and what it
+    drops) is the reference's for this prompt.
+
+    Under a mesh policy ``params`` are this rank's shards, ``tokens`` its
+    rows and the cache its part (``init_cache``): the blocks run
+    tensor-parallel as ``lm_hidden``'s do (the residual stream this rank's
+    slice of the sequence when ``policy.seq_sharded(s)``), each attention
+    layer writes this rank's part of its prefix, and the logits of a
+    vocab-split lm_head are gathered over the model group."""
+    check_mesh_serving(cfg, policy)
     b, s = tokens.shape
     if cache is None:
         dtype = torch.bfloat16 if cfg.mla is not None else cfg.activation_dtype
-        cache = _new_cache(cfg, b, max_len or s, dtype, tokens.device, torch.empty)
-    if cfg.window is None:
-        leaves = [t for name, t in _leaves(cache) if name in _SEQ_LEAVES]
-        room = leaves[0].shape[-2] if leaves else s
-        if s > room:
-            raise ValueError(f"prompt of {s} tokens does not fit max_len={room}")
-        for buf in leaves:  # the reference's zero padding, all layers at once
-            buf[..., s:, :] = 0
-    x = _embed_in(params, tokens, cfg)
+        cache = _new_cache(cfg, b, max_len or s, dtype, tokens.device, torch.empty, policy)
+    room = _prefix_room(cfg, cache, policy)
+    if room is not None and s > room:
+        raise ValueError(f"prompt of {s} tokens does not fit max_len={room}")
+    sp = policy.seq_sharded(s)
+    x = _embed_in(params, tokens, cfg, policy, sp)
     positions = torch.arange(s, device=x.device)
     for lp, lc, kind in _layers(cfg, params, cache):
-        x = _prefill_layer(x, lp, kind, cfg, positions, lc)
+        x = _prefill_layer(x, lp, kind, cfg, positions, lc, policy, sp)
     h = _norm(x, params["final_norm"], cfg)
-    return layers.logits_last(h[:, -1], params["lm_head"]), cache
+    last = gather_from(h[:, -1:], 1, policy.model_group)[:, -1] if sp else h[:, -1]
+    return _last_logits(last, params, cfg, policy), cache
 
 
-def _decode_layer(x, lp, kind, lc, index, cfg, n_keys):
+def _decode_layer(x, lp, kind, lc, index, cfg, n_keys, policy, prefix_len):
     h = _norm(x, lp["ln1"], cfg)
     if kind == "ssm":
         y, _ = ssm_lib.ssm_decode(lp["mixer"], h, lc, cfg.d_model, cfg.ssm)
         return x + y
     if kind == "rec":
         y, _ = rglru_lib.rglru_decode(lp["mixer"], h, lc, cfg.rglru, cfg.d_model)
+    elif cfg.mla is not None:
+        y, _ = attn_lib.mla_decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys)
     else:
-        decode = attn_lib.mla_decode if cfg.mla is not None else attn_lib.attn_decode
-        y, _ = decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys)
+        y, _ = attn_lib.attn_decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys, policy=policy,
+                                    prefix_len=prefix_len)
     x = x + y
     h = _norm(x, lp["ln2"], cfg)
-    return x + _ffn(h, lp, kind, cfg, dropless=True)
+    return x + _ffn(h, lp, kind, cfg, dropless=True, policy=policy)
 
 
-def _decode_index(index, b: int, device) -> tuple:
-    """(index tensor [b], max index + 1) from an int, a sequence or a tensor."""
-    if isinstance(index, torch.Tensor):
-        t = index.to(device=device, dtype=torch.long).reshape(-1).expand(b)
-        return t, int(t.max()) + 1
-    values = [int(index)] * b if np.ndim(index) == 0 else [int(i) for i in index]
-    return torch.tensor(values, dtype=torch.long, device=device), max(values) + 1
+def _check_tail_room(cfg, cache, policy, index, prefix_len, b: int) -> None:
+    """Refuse a step that would write a row's tail outside it (each row's
+    index within ``TAIL_LEN`` past its prefix length), where the host holds
+    both (a tensor is not read back for it)."""
+    room = _prefix_room(cfg, cache, policy)
+    if room is None or not any(name == "tk" for name, _ in _leaves(cache)):
+        return
+    rows = attn_lib.row_values(index, b)
+    plen = attn_lib.row_values(room if prefix_len is None else prefix_len, b)
+    if rows is None or plen is None:
+        return
+    for r, (i, p) in enumerate(zip(rows, plen)):
+        if not 0 <= i - p < attn_lib.TAIL_LEN:
+            raise ValueError(f"row {r}: index {i} is not within {attn_lib.TAIL_LEN} past its "
+                             f"prefix length {p}: flush its tail first, or give its prefix_len")
 
 
-def lm_decode_step(params, token, cache, index, cfg):
+def lm_decode_step(params, token, cache, index, cfg, *, policy: ParallelPolicy = LOCAL,
+                   prefix_len=None):
     """One decode step. token: [b, 1] int; index: the number of tokens
     already in each row's cache, an int for all rows or one per row (the
     reference's vmap over slots, as a batch). Returns (logits [b, V]
     float32, cache), the cache updated in place. The MoE layers route the
     b tokens together with room for all b on every expert, so they drop
-    none, as the reference's one-token steps drop none, for any b."""
-    x = _embed_in(params, token, cfg)
-    idx, n_keys = _decode_index(index, token.shape[0], x.device)
+    none, as the reference's one-token steps drop none, for any b.
+
+    A split cache (every one under a mesh policy) takes each row's new k/v
+    into its tail at index - ``prefix_len``, where ``prefix_len`` (an int
+    or one per row; the whole prefix by default) is the row's valid prefix
+    length: the prompt's, plus ``TAIL_LEN`` for each flush since
+    (``flush_tails``). Under a mesh policy ``params`` are this rank's
+    shards, ``token`` its rows and the cache its part: attention over the
+    model group by ``attention._attn_decode_split``, the MLPs
+    tensor-parallel, the MoE's experts split over the group
+    (``moe._moe_together``), the logits gathered over it."""
+    check_mesh_serving(cfg, policy)
+    _check_tail_room(cfg, cache, policy, index, prefix_len, token.shape[0])
+    x = _embed_in(params, token, cfg, policy)
+    idx, top = attn_lib.rows_tensor(index, token.shape[0], x.device)
+    n_keys = top + 1
     for lp, lc, kind in _layers(cfg, params, cache):
-        x = _decode_layer(x, lp, kind, lc, idx, cfg, n_keys)
+        x = _decode_layer(x, lp, kind, lc, idx, cfg, n_keys, policy, prefix_len)
     h = _norm(x, params["final_norm"], cfg)
-    return layers.logits_last(h[:, 0], params["lm_head"]), cache
+    return _last_logits(h[:, 0], params, cfg, policy), cache

@@ -18,14 +18,33 @@ weights cast once to the activation dtype, ``F32_LEAVES`` (the embedding
 table, the norm weights, the recurrent mixers' convs and gates) float32.
 Its KV cache (under MLA the latent cache; under a sliding window a ring)
 is bfloat16 whatever the activation dtype, and its recurrent caches
-float32, as the reference's. Greedy argmax takes the first of tied
-logits, as ``jnp.argmax`` does.
+float32, as the reference's; ``cache_dtype`` picks another dtype for the
+attention caches (float32: a decode step whose only rounding is the
+activations', on which parity checks hold greedy tokens). Greedy argmax
+takes the first of tied logits, as ``jnp.argmax`` does.
 
 MoE: each admission prefills its prompt alone, so the prompt's routing
 capacity and drops are the reference's; the decode step routes the slots'
 tokens together with room for all of them on every expert, so it drops
 none for any number of slots, as the reference's one-token steps under
 ``vmap`` drop none.
+
+Under a mesh policy (``models/policy.py``; the dense and MoE families)
+every rank builds the runner alike with its own parameter shards
+(``shard_params``) and drives the same scheduler with the same requests.
+The slots' cache rows are split over the data group (the batch dim of
+``cache_specs``), each data rank holding max_slots/D of them and 1/P of
+their prefixes. A slot's prefill runs on the model group of the data rank
+that holds it (its policy's data group of one rank, ``model_only``) and
+its first token goes to every data rank; a decode step runs every data
+rank's rows at once, and the chosen tokens are all-gathered over the data
+group, so every rank's scheduler takes the same decisions. The caches are
+split (``attention.init_kv_cache``): each step writes a slot's tail, and a
+slot's tail is flushed into its prefix (``transformer.flush_tails``) at
+the start of the step that would overflow it, every ``TAIL_LEN`` steps.
+The reference's engine never flushes its tail (and its split decode is
+right only for a prompt that fills the prefix, which its engine sizes to
+max_len): this schedule is the port's own.
 """
 from __future__ import annotations
 
@@ -36,7 +55,10 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.core.partition import gather_dim
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models.attention import TAIL_LEN
+from repro_torch.models.policy import LOCAL, ParallelPolicy
 from repro_torch.serve.scheduler import Scheduler
 
 # Families Engine can decode with lm_prefill/lm_decode_step. "encdec"
@@ -67,7 +89,8 @@ class TransformerRunner:
     False`` (the entry points do); the runner leaves process-wide settings
     alone."""
 
-    def __init__(self, cfg, params, *, max_len: int = 128, max_slots: int = 4, device=None):
+    def __init__(self, cfg, params, *, max_len: int = 128, max_slots: int = 4, device=None,
+                 policy: ParallelPolicy = LOCAL, cache_dtype=torch.bfloat16):
         if cfg.family not in SERVABLE_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} is not servable by the token engine "
@@ -76,10 +99,20 @@ class TransformerRunner:
             )
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.policy = policy
         self.params = tf_lib.serving_params(params, cfg, self.device)
         self.max_len = max_len
         self._lengths = [0] * max_slots
-        self.cache = tf_lib.init_cache(cfg, max_slots, max_len, device=self.device)
+        # each slot's valid prefix length (split caches): the prompt's, plus
+        # TAIL_LEN at each flush
+        self._prefix = [0] * max_slots
+        self.cache = tf_lib.init_cache(cfg, max_slots, max_len, cache_dtype, device=self.device,
+                                       policy=policy)
+        self.split = tf_lib.use_split_cache(cfg, policy)
+        # the slots whose rows this rank holds: first .. first + rows - 1
+        self.rows = max_slots // policy.dp_size()
+        self.first = policy.data_rank() * self.rows
+        self.flushes = 0
         self.prefill_s: List[float] = []
         self.decode_s: List[float] = []
 
@@ -88,23 +121,38 @@ class TransformerRunner:
     def admit(self, slot: int, req: Request) -> None:
         """Prefill the prompt and install the cache into ``slot``."""
         t0 = time.perf_counter()
-        tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-        # the prefill writes the slot's whole row: the prompt, zeros past it
-        row = tf_lib.cache_rows(self.cache, slot, slot + 1)
-        logits, _ = tf_lib.lm_prefill(self.params, tokens, self.cfg, cache=row)
-        nxt = int(torch.argmax(logits[0]))
-        req.output.append(nxt)
+        nxt = torch.zeros(1, dtype=torch.long, device=self.device)
+        row = slot - self.first
+        if 0 <= row < self.rows:
+            tokens = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
+            # the prefill writes the slot's whole row: the prompt, zeros past it
+            rows = tf_lib.cache_rows(self.cache, row, row + 1)
+            logits, _ = tf_lib.lm_prefill(self.params, tokens, self.cfg, cache=rows,
+                                          policy=self.policy.model_only())
+            nxt = torch.argmax(logits[0]).reshape(1)
+        if self.policy.dp_size() > 1:  # from the data rank that holds the slot
+            nxt = gather_dim(nxt, 0, self.policy.data_group)[slot // self.rows]
+        req.output.append(int(nxt))
         self._lengths[slot] = len(req.prompt) + 1
+        self._prefix[slot] = len(req.prompt)
         self.prefill_s.append(time.perf_counter() - t0)
 
     @torch.inference_mode()
     def step(self, slots: Sequence[Optional[Request]], active: Sequence[int]) -> list:
         t0 = time.perf_counter()
-        tokens = torch.tensor([[r.output[-1] if r else 0] for r in slots],
+        mine = range(self.first, self.first + self.rows)
+        if self.split:
+            self._flush_full_tails(slots, mine)
+        tokens = torch.tensor([[slots[i].output[-1] if slots[i] else 0] for i in mine],
                               dtype=torch.long, device=self.device)
-        index = [self._lengths[i] - 1 if slots[i] else 0 for i in range(len(slots))]
-        logits, self.cache = tf_lib.lm_decode_step(self.params, tokens, self.cache, index, self.cfg)
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        index = [self._lengths[i] - 1 if slots[i] else 0 for i in mine]
+        prefix = [self._prefix[i] if slots[i] else 0 for i in mine] if self.split else None
+        logits, self.cache = tf_lib.lm_decode_step(self.params, tokens, self.cache, index, self.cfg,
+                                                   policy=self.policy, prefix_len=prefix)
+        nxt = torch.argmax(logits, dim=-1)
+        if self.policy.dp_size() > 1:
+            nxt = gather_dim(nxt, 0, self.policy.data_group)
+        nxt = nxt.tolist()
         finished = []
         for i in active:
             req = slots[i]
@@ -120,17 +168,32 @@ class TransformerRunner:
         self.decode_s.append(time.perf_counter() - t0)
         return finished
 
+    def _flush_full_tails(self, slots, mine) -> None:
+        """Flush the tail of each of this rank's active slots that holds
+        ``TAIL_LEN`` entries into its prefix, before the step writes a
+        new one. Every rank counts every slot's flushes alike."""
+        for i, req in enumerate(slots):
+            if req is not None and self._lengths[i] - 1 - self._prefix[i] == TAIL_LEN:
+                if i in mine:
+                    tf_lib.flush_tails(self.cache, self.cfg, i - self.first, self._prefix[i],
+                                       policy=self.policy)
+                self._prefix[i] += TAIL_LEN
+                self.flushes += 1
+
     def retire(self, slot: int, req: Request) -> None:
         self._lengths[slot] = 0  # cache rows are overwritten on next admit
+        self._prefix[slot] = 0
 
 
 class Engine:
     """LLM serving engine: TransformerRunner behind the shared scheduler."""
 
-    def __init__(self, cfg, params, *, max_len: int = 128, max_batch: int = 4, device=None):
+    def __init__(self, cfg, params, *, max_len: int = 128, max_batch: int = 4, device=None,
+                 policy: ParallelPolicy = LOCAL, cache_dtype=torch.bfloat16):
         self.cfg = cfg
         self.runner = TransformerRunner(
-            cfg, params, max_len=max_len, max_slots=max_batch, device=device
+            cfg, params, max_len=max_len, max_slots=max_batch, device=device, policy=policy,
+            cache_dtype=cache_dtype,
         )
         self.scheduler = Scheduler(self.runner, max_batch)
 

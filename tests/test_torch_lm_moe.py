@@ -288,19 +288,28 @@ def test_dropless_moe_keeps_every_entry_past_128_tokens(n_shared):
     assert not bool(keep.all())  # without dropless the batch would drop
 
 
-def test_expert_parallel_moe_names_its_roadmap_item():
+def test_routed_experts_over_two_model_ranks_on_three_tokens_match(tmp_path):
     """Routed experts split over a model group whose size does not divide
-    the sequence (the reference computes them where the tokens are) are
-    not ported: the refusal names ROADMAP's item. The all-to-all itself is
-    held against the reference on 4 ranks in
-    ``tests/test_torch_dist_lm.py``."""
-    from lm_train_common import StandInGroup
-    from repro_torch.models import ParallelPolicy as TPolicy
+    the sequence (2 ranks, 3 tokens): each rank routes the same tokens, runs
+    its half of the experts, and the group sums the parts (the reference
+    computes them where the tokens are, ``_moe_local``); the shared experts
+    run tensor-parallel. On 2 gloo ranks against the reference's
+    ``moe_apply``: y and aux within 1e-5. Larger cases, their gradients and
+    decode batches: ``tests/test_torch_dist_serve_lm.py``."""
+    import torch_dist_serve_lm_checks as rank_side
+    from repro_torch.launch.mesh import launch_ranks
+    from torch_dist_checks import one_launch_at_a_time
 
-    _, tm = _moe_cfg()
-    policy = TPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(2)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tmoe.moe_apply({}, torch.zeros(1, 3, 16), tm, policy)
+    jm, tm = _moe_cfg(n_shared=1)
+    p = _moe_params(jm, 16, 33)
+    x = np.random.default_rng(34).standard_normal((1, 3, 16)).astype(np.float32)
+    want, waux = jmoe.moe_apply(_jtree(p), jnp.asarray(x), jm)
+    inp = {"params": p, "x": x, "cfg": dataclasses.asdict(tm)}
+    with one_launch_at_a_time():
+        y, aux = launch_ranks(rank_side.moe_on_model_ranks, 2, str(tmp_path), args=(inp,),
+                              deadline_s=120, device="cpu")[0]
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -50,10 +50,11 @@ def test_remat_on_off_and_dots_give_the_same_gradients(arch):
 
 def test_a_policy_over_a_mesh_is_the_distributed_slice():
     """A policy over process groups runs the dense and MoE decoders
-    (``tests/test_torch_dist_lm.py``). Over a model group of more than one
-    rank, MLA, the SSM mixer, the hybrid family's RG-LRU and the
-    encoder-decoder family still raise ROADMAP's item, and so do int8
-    caches; a mesh without a group for an axis is refused."""
+    (``tests/test_torch_dist_lm.py``), and serves them from split caches,
+    int8 ones with ``kv_quant`` (``tests/test_torch_dist_serve_lm.py``).
+    Over a model group of more than one rank, MLA, the SSM mixer, the
+    hybrid family's RG-LRU and the encoder-decoder family still raise
+    ROADMAP's item; a mesh without a group for an axis is refused."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import whisper_loss
 
@@ -66,8 +67,14 @@ def test_a_policy_over_a_mesh_is_the_distributed_slice():
                     policy)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
         whisper_loss({}, {}, reduced(get_arch("whisper-tiny")), policy)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-        ParallelPolicy(mesh=mesh, kv_quant=True)
+    from repro_torch.models import init_cache
+
+    quant = ParallelPolicy(mesh=mesh, kv_quant=True)
+    cache = init_cache(reduced(get_arch("chatglm3-6b")), 2, 16, device="cpu", policy=quant)
+    leaves = cache["layers"]
+    assert leaves["k"].dtype == leaves["v"].dtype == torch.int8
+    assert leaves["k_scale"].dtype == leaves["v_scale"].dtype == torch.bfloat16
+    assert leaves["tk"].dtype == torch.bfloat16 and leaves["k"].shape[1:] == (2, 1, 16, 16)
     with pytest.raises(ValueError, match="no group for axes"):
         ParallelPolicy(mesh={"model": StandInGroup(2)})
     x = torch.ones(2, 3, 4)
