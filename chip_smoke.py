@@ -1949,8 +1949,8 @@ DIST2D_TRAIN_FORWARDS = (("dist2d_paper_train", "paper", 1), ("dist2d_eager", "e
 DIST_GRADY31_BLOCKS = 1
 # The training grid's other forwards and the backward run at this depth, to
 # keep the script's time (a gate reads the reference a 3.15 GB block at a
-# time on every rank)
-DIST_GRID_BLOCKS = 2
+# time on every rank); dist_train gates training at 2 blocks
+DIST_GRID_BLOCKS = 1
 # The deep-split ensemble served over the pencils: 2 scenarios sharing one
 # geomodel in bucket 2, 1 rollout step (cut from 2 for the script's time),
 # a cold and a warm pass, at the training grid (a cold tick's numpy
@@ -4561,9 +4561,11 @@ def phase_lm_train(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # the archs of the reference's dist_lm_loss_matches_local at full width,
-# with their depth cut: chatglm3-6b 2 of 28 layers; deepseek-moe-16b its
-# dense layer 0 and 1 MoE layer
-DIST_LM_ARCHS = {"chatglm3-6b": 2, "deepseek-moe-16b": 2}
+# with their depth cut: chatglm3-6b 2 of 28 layers; deepseek-moe-16b and
+# deepseek-v2-lite-16b (MLA) their dense layer 0 and 1 MoE layer
+DIST_LM_ARCHS = {"chatglm3-6b": 2, "deepseek-moe-16b": 2, "deepseek-v2-lite-16b": 2}
+# the archs whose bf16 training step is timed on (1 x 4)
+DIST_LM_STEP_ARCHS = ("chatglm3-6b", "deepseek-v2-lite-16b")
 DIST_LM_BATCH, DIST_LM_SEQ = 2, 1024
 # (name, ranks to a model group, seq_shard): the gates run on both
 DIST_LM_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
@@ -4574,8 +4576,9 @@ DIST_LM_GRAD_RTOL = 5e-3   # with an atol of DIST_GRAD_LEAF_ATOL x the leaf's ma
 # this batch and sequence, through the flash kernel on every rank
 DIST_LM_ULYSSES = (1, 4096)
 # the bf16 training steps timed on (1 x 4) with seq_shard (the first
-# warms up and is not counted), then one step with the collectives timed
-DIST_LM_STEPS = 3
+# warms up and is not counted; cut from 3 for the script's time), then one
+# step with the collectives timed
+DIST_LM_STEPS = 2
 DIST_LM_CLI_STEPS, DIST_LM_CLI_FAULT, DIST_LM_CLI_RTOL = 4, 2, 1e-3
 
 
@@ -4837,8 +4840,8 @@ def _dist_lm_ulysses(group, job, device) -> dict:
     return out
 
 
-def _dist_lm_step(groups, device) -> dict:
-    """``DIST_LM_STEPS`` bf16 training steps of chatglm3-6b on (1 x 4) with
+def _dist_lm_step(arch: str, groups, device) -> dict:
+    """``DIST_LM_STEPS`` bf16 training steps of ``arch`` on (1 x 4) with
     seq_shard and remat (AdamW; each rank its shards), timed after the
     first, with the kernels' launches; then one step with every
     collective timed (``core.collectives.timed``: each waits for the
@@ -4852,7 +4855,7 @@ def _dist_lm_step(groups, device) -> dict:
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_loop import make_train_step
 
-    cfg = _dist_lm_cfg("chatglm3-6b", "bfloat16")
+    cfg = _dist_lm_cfg(arch, "bfloat16")
     pol = ParallelPolicy(mesh=groups, seq_shard=True)
     local = _dist_lm_local(cfg, pol, device)
     layout = _dist_lm_layout(cfg, pol)
@@ -4927,8 +4930,10 @@ def _dist_lm_rank_work(rank, world_size, device, job):
             out["gates"][arch, name]["wall_s"] = time.perf_counter() - t
     out["ulysses"] = _dist_lm_ulysses(groups["1x4"]["model"], job, device)
     torch.cuda.empty_cache()
-    out["step"] = _dist_lm_step(groups["1x4"], device)
-    torch.cuda.empty_cache()
+    out["step"] = {}
+    for arch in DIST_LM_STEP_ARCHS:
+        out["step"][arch] = _dist_lm_step(arch, groups["1x4"], device)
+        torch.cuda.empty_cache()
     if rank == 0:
         out["times"] = _dist_lm_kernel_times(job["gpu"])
     dist.barrier()
@@ -5014,30 +5019,31 @@ def _dist_lm_check_ulysses(ranks, job: dict, gpu: str) -> dict:
     return out
 
 
-def _dist_lm_report_step(ranks, gpu: str) -> dict:
-    """The timed bf16 steps of every rank: step ms, the collectives' share,
-    peak memory, tokens/s; the launches exact and equal on every rank."""
+def _dist_lm_report_step(ranks, arch: str, gpu: str) -> dict:
+    """The timed bf16 steps of ``arch`` on every rank: step ms, the
+    collectives' share, peak memory, tokens/s; the launches exact and
+    equal on every rank."""
     from repro_torch.models.transformer import train_launches
 
-    cfg = _dist_lm_cfg("chatglm3-6b", "bfloat16")
+    cfg = _dist_lm_cfg(arch, "bfloat16")
     per = train_launches(cfg, DIST_LM_SEQ)
-    steps = [r["step"] for r in ranks]
+    steps = [r["step"][arch] for r in ranks]
     want = {k: steps[0]["counted_steps"] * v for k, v in per.items()}
     if any(st["launches"] != want for st in steps):
-        raise SystemExit(f"[dist lm] step launches per rank {[st['launches'] for st in steps]}, "
-                         f"want {want} (a pass {per})")
+        raise SystemExit(f"[dist lm] {arch} step launches per rank "
+                         f"{[st['launches'] for st in steps]}, want {want} (a pass {per})")
     if not all(np.isfinite(st["losses"]).all() for st in steps):
-        raise SystemExit("[dist lm] a training loss is not finite")
+        raise SystemExit(f"[dist lm] an {arch} training loss is not finite")
     step_ms = [float(np.mean(st["times"][1:]) * 1e3) for st in steps]
     share = [st["collectives_s"] / st["timed_step_s"] for st in steps]
     tokens = DIST_LM_BATCH * DIST_LM_SEQ
     for r, st in enumerate(steps):
-        print(f"[dist lm] step rank {r}: {step_ms[r]:.1f} ms after the first "
+        print(f"[dist lm] {arch} step rank {r}: {step_ms[r]:.1f} ms after the first "
               f"({st['times'][0] * 1e3:.1f} ms); collectives {st['collectives_s'] * 1e3:.1f} ms "
               f"({st['collectives_calls']} calls) of a {st['timed_step_s'] * 1e3:.1f} ms step with "
               f"each one timed ({share[r]:.1%}); peak {st['peak_gib']:.2f} GiB; losses "
               f"{[round(x, 6) for x in st['losses']]}")
-    print(f"[dist lm] chatglm3-6b bf16 on 1 x 4 (seq_shard, remat, AdamW): "
+    print(f"[dist lm] {arch} bf16 on 1 x 4 (seq_shard, remat, AdamW): "
           f"{tokens / (max(step_ms) / 1e3):.0f} tokens/s at the slowest rank's step "
           f"({max(step_ms):.1f} ms); launches a rank {steps[0]['launches']} over "
           f"{steps[0]['counted_steps']} steps (a pass {per}); {gpu}")
@@ -5064,21 +5070,25 @@ def _dist_lm_kernel_times(gpu: str) -> dict:
         return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
 
     flash = {}
-    for name, (b, h, kvh, s) in {
-            "chatglm3-6b 1x4 (b 2, 8 q heads, kv 1)": (2, 8, 1, DIST_LM_SEQ),
-            "chatglm3-6b 2x2 (b 1, 16 q heads, kv 1)": (1, 16, 1, DIST_LM_SEQ),
-            "deepseek-moe-16b 1x4 (b 2, 4 heads)": (2, 4, 4, DIST_LM_SEQ),
-            "deepseek-moe-16b 2x2 (b 1, 8 heads)": (1, 8, 8, DIST_LM_SEQ),
-            "chatglm3-6b ulysses (b 1, 8 q heads, kv 1, s 4096)": (1, 8, 1, DIST_LM_ULYSSES[1]),
+    # (b, heads, kv heads, s, head dim); MLA's dh_nope + dh_rope, v padded to it
+    for name, (b, h, kvh, s, hd) in {
+            "chatglm3-6b 1x4 (b 2, 8 q heads, kv 1)": (2, 8, 1, DIST_LM_SEQ, 128),
+            "chatglm3-6b 2x2 (b 1, 16 q heads, kv 1)": (1, 16, 1, DIST_LM_SEQ, 128),
+            "deepseek-moe-16b 1x4 (b 2, 4 heads)": (2, 4, 4, DIST_LM_SEQ, 128),
+            "deepseek-moe-16b 2x2 (b 1, 8 heads)": (1, 8, 8, DIST_LM_SEQ, 128),
+            "chatglm3-6b ulysses (b 1, 8 q heads, kv 1, s 4096)": (1, 8, 1, DIST_LM_ULYSSES[1],
+                                                                   128),
+            "deepseek-v2-lite-16b MLA 1x4 (b 2, 4 heads x 192)": (2, 4, 4, DIST_LM_SEQ, 192),
+            "deepseek-v2-lite-16b MLA 2x2 (b 1, 8 heads x 192)": (1, 8, 8, DIST_LM_SEQ, 192),
     }.items():
-        q = randn((b, s, h, 128)).transpose(1, 2)
-        k, v = (randn((b, s, kvh, 128)).transpose(1, 2) for _ in range(2))
+        q = randn((b, s, h, hd)).transpose(1, 2)
+        k, v = (randn((b, s, kvh, hd)).transpose(1, 2) for _ in range(2))
         err = _lm_check(f"dist lm flash {name}", flash_attention(q, k, v), flash_attention_ref(q, k, v))
         ms, by_ms = device_ms(lambda: flash_attention(q, k, v), n=10)
         plain, by_plain = device_ms(lambda: flash_attention_ref(q, k, v), n=5)
         lib, by_lib = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=causal_lower_right(s, s), enable_gqa=True), n=10)
-        bound, by = _flash_bound_ms(b, h, kvh, s, s, 128, True, 2)
+        bound, by = _flash_bound_ms(b, h, kvh, s, s, hd, True, 2)
         print(f"[dist lm] flash {name}, device time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), bound {bound * 1e3:.2f} us "
               f"({by}); {gpu}")
@@ -5090,8 +5100,12 @@ def _dist_lm_kernel_times(gpu: str) -> dict:
     for name, (rows, d) in {
             "chatglm3-6b 1x4 seq_shard [512, 4096]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 4096),
             "chatglm3-6b 2x2 [1024, 4096]": (DIST_LM_SEQ, 4096),
-            "deepseek-moe-16b 1x4 seq_shard [512, 2048]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 2048),
-            "deepseek-moe-16b 2x2 [1024, 2048]": (DIST_LM_SEQ, 2048),
+            "deepseek-moe-16b, v2-lite 1x4 seq_shard [512, 2048]": (
+                DIST_LM_BATCH * DIST_LM_SEQ // 4, 2048),
+            "deepseek-moe-16b, v2-lite 2x2 [1024, 2048]": (DIST_LM_SEQ, 2048),
+            # MLA's kv_norm runs on the whole sequence on every rank
+            "deepseek-v2-lite-16b kv_norm 1x4 [2048, 512]": (DIST_LM_BATCH * DIST_LM_SEQ, 512),
+            "deepseek-v2-lite-16b kv_norm 2x2 [1024, 512]": (DIST_LM_SEQ, 512),
     }.items():
         x, w = randn((rows, d)), 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         err = _lm_check(f"dist lm rmsnorm {name}", rmsnorm(x, w), rmsnorm_ref(x, w))
@@ -5159,6 +5173,8 @@ def phase_dist_lm(gpu: str) -> dict:
 
     _free_cuda()
     dev = torch.device("cuda")
+    print(f"reduced: timed bf16 training steps 3 -> {DIST_LM_STEPS} (the script's time; the "
+          f"first warms up)")
     for arch, n in DIST_LM_ARCHS.items():
         full, cfg = get_arch(arch), _dist_lm_cfg(arch, "float32")
         print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "
@@ -5196,15 +5212,15 @@ def phase_dist_lm(gpu: str) -> dict:
           f"{time.perf_counter() - t0:.1f}s for the launch")
     gates = _dist_lm_check_gates(ranks, serial, gpu)
     uly = _dist_lm_check_ulysses(ranks, {"ulysses_ref": ulysses_ref}, gpu)
-    step = _dist_lm_report_step(ranks, gpu)
+    step = {arch: _dist_lm_report_step(ranks, arch, gpu) for arch in DIST_LM_STEP_ARCHS}
     del job, serial, ulysses, ulysses_ref
     torch.cuda.ipc_collect()
     _free_cuda()
     times = ranks[0]["times"]
     cli = _dist_lm_cli(gpu)
     launches = {
-        "dist_lm": {k: sum(g["launches"][k] for g in gates.values()) + step["launches"][k]
-                    for k in ("rmsnorm", "flash")},
+        "dist_lm": {k: sum(g["launches"][k] for g in gates.values())
+                    + sum(st["launches"][k] for st in step.values()) for k in ("rmsnorm", "flash")},
         "dist_lm_ulysses": {k: sum(u["launches"][k] for u in uly.values())
                             for k in ("rmsnorm", "flash")},
         "dist_lm_cli": {"rmsnorm": cli["rmsnorm"], "flash": cli["flash"]}}
@@ -5221,14 +5237,18 @@ def phase_dist_lm(gpu: str) -> dict:
 
 # full width, depth cut: gemma-7b (16 kv heads: a head-sharded prefix) and
 # chatglm3-6b (2 kv heads: sequence-sharded on 4 model ranks) 2 of 28
-# layers; deepseek-moe-16b its dense layer 0 and 1 MoE layer
-DIST_SERVE_ARCHS = {"gemma-7b": 2, "chatglm3-6b": 2, "deepseek-moe-16b": 2}
+# layers; deepseek-moe-16b and deepseek-v2-lite-16b (MLA: its latent
+# prefix sequence-sharded at every P) their dense layer 0 and 1 MoE layer
+DIST_SERVE_ARCHS = {"gemma-7b": 2, "chatglm3-6b": 2, "deepseek-moe-16b": 2,
+                    "deepseek-v2-lite-16b": 2}
 DIST_SERVE_MAX_LEN, DIST_SERVE_SLOTS = 2048, 4
 # (prompt length, max_tokens) of the 8 requests: one prompt of 1536, lengths
 # that 4 divides and that it does not (the MoE's all-to-all and its other
-# path), one request decoding past TAIL_LEN (a tail flush mid-run)
-DIST_SERVE_REQUESTS = ((1536, 8), (5, 80), (300, 8), (1027, 8), (64, 8), (777, 8), (130, 8),
-                       (12, 8))
+# path), one request decoding past TAIL_LEN (a tail flush mid-run, then 7
+# steps; cut from 80 tokens for the script's time)
+DIST_SERVE_FLUSHED = 72
+DIST_SERVE_REQUESTS = ((1536, 8), (5, DIST_SERVE_FLUSHED), (300, 8), (1027, 8), (64, 8), (777, 8),
+                       (130, 8), (12, 8))
 # (layout, ranks to a model group, seq_shard) of every arch's gate runs;
 # DIST_SERVE_EXTRA also on (4 x 1) and with kv_quant on (1 x 4)
 DIST_SERVE_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
@@ -5314,35 +5334,46 @@ def _serve_log(engine, log: dict):
 
 
 @contextlib.contextmanager
-def _decode_routes(out: list):
+def _moe_routes(out: list, prefills: list):
     """Within the block each decode step appends to ``out`` the list of its
     MoE layers' routes: (top-k experts [rows, k], the router's margin
-    log p_k - log p_k+1 [rows]), kept on the device."""
+    log p_k - log p_k+1 [rows]), kept on the device; and each prefill
+    appends to ``prefills`` the same of the last row of each routing call
+    ([k], a scalar): one call a MoE layer, or one a shard where
+    ``per_shard_moe`` routes a prompt per slice (its last call then holds
+    the prompt's last token), and on a rank of a sequence-sharded mesh the
+    last row of its own slice."""
     import repro_torch.models.moe as moe_lib
     import repro_torch.models.transformer as tf_lib
 
-    route, decode = moe_lib._route, tf_lib.lm_decode_step
+    route, decode, prefill = moe_lib._route, tf_lib.lm_decode_step, tf_lib.lm_prefill
     step = []
 
     def routed(x_flat, router_w, moe):
         topi, topv, probs = route(x_flat, router_w, moe)
         if step:
-            top = probs.topk(moe.top_k + 1, dim=-1).values.log()
-            step[-1].append((topi, top[:, -2] - top[:, -1]))
+            rows = slice(None) if step[-1][0] == "decode" else slice(-1, None)
+            top = probs[rows].topk(moe.top_k + 1, dim=-1).values.log()
+            step[-1][1].append((topi[rows], top[:, -2] - top[:, -1]))
         return topi, topv, probs
 
-    def decoded(*args, **kw):
-        step.append([])
-        try:
-            return decode(*args, **kw)
-        finally:
-            out.append(step.pop())
+    def run(kind, fn, log):
+        def call(*args, **kw):
+            step.append((kind, []))
+            try:
+                return fn(*args, **kw)
+            finally:
+                calls = step.pop()[1]
+                log.append(calls if kind == "decode" else [(t[0], m[0]) for t, m in calls])
+        return call
 
-    moe_lib._route, tf_lib.lm_decode_step = routed, decoded
+    moe_lib._route = routed
+    tf_lib.lm_decode_step = run("decode", decode, out)
+    tf_lib.lm_prefill = run("prefill", prefill, prefills)
     try:
         yield
     finally:
-        moe_lib._route, tf_lib.lm_decode_step = route, decode
+        moe_lib._route, tf_lib.lm_decode_step, tf_lib.lm_prefill = route, decode, prefill
 
 
 def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32") -> dict:
@@ -5366,8 +5397,8 @@ def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32")
     t0 = time.perf_counter()
     drops = []
     routed = per_shard_moe((1, p), {}, drops) if cfg.moe else contextlib.nullcontext()
-    routes = []
-    with routed, _serve_log(engine, log), _decode_routes(routes):
+    routes, prefill_routes = [], []
+    with routed, _serve_log(engine, log), _moe_routes(routes, prefill_routes):
         done = engine.run_until_done()
     torch.cuda.synchronize()
     what = ""
@@ -5379,7 +5410,9 @@ def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32")
           f"in {time.perf_counter() - t0:.2f}s{what}; {gpu}")
     out = {"tokens": {r.rid: list(r.output) for r in done}, "prefill": log["prefill"],
            "decode": torch.stack(log["decode"]), "active": log["active"],
-           "routes": [[(t.cpu(), m.cpu()) for t, m in step] for step in routes]}
+           "routes": [[(t.cpu(), m.cpu()) for t, m in step] for step in routes],
+           "prefill_routes": {rid: [(t.cpu(), float(m)) for t, m in calls]
+                              for rid, calls in zip(log["prefill"], prefill_routes)}}
     del engine
     _free_cuda()
     return out
@@ -5406,7 +5439,7 @@ def _prefix_bytes(cache) -> int:
     from repro_torch.models.transformer import _leaves as cache_leaves
 
     return sum(t.numel() * t.element_size() for name, t in cache_leaves(cache)
-               if name in ("k", "v", "k_scale", "v_scale"))
+               if name in ("k", "v", "k_scale", "v_scale", "ckv", "kr"))
 
 
 def _serve_launches(cfg, log: dict) -> dict:
@@ -5424,16 +5457,36 @@ def _rel(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
 
 
-def _held_to_serial(serial: dict, log: dict, tokens: dict, runner, routes=None) -> dict:
+def _held_to_serial(serial: dict, log: dict, tokens: dict, runner, routes=None,
+                    prefill_routes=None) -> dict:
     """A served run's logits against the serial run's: every prefill this
     rank ran, and each decode row of this rank's slots while the request's
     tokens so far equal the serial ones (the step's inputs are the same)
-    and, with ``routes`` (``_decode_routes`` of both runs), while its
+    and, with ``routes`` (``_moe_routes`` of both runs), while its
     routed experts are the serial ones: each row where they differ is
     listed as (request, step, the serial router's margin there), and the
-    worst logits of those rows kept apart, not held."""
+    worst logits of those rows kept apart, not held. ``prefill_routes``
+    ({rid: the prompt's last token's experts [MoE layers, k]}) does the
+    same for each prefill: one whose last token's routed experts differ in
+    a MoE layer from the serial run's (its last routing call of that
+    layer) is listed as (request, "prefill", margin), its logits kept
+    apart, and its decode rows are not held."""
     first, rows = runner.first, runner.rows
     decode_rel, compared, flips, flipped_rel, parted = 0.0, 0, [], 0.0, set()
+    prefill_rel = 0.0
+    for rid, logits in log["prefill"].items():
+        rel = _rel(logits, serial["prefill"][rid])
+        if prefill_routes is not None:
+            calls = serial["prefill_routes"][rid]
+            c = len(calls) // len(prefill_routes[rid])  # serial calls a MoE layer
+            moved = [m for (ti, m), tg in zip(calls[c - 1::c], prefill_routes[rid])
+                     if sorted(ti.tolist()) != sorted(tg.tolist())]
+            if moved:
+                flips.append((rid, "prefill", max(moved)))
+                flipped_rel = max(flipped_rel, rel)
+                parted.add(rid)
+                continue
+        prefill_rel = max(prefill_rel, rel)
     for i, (got, active) in enumerate(zip(log["decode"], log["active"])):
         for slot, rid, n in active:
             if not (first <= slot < first + rows and rid not in parted
@@ -5454,9 +5507,8 @@ def _held_to_serial(serial: dict, log: dict, tokens: dict, runner, routes=None) 
             "equal_tokens": sum(a == b for rid in tokens
                                 for a, b in zip(tokens[rid], serial["tokens"][rid])),
             "all_tokens": sum(len(t) for t in serial["tokens"].values()),
-            "prefill_rel": max((_rel(l, serial["prefill"][rid])
-                                for rid, l in log["prefill"].items()), default=0.0),
-            "decode_rel": decode_rel, "compared": compared, "flips": flips,
+            "prefill_rel": prefill_rel, "decode_rel": decode_rel, "compared": compared,
+            "flips": flips,
             "flipped_rel": flipped_rel}
 
 
@@ -5528,6 +5580,7 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
     import torch
 
     from repro_torch.core import collectives
+    from repro_torch.core.partition import gather_dim
     from repro_torch.models import ParallelPolicy
     from repro_torch.serve import Engine
 
@@ -5546,8 +5599,8 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
         _zero_kernel_counts()
         ctx = collectives.timed() if timed else contextlib.nullcontext()
         t0 = time.perf_counter()
-        routes = []
-        with ctx as count, _serve_log(engine, log), _decode_routes(routes):
+        routes, prefills = [], []
+        with ctx as count, _serve_log(engine, log), _moe_routes(routes, prefills):
             done = engine.run_until_done()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5556,8 +5609,12 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
             out.update(collectives_s=count["seconds"], collectives_calls=count["calls"],
                        timed_wall_s=wall)
         else:
+            last = None
+            if cfg.moe is not None:  # the last model rank's last rows: the prompts' last tokens
+                mine = torch.stack([torch.stack([t for t, _ in calls]) for calls in prefills])
+                last = dict(zip(log["prefill"], gather_dim(mine[None], 0, pol.model_group)[-1]))
             out.update(_held_to_serial(serial, log, {r.rid: list(r.output) for r in done}, runner,
-                                       routes))
+                                       routes, last))
             out.update(prefill_s=list(runner.prefill_s), decode_s=list(runner.decode_s),
                        tokens=sum(len(a) for a in log["active"]), wall_s=wall,
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -5594,6 +5651,8 @@ def _dist_serve_kernel_times(gpu: str) -> dict:
             f"gemma-7b 1x4 prefill (b 1, s {s}, 4 heads x 256)": (4, 4, 256),
             f"chatglm3-6b 1x4 prefill (b 1, s {s}, 8 q heads, kv 1, x 128)": (8, 1, 128),
             f"deepseek-moe-16b 1x4 prefill (b 1, s {s}, 4 heads x 128)": (4, 4, 128),
+            # MLA: dh_nope + dh_rope, v padded to it
+            f"deepseek-v2-lite-16b MLA 1x4 prefill (b 1, s {s}, 4 heads x 192)": (4, 4, 192),
     }.items():
         q = randn((1, s, h, hd)).transpose(1, 2)
         k, v = (randn((1, s, kvh, hd)).transpose(1, 2) for _ in range(2))
@@ -5614,9 +5673,15 @@ def _dist_serve_kernel_times(gpu: str) -> dict:
     rms = {}
     shapes = {}
     for arch in DIST_SERVE_ARCHS:
-        d = _dist_serve_cfg(arch, "bfloat16").d_model
+        cfg = _dist_serve_cfg(arch, "bfloat16")
+        d = cfg.d_model
         shapes[f"{arch} 1x4 decode rows [{DIST_SERVE_SLOTS}, {d}]"] = (DIST_SERVE_SLOTS, d)
         shapes[f"{arch} 1x4 seq_shard prompt rows [{s // 4}, {d}]"] = (s // 4, d)
+        if cfg.mla is not None:  # kv_norm, on the whole prompt on every rank
+            lora = cfg.mla.kv_lora
+            shapes[f"{arch} kv_norm decode rows [{DIST_SERVE_SLOTS}, {lora}]"] = (
+                DIST_SERVE_SLOTS, lora)
+            shapes[f"{arch} kv_norm prompt rows [{s}, {lora}]"] = (s, lora)
     for name, (rows, d) in shapes.items():
         x, w = randn((rows, d)), 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         err = _lm_check(f"dist serve lm rmsnorm {name}", rmsnorm(x, w), rmsnorm_ref(x, w))
@@ -5714,8 +5779,10 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
         d = int(layout.split("x")[0])
         p = DIST_RANKS // d
         # the serial engine's bf16 prefix: every slot, every kv head, S positions, k and v
-        serial_bf16 = (2 * cfg.n_layers * DIST_SERVE_SLOTS * cfg.kv_heads * DIST_SERVE_MAX_LEN
-                       * cfg.head_dim_ * 2)
+        # (MLA: the latent and the RoPE key of every position)
+        width = (cfg.mla.kv_lora + cfg.mla.dh_rope if cfg.mla is not None
+                 else 2 * cfg.kv_heads * cfg.head_dim_)
+        serial_bf16 = cfg.n_layers * DIST_SERVE_SLOTS * DIST_SERVE_MAX_LEN * width * 2
         held = runs[0]["prefix_bytes"]
         # f32 prefixes twice bf16's; int8 with a bf16 scale per head dim's values
         expect = ((cfg.head_dim_ + 2) / (2 * cfg.head_dim_) if quant else 2.0) / p
@@ -5831,9 +5898,12 @@ def phase_dist_serve_lm(gpu: str) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import launch_ranks
+    from repro_torch.models.attention import TAIL_LEN
 
     _free_cuda()
     dev = torch.device("cuda")
+    print(f"reduced: the flushed request's tokens 80 -> {DIST_SERVE_FLUSHED} (the script's "
+          f"time; {DIST_SERVE_FLUSHED - 1 - TAIL_LEN} decode steps past its tail flush)")
     for arch, n in DIST_SERVE_ARCHS.items():
         full, cfg = get_arch(arch), _dist_serve_cfg(arch, "float32")
         print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "

@@ -8,8 +8,10 @@ reference's head padding, ``_pad_heads``), ``_windowed_attention``,
 ``attn_decode``, ``_attn_decode_split``, ``flush_tail`` and
 ``decode_attention`` (``attention.py:55-74``, ``:77-345``), and
 DeepSeek-V2's multi-head latent attention: ``init_mla_params``,
-``_mla_qkr``, ``mla_forward``, ``init_mla_cache`` and ``mla_decode`` on
-its unsplit cache (``:354-479``).
+``_mla_qkr``, ``mla_forward`` (under a mesh policy tensor-parallel over
+heads, ``_mla_tp``), ``init_mla_cache`` (with the split layout) and
+``mla_decode`` with its absorbed split decode (``_mla_decode_split``;
+``:354-479``).
 
 Tensor parallelism (``_attn_tp``): wq/wk/wv are column-parallel and wo
 row-parallel over the model group (``param_specs``). The heads are
@@ -43,7 +45,8 @@ a ``TAIL_LEN`` tail that each decode step writes and ``flush_tail``
 empties into the prefix. Each row attends over its valid prefix length
 and its tail entries, where the reference attends over the whole prefix
 (see ``_attn_decode_split``). Over a model group the prefix is sharded by
-kv heads where P divides them, else by sequence, each rank a contiguous
+kv heads where P divides them, else by sequence (MLA's latent prefix
+always, ``prefix_by_sequence``), each rank a contiguous
 chunk of S/P positions of every kv head, the softmax combined over the
 group: the paper's domain decomposition applied to decode. The tail is
 whole on every rank of a sequence-sharded layout (the reference's spec);
@@ -201,12 +204,17 @@ def cache_leaves(cfg, batch: int, max_len: int, dtype, *, split: bool = False,
     (``init_kv_cache``, ``init_mla_cache``): the prefix k and v in
     ``dtype``, int8 with ``quant`` on a split cache without a window, and
     then k_scale and v_scale [b, kvh, S] bf16; the split cache's tail tk
-    and tv [b, kvh, TAIL_LEN, hd] in ``dtype`` (MLA's plain cache only:
-    its split one is not ported)."""
+    and tv [b, kvh, TAIL_LEN, hd] in ``dtype``. MLA's latent ckv and RoPE
+    key kr [b, S, ...], split with a tail tckv and tkr [b, TAIL_LEN, ...],
+    in ``dtype`` whatever ``quant`` (the reference quantizes no latent)."""
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": ((batch, max_len, m.kv_lora), dtype),
-                "kr": ((batch, max_len, m.dh_rope), dtype)}
+        out = {"ckv": ((batch, max_len, m.kv_lora), dtype),
+               "kr": ((batch, max_len, m.dh_rope), dtype)}
+        if split:
+            out.update(tckv=((batch, TAIL_LEN, m.kv_lora), dtype),
+                       tkr=((batch, TAIL_LEN, m.dh_rope), dtype))
+        return out
     length = max_len if cfg.window is None else min(max_len, cfg.window)
     split = split and cfg.window is None
     kv_dtype = torch.int8 if quant and split else dtype
@@ -317,10 +325,11 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_le
 
 def prefix_by_sequence(cfg, policy) -> bool:
     """Whether a split cache's prefix is sharded over the model group by
-    sequence (the model group does not divide the kv heads) rather than by
-    kv heads: the reference's ``cache_specs``."""
+    sequence (MLA's latent prefix, which has no heads, or a model group
+    that does not divide the kv heads) rather than by kv heads: the
+    reference's ``cache_specs``."""
     p = policy.model_size()
-    return p > 1 and cfg.kv_heads % p != 0
+    return p > 1 and (cfg.mla is not None or cfg.kv_heads % p != 0)
 
 
 def _decode_qkv(p, x, cfg, policy, positions):
@@ -442,14 +451,22 @@ def flush_tail(cache, prefix_valid, *, chunk=(0, 1)):
     valid prefix length ``prefix_valid`` (an int or one per row), then
     zero the tail. An int8 prefix takes the entries quantized (``quantize_kv``) with
     their scales; the reference's flush writes bf16 values into it, which
-    raises, and returns no scales. ``chunk`` = (m, P): this cache holds
+    raises, and returns no scales. MLA's cache flushes tckv into ckv and
+    tkr into kr the same way, along its sequence dim 1 (the reference's
+    flush knows only k and v). ``chunk`` = (m, P): this cache holds
     chunk m of P of a sequence-sharded prefix, and writes only the
     positions in it. In place; returns the cache."""
-    b, _, s_loc, _ = cache["k"].shape
-    t = cache["tk"].shape[2]
+    pairs = (("ckv", "tckv"), ("kr", "tkr")) if "tckv" in cache else (("k", "tk"), ("v", "tv"))
+    seq = 1 if "tckv" in cache else 2  # the position dim of a leaf
+    b, s_loc = cache[pairs[0][0]].shape[0], cache[pairs[0][0]].shape[seq]
+    t = cache[pairs[0][1]].shape[seq]
     m, parts = chunk
     quant = "k_scale" in cache
     lo_c = m * s_loc
+
+    def at(r, lo, hi):  # row r's positions lo..hi-1 of a leaf
+        return (r,) + (slice(None),) * (seq - 1) + (slice(lo, hi),)
+
     for r, start in enumerate(row_values(prefix_valid, b)):
         if start + t > s_loc * parts:
             raise ValueError(f"row {r}: a tail of {t} at {start} overflows a prefix of "
@@ -457,14 +474,14 @@ def flush_tail(cache, prefix_valid, *, chunk=(0, 1)):
         lo, hi = max(start, lo_c), min(start + t, lo_c + s_loc)
         if hi <= lo:
             continue
-        for name, tail in (("k", "tk"), ("v", "tv")):
-            src = cache[tail][r, :, lo - start:hi - start]
+        for name, tail in pairs:
+            src = cache[tail][at(r, lo - start, hi - start)]
             if quant:
                 src, sc = quantize_kv(src)
-                cache[name + "_scale"][r, :, lo - lo_c:hi - lo_c] = sc
-            cache[name][r, :, lo - lo_c:hi - lo_c] = src.to(cache[name].dtype)
-    cache["tk"].zero_()
-    cache["tv"].zero_()
+                cache[name + "_scale"][at(r, lo - lo_c, hi - lo_c)] = sc
+            cache[name][at(r, lo - lo_c, hi - lo_c)] = src.to(cache[name].dtype)
+    for _, tail in pairs:
+        cache[tail].zero_()
     return cache
 
 
@@ -508,12 +525,13 @@ def init_mla_params(cfg, normal, ones) -> dict:
 
 
 def _mla_qkr(p, x, cfg, positions):
-    """x: [b, s, d] -> q_nope [b, s, h, dh_nope], q_rope [b, s, h, dh_rope]
-    (rotated), the normed latent ckv [b, s, kv_lora] (through the RMSNorm
-    kernel) and the rotated shared key k_rope [b, s, dh_rope]."""
+    """x: [b, s, d] -> q_nope [b, s, n, dh_nope], q_rope [b, s, n, dh_rope]
+    (rotated) for the n heads of ``p``'s wq (all of them, or this rank's),
+    the normed latent ckv [b, s, kv_lora] (through the RMSNorm kernel) and
+    the rotated shared key k_rope [b, s, dh_rope]."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, m.dh_nope + m.dh_rope)
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, m.dh_nope + m.dh_rope)
     q_nope, q_rope = q[..., : m.dh_nope], q[..., m.dh_nope:]
     q_rope = layers.apply_rope(q_rope, positions, theta=cfg.rope_theta)
     dkv = x @ p["w_dkv"].to(x.dtype)
@@ -522,40 +540,104 @@ def _mla_qkr(p, x, cfg, positions):
     return q_nope, q_rope, ckv, k_rope
 
 
-def mla_forward(p, x, cfg, *, positions=None, return_latents=False):
-    """Full-sequence causal MLA (prefill): per-head k and v materialised
-    from the latent, one flash-attention launch at head dim dh_nope +
-    dh_rope with v zero-padded to it (the output's extra columns are zeros
-    and are sliced off). Returns out [b, s, d], and with ``return_latents``
-    also the (ckv, k_rope) the cache keeps."""
+def _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg):
+    """Causal attention of q's n heads over the latent: per-head k and v
+    up-projected by ``p``'s k_up and v_up columns of those heads, one
+    flash-attention launch at head dim dh_nope + dh_rope with v zero-padded
+    to it (the output's extra columns are zeros and are sliced off).
+    Returns [b, s, n * dh_v]."""
     m = cfg.mla
-    b, s, _ = x.shape
-    h = cfg.n_heads
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, positions)
-    k_nope = (ckv @ p["k_up"].to(x.dtype)).reshape(b, s, h, m.dh_nope)
-    v = (ckv @ p["v_up"].to(x.dtype)).reshape(b, s, h, m.dh_v)
+    b, s, n, _ = q_nope.shape
+    dtype = q_nope.dtype
+    k_nope = (ckv @ p["k_up"].to(dtype)).reshape(b, s, n, m.dh_nope)
+    v = (ckv @ p["v_up"].to(dtype)).reshape(b, s, n, m.dh_v)
     dq = m.dh_nope + m.dh_rope
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, m.dh_rope)], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, n, m.dh_rope)], dim=-1)
     v = F.pad(v, (0, dq - m.dh_v))
     o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=True, scale=dq ** -0.5)
-    o = o.transpose(1, 2)[..., : m.dh_v].reshape(b, s, h * m.dh_v)
-    out = o @ p["wo"].to(x.dtype)
+    return o.transpose(1, 2)[..., : m.dh_v].reshape(b, s, n * m.dh_v)
+
+
+def mla_forward(p, x, cfg, policy=LOCAL, *, positions=None, return_latents=False,
+                seq_sharded: bool = False):
+    """Full-sequence causal MLA (training, prefill): x [b, s, d] -> [b, s,
+    d] through ``_mla_attend``. Returns out, and with ``return_latents``
+    also the (ckv, k_rope) of every position, which the cache keeps. Under
+    a policy whose model group has more than one rank, ``p`` holds this
+    rank's shards and x the residual stream as the block holds it (this
+    rank's slice of the sequence with ``seq_sharded``): ``_mla_tp``."""
+    if policy.model_size() > 1:
+        out, ckv, k_rope = _mla_tp(p, x, cfg, policy, seq_sharded, positions)
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, positions)
+        out = _mla_attend(p, q_nope, q_rope, ckv, k_rope, cfg) @ p["wo"].to(x.dtype)
     return (out, ckv, k_rope) if return_latents else out
 
 
-def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
-    """Plain MLA cache: zeroed latent [batch, max_len, kv_lora] and RoPE key
-    [batch, max_len, dh_rope]. (Its split layout, which a mesh policy
-    takes, is not ported: ``transformer.check_mesh_serving``.)"""
+def _mla_tp(p, x, cfg, policy, seq_sharded: bool, positions=None):
+    """``mla_forward`` over the model group, the reference's specs: ``p``
+    holds this rank's columns of wq, k_up and v_up (its h/P heads) and its
+    rows of wo; w_dkv and kv_norm whole. Every rank takes the whole
+    sequence in (``layers.tp_in``) and computes the latent ckv and k_rope
+    of every position, which feed its own heads only: w_dkv and kv_norm
+    enter through ``copy_to``, so that their gradient, a part on each rank,
+    is summed over the group. Returns (out, ckv, k_rope), the latents of
+    the whole sequence."""
+    group = policy.model_group
+    xin = layers.tp_in(x, group, seq_sharded)
+    if positions is None:
+        positions = torch.arange(xin.shape[1], device=x.device)
+    local = dict(p, w_dkv=copy_to(p["w_dkv"], group), kv_norm=copy_to(p["kv_norm"], group))
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(local, xin, cfg, positions)
+    o = _mla_attend(local, q_nope, q_rope, ckv, k_rope, cfg)
+    return layers.tp_out(o @ p["wo"].to(x.dtype), group, seq_sharded), ckv, k_rope
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None, *,
+                   split: bool = False) -> dict:
+    """Zeroed MLA cache: latent [batch, max_len, kv_lora] and RoPE key
+    [batch, max_len, dh_rope]; ``split`` adds the reference's tail tckv
+    [batch, TAIL_LEN, kv_lora] and tkr [batch, TAIL_LEN, dh_rope] beside
+    the read-only prefix (every MLA cache under a mesh policy)."""
     return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in cache_leaves(cfg, batch, max_len, dtype).items()}
+            for name, (shape, dt) in cache_leaves(cfg, batch, max_len, dtype, split=split).items()}
 
 
-def mla_decode(p, x, cache, index, cfg, n_keys=None):
+def _mla_absorbed_q(p, q_nope, q_rope, cfg):
+    """A decode step's q_lat [b, n, kv_lora] = q_nope k_up^T (k_up absorbed
+    into q, in f32 as the reference) and qr [b, n, dh_rope] f32, for the n
+    heads of ``p``'s k_up."""
+    m = cfg.mla
+    k_up = p["k_up"].reshape(m.kv_lora, -1, m.dh_nope)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), k_up.float())
+    return q_lat, q_rope[:, 0].float()
+
+
+def _mla_logits(q_lat, qr, ckv, kr, cfg):
+    """Scaled logits [b, h, s] of the absorbed q against a segment of the
+    latent cache, q cast to the cache dtype and accumulated in f32 (a
+    product of two values of the cache dtype is exact in f32)."""
+    m = cfg.mla
+    logits = torch.einsum("bhl,bsl->bhs", q_lat.to(ckv.dtype).float(), ckv.float())
+    logits = logits + torch.einsum("bhr,bsr->bhs", qr.to(kr.dtype).float(), kr.float())
+    return logits * (m.dh_nope + m.dh_rope) ** -0.5
+
+
+def _mla_out(p, o_lat, x, cfg):
+    """The latent output o_lat [b, n, kv_lora] f32 of ``p``'s n heads times
+    their v_up columns in f32, cast to x's dtype, times their rows of wo."""
+    m = cfg.mla
+    b, n, _ = o_lat.shape
+    v_up = p["v_up"].reshape(m.kv_lora, n, m.dh_v)
+    o = torch.einsum("bhl,lhv->bhv", o_lat, v_up.float()).reshape(b, 1, n * m.dh_v).to(x.dtype)
+    return o @ p["wo"].to(x.dtype)
+
+
+def mla_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_len=None):
     """One absorbed-projection decode step for every row: attention runs in
     the latent space, so a cached token costs kv_lora + dh_rope values.
 
@@ -564,27 +646,92 @@ def mla_decode(p, x, cache, index, cfg, n_keys=None):
     caller knows it. As the reference: k_up absorbed into q in f32, q's
     latent and RoPE parts cast to the cache dtype, logits accumulated in
     f32, f32 softmax, the latent output and v_up in f32, the result cast to
-    x's dtype before ``wo``. Returns (out [b, 1, d], cache)."""
-    m = cfg.mla
-    b = x.shape[0]
-    h = cfg.n_heads
+    x's dtype before ``wo``. Returns (out [b, 1, d], cache).
+
+    A split cache (a "tckv" leaf; every MLA cache under a mesh policy)
+    goes to ``_mla_decode_split``, with each row's valid prefix length
+    ``prefix_len``."""
+    if "tckv" in cache:
+        return _mla_decode_split(p, x, cache, index, cfg, policy, prefix_len)
+    if policy.model_size() > 1:
+        raise ValueError("a decode step over a model group takes a split cache")
     q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, index[:, None])
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
     cache["ckv"][rows, index] = ckv[:, 0].to(cache["ckv"].dtype)
     cache["kr"][rows, index] = k_rope[:, 0].to(cache["kr"].dtype)
     n = int(index.max()) + 1 if n_keys is None else n_keys
     ckv_c, kr_c = cache["ckv"][:, :n], cache["kr"][:, :n]
-    k_up = p["k_up"].reshape(m.kv_lora, h, m.dh_nope)
-    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), k_up.float())
-    qr = q_rope[:, 0].float()
-    # a product of two values of the cache dtype is exact in f32
-    logits = torch.einsum("bhl,bsl->bhs", q_lat.to(ckv_c.dtype).float(), ckv_c.float())
-    logits = logits + torch.einsum("bhr,bsr->bhs", qr.to(kr_c.dtype).float(), kr_c.float())
-    logits = logits * (m.dh_nope + m.dh_rope) ** -0.5
+    q_lat, qr = _mla_absorbed_q(p, q_nope, q_rope, cfg)
+    logits = _mla_logits(q_lat, qr, ckv_c, kr_c, cfg)
     valid = torch.arange(n, device=x.device)[None, :] <= index[:, None]
     w = torch.softmax(logits.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", w, ckv_c.float())
-    v_up = p["v_up"].reshape(m.kv_lora, h, m.dh_v)
-    o = torch.einsum("bhl,lhv->bhv", o_lat, v_up.float())
-    o = o.reshape(b, 1, h * m.dh_v).to(x.dtype)
-    return o @ p["wo"].to(x.dtype), cache
+    return _mla_out(p, o_lat, x, cfg), cache
+
+
+def _mla_decode_split(p, x, cache, index, cfg, policy, prefix_len):
+    """The absorbed decode against a read-only latent prefix and a
+    ``TAIL_LEN`` tail (the reference's ``mla_decode`` split branch,
+    ``attention.py:441-460``), each row masked to its valid part as
+    ``_attn_decode_split`` masks it: prefix positions below its
+    ``prefix_len`` (default the whole prefix) and tail slots up to its new
+    token, which every rank writes (the latent is the same on each) at
+    slot index - prefix_len. The reference leaves the prefix unmasked and
+    writes slot index - S, which clamps to 0 until the prompt fills the
+    prefix: right only for a full prefix.
+
+    As the reference: the cache operands in their dtype, logits
+    accumulated in f32, the two segments combined flash-decode style, the
+    unnormalised weights cast to the cache dtype before P.V.
+
+    Over a model group the prefix is sharded by sequence: this rank's
+    heads' q_lat and qr are all-gathered (every head reads each chunk),
+    each rank attends over its chunk, the group combines the chunks (one
+    max, then one sum of the latent outputs and denominators), the
+    replicated tail is counted once after the sum, and this rank's heads
+    of the result go through its v_up columns and wo rows: four
+    collectives a layer."""
+    b = x.shape[0]
+    dev = x.device
+    group, size = policy.model_group, policy.model_size()
+    kv_lora = cfg.mla.kv_lora
+    s_loc = cache["ckv"].shape[1]
+    plen, max_plen = rows_tensor(s_loc * size if prefix_len is None else prefix_len, b, dev)
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(p, x, cfg, index[:, None])
+    slot = index - plen
+    rows = torch.arange(b, device=dev)
+    cache["tckv"][rows, slot] = ckv[:, 0].to(cache["tckv"].dtype)
+    cache["tkr"][rows, slot] = k_rope[:, 0].to(cache["tkr"].dtype)
+    q_lat, qr = _mla_absorbed_q(p, q_nope, q_rope, cfg)
+    if size > 1:  # every head: [b, h, kv_lora + dh_rope]
+        both = gather_from(torch.cat([q_lat, qr], dim=-1), 1, group)
+        q_lat, qr = both[..., :kv_lora], both[..., kv_lora:]
+    # the prefix positions this rank holds that some row attends to
+    lo = policy.model_rank() * s_loc
+    n_p = max(0, min(s_loc, max_plen - lo))
+    cp, kp = cache["ckv"][:, :n_p], cache["kr"][:, :n_p]
+    tc, tr = cache["tckv"], cache["tkr"]
+    lp = _mla_logits(q_lat, qr, cp, kp, cfg)
+    valid = (lo + torch.arange(n_p, device=dev))[None, :] < plen[:, None]
+    lp = lp.masked_fill(~valid[:, None, :], NEG_INF)
+    lt = _mla_logits(q_lat, qr, tc, tr, cfg)
+    valid = torch.arange(tc.shape[1], device=dev)[None, :] <= slot[:, None]
+    lt = lt.masked_fill(~valid[:, None, :], NEG_INF)
+    m = lt.amax(dim=-1, keepdim=True)
+    if n_p:
+        m = torch.maximum(m, lp.amax(dim=-1, keepdim=True))
+    if size > 1:
+        m = all_reduce_max(m, group)
+    wp, wt = torch.exp(lp - m), torch.exp(lt - m)
+    o = torch.einsum("bhs,bsl->bhl", wp.to(cp.dtype).float(), cp.float())
+    denom = wp.sum(dim=-1, keepdim=True)
+    if size > 1:  # the chunks' sums over the group, then the tail's once
+        both = all_reduce_sum(torch.cat([o, denom], dim=-1), group)
+        o, denom = both[..., :kv_lora], both[..., kv_lora:]
+    o = o + torch.einsum("bht,btl->bhl", wt.to(tc.dtype).float(), tc.float())
+    denom = denom + wt.sum(dim=-1, keepdim=True)
+    o_lat = o / denom
+    if size == 1:
+        return _mla_out(p, o_lat, x, cfg), cache
+    # this rank's heads: its columns of v_up, its rows of wo
+    return reduce_from(_mla_out(p, scatter_to(o_lat, 1, group), x, cfg), group), cache

@@ -22,14 +22,15 @@ residual stream between blocks holds this rank's slice of the sequence.
 The port's meshes have two axes, ``"data"`` and ``"model"``.
 
 Serving under a mesh keeps split KV caches (``models/attention.py``), with
-the prefix int8 under ``kv_quant``. The reference's ``moe_a2a`` has no
+the prefix int8 under ``kv_quant`` (MLA's latent prefix keeps the cache
+dtype, as the reference's). The reference's ``moe_a2a`` has no
 counterpart: the MoE takes its all-to-all wherever the reference's
 condition allows it (``models/moe.py``). Nor has its ``unroll_decode``:
 the port's decode step is already a Python loop over the layers, which
 holds no layer's cache in a loop carry. What the mesh
-does not run yet (MLA, the SSM and RG-LRU mixers and the encoder-decoder
-family spread over a model group of more than one rank) raises
-``NOT_PORTED`` where the model meets it (``check_mesh_arch``).
+does not run yet (the SSM and RG-LRU mixers and the encoder-decoder family
+spread over a model group of more than one rank) raises ``NOT_PORTED``
+where the model meets it (``check_mesh_arch``).
 """
 from __future__ import annotations
 

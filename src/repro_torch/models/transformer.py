@@ -44,9 +44,10 @@ hybrid family {"superblocks": {"b0_rec": {"conv", "h"}, ..., "b2_attn":
 min(max_len, window) positions. ``lm_decode_step`` updates them in place.
 Under a mesh policy the attention caches without a window are split, a
 prefix and a ``TAIL_LEN`` tail ({"k", "v", ("k_scale", "v_scale"), "tk",
-"tv"}, ``attention.init_kv_cache``), and a rank holds its part of them
-(``cache_specs``): its data rank's rows, its kv heads of the prefix or,
-where P does not divide them, its chunk of the prefix's positions.
+"tv"}, ``attention.init_kv_cache``; under MLA {"ckv", "kr", "tckv",
+"tkr"}), and a rank holds its part of them (``cache_specs``): its data
+rank's rows, its kv heads of the prefix or, where P does not divide them
+and always under MLA, its chunk of the prefix's positions.
 
 Every RMSNorm goes through the fused RMSNorm kernel and every prefill
 attention within the window through the flash-attention kernel (their
@@ -63,21 +64,23 @@ Megatron-style: the embedding table split over d_model columns (an
 all-gather of the looked-up columns, or under ``seq_shard`` an all-to-all
 to this rank's slice of the sequence), attention and the MLPs column- then
 row-parallel (``attention._attn_tp``, ``layers.tp_mlp``), the MoE's
-routed experts over the all-to-all, the cross-entropy vocab-parallel. The
+routed experts over the all-to-all, the cross-entropy vocab-parallel
+(MLA: ``attention._mla_tp``, its heads column-parallel, the latent's
+down-projection whole on every rank). The
 residual stream is whole on every rank, or under ``seq_shard`` this
 rank's slice of the sequence, where the norms run on its rows (their
 weights' gradient then a part, summed over the group by ``copy_to``'s
 backward). So every rank's gradient of every leaf is the whole of it for
 the rows of its data rank: ``train.train_loop.reduce_grads`` averages it
-over the data group. MLA, SSM, RG-LRU and the hybrid family run on a
-data-only mesh (P = 1), not over a model group (``check_mesh_arch``); MLA
-is not served under a mesh at all (its split cache, ``check_mesh_serving``).
+over the data group. SSM, RG-LRU and the hybrid family run on a data-only
+mesh (P = 1), not over a model group (``check_mesh_arch``).
 
 Serving under such a policy runs the same blocks without their backward:
 the prefill tensor-parallel as ``lm_hidden``, each attention layer writing
 this rank's part of its prefix; the decode step's attention over the
 split cache (``attention._attn_decode_split``: by kv heads, or by
-sequence with the softmax combined over the model group), the MoE's
+sequence with the softmax combined over the model group; MLA's absorbed
+``attention._mla_decode_split`` by sequence), the MoE's
 experts split over the group where the all-to-all's condition fails
 (``moe._moe_together``), the vocab-split logits all-gathered.
 """
@@ -419,25 +422,19 @@ def gather_params(local: dict, cfg, policy: ParallelPolicy) -> dict:
 
 
 def check_mesh_arch(cfg, policy: ParallelPolicy) -> None:
-    """Raise for what a mesh policy does not run yet: MLA, the SSM and
-    RG-LRU mixers (and so the hybrid family) and the encoder-decoder
-    family over a model group of more than one rank."""
-    if policy.model_size() == 1:
+    """Raise for what a mesh policy does not run yet: the SSM and RG-LRU
+    mixers (and so the hybrid family) and the encoder-decoder family over
+    a model group of more than one rank; and for MLA heads that the model
+    group does not divide (its heads are not padded)."""
+    p = policy.model_size()
+    if p == 1:
         return
     what = ("the encoder-decoder family" if cfg.family == "encdec" else
-            "MLA attention" if cfg.mla is not None else
             f"the {cfg.family} family's mixers" if cfg.family in ("ssm", "hybrid") else None)
     if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} over {policy.model_size()} model ranks: "
-                                  f"{NOT_PORTED}")
-
-
-def check_mesh_serving(cfg, policy: ParallelPolicy) -> None:
-    """``check_mesh_arch``, and MLA's split cache, which any mesh policy
-    takes (``use_split_cache``) and which is not ported."""
-    check_mesh_arch(cfg, policy)
-    if use_split_cache(cfg, policy) and cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA's split cache under a mesh: {NOT_PORTED}")
+        raise NotImplementedError(f"{cfg.name}: {what} over {p} model ranks: {NOT_PORTED}")
+    if cfg.mla is not None and cfg.n_heads % p:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} MLA heads do not split over {p} model ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -484,12 +481,13 @@ def cache_specs(cfg, policy: ParallelPolicy) -> dict:
     entries, matching ``init_cache``'s tree (which allocates by it): the
     reference's ``cache_specs`` (``transformer.py:369-446``) but for a
     split cache's tail. The batch over the data axis; a split cache's
-    prefix over the model axis by kv heads where it divides them, else by
-    sequence (each model rank a contiguous chunk, the softmax combined over
-    the group). The tail is whole beside a sequence-sharded prefix, as the
-    reference's, and cut by kv heads beside a head-sharded one, where the
-    reference replicates it: a rank's decode attends over its kv heads
-    alone. The SSM and RG-LRU caches as the reference shards them."""
+    prefix over the model axis by kv heads where it divides them, else (and
+    MLA's latent prefix always) by sequence (each model rank a contiguous
+    chunk, the softmax combined over the group). The tail is whole beside
+    a sequence-sharded prefix, as the reference's, and cut by kv heads
+    beside a head-sharded one, where the reference replicates it: a rank's
+    decode attends over its kv heads alone. The SSM and RG-LRU caches as
+    the reference shards them."""
     def one(kind):
         return _layer_cache_specs(cfg, policy, kind)
 
@@ -657,7 +655,7 @@ def _apply_layer(x, aux, lp, kind, cfg, policy: ParallelPolicy = LOCAL, sp: bool
     if kind == "rec":
         x = x + rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model)
     elif cfg.mla is not None:
-        x = x + attn_lib.mla_forward(lp["attn"], h, cfg)
+        x = x + attn_lib.mla_forward(lp["attn"], h, cfg, policy, seq_sharded=sp)
     else:
         x = x + attn_lib.attn_forward(lp["attn"], h, cfg, policy, seq_sharded=sp)
     h = _norm(x, lp["ln2"], cfg, part_of)
@@ -833,7 +831,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
     with scales under ``kv_quant``, and a ``TAIL_LEN`` tail) and this rank
     holds its part of the tree (``cache_specs``): its data rank's
     batch/D rows, and 1/P of each prefix, by kv heads or by sequence."""
-    check_mesh_serving(cfg, policy)
+    check_mesh_arch(cfg, policy)
     device = resolve_device(device)
     d = policy.dp_size()
     if batch % d:
@@ -860,14 +858,18 @@ def _leaves(tree, name=None):
     return [] if tree is None else [(name, tree)]
 
 
+_TAILS = ("tk", "tckv")  # the leaf that marks a split cache (GQA's, MLA's)
+
+
 def _split_caches(cache: dict) -> list:
     """Every layer's split attention cache (a dict with a tail), the
     stacked ones as views."""
     out = []
 
     def visit(tree, stacked):
-        if isinstance(tree, dict) and "tk" in tree:
-            n = tree["tk"].shape[0]
+        tail = [name for name in _TAILS if isinstance(tree, dict) and name in tree]
+        if tail:
+            n = tree[tail[0]].shape[0]
             out.extend([{k: c[i] for k, c in tree.items()} for i in range(n)] if stacked else [tree])
         elif isinstance(tree, dict):
             for k, v in tree.items():
@@ -963,14 +965,24 @@ def _attn_prefill(p, h, cfg, positions, lc, policy: ParallelPolicy = LOCAL, sp: 
     return o @ p["wo"].to(h.dtype)
 
 
-def _mla_prefill(p, h, cfg, positions, lc):
-    """MLA over the prompt; its latent and RoPE key are written into the
-    first s positions of ``lc`` {"ckv", "kr"}: [b, S, ...], zeros past it."""
-    s = h.shape[1]
-    out, ckv, k_rope = attn_lib.mla_forward(p, h, cfg, positions=positions, return_latents=True)
+def _mla_prefill(p, h, cfg, positions, lc, policy: ParallelPolicy = LOCAL, sp: bool = False):
+    """MLA over the prompt (``attention.mla_forward``, over the model group
+    ``_mla_tp``); its latent and RoPE key are written into the prefix
+    positions that ``lc`` {"ckv", "kr", ...}: [b, S, ...] holds, zeros past
+    the prompt: positions 0.., or over the model group this rank's chunk
+    m S/P .. of the positions (every rank computed the whole sequence's
+    latents). A split cache's tail is zeroed."""
+    out, ckv, k_rope = attn_lib.mla_forward(p, h, cfg, policy, positions=positions,
+                                            return_latents=True, seq_sharded=sp)
+    s_loc = lc["ckv"].shape[1]
+    lo = policy.model_rank() * s_loc
+    n = max(0, min(s_loc, ckv.shape[1] - lo))
     for name, t in (("ckv", ckv), ("kr", k_rope)):
-        lc[name][:, :s] = t
-        lc[name][:, s:] = 0
+        lc[name][:, :n] = t[:, lo:lo + n]
+        lc[name][:, n:] = 0
+    for name in ("tckv", "tkr"):
+        if name in lc:
+            lc[name].zero_()
     return out
 
 
@@ -985,7 +997,7 @@ def _prefill_layer(x, lp, kind, cfg, positions, lc, policy: ParallelPolicy = LOC
         y, new = rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, return_cache=True)
         _write(lc, new)
     elif cfg.mla is not None:
-        y = _mla_prefill(lp["attn"], h, cfg, positions, lc)
+        y = _mla_prefill(lp["attn"], h, cfg, positions, lc, policy, sp)
     else:
         y = _attn_prefill(lp["attn"], h, cfg, positions, lc, policy, sp)
     x = x + y
@@ -1034,7 +1046,7 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
     slice of the sequence when ``policy.seq_sharded(s)``), each attention
     layer writes this rank's part of its prefix, and the logits of a
     vocab-split lm_head are gathered over the model group."""
-    check_mesh_serving(cfg, policy)
+    check_mesh_arch(cfg, policy)
     b, s = tokens.shape
     if cache is None:
         dtype = torch.bfloat16 if cfg.mla is not None else cfg.activation_dtype
@@ -1060,7 +1072,8 @@ def _decode_layer(x, lp, kind, lc, index, cfg, n_keys, policy, prefix_len):
     if kind == "rec":
         y, _ = rglru_lib.rglru_decode(lp["mixer"], h, lc, cfg.rglru, cfg.d_model)
     elif cfg.mla is not None:
-        y, _ = attn_lib.mla_decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys)
+        y, _ = attn_lib.mla_decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys, policy=policy,
+                                   prefix_len=prefix_len)
     else:
         y, _ = attn_lib.attn_decode(lp["attn"], h, lc, index, cfg, n_keys=n_keys, policy=policy,
                                     prefix_len=prefix_len)
@@ -1074,7 +1087,7 @@ def _check_tail_room(cfg, cache, policy, index, prefix_len, b: int) -> None:
     index within ``TAIL_LEN`` past its prefix length), where the host holds
     both (a tensor is not read back for it)."""
     room = _prefix_room(cfg, cache, policy)
-    if room is None or not any(name == "tk" for name, _ in _leaves(cache)):
+    if room is None or not any(name in _TAILS for name, _ in _leaves(cache)):
         return
     rows = attn_lib.row_values(index, b)
     plen = attn_lib.row_values(room if prefix_len is None else prefix_len, b)
@@ -1104,7 +1117,7 @@ def lm_decode_step(params, token, cache, index, cfg, *, policy: ParallelPolicy =
     model group by ``attention._attn_decode_split``, the MLPs
     tensor-parallel, the MoE's experts split over the group
     (``moe._moe_together``), the logits gathered over it."""
-    check_mesh_serving(cfg, policy)
+    check_mesh_arch(cfg, policy)
     _check_tail_room(cfg, cache, policy, index, prefix_len, token.shape[0])
     x = _embed_in(params, token, cfg, policy)
     idx, top = attn_lib.rows_tensor(index, token.shape[0], x.device)

@@ -17,9 +17,12 @@ against the reference, each check a port of one of
   devices (a subprocess, as ``tests/distributed_checks.py`` runs); the
   data ranks routing together on (4 x 1) against ``LOCAL`` on the whole
   batch, with drops;
-* ``dist_lm_loss_matches_local``: ``lm_loss`` of reduced chatglm3-6b and
-  deepseek-moe-16b on (1 x 4) and (2 x 2), ``seq_shard`` on and off,
-  against ``jax.value_and_grad`` of the reference's ``lm_loss``;
+* ``dist_lm_loss_matches_local``: ``lm_loss`` of reduced chatglm3-6b,
+  deepseek-moe-16b and deepseek-v2-lite-16b (MLA: heads column-parallel,
+  the latent's down-projection whole) on (1 x 4) and (2 x 2),
+  ``seq_shard`` on and off, against ``jax.value_and_grad`` of the
+  reference's ``lm_loss``, and the same gate refusing MLA's run with
+  ``w_dkv``'s gradient left a rank's part;
 
 plus one AdamW step with ZeRO-1 on (2 x 2) against the reference's
 ``make_train_step``, the specs of every arch against the reference's, and
@@ -328,6 +331,19 @@ def test_dist_lm_loss_matches_local(run, arch, layout, sp):
     np.testing.assert_allclose(_np(got["loss"])[:2], want[:2], rtol=LOSS_RTOL)
     np.testing.assert_allclose(float(got["loss"][2]), want[2], rtol=LOSS_RTOL, atol=1e-7)
     _grad_close(got["grads"], grads, f"{arch} {layout} sp={sp} d")
+
+
+def test_dist_lm_gate_refuses_mla_with_w_dkv_left_a_part(run):
+    """The MLA run on (1 x 4) with ``w_dkv``'s ``copy_to`` cut (each rank's
+    latent feeds its own heads, so its gradient of w_dkv is a part until
+    the group sums it): the loss is the reference's, and the gradient gate
+    refuses w_dkv."""
+    arch, layout, sp = rank_side.CUT_RUN
+    got = run["ranks"][0]["lm_cut"]
+    want, grads = _jax_lm(run, arch)
+    np.testing.assert_allclose(_np(got["loss"])[:2], want[:2], rtol=LOSS_RTOL)
+    with pytest.raises(AssertionError, match="w_dkv"):
+        _grad_close(got["grads"], grads, f"{arch} {layout} sp={sp} cut d")
 
 
 def test_one_adamw_step_with_zero1_matches_the_reference_step(run):

@@ -8,8 +8,12 @@ split decode step, plain and int8, on a prefix the prompt fills (the one
 case the reference's split decode is right for), one layer and through
 ``lm_decode_step``, for 1 and 60 steps, at f32 1e-4 of max|ref|;
 ``cache_specs`` of every decoder arch (the tail beside a head-sharded
-prefix cut by kv heads, where the reference replicates it). The port's own: its masked split
-decode equals its plain decode on a prompt shorter than the prefix.
+prefix cut by kv heads, where the reference replicates it); MLA's split
+latent cache (``init_mla_cache(split=True)``), unquantised under
+``kv_quant``, and its absorbed split decode on a full prefix. The port's
+own: its masked split decode, GQA's and MLA's, equals its plain decode on
+a prompt shorter than the prefix; MLA's ``flush_tail`` within a chunk;
+MLA's latent prefix sharded by sequence at every model group.
 
 Then one launch of 4 gloo ranks runs ``tests/torch_dist_serve_lm_checks.py``
 (its docstring lists the checks): ``Engine(policy=)`` on (1 x 4), (2 x 2)
@@ -102,13 +106,20 @@ def _bitwise(got, ref, what):
 
 @pytest.mark.parametrize("arch,split,quant", [
     ("chatglm3-6b", False, False), ("chatglm3-6b", True, False), ("chatglm3-6b", True, True),
-    ("chatglm3-6b", False, True), ("recurrentgemma-2b", True, True)])
+    ("chatglm3-6b", False, True), ("recurrentgemma-2b", True, True),
+    ("deepseek-v2-lite-16b", False, False), ("deepseek-v2-lite-16b", True, False),
+    ("deepseek-v2-lite-16b", True, True)])
 def test_init_kv_cache_leaves_are_the_references(arch, split, quant):
     """``init_kv_cache(split=, quant=)``: the reference's leaves, shapes,
-    dtypes and zeros (int8 only on a split cache without a window)."""
+    dtypes and zeros (int8 only on a split cache without a window); under
+    MLA ``init_mla_cache(split=)``'s, whose latent no ``quant`` touches."""
     jcfg, cfg = _cfgs(arch)
-    want = jattn.init_kv_cache(jcfg, 3, 40, split=split, quant=quant)
-    got = tattn.init_kv_cache(cfg, 3, 40, split=split, quant=quant)
+    if cfg.mla is not None:
+        want = jattn.init_mla_cache(jcfg, 3, 40, split=split)
+        got = tattn.init_mla_cache(cfg, 3, 40, split=split)
+    else:
+        want = jattn.init_kv_cache(jcfg, 3, 40, split=split, quant=quant)
+        got = tattn.init_kv_cache(cfg, 3, 40, split=split, quant=quant)
     assert sorted(got) == sorted(want)
     for name in want:
         _bitwise(got[name], want[name], name)
@@ -289,14 +300,30 @@ def test_masked_split_decode_equals_plain_decode_on_a_short_prompt():
     prefix of 16, its split decode's logits sit 0.70 of max|plain| from its
     plain decode's (2.0e-7 with the prefix exactly the prompt). A step whose
     row is not within ``TAIL_LEN`` of its prefix length is refused."""
-    _, cfg = _cfgs()
-    tree = _lm_tree(_cfgs()[0], 9)
+    _masked_split_against_plain("chatglm3-6b")
+
+
+def test_masked_split_mla_decode_equals_plain_decode_on_a_short_prompt():
+    """MLA's absorbed split decode (``_mla_decode_split``, P = 1: a 5-token
+    prompt in a prefix of 96, the tail ``tckv``/``tkr`` flushed after 64)
+    against the port's plain ``mla_decode``, as the GQA test above: f32
+    caches, logits within 1e-5 of max|ref| over 70 steps, tokens equal. The
+    reference's split branch has the same fault as its GQA one (no mask on
+    the prefix, the tail slot clamped; ``test_reference_mla_split_decode_
+    is_wrong_on_a_short_prompt``)."""
+    _masked_split_against_plain("deepseek-v2-lite-16b")
+
+
+def _masked_split_against_plain(arch):
+    _, cfg = _cfgs(arch)
+    tree = _lm_tree(_cfgs(arch)[0], 9)
     params = lm_params_from_numpy(tree, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(10).integers(0, cfg.vocab, (2, 5))).long()
     pol = _one_rank()
     plain = init_cache(cfg, 2, 96, torch.float32, device="cpu")
     split = init_cache(cfg, 2, 96, torch.float32, device="cpu", policy=pol)
-    assert "tk" in split["layers"] and "tk" not in plain["layers"]
+    tail = "tckv" if cfg.mla is not None else "tk"
+    assert tail in split["layers"] and tail not in plain["layers"]
     want, _ = lm_prefill(params, tokens, cfg, cache=plain)
     got, _ = lm_prefill(params, tokens, cfg, cache=split, policy=pol)
     _close(got, want, 1e-5, "prefill")
@@ -315,6 +342,152 @@ def test_masked_split_decode_equals_plain_decode_on_a_short_prompt():
         assert torch.equal(got.argmax(-1), want.argmax(-1))
         tok = want.argmax(-1)[:, None]
     assert flushed == 1
+
+
+def _mla_layer(seed):
+    """Reduced deepseek-v2-lite-16b (f32) and one MLA layer's reference
+    parameters."""
+    jcfg, cfg = _cfgs("deepseek-v2-lite-16b")
+    return jcfg, cfg, jax.device_get(jattn.init_mla_params(jax.random.PRNGKey(seed), jcfg))
+
+
+def _mla_split_np(cache, prefix, tail=None):
+    """A reference split MLA cache (numpy f32): ``cache``'s ckv and kr cut
+    or zero-padded to ``prefix`` positions, and a tail (zeros by default)."""
+    out = {}
+    for name, t in (("ckv", "tckv"), ("kr", "tkr")):
+        a = np.zeros(cache[name].shape[:1] + (prefix,) + cache[name].shape[2:], np.float32)
+        n = min(prefix, cache[name].shape[1])
+        a[:, :n] = cache[name][:, :n]
+        out[name] = a
+        out[t] = (np.zeros(a.shape[:1] + (tattn.TAIL_LEN,) + a.shape[2:], np.float32)
+                  if tail is None else tail[t])
+    return out
+
+
+def test_reference_mla_split_decode_is_wrong_on_a_short_prompt():
+    """The reference fault the port does not copy (ROADMAP Queue 3): the
+    reference's ``mla_decode`` split branch attends over every prefix
+    position and writes the new token at tail slot index - S, which clamps
+    to 0 and is then masked, until the prompt fills the prefix. Reduced
+    deepseek-v2-lite-16b, one layer, f32 caches, a 5-token prompt, the
+    first decode step: against its plain branch the split branch's output
+    sits 0.67 of max|plain| away with a prefix of 16 (6.718e-01), and
+    1.9e-7 away with the prefix exactly the prompt."""
+    jcfg, _, p_np = _mla_layer(11)
+    rng = np.random.default_rng(12)
+    prompt = jnp.asarray(rng.standard_normal((2, 5, jcfg.d_model)), jnp.float32)
+    x = jnp.asarray(rng.standard_normal((2, 1, jcfg.d_model)), jnp.float32)
+    p = jax.tree.map(jnp.asarray, p_np)
+    _, _, ckv, kr = jattn._mla_qkr(p, prompt, jcfg, jnp.arange(5))
+    prompt_cache = {"ckv": np.asarray(ckv), "kr": np.asarray(kr)}
+    plain = {n: jnp.asarray(a) for n, a in _mla_split_np(prompt_cache, 16).items()
+             if n in ("ckv", "kr")}
+    want = np.asarray(jattn.mla_decode(p, x, plain, 5, jcfg)[0])
+
+    def rel(prefix):
+        split = {n: jnp.asarray(a) for n, a in _mla_split_np(prompt_cache, prefix).items()}
+        got = np.asarray(jattn.mla_decode(p, x, split, 5, jcfg)[0])
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    assert rel(16) > 0.5 and rel(5) < 1e-6
+
+
+@pytest.mark.parametrize("steps", [1, 60])
+def test_split_mla_decode_matches_the_reference_on_a_full_prefix(steps):
+    """One layer's absorbed split decode (``mla_decode`` on a cache with
+    ``tckv``, P = 1) against the reference's split branch under ``LOCAL``,
+    its prefix full (the 24 positions before the first step, random
+    latents), f32 caches and activations: every step's output within 1e-4
+    of max|ref|, and the tail as the reference's."""
+    jcfg, cfg, p_np = _mla_layer(13)
+    rng = np.random.default_rng(14)
+    b, s = 2, 24
+    full = {"ckv": rng.standard_normal((b, s, cfg.mla.kv_lora)).astype(np.float32),
+            "kr": rng.standard_normal((b, s, cfg.mla.dh_rope)).astype(np.float32)}
+    c = _mla_split_np(full, s)
+    jc = {n: jnp.asarray(a) for n, a in c.items()}
+    tc = {n: torch.from_numpy(a.copy()) for n, a in c.items()}
+    p = {k: torch.from_numpy(np.array(v)) for k, v in p_np.items()}
+    jp = jax.tree.map(jnp.asarray, p_np)
+    jstep = jax.jit(lambda p, x, c, i: jattn.mla_decode(p, x, c, i, jcfg, JLOCAL))
+    for i in range(steps):
+        x = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+        want, jc = jstep(jp, jnp.asarray(x), jc, jnp.int32(s + i))
+        got, tc = tattn.mla_decode(p, torch.from_numpy(x), tc, torch.full((b,), s + i), cfg)
+        _close(got, want, F32, f"step {i}")
+    for name in ("tckv", "tkr"):
+        _close(tc[name], jc[name], F32, name)
+
+
+def test_mla_flush_tail_writes_each_row_within_its_chunk():
+    """MLA's ``flush_tail`` (tckv into ckv, tkr into kr along positions):
+    on the whole prefix (chunk (0, 1)) each row's tail lands at its
+    ``prefix_valid`` and the rest stays; on chunk m of a sequence-sharded
+    prefix only the positions of that chunk are written, the chunk of the
+    whole prefix's flush, whichever part of a row's tail falls in it (none,
+    some, all). The tails are zeroed."""
+    rng = np.random.default_rng(15)
+    b, t, s, p = 3, tattn.TAIL_LEN, 192, 2
+
+    def cache(n):
+        return {name: torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32))
+                for name, w in (("ckv", 32), ("kr", 8))}
+
+    prefix = cache(s)
+    tails = {"t" + k: v for k, v in cache(t).items()}
+    starts = [10, 60, 120]  # all in chunk 0; across the chunks; all in chunk 1
+    want = {k: v.clone() for k, v in prefix.items()}
+    for r, start in enumerate(starts):
+        for name in ("ckv", "kr"):
+            want[name][r, start:start + t] = tails["t" + name][r]
+    whole = tattn.flush_tail({**{k: v.clone() for k, v in prefix.items()},
+                              **{k: v.clone() for k, v in tails.items()}}, starts)
+    for name in want:
+        assert torch.equal(whole[name], want[name]), name
+    for m in range(p):
+        part = {**{k: v[:, m * s // p:(m + 1) * s // p].clone() for k, v in prefix.items()},
+                **{k: v.clone() for k, v in tails.items()}}
+        tattn.flush_tail(part, starts, chunk=(m, p))
+        for name in want:
+            assert torch.equal(part[name], want[name][:, m * s // p:(m + 1) * s // p]), (m, name)
+        assert not part["tckv"].any() and not part["tkr"].any()
+    with pytest.raises(ValueError, match="overflows a prefix of 192"):
+        tattn.flush_tail({**cache(s // p), **tails}, 129, chunk=(1, p))
+
+
+def test_mla_prefix_is_sharded_by_sequence_at_every_model_group():
+    """MLA's latent has no heads: its prefix is sharded by sequence at
+    every P > 1 (the reference's ``cache_specs``), for reduced
+    deepseek-v2-lite-16b (2 kv heads, which 2 divides) and the full config
+    (16, which 2 and 4 divide) alike; GQA's rule still asks whether P
+    divides the kv heads."""
+    def pol(n):
+        return ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(n)})
+
+    for cfg in (reduced(get_arch("deepseek-v2-lite-16b")), get_arch("deepseek-v2-lite-16b")):
+        assert cfg.kv_heads % 2 == 0
+        assert not tattn.prefix_by_sequence(cfg, pol(1))
+        assert tattn.prefix_by_sequence(cfg, pol(2)) and tattn.prefix_by_sequence(cfg, pol(4))
+        assert ttf._chunk(cfg, pol(4)) == (0, 4)
+    gqa = reduced(get_arch("chatglm3-6b"))
+    assert not tattn.prefix_by_sequence(gqa, pol(2)) and tattn.prefix_by_sequence(gqa, pol(4))
+
+
+def test_kv_quant_leaves_the_mla_cache_unquantised():
+    """``kv_quant`` int8-quantizes a split GQA prefix but leaves MLA's
+    latent cache in the cache dtype with no scales, as the reference's
+    ``mla_spec`` has none: the same leaves as without it, cut by sequence
+    over 2 model ranks."""
+    cfg = reduced(get_arch("deepseek-v2-lite-16b"))
+    mesh = {"data": StandInGroup(1), "model": StandInGroup(2)}
+    quant = init_cache(cfg, 2, 16, device="cpu", policy=ParallelPolicy(mesh=mesh, kv_quant=True))
+    plain = init_cache(cfg, 2, 16, device="cpu", policy=ParallelPolicy(mesh=mesh))
+    for key in ("layer0", "layers"):
+        assert sorted(quant[key]) == ["ckv", "kr", "tckv", "tkr"]
+        for name, t in quant[key].items():
+            assert t.dtype == torch.bfloat16 and t.shape == plain[key][name].shape, (key, name)
+    assert quant["layers"]["ckv"].shape == (1, 2, 8, cfg.mla.kv_lora)
 
 
 def _as_tuples(tree):
@@ -363,13 +536,13 @@ def test_cache_specs_are_the_references_for_every_arch(model, quant):
 
 
 def test_serving_over_a_mesh_refuses_what_is_not_ported():
-    """MLA, the SSM mixer and the hybrid family over a model group of two
-    ranks raise ROADMAP's item at the serving entry points; so does MLA's
-    split cache on a data-only mesh. A split cache's prefix that the model
-    group does not divide, and slots that the data group does not, are
-    refused by name."""
+    """The SSM mixer and the hybrid family over a model group of two ranks
+    raise ROADMAP's item at the serving entry points; MLA does not, and
+    takes its split cache on a data-only mesh too. MLA heads that the
+    model group does not divide, a split cache's prefix that it does not
+    divide, and slots that the data group does not, are refused by name."""
     two = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(2)})
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m", "recurrentgemma-2b"):
+    for arch in ("mamba2-370m", "recurrentgemma-2b"):
         cfg = reduced(get_arch(arch))
         with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
             init_cache(cfg, 2, 16, device="cpu", policy=two)
@@ -377,9 +550,12 @@ def test_serving_over_a_mesh_refuses_what_is_not_ported():
             lm_prefill({}, torch.zeros(1, 4, dtype=torch.long), cfg, policy=two)
         with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
             lm_decode_step({}, torch.zeros(1, 1, dtype=torch.long), {}, 0, cfg, policy=two)
-    with pytest.raises(NotImplementedError, match="MLA's split cache"):
-        init_cache(reduced(get_arch("deepseek-v2-lite-16b")), 2, 16, device="cpu",
-                   policy=_one_rank())
+    mla = reduced(get_arch("deepseek-v2-lite-16b"))
+    assert "tckv" in init_cache(mla, 2, 16, device="cpu", policy=_one_rank())["layers"]
+    assert "tckv" in init_cache(mla, 2, 16, device="cpu", policy=two)["layers"]
+    three = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(3)})
+    with pytest.raises(ValueError, match="4 MLA heads do not split over 3 model ranks"):
+        init_cache(mla, 2, 24, device="cpu", policy=three)
     four = ParallelPolicy(mesh={"data": StandInGroup(2), "model": StandInGroup(4)})
     with pytest.raises(ValueError, match="do not split over 4 model ranks"):
         init_cache(reduced(get_arch("chatglm3-6b")), 2, 18, device="cpu", policy=four)
@@ -392,7 +568,8 @@ def test_serving_over_a_mesh_refuses_what_is_not_ported():
 # ---------------------------------------------------------------------------
 
 def _jcfg(arch):
-    name = {"gqa": "chatglm3-6b", "mha": "gemma-7b", "moe": "deepseek-moe-16b"}[arch]
+    name = {"gqa": "chatglm3-6b", "mha": "gemma-7b", "moe": "deepseek-moe-16b",
+            "mla": "deepseek-v2-lite-16b"}[arch]
     jcfg = dataclasses.replace(jreduced(jget_arch(name)), dtype="float32")
     return dataclasses.replace(jcfg, kv_heads=jcfg.n_heads) if arch == "mha" else jcfg
 
@@ -423,11 +600,10 @@ def run(tmp_path_factory):
         ranks = launch_ranks(rank_side.run_checks, 4, str(root), args=(inp,),
                              deadline_s=TIMEOUT_S, device="cpu")
     serial = {}
-    for arch in rank_side.ARCHS:
+    for arch, cache_dtype in sorted({(a, c) for a, _, _, c in rank_side.ENGINE_RUNS}):
         params = lm_params_from_numpy(inp["params"][arch], device="cpu")
-        for cache_dtype in ("float32", "bfloat16"):
-            serial[arch, cache_dtype] = rank_side.serve(rank_side.arch_cfg(arch), params, LOCAL,
-                                                        cache_dtype)
+        serial[arch, cache_dtype] = rank_side.serve(rank_side.arch_cfg(arch), params, LOCAL,
+                                                    cache_dtype)
     return {"inp": inp, "ranks": ranks, "serial": serial}
 
 
@@ -468,12 +644,35 @@ def test_engine_over_the_mesh_matches_the_serial_engine(run, arch, layout, quant
             break  # the next step's inputs differ
 
 
+def _check_latents(run, layout):
+    """MLA's final latent prefixes, each rank's chunk of the positions put
+    together: each slot's valid prefix (its last request's prompt, and
+    ``TAIL_LEN`` more for each flush) within 1e-5 of max|ref| of the serial
+    Engine's cache there, every position past it zero (the prefill's
+    zeros; the tail's entries are not in the prefix). A slot idle after its
+    last request is held from position 1: the serial decode step writes
+    an idle row's latent at its index 0 (the split one into its tail)."""
+    got = run["ranks"][0]["engine"]["mla", layout, False, "float32"]
+    want = run["serial"]["mla", "float32"]
+    assert got["admitted"] == want["admitted"]
+    for slot, rid in got["admitted"].items():
+        prompt, max_tokens = rank_side.REQUESTS[rid]
+        n = prompt + tattn.TAIL_LEN * max(0, (max_tokens - 2) // tattn.TAIL_LEN)
+        lo = 0 if slot in want["active"][-1] else 1
+        for name in ("ckv", "kr"):
+            g, w = got["latents"][name][:, slot], want["latents"][name][:, slot]
+            _close(g[:, lo:n], w[:, lo:n], 1e-5, f"{layout} slot {slot} {name}")
+            assert not g[:, n:].any(), (layout, slot, name)
+
+
 @pytest.mark.parametrize("layout", list(rank_side.LAYOUTS))
 def test_each_rank_holds_its_part_of_the_cache(run, layout):
     """A rank's prefix leaves hold 1/P of the serial cache's sequence x
     kv heads (by heads where P divides them, else by sequence) for 1/D of
     the slots; its tail whole beside a sequence-sharded prefix, its kv
-    heads beside a head-sharded one."""
+    heads beside a head-sharded one. MLA's latent prefix by sequence at
+    every P, its tail whole, and each rank's chunk holding the serial
+    cache's positions of it (``_check_latents``)."""
     p = rank_side.LAYOUTS[layout]
     d = 4 // p
     for arch in rank_side.ARCHS:
@@ -482,12 +681,19 @@ def test_each_rank_holds_its_part_of_the_cache(run, layout):
         by_seq = p > 1 and cfg.kv_heads % p
         for r, rank in enumerate(run["ranks"]):
             shapes = rank["engine"][arch, layout, False, "float32"]["shapes"]
+            if cfg.mla is not None:
+                for name, tail in (("ckv", "tckv"), ("kr", "tkr")):
+                    L, b, s, w = whole[name].shape
+                    assert shapes[name] == (L, b // d, s // p, w), (arch, layout, r, name)
+                    assert shapes[tail] == (L, b // d, tattn.TAIL_LEN, w), (arch, layout, r, tail)
+                continue
             for name in ("k", "v"):
                 n, (L, b, kvh, s, hd) = np.prod(shapes[name]), whole[name].shape
                 assert n * p * d == L * b * kvh * s * hd, (arch, layout, r, name)
                 assert shapes[name] == (L, b // d, kvh // (1 if by_seq else p),
                                         s // (p if by_seq else 1), hd)
             assert shapes["tk"] == (L, b // d, kvh // (1 if by_seq else p), tattn.TAIL_LEN, hd)
+    _check_latents(run, layout)
 
 
 def _jax_moe(inp, name):

@@ -15,10 +15,13 @@ gradients:
   gradient;
 * ``moe``: ``moe_apply`` through the all-to-all on (2 x 2), and the data
   ranks' tokens routed together on (4 x 1), output, aux and every gradient;
-* ``lm``: ``lm_loss`` of reduced chatglm3-6b and deepseek-moe-16b on
-  (1 x 4) and (2 x 2), ``seq_shard`` on and off, each rank's gradients
-  reduced by ``reduce_grads`` and gathered by ``gather_params``; one AdamW
-  step with ZeRO-1 on (2 x 2);
+* ``lm``: ``lm_loss`` of reduced chatglm3-6b, deepseek-moe-16b and
+  deepseek-v2-lite-16b (MLA) on (1 x 4) and (2 x 2), ``seq_shard`` on and
+  off, each rank's gradients reduced by ``reduce_grads`` and gathered by
+  ``gather_params``; one AdamW step with ZeRO-1 on (2 x 2);
+* ``lm_cut``: the MLA loss on (1 x 4) with ``w_dkv``'s ``copy_to`` cut, so
+  that its gradient stays each rank's part (which the test's gate must
+  refuse);
 * ``roundtrip``: ``shard_params`` then ``gather_params`` of every reduced
   decoder config, bitwise.
 """
@@ -45,10 +48,11 @@ from repro_torch.train.train_loop import (
 
 # (data ranks x model ranks) of the 4 ranks -> ranks to a model group
 LAYOUTS = {"1x4": 4, "2x2": 2, "4x1": 1}
-LM_ARCHS = ("chatglm3-6b", "deepseek-moe-16b")
+LM_ARCHS = ("chatglm3-6b", "deepseek-moe-16b", "deepseek-v2-lite-16b")
 LM_RUNS = tuple((arch, layout, sp) for arch in LM_ARCHS for layout in ("1x4", "2x2")
                 for sp in (False, True))
 STEP_RUN = ("chatglm3-6b", "2x2", True)
+CUT_RUN = ("deepseek-v2-lite-16b", "1x4", False)
 # (q heads, kv heads) of the head-padding checks on 4 ranks
 HEAD_PADDING = {"mha": (6, 6), "6q-2kv": (6, 2), "10q-2kv": (10, 2)}
 OPT_KW = dict(lr=1e-3, grad_clip=0.5)
@@ -165,6 +169,17 @@ def _lm(groups, inp, arch: str, sp: bool) -> dict:
     return {"loss": mean, "grads": gather_params(grads, cfg, pol)}
 
 
+def _lm_cut(groups, inp) -> dict:
+    """``_lm`` of ``CUT_RUN`` with the attention module's ``copy_to`` cut
+    for 2-D weights: MLA's w_dkv (q_norm, k_norm and kv_norm are 1-D)."""
+    saved = attn_lib.copy_to
+    attn_lib.copy_to = lambda x, group: x if x.dim() == 2 else saved(x, group)
+    try:
+        return _lm(groups, inp, CUT_RUN[0], CUT_RUN[2])
+    finally:
+        attn_lib.copy_to = saved
+
+
 def _step(groups, inp) -> dict:
     """One AdamW step on (2 x 2) with ZeRO-1 moments over the data group."""
     arch, _, sp = STEP_RUN
@@ -220,6 +235,7 @@ def run_checks(rank, world_size, device, inp):
            "moe_together": _moe(groups["4x1"], inp, "together", "4x1"),
            "lm": {(arch, layout, sp): _lm(groups[layout], inp, arch, sp)
                   for arch, layout, sp in LM_RUNS},
+           "lm_cut": _lm_cut(groups[CUT_RUN[1]], inp),
            "step": _step(groups[STEP_RUN[1]], inp),
            "roundtrip": _roundtrip(groups, inp)}
     return out if rank == 0 else {"roundtrip": out["roundtrip"]}

@@ -8,12 +8,14 @@ the CPU; each check takes the numpy inputs the test drew:
   and (4 x 1) for a
   GQA config (reduced chatglm3-6b: its 2 kv heads shard by sequence on 4
   model ranks, by heads on 2), an MHA one (reduced gemma-7b with 4 kv
-  heads: by heads) and an MoE one (reduced deepseek-moe-16b), and for the
-  GQA config with ``kv_quant`` too; each run serves the same requests as
+  heads: by heads), an MoE one (reduced deepseek-moe-16b) and an MLA one
+  (reduced deepseek-v2-lite-16b: its latent prefix by sequence), and for
+  the GQA config with ``kv_quant`` too; each run serves the same requests as
   the test's serial ``Engine``, one of them through a tail flush. Each
   rank returns its requests' tokens, the logits of the prefills it ran and
   of every decode step of its rows, its flushes and its cache's leaf
-  shapes;
+  shapes, and under MLA the final latent prefixes of every rank put
+  together (each rank's chunk of the positions, its data rank's rows);
 * ``moe``: ``moe_apply`` over the model group where the all-to-all's
   condition fails: a sequence that P does not divide on (2 x 2) and
   (1 x 4), y, aux and every gradient, and a dropless decode batch.
@@ -37,7 +39,7 @@ from repro_torch.serve.engine import Engine, Request
 
 # (data ranks x model ranks) of the 4 ranks -> ranks to a model group
 LAYOUTS = {"1x4": 4, "2x2": 2, "4x1": 1}
-ARCHS = ("gqa", "mha", "moe")
+ARCHS = ("gqa", "mha", "moe", "mla")
 # (arch, layout, kv_quant, cache dtype) of the Engine runs: every arch on
 # every layout with float32 caches (greedy tokens held), int8 prefixes, and
 # the reference's bfloat16 caches
@@ -58,7 +60,8 @@ MOE_RUNS = {"2x2 s=257": ("2x2", 4, 257), "1x4 s=258": ("1x4", 2, 258),
 
 def arch_cfg(arch: str):
     """The reduced config of ``arch``, float32 activations."""
-    name = {"gqa": "chatglm3-6b", "mha": "gemma-7b", "moe": "deepseek-moe-16b"}[arch]
+    name = {"gqa": "chatglm3-6b", "mha": "gemma-7b", "moe": "deepseek-moe-16b",
+            "mla": "deepseek-v2-lite-16b"}[arch]
     cfg = dataclasses.replace(reduced(get_arch(name)), dtype="float32")
     return dataclasses.replace(cfg, kv_heads=cfg.n_heads) if arch == "mha" else cfg
 
@@ -71,15 +74,16 @@ def requests(vocab: int, seed: int = 5) -> list:
 
 @contextlib.contextmanager
 def recording(engine, log: dict):
-    """Within the block the runner's prefills log (rid, logits), its decode
-    steps the logits of this rank's rows and the active slots."""
+    """Within the block the runner's prefills log (rid, logits), its
+    admissions the request each slot took last, its decode steps the
+    logits of this rank's rows and the active slots."""
     runner = engine.runner
     prefill, decode = tf_lib.lm_prefill, tf_lib.lm_decode_step
     admit, step = runner.admit, runner.step
     current = {}
 
     def admitted(slot, req):
-        current["rid"] = req.rid
+        current["rid"] = log["admitted"][slot] = req.rid
         return admit(slot, req)
 
     def stepped(slots, active):
@@ -109,18 +113,27 @@ def serve(cfg, params, policy, cache_dtype: str, device="cpu") -> dict:
     """The requests through ``Engine`` (every rank alike), with the logits
     recorded: {"tokens": {rid: output}, "prefill": {rid: logits},
     "decode": [logits of this rank's rows], "active": [each step's active
-    slots], "flushes", "shapes" (of the stacked layers' cache leaves)}."""
+    slots], "admitted": {slot: rid of its last request}, "flushes",
+    "shapes" (of the stacked layers' cache leaves), "latents" (MLA: the
+    final ckv and kr of every layer, [L, rows, S, ...], as this rank holds
+    them)}."""
     engine = Engine(cfg, params, max_len=MAX_LEN, max_batch=SLOTS, device=device, policy=policy,
                     cache_dtype=getattr(torch, cache_dtype))
-    log = {"prefill": {}, "decode": [], "active": []}
+    log = {"prefill": {}, "decode": [], "active": [], "admitted": {}}
     for req in requests(cfg.vocab):
         engine.submit(req)
     with recording(engine, log):
         done = engine.run_until_done()
-    shapes = {name: tuple(t.shape) for name, t in engine.runner.cache["layers"].items()}
+    cache = engine.runner.cache
+    shapes = {name: tuple(t.shape) for name, t in cache["layers"].items()}
+    latents = None
+    if cfg.mla is not None:
+        first = [] if cache["layer0"] is None else [cache["layer0"]]
+        latents = {name: torch.cat([c[name][None] for c in first] + [cache["layers"][name]])
+                   for name in ("ckv", "kr")}
     return {"tokens": {r.rid: list(r.output) for r in done}, "prefill": log["prefill"],
-            "decode": log["decode"], "active": log["active"], "flushes": engine.runner.flushes,
-            "shapes": shapes}
+            "decode": log["decode"], "active": log["active"], "admitted": log["admitted"],
+            "flushes": engine.runner.flushes, "shapes": shapes, "latents": latents}
 
 
 def _engine(groups, inp, arch, layout, quant, cache_dtype) -> dict:
@@ -131,6 +144,9 @@ def _engine(groups, inp, arch, layout, quant, cache_dtype) -> dict:
     # every data rank's rows of each step, in slot order
     out["decode"] = [gather_dim(step, 0, pol.data_group) if pol.dp_size() > 1 else step
                      for step in out["decode"]]
+    if out["latents"] is not None:  # the chunks of positions, then the data ranks' rows
+        out["latents"] = {name: gather_dim(gather_dim(t, 2, pol.model_group), 1, pol.data_group)
+                          for name, t in out["latents"].items()}
     return out
 
 
@@ -198,5 +214,5 @@ def run_checks(rank, world_size, device, inp):
     if rank:  # the others' shapes and flushes, and their own prefills
         out["moe"] = None
         for run in out["engine"].values():
-            run["decode"] = None
+            run["decode"] = run["latents"] = None
     return out
