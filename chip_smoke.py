@@ -264,6 +264,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -4562,10 +4563,18 @@ def phase_lm_train(gpu: str) -> dict:
 
 # the archs of the reference's dist_lm_loss_matches_local at full width,
 # with their depth cut: chatglm3-6b 2 of 28 layers; deepseek-moe-16b and
-# deepseek-v2-lite-16b (MLA) their dense layer 0 and 1 MoE layer
-DIST_LM_ARCHS = {"chatglm3-6b": 2, "deepseek-moe-16b": 2, "deepseek-v2-lite-16b": 2}
+# deepseek-v2-lite-16b (MLA) their dense layer 0 and 1 MoE layer;
+# mamba2-370m (its SSD mixer over the model group's heads) 2 of 48 layers;
+# recurrentgemma-2b (the RG-LRU replicated, its local attention and MLPs
+# tensor-parallel) one superblock, 3 of 26 layers
+DIST_LM_ARCHS = {"chatglm3-6b": 2, "deepseek-moe-16b": 2, "deepseek-v2-lite-16b": 2,
+                 SSM_ARCH: 2, HYBRID_ARCH: 3}
 # the archs whose bf16 training step is timed on (1 x 4)
-DIST_LM_STEP_ARCHS = ("chatglm3-6b", "deepseek-v2-lite-16b")
+DIST_LM_STEP_ARCHS = ("chatglm3-6b", "deepseek-v2-lite-16b", SSM_ARCH, HYBRID_ARCH)
+# the gate runs with a sum over the model group cut, which the gate must
+# refuse: the kernels' outputs cut from the graph, and mamba2's w_B used on
+# each rank's heads without ``copy_to`` (its gradient a rank's part)
+DIST_LM_CUTS = {("chatglm3-6b", "1x4"): "kernels", (SSM_ARCH, "1x4"): "w_B"}
 DIST_LM_BATCH, DIST_LM_SEQ = 2, 1024
 # (name, ranks to a model group, seq_shard): the gates run on both
 DIST_LM_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
@@ -4580,6 +4589,15 @@ DIST_LM_ULYSSES = (1, 4096)
 # step with the collectives timed
 DIST_LM_STEPS = 2
 DIST_LM_CLI_STEPS, DIST_LM_CLI_FAULT, DIST_LM_CLI_RTOL = 4, 2, 1e-3
+
+
+def _kept_layers(cfg) -> str:
+    """The layers a depth-cut config keeps, in words."""
+    if cfg.moe:
+        return "layer 0 (dense) and 1 MoE layer"
+    if cfg.family == "hybrid":
+        return f"{cfg.n_layers // len(cfg.pattern)} superblock ({', '.join(cfg.pattern)})"
+    return f"{cfg.n_layers} layers"
 
 
 def _dist_lm_cfg(arch: str, dtype: str):
@@ -4668,7 +4686,7 @@ def _dist_lm_serial(arch: str, shards, gpu: str, dev) -> dict:
     import torch
 
     from repro_torch.models import ParallelPolicy, lm_loss
-    from repro_torch.models.transformer import attention_layers, norms_per_forward
+    from repro_torch.models.transformer import flash_per_prefill, norms_per_forward
     from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
 
     cfg = _dist_lm_cfg(arch, "float32")
@@ -4684,7 +4702,7 @@ def _dist_lm_serial(arch: str, shards, gpu: str, dev) -> dict:
             lambda p, b: lm_loss(p, b, cfg, ParallelPolicy(remat=False)), params, batch, grads)
     torch.cuda.synchronize()
     launched = _kernel_counts()
-    want = {"rmsnorm": norms_per_forward(cfg), "flash": attention_layers(cfg)}
+    want = {"rmsnorm": norms_per_forward(cfg), "flash": flash_per_prefill(cfg, DIST_LM_SEQ)}
     if launched != want:
         raise SystemExit(f"[dist lm] serial {arch}: launches {launched}, want {want}")
     dropped = sum(int(n) for n, _ in drops)
@@ -4754,12 +4772,29 @@ def _dist_lm_leaf_gate(g, ref, spec, pol, scale) -> dict:
     return {"ok": ok and _finite(g), "max_d": max_d, "max_ref": scale, "passed_wrong": passed_wrong}
 
 
-def _dist_lm_gate(arch: str, pol, serial: dict, recorded, device, cut: bool) -> dict:
+@contextlib.contextmanager
+def cut_w_b():
+    """Within the block the SSD mixer takes w_B as a whole leaf without
+    ``copy_to``: each rank's gradient of it stays the part its heads give,
+    which the gradient gate must refuse."""
+    import repro_torch.models.ssm as ssm_lib
+
+    saved = ssm_lib.WHOLE_LEAVES
+    ssm_lib.WHOLE_LEAVES = tuple(n for n in saved if n != "w_B")
+    try:
+        yield
+    finally:
+        ssm_lib.WHOLE_LEAVES = saved
+
+
+def _dist_lm_gate(arch: str, pol, serial: dict, recorded, device, cut) -> dict:
     """One f32 forward + backward of ``lm_loss`` on this rank's shards and
     rows (remat off; the MoE routes replayed from the serial run's shard),
     its gradients reduced (``reduce_grads``, the LM's rule) and each leaf
-    gated against the serial gradient; with ``cut``, the same run with the
-    kernels' outputs cut from the graph, which the gate must refuse."""
+    gated against the serial gradient; with ``cut`` ("kernels" or "w_B"),
+    the same run with the kernels' outputs cut from the graph or with
+    w_B's sum over the group cut (``cut_w_b``), which the gate must
+    refuse."""
     import torch
     import torch.distributed as dist
 
@@ -4798,7 +4833,8 @@ def _dist_lm_gate(arch: str, pol, serial: dict, recorded, device, cut: bool) -> 
 
     out = run(contextlib.nullcontext())
     if cut:
-        out["cut"] = run(cut_kernels())["gates"]
+        out["cut"] = run(cut_kernels() if cut == "kernels" else cut_w_b())["gates"]
+        out["cut_kind"] = cut
     del local
     torch.cuda.empty_cache()
     return out
@@ -4926,7 +4962,7 @@ def _dist_lm_rank_work(rank, world_size, device, job):
             recorded = serial["routes"].get((d, m)) if serial["routes"] else None
             t = time.perf_counter()
             out["gates"][arch, name] = _dist_lm_gate(arch, pol, serial, recorded, device,
-                                                     cut=(arch, name) == job["cut"])
+                                                     cut=DIST_LM_CUTS.get((arch, name)))
             out["gates"][arch, name]["wall_s"] = time.perf_counter() - t
     out["ulysses"] = _dist_lm_ulysses(groups["1x4"]["model"], job, device)
     torch.cuda.empty_cache()
@@ -4945,7 +4981,7 @@ def _dist_lm_check_gates(ranks, serial: dict, gpu: str) -> dict:
     ``DIST_LM_LOSS_RTOL`` of the serial one, every leaf at the gradient
     gate, no wrong answer passing it, the cut run refused, the launches
     exact and equal on every rank; returns what is printed."""
-    from repro_torch.models.transformer import attention_layers, norms_per_forward
+    from repro_torch.models.transformer import flash_per_prefill, norms_per_forward
 
     out = {}
     for key in ranks[0]["gates"]:
@@ -4953,7 +4989,8 @@ def _dist_lm_check_gates(ranks, serial: dict, gpu: str) -> dict:
         cfg = _dist_lm_cfg(arch, "float32")
         runs = [r["gates"][key] for r in ranks]
         ref = serial[key]
-        want = {"rmsnorm": norms_per_forward(cfg), "flash": attention_layers(cfg)}
+        p = dict((n, p) for n, p, _ in DIST_LM_LAYOUTS)[layout]
+        want = {"rmsnorm": norms_per_forward(cfg, p), "flash": flash_per_prefill(cfg, DIST_LM_SEQ)}
         launches = [run["launches"] for run in runs]
         if any(n != want for n in launches):
             raise SystemExit(f"[dist lm] {arch} {layout}: launches per rank {launches}, want {want}")
@@ -4984,11 +5021,15 @@ def _dist_lm_check_gates(ranks, serial: dict, gpu: str) -> dict:
             raise SystemExit(f"[dist lm] {arch} on {layout}: loss rel {rel:.3e}; "
                              + "; ".join((faults + wrong)[:8]))
         if "cut" in runs[0]:
-            refused = sum(not g["ok"] for run in runs for g in run["cut"].values())
-            print(f"[dist lm] {arch} on {layout}: the gate on a run with the kernels' outputs cut "
-                  f"from the graph refuses {refused} leaves over the ranks")
-            if not refused:
-                raise SystemExit(f"[dist lm] the gradient gate did not refuse a cut graph")
+            kind = runs[0]["cut_kind"]
+            names = sorted({name for run in runs for name, g in run["cut"].items() if not g["ok"]})
+            what = ("the kernels' outputs cut from the graph" if kind == "kernels" else
+                    "w_B's sum over the model group cut (no copy_to)")
+            print(f"[dist lm] {arch} on {layout}: the gate on a run with {what} refuses "
+                  f"{sum(not g['ok'] for run in runs for g in run['cut'].values())} leaves over "
+                  f"the ranks ({names[:4]})")
+            if not names or (kind == "w_B" and "layers.mixer.w_B" not in names):
+                raise SystemExit(f"[dist lm] the gradient gate did not refuse the {kind} cut")
         out[f"{arch} {layout}"] = {"loss": runs[0]["loss"], "serial_loss": ref["loss"],
                                    "loss_rel": rel, "grad_worst": worst[0],
                                    "launches": launches[0],
@@ -5026,7 +5067,7 @@ def _dist_lm_report_step(ranks, arch: str, gpu: str) -> dict:
     from repro_torch.models.transformer import train_launches
 
     cfg = _dist_lm_cfg(arch, "bfloat16")
-    per = train_launches(cfg, DIST_LM_SEQ)
+    per = train_launches(cfg, DIST_LM_SEQ, DIST_RANKS)
     steps = [r["step"][arch] for r in ranks]
     want = {k: steps[0]["counted_steps"] * v for k, v in per.items()}
     if any(st["launches"] != want for st in steps):
@@ -5080,6 +5121,12 @@ def _dist_lm_kernel_times(gpu: str) -> dict:
                                                                    128),
             "deepseek-v2-lite-16b MLA 1x4 (b 2, 4 heads x 192)": (2, 4, 4, DIST_LM_SEQ, 192),
             "deepseek-v2-lite-16b MLA 2x2 (b 1, 8 heads x 192)": (1, 8, 8, DIST_LM_SEQ, 192),
+            # 10 heads padded to 12: 3 a rank; ranks 0-2 read the one kv head as
+            # a group, rank 3 (1 real head, 2 padded) one kv head a q head
+            "recurrentgemma-2b 1x4 (b 2, 3 q heads, kv 1, x 256)": (2, 3, 1, DIST_LM_SEQ, 256),
+            "recurrentgemma-2b 1x4 padded rank (b 2, 3 q heads, kv 3, x 256)": (
+                2, 3, 3, DIST_LM_SEQ, 256),
+            "recurrentgemma-2b 2x2 (b 1, 5 q heads, kv 1, x 256)": (1, 5, 1, DIST_LM_SEQ, 256),
     }.items():
         q = randn((b, s, h, hd)).transpose(1, 2)
         k, v = (randn((b, s, kvh, hd)).transpose(1, 2) for _ in range(2))
@@ -5106,6 +5153,10 @@ def _dist_lm_kernel_times(gpu: str) -> dict:
             # MLA's kv_norm runs on the whole sequence on every rank
             "deepseek-v2-lite-16b kv_norm 1x4 [2048, 512]": (DIST_LM_BATCH * DIST_LM_SEQ, 512),
             "deepseek-v2-lite-16b kv_norm 2x2 [1024, 512]": (DIST_LM_SEQ, 512),
+            "mamba2-370m 1x4 seq_shard [512, 1024]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 1024),
+            "mamba2-370m 2x2 [1024, 1024]": (DIST_LM_SEQ, 1024),
+            "recurrentgemma-2b 1x4 seq_shard [512, 2560]": (DIST_LM_BATCH * DIST_LM_SEQ // 4, 2560),
+            "recurrentgemma-2b 2x2 [1024, 2560]": (DIST_LM_SEQ, 2560),
     }.items():
         x, w = randn((rows, d)), 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         err = _lm_check(f"dist lm rmsnorm {name}", rmsnorm(x, w), rmsnorm_ref(x, w))
@@ -5178,9 +5229,9 @@ def phase_dist_lm(gpu: str) -> dict:
     for arch, n in DIST_LM_ARCHS.items():
         full, cfg = get_arch(arch), _dist_lm_cfg(arch, "float32")
         print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "
-              f"{'layer 0 (dense) and 1 MoE layer' if cfg.moe else f'{n} layers'}; "
-              f"{cfg.approx_params() / 1e9:.3f} B params, {cfg.approx_params() * 4 / 1e9:.1f} GB "
-              f"in f32; {full.n_layers} layers are {full.approx_params() / 1e9:.2f} B)")
+              f"{_kept_layers(cfg)}; {cfg.approx_params() / 1e9:.3f} B params, "
+              f"{cfg.approx_params() * 4 / 1e9:.1f} GB in f32; {full.n_layers} layers are "
+              f"{full.approx_params() / 1e9:.2f} B)")
     t0 = time.perf_counter()
     serial = {}
     for arch in DIST_LM_ARCHS:
@@ -5199,9 +5250,10 @@ def phase_dist_lm(gpu: str) -> dict:
         ulysses_ref[name] = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                             v.transpose(1, 2)).transpose(1, 2)
     torch.cuda.synchronize()
+    _free_cuda()  # the ranks need what the serial runs left reserved
     print(f"[dist lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
           f"{_memory_line()}")
-    job = {"serial": serial, "cut": ("chatglm3-6b", "1x4"), "ulysses": ulysses, "gpu": gpu}
+    job = {"serial": serial, "ulysses": ulysses, "gpu": gpu}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         ranks = launch_ranks(_dist_lm_rank, DIST_RANKS, d, args=(job,),
@@ -5238,22 +5290,31 @@ def phase_dist_lm(gpu: str) -> dict:
 # full width, depth cut: gemma-7b (16 kv heads: a head-sharded prefix) and
 # chatglm3-6b (2 kv heads: sequence-sharded on 4 model ranks) 2 of 28
 # layers; deepseek-moe-16b and deepseek-v2-lite-16b (MLA: its latent
-# prefix sequence-sharded at every P) their dense layer 0 and 1 MoE layer
+# prefix sequence-sharded at every P) their dense layer 0 and 1 MoE layer;
+# mamba2-370m (the SSM state by heads) 2 of 48 layers and recurrentgemma-2b
+# (its ring of 2048 sequence-sharded, the RG-LRU's cache whole) one
+# superblock, 3 of 26 layers
 DIST_SERVE_ARCHS = {"gemma-7b": 2, "chatglm3-6b": 2, "deepseek-moe-16b": 2,
-                    "deepseek-v2-lite-16b": 2}
+                    "deepseek-v2-lite-16b": 2, SSM_ARCH: 2, HYBRID_ARCH: 3}
 DIST_SERVE_MAX_LEN, DIST_SERVE_SLOTS = 2048, 4
 # (prompt length, max_tokens) of the 8 requests: one prompt of 1536, lengths
 # that 4 divides and that it does not (the MoE's all-to-all and its other
-# path), one request decoding past TAIL_LEN (a tail flush mid-run, then 7
-# steps; cut from 80 tokens for the script's time)
-DIST_SERVE_FLUSHED = 72
+# path), one request decoding past TAIL_LEN (a tail flush mid-run, then one
+# step; cut from 80 tokens, then 72, for the script's time)
+DIST_SERVE_FLUSHED = 66
+# the timed bf16 runs serve the same requests with each one's tokens capped
+# at this (the flushed request's 66 cut for the script's time: 15 decode
+# steps, the first not counted)
+DIST_SERVE_TIMED_TOKENS = 16
 DIST_SERVE_REQUESTS = ((1536, 8), (5, DIST_SERVE_FLUSHED), (300, 8), (1027, 8), (64, 8), (777, 8),
                        (130, 8), (12, 8))
 # (layout, ranks to a model group, seq_shard) of every arch's gate runs;
-# DIST_SERVE_EXTRA also on (4 x 1) and with kv_quant on (1 x 4)
+# DIST_SERVE_EXTRA also on (4 x 1) and with kv_quant on (1 x 4), the SSM and
+# hybrid archs also on (4 x 1)
 DIST_SERVE_LAYOUTS = (("1x4", 4, True), ("2x2", 2, False))
 DIST_SERVE_EXTRA = "chatglm3-6b"
-DIST_SERVE_CUT = ("chatglm3-6b", "1x4")  # sequence-sharded: the combine's sum cut
+# sequence-sharded prefix and ring: the runs whose combine's sum is cut too
+DIST_SERVE_CUTS = (("chatglm3-6b", "1x4"), (HYBRID_ARCH, "1x4"))
 DIST_SERVE_SEED = 23
 # f32 activations and f32 caches: the serial gate of the reference, 1e-4 of
 # max|ref|, on prefill and decode logits; int8 prefixes at 3e-2 of max|ref|
@@ -5277,12 +5338,26 @@ def _dist_serve_cfg(arch: str, dtype: str):
     return dataclasses.replace(get_arch(arch), n_layers=DIST_SERVE_ARCHS[arch], dtype=dtype)
 
 
-def _dist_serve_requests(cfg) -> list:
+def _dist_serve_shapes(cfg) -> tuple:
+    """(prompt length, max_tokens) of ``cfg``'s requests: the phase's
+    eight, and under a window one more past it (``HYBRID_EXTRA``'s
+    first), whose prefill writes the sequence-sharded ring wrapped."""
+    return DIST_SERVE_REQUESTS + (((HYBRID_EXTRA[0], 8),) if cfg.window else ())
+
+
+def _dist_serve_max_len(cfg) -> int:
+    return RECURRENT_MAX_LEN if cfg.window else DIST_SERVE_MAX_LEN
+
+
+def _dist_serve_requests(cfg, max_tokens: Optional[int] = None) -> list:
+    """``cfg``'s requests (``_dist_serve_shapes``), each one's tokens capped
+    at ``max_tokens`` if given."""
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(DIST_SERVE_SEED)
-    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=n).tolist(), max_tokens=m)
-            for i, (n, m) in enumerate(DIST_SERVE_REQUESTS)]
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=n).tolist(),
+                    max_tokens=m if max_tokens is None else min(m, max_tokens))
+            for i, (n, m) in enumerate(_dist_serve_shapes(cfg))]
 
 
 def _dist_serve_params(cfg, device):
@@ -5376,23 +5451,25 @@ def _moe_routes(out: list, prefills: list):
         moe_lib._route, tf_lib.lm_decode_step, tf_lib.lm_prefill = route, decode, prefill
 
 
-def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32") -> dict:
+def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32",
+                       max_tokens: Optional[int] = None) -> dict:
     """The serial Engine on the card, f32 activations and f32 caches (or
     bf16 weights and the reference's bf16 caches), the requests' tokens and
     every prefill's and decode step's logits; the MoE layers route the
     prompts that ``p`` model ranks divide per slice, as the expert-parallel
-    path does (``per_shard_moe`` on 1 x ``p``)."""
+    path does (``per_shard_moe`` on 1 x ``p``). ``max_tokens`` caps each
+    request's tokens."""
     import torch
 
     from repro_torch.models import LOCAL
     from repro_torch.serve import Engine
 
     cfg = _dist_serve_cfg(arch, dtype)
-    engine = Engine(cfg, _dist_serve_params(cfg, dev), max_len=DIST_SERVE_MAX_LEN,
+    engine = Engine(cfg, _dist_serve_params(cfg, dev), max_len=_dist_serve_max_len(cfg),
                     max_batch=DIST_SERVE_SLOTS, device=dev, policy=LOCAL,
                     cache_dtype=getattr(torch, dtype))
     log = {"prefill": {}, "decode": [], "active": []}
-    for req in _dist_serve_requests(cfg):
+    for req in _dist_serve_requests(cfg, max_tokens):
         engine.submit(req)
     t0 = time.perf_counter()
     drops = []
@@ -5442,14 +5519,40 @@ def _prefix_bytes(cache) -> int:
                if name in ("k", "v", "k_scale", "v_scale", "ckv", "kr"))
 
 
-def _serve_launches(cfg, log: dict) -> dict:
-    """The kernels' launches of a served run on one rank: every norm of a
-    prefill or a decode step (``norms_per_forward``), one flash launch per
-    attention layer of each prefill this rank ran."""
+def _state_bytes(cache) -> int:
+    """The bytes of the recurrent caches (the SSM's conv and state, the
+    RG-LRU's conv and h) a rank holds."""
+    from repro_torch.models.transformer import _leaves as cache_leaves
+
+    return sum(t.numel() * t.element_size() for name, t in cache_leaves(cache)
+               if name in ("conv", "state", "h"))
+
+
+def _rank_state_bytes(cfg, p: int, rows: int) -> int:
+    """What ``_state_bytes`` must read on a rank of a model group of ``p``
+    holding ``rows`` slots: the SSM state's H/P heads and its whole conv
+    cache; the RG-LRU's conv and h whole; all float32."""
+    n = 0
+    for kind in cfg.layer_kinds():
+        if kind == "ssm":
+            ssm = cfg.ssm
+            n += (ssm.conv_kernel * ssm.conv_dim(cfg.d_model)
+                  + ssm.n_heads(cfg.d_model) // p * ssm.d_state * ssm.head_dim)
+        elif kind == "rec":
+            w = cfg.rglru.width(cfg.d_model)
+            n += cfg.rglru.conv_kernel * w + w
+    return 4 * rows * n
+
+
+def _serve_launches(cfg, log: dict, p: int) -> dict:
+    """The kernels' launches of a served run on one rank of a model group
+    of ``p``: every norm of a prefill or a decode step
+    (``norms_per_forward``), one flash launch per attention layer of each
+    prefill this rank ran within the window."""
     from repro_torch.models.transformer import flash_per_prefill, norms_per_forward
 
-    prompts = {i: n for i, (n, _) in enumerate(DIST_SERVE_REQUESTS)}
-    return {"rmsnorm": norms_per_forward(cfg) * (len(log["prefill"]) + len(log["decode"])),
+    prompts = {i: n for i, (n, _) in enumerate(_dist_serve_shapes(cfg))}
+    return {"rmsnorm": norms_per_forward(cfg, p) * (len(log["prefill"]) + len(log["decode"])),
             "flash": sum(flash_per_prefill(cfg, prompts[rid]) for rid in log["prefill"])}
 
 
@@ -5531,7 +5634,7 @@ def _dist_serve_gate(arch: str, groups, sp: bool, quant: bool, serial: dict, dev
     local = _drawn_shards(cfg, pol, device)
 
     def serve(max_tokens=None):
-        engine = Engine(cfg, local, max_len=DIST_SERVE_MAX_LEN, max_batch=DIST_SERVE_SLOTS,
+        engine = Engine(cfg, local, max_len=_dist_serve_max_len(cfg), max_batch=DIST_SERVE_SLOTS,
                         device=device, policy=pol, cache_dtype=torch.float32)
         log = {"prefill": {}, "decode": [], "active": []}
         for req in _dist_serve_requests(cfg):
@@ -5549,9 +5652,10 @@ def _dist_serve_gate(arch: str, groups, sp: bool, quant: bool, serial: dict, dev
     launched, runner = _kernel_counts(), engine.runner
     first, rows = runner.first, runner.rows
     out = {**_held_to_serial(serial, log, tokens, runner), "launches": launched,
-           "want": _serve_launches(cfg, log), "flushes": runner.flushes,
-           "prefix_bytes": _prefix_bytes(runner.cache), "rows": rows, "wall_s": wall,
-           "prefills": len(log["prefill"]), "steps": len(log["decode"])}
+           "want": _serve_launches(cfg, log, pol.model_size()), "flushes": runner.flushes,
+           "prefix_bytes": _prefix_bytes(runner.cache), "state_bytes": _state_bytes(runner.cache),
+           "rows": rows, "wall_s": wall, "prefills": len(log["prefill"]),
+           "steps": len(log["decode"])}
     del engine, log
     if cut:  # the first decode step with each rank's own chunk only
         saved = attn_lib.all_reduce_sum
@@ -5561,8 +5665,10 @@ def _dist_serve_gate(arch: str, groups, sp: bool, quant: bool, serial: dict, dev
         finally:
             attn_lib.all_reduce_sum = saved
         got, active = log["decode"][0], log["active"][0]
-        out["cut_rel"] = max(_rel(got[slot - first], serial["decode"][0, slot])
-                             for slot, _, _ in active if first <= slot < first + rows)
+        # a chunk that holds none of a row's keys divides 0 by 0 on its own
+        rels = [_rel(got[slot - first], serial["decode"][0, slot])
+                for slot, _, _ in active if first <= slot < first + rows]
+        out["cut_rel"] = max(r if np.isfinite(r) else float("inf") for r in rels)
         del engine, log
     del local
     _free_cuda()
@@ -5589,10 +5695,10 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
     local = _drawn_shards(cfg, pol, device)
     out = {}
     for timed in (False, True):
-        engine = Engine(cfg, local, max_len=DIST_SERVE_MAX_LEN, max_batch=DIST_SERVE_SLOTS,
+        engine = Engine(cfg, local, max_len=_dist_serve_max_len(cfg), max_batch=DIST_SERVE_SLOTS,
                         device=device, policy=pol)
         log = {"prefill": {}, "decode": [], "active": []}
-        for req in _dist_serve_requests(cfg):
+        for req in _dist_serve_requests(cfg, DIST_SERVE_TIMED_TOKENS):
             engine.submit(req)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5618,8 +5724,9 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
             out.update(prefill_s=list(runner.prefill_s), decode_s=list(runner.decode_s),
                        tokens=sum(len(a) for a in log["active"]), wall_s=wall,
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                       prefix_bytes=_prefix_bytes(runner.cache), launches=_kernel_counts(),
-                       want=_serve_launches(cfg, log))
+                       prefix_bytes=_prefix_bytes(runner.cache),
+                       state_bytes=_state_bytes(runner.cache), launches=_kernel_counts(),
+                       want=_serve_launches(cfg, log, pol.model_size()))
         del engine, log
     del local
     _free_cuda()
@@ -5653,6 +5760,10 @@ def _dist_serve_kernel_times(gpu: str) -> dict:
             f"deepseek-moe-16b 1x4 prefill (b 1, s {s}, 4 heads x 128)": (4, 4, 128),
             # MLA: dh_nope + dh_rope, v padded to it
             f"deepseek-v2-lite-16b MLA 1x4 prefill (b 1, s {s}, 4 heads x 192)": (4, 4, 192),
+            # 10 heads padded to 12: 3 a rank, the padded rank one kv head a q head
+            f"recurrentgemma-2b 1x4 prefill (b 1, s {s}, 3 q heads, kv 1, x 256)": (3, 1, 256),
+            f"recurrentgemma-2b 1x4 prefill, padded rank (b 1, s {s}, 3 q heads, kv 3, x 256)": (
+                3, 3, 256),
     }.items():
         q = randn((1, s, h, hd)).transpose(1, 2)
         k, v = (randn((1, s, kvh, hd)).transpose(1, 2) for _ in range(2))
@@ -5702,8 +5813,10 @@ def _dist_serve_kernel_times(gpu: str) -> dict:
 def _dist_serve_runs(arch: str) -> list:
     """(layout, seq_shard, kv_quant) of ``arch``'s gate runs."""
     runs = [(name, sp, False) for name, _, sp in DIST_SERVE_LAYOUTS]
+    if arch in (DIST_SERVE_EXTRA, SSM_ARCH, HYBRID_ARCH):
+        runs.append(("4x1", False, False))
     if arch == DIST_SERVE_EXTRA:
-        runs += [("4x1", False, False), ("1x4", True, True)]
+        runs.append(("1x4", True, True))
     return runs
 
 
@@ -5741,7 +5854,7 @@ def _dist_serve_rank_work(rank, world_size, device, job):
         for layout, sp, quant in _dist_serve_runs(arch):
             out["gates"][arch, layout, quant] = _dist_serve_gate(
                 arch, groups[layout], sp, quant, job["serial"][arch, layout], device,
-                cut=(arch, layout) == DIST_SERVE_CUT and not quant)
+                cut=(arch, layout) in DIST_SERVE_CUTS and not quant)
     for arch in DIST_SERVE_ARCHS:
         out["timed"][arch] = _dist_serve_timed(arch, groups["1x4"], job["serial"][arch, "bf16"],
                                                device)
@@ -5757,6 +5870,8 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
     refused; prints the prefix bytes a rank holds against the serial
     cache's. Returns the launches summed over the gate runs and what is
     recorded."""
+    from repro_torch.models.transformer import attention_layers
+
     out, launches = {}, {"rmsnorm": 0, "flash": 0}
     for key in ranks[0]["gates"]:
         arch, layout, quant = key
@@ -5766,8 +5881,10 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
         tol = DIST_SERVE_INT8 if quant else DIST_SERVE_F32
         faults = [f"rank {r}: launches {g['launches']}, want {g['want']}"
                   for r, g in enumerate(runs) if g["launches"] != g["want"]]
-        faults += [f"rank {r}: {g['flushes']} flushes" for r, g in enumerate(runs)
-                   if g["flushes"] != 1]
+        # one flush where the attention caches have a tail (no window, no SSM)
+        flushes = int(cfg.window is None and cfg.family != "ssm")
+        faults += [f"rank {r}: {g['flushes']} flushes, want {flushes}" for r, g in enumerate(runs)
+                   if g["flushes"] != flushes]
         faults += [f"rank {r}: tokens differ ({g['equal_tokens']} of {g['all_tokens']} equal)"
                    for r, g in enumerate(runs) if not quant and not g["tokens_equal"]]
         worst_p = max(g["prefill_rel"] for g in runs)
@@ -5778,17 +5895,24 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
             faults.append(f"decode logits {worst_d:.3e} of max|ref|")
         d = int(layout.split("x")[0])
         p = DIST_RANKS // d
-        # the serial engine's bf16 prefix: every slot, every kv head, S positions, k and v
-        # (MLA: the latent and the RoPE key of every position)
+        # the serial engine's bf16 prefix: every slot, every kv head, S positions
+        # (a window's ring: min(max_len, window) slots), k and v (MLA: the latent
+        # and the RoPE key of every position), of every attention layer
         width = (cfg.mla.kv_lora + cfg.mla.dh_rope if cfg.mla is not None
                  else 2 * cfg.kv_heads * cfg.head_dim_)
-        serial_bf16 = cfg.n_layers * DIST_SERVE_SLOTS * DIST_SERVE_MAX_LEN * width * 2
+        length = min(_dist_serve_max_len(cfg), cfg.window or DIST_SERVE_MAX_LEN)
+        serial_bf16 = attention_layers(cfg) * DIST_SERVE_SLOTS * length * width * 2
         held = runs[0]["prefix_bytes"]
         # f32 prefixes twice bf16's; int8 with a bf16 scale per head dim's values
         expect = ((cfg.head_dim_ + 2) / (2 * cfg.head_dim_) if quant else 2.0) / p
-        if any(abs(g["prefix_bytes"] / (serial_bf16 / d) - expect) > 1e-9 for g in runs):
+        if any(abs(g["prefix_bytes"] - expect * serial_bf16 / d) > 1e-9 * serial_bf16
+               for g in runs):
             faults.append(f"prefix bytes per rank {[g['prefix_bytes'] for g in runs]}, not "
                           f"{expect:.4f} of the serial bf16 cache's {serial_bf16 / d} for its rows")
+        state = _rank_state_bytes(cfg, p, DIST_SERVE_SLOTS // d)
+        if any(g["state_bytes"] != state for g in runs):
+            faults.append(f"recurrent cache bytes per rank {[g['state_bytes'] for g in runs]}, "
+                          f"not {state}")
         print(f"[dist serve lm] {tag}: tokens {'equal' if runs[0]['tokens_equal'] else 'differ'} "
               f"({runs[0]['equal_tokens']} of {runs[0]['all_tokens']} equal); prefill logits "
               f"{worst_p:.3e}, decode logits {worst_d:.3e} of max|ref| (gates {DIST_SERVE_F32}, "
@@ -5796,8 +5920,10 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
               f"flushes {[g['flushes'] for g in runs]}; launches per rank "
               f"{[g['launches'] for g in runs]} (exact); a rank holds "
               f"{held / 2**20:.1f} MiB of prefix ({'int8 + bf16 scales' if quant else 'f32'}) for "
-              f"its {runs[0]['rows']} slot rows: {held / (serial_bf16 / d):.4f} of the serial bf16 "
-              f"cache's for those rows (P = {p}; 1/P at bf16); served in "
+              f"its {runs[0]['rows']} slot rows: {held / max(serial_bf16 / d, 1):.4f} of the serial "
+              f"bf16 cache's for those rows (P = {p}; 1/P at bf16), and "
+              f"{runs[0]['state_bytes'] / 2**20:.2f} MiB of recurrent caches (f32: the SSM state "
+              f"1/P, the convs and the RG-LRU's h whole); served in "
               f"{max(g['wall_s'] for g in runs):.2f}s; {gpu}")
         if "cut_rel" in runs[0]:
             cut = max(g["cut_rel"] for g in runs)
@@ -5811,7 +5937,7 @@ def _dist_serve_check(ranks, gpu: str) -> dict:
             launches[k] += runs[0]["launches"][k]
         out[tag] = {"prefill_rel": worst_p, "decode_rel": worst_d,
                     "tokens_equal": runs[0]["tokens_equal"], "prefix_bytes": held,
-                    "launches": runs[0]["launches"]}
+                    "state_bytes": runs[0]["state_bytes"], "launches": runs[0]["launches"]}
     return {"launches": launches, "gates": out}
 
 
@@ -5847,8 +5973,10 @@ def _dist_serve_report_timed(ranks, gpu: str) -> dict:
             step = [s * 1e3 for s in t["decode_s"][1:]]
             share = t["collectives_s"] / t["timed_wall_s"]
             print(f"[dist serve lm] bf16 {arch} on 1x4 seq_shard, rank {r}: prefix "
-                  f"{t['prefix_bytes'] / 2**20:.1f} MiB (bf16, 1/4 of the serial cache's); prefills "
-                  f"{[round(x, 1) for x in pre]} ms (prompts {[n for n, _ in DIST_SERVE_REQUESTS]}), "
+                  f"{t['prefix_bytes'] / 2**20:.1f} MiB (bf16, 1/4 of the serial cache's), "
+                  f"recurrent caches {t['state_bytes'] / 2**20:.2f} MiB (f32); prefills "
+                  f"{[round(x, 1) for x in pre]} ms (prompts "
+                  f"{[n for n, _ in _dist_serve_shapes(_dist_serve_cfg(arch, 'bfloat16'))]}), "
                   f"decode step {np.mean(step):.2f} ms (median {np.median(step):.2f}, "
                   f"{len(step)} steps after the first, {t['decode_s'][0] * 1e3:.1f} ms); "
                   f"{t['tokens'] / sum(t['decode_s']):.1f} decoded tok/s; collectives "
@@ -5863,6 +5991,7 @@ def _dist_serve_report_timed(ranks, gpu: str) -> dict:
                      "tokens_per_s": t["tokens"] / sum(t["decode_s"]),
                      "collectives_share": [r["collectives_s"] / r["timed_wall_s"] for r in runs],
                      "peak_gib": [r["peak_gib"] for r in runs], "prefix_bytes": t["prefix_bytes"],
+                     "state_bytes": t["state_bytes"],
                      "prefill_rel": worst_p, "decode_rel": worst_d,
                      "equal_tokens": t["equal_tokens"], "flips": t["flips"],
                      "flipped_rel": max(r["flipped_rel"] for r in runs)}
@@ -5880,7 +6009,8 @@ def _dist_serve_references(gpu: str, dev) -> dict:
         for layout, _, _ in _dist_serve_runs(arch):
             p = DIST_RANKS // int(layout.split("x")[0])
             serial[arch, layout] = _dist_serve_serial(arch, p, gpu, dev) if moe else shared
-        serial[arch, "bf16"] = _dist_serve_serial(arch, DIST_RANKS, gpu, dev, "bfloat16")
+        serial[arch, "bf16"] = _dist_serve_serial(arch, DIST_RANKS, gpu, dev, "bfloat16",
+                                                  DIST_SERVE_TIMED_TOKENS)
     return serial
 
 
@@ -5903,15 +6033,18 @@ def phase_dist_serve_lm(gpu: str) -> dict:
     _free_cuda()
     dev = torch.device("cuda")
     print(f"reduced: the flushed request's tokens 80 -> {DIST_SERVE_FLUSHED} (the script's "
-          f"time; {DIST_SERVE_FLUSHED - 1 - TAIL_LEN} decode steps past its tail flush)")
+          f"time; {DIST_SERVE_FLUSHED - 1 - TAIL_LEN} decode step past its tail flush)")
+    print(f"reduced: the timed bf16 runs' tokens a request {DIST_SERVE_FLUSHED} -> "
+          f"{DIST_SERVE_TIMED_TOKENS} at most (the script's time; "
+          f"{DIST_SERVE_TIMED_TOKENS - 1} decode steps, the first not counted; no flush)")
     for arch, n in DIST_SERVE_ARCHS.items():
         full, cfg = get_arch(arch), _dist_serve_cfg(arch, "float32")
-        print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: "
-              f"{'layer 0 (dense) and 1 MoE layer' if cfg.moe else f'{n} layers'}; "
+        print(f"reduced: {arch} layers {full.n_layers} -> {n} (kept: {_kept_layers(cfg)}; "
               f"{cfg.approx_params() / 1e9:.3f} B params; {cfg.n_heads} heads over "
               f"{cfg.kv_heads} kv heads x {cfg.head_dim_}, d_model {cfg.d_model}, vocab {cfg.vocab})")
     t0 = time.perf_counter()
     serial = _dist_serve_references(gpu, dev)
+    _free_cuda()
     print(f"[dist serve lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
           f"{_memory_line()}")
     job = {"serial": serial, "gpu": gpu}

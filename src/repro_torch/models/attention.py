@@ -5,7 +5,7 @@ Port of ``repro.models.attention``: ``_project_qkv`` (with ``qkv_bias``,
 causal or not; under a mesh policy tensor-parallel over heads with the
 reference's head padding, ``_pad_heads``), ``_windowed_attention``,
 ``init_kv_cache`` (with the split and int8 layouts), ``quantize_kv``,
-``attn_decode``, ``_attn_decode_split``, ``flush_tail`` and
+``attn_decode`` (with ``_ring_decode``), ``_attn_decode_split``, ``flush_tail`` and
 ``decode_attention`` (``attention.py:55-74``, ``:77-345``), and
 DeepSeek-V2's multi-head latent attention: ``init_mla_params``,
 ``_mla_qkr``, ``mla_forward`` (under a mesh policy tensor-parallel over
@@ -52,7 +52,11 @@ group: the paper's domain decomposition applied to decode. The tail is
 whole on every rank of a sequence-sharded layout (the reference's spec);
 in a head-sharded layout it holds the rank's kv heads, the only ones the
 rank reads (the reference's spec replicates it, which its GSPMD fills by
-an all-gather of every step's k and v).
+an all-gather of every step's k and v). A sliding window's ring has no
+tail: over a model group it is sharded the same way, by kv heads or by
+sequence, each rank holding a contiguous chunk of the ring's slots, and
+a decode step combines the chunks as the split decode combines a
+prefix's (``_chunk_sums``).
 """
 from __future__ import annotations
 
@@ -300,11 +304,14 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_le
 
     A split cache (a "tk" leaf) goes to ``_attn_decode_split``, with each
     row's valid prefix length ``prefix_len``; under a policy whose model
-    group has more than one rank every attention cache is split."""
+    group has more than one rank every attention cache without a window is
+    split. A window's ring over such a group is held by kv heads (this
+    rank's q heads over its kv heads' ring, ``wo`` row-parallel) or by
+    sequence (``_ring_decode``)."""
     if "tk" in cache:
         return _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len)
-    if policy.model_size() > 1:
-        raise ValueError("a decode step over a model group takes a split cache")
+    if prefix_by_sequence(cfg, policy):
+        return _ring_decode(p, x, cache, index, cfg, policy, n_keys)
     b = x.shape[0]
     hd = cfg.head_dim_
     s_max = cache["k"].shape[2]
@@ -319,8 +326,8 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_le
     if cfg.window is not None:
         valid = valid | (index >= s_max)[:, None]
     o = decode_attention(q.transpose(1, 2), cache["k"][:, :, :n], cache["v"][:, :, :n], valid)
-    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd)
-    return o @ p["wo"].to(x.dtype), cache
+    o = o.transpose(1, 2).reshape(b, 1, -1)
+    return reduce_from(o @ p["wo"].to(x.dtype), policy.model_group), cache
 
 
 def prefix_by_sequence(cfg, policy) -> bool:
@@ -369,6 +376,82 @@ def rows_tensor(values, b: int, device):
     return torch.tensor(vals, dtype=torch.long, device=device), max(vals)
 
 
+def _chunk_sums(qg, k, v, valid, m, group, compute, k_scale=None, v_scale=None):
+    """Softmax attention of the grouped queries qg [b, kvh, g, hd] (in
+    ``compute``'s dtype) over a chunk of keys k/v [b, kvh, n, hd], each
+    row's valid ones ``valid`` [b, n], the chunks of one sequence spread
+    over ``group`` (None: this rank holds all of it): the logits
+    accumulated in f32 and scaled (an int8 chunk's k scales folded in),
+    their max with ``m`` (the max of keys counted apart, or None) over the
+    group, then the exp-weights' sum and their P.V (the weights cast to
+    ``compute`` first; an int8 chunk's v scales folded into them after
+    their sum), both summed over the group. Returns (o [b, kvh, g, hd],
+    denom [b, kvh, g, 1], the shift m), unnormalised."""
+    lp = torch.einsum("bkgd,bksd->bkgs", qg.float(), k.float()) * qg.shape[-1] ** -0.5
+    if k_scale is not None:
+        lp = lp * k_scale[:, :, None].float()
+    lp = lp.masked_fill(~valid[:, None, None, :], NEG_INF)
+    if k.shape[2]:
+        top = lp.amax(dim=-1, keepdim=True)
+        m = top if m is None else torch.maximum(m, top)
+    elif m is None:  # no key of the chunk is read on this rank
+        m = lp.new_full(lp.shape[:-1] + (1,), NEG_INF)
+    m = all_reduce_max(m, group)
+    wp = torch.exp(lp - m)
+    denom = wp.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        wp = wp * v_scale[:, :, None].float()
+    o = torch.einsum("bkgs,bksd->bkgd", wp.to(compute).float(), v.float())
+    if group is None:
+        return o, denom, m
+    both = all_reduce_sum(torch.cat([o, denom], dim=-1), group)
+    return both[..., :-1], both[..., -1:], m
+
+
+def _decode_out(o, p, x, policy, by_seq: bool):
+    """A decode step's attention output [b, 1, n*hd] through ``wo``: over
+    a model group row-parallel, fed this rank's heads (of every head's
+    output when ``by_seq``), the partial products summed."""
+    if by_seq:
+        o = scatter_to(o, -1, policy.model_group)
+    return reduce_from(o @ p["wo"].to(x.dtype), policy.model_group)
+
+
+def _ring_decode(p, x, cache, index, cfg, policy, n_keys=None):
+    """One decode step over a sliding window's ring sharded over the model
+    group by sequence (``prefix_by_sequence``): rank m holds slots m S/P ..
+    (m + 1) S/P - 1 of every kv head of the ring of S slots. Each row's new
+    k/v go to its slot index % S on the rank that owns it; every rank
+    takes every head (``_decode_qkv``) and attends over its slots that the
+    row reads (at or before its slot, or all once it has wrapped, index >=
+    S), the group combining the chunks (``_chunk_sums``: the max, then the
+    rescaled sums and P.V), with no tail. ``wo`` is fed this rank's heads
+    of the result (``_decode_out``)."""
+    b, hd, dev = x.shape[0], cfg.head_dim_, x.device
+    s_loc = cache["k"].shape[2]
+    ring = s_loc * policy.model_size()
+    lo = policy.model_rank() * s_loc
+    q, k, v = _decode_qkv(p, x, cfg, policy, index[:, None])
+    rows = torch.arange(b, device=dev)
+    slot = index % ring
+    mine = (slot >= lo) & (slot < lo + s_loc)
+    at = (slot - lo).clamp(0, s_loc - 1)
+    for name, t in (("k", k), ("v", v)):
+        held = cache[name][rows, :, at]
+        cache[name][rows, :, at] = torch.where(mine[:, None, None], t[:, 0].to(held.dtype), held)
+    # the slots of this rank that some row reads
+    n_p = max(0, min(s_loc, min(ring, int(index.max()) + 1 if n_keys is None else n_keys) - lo))
+    pos = lo + torch.arange(n_p, device=dev)
+    valid = (pos[None, :] <= slot[:, None]) | (index >= ring)[:, None]
+    nq, nkv = q.shape[2], k.shape[2]
+    dtype = cache["k"].dtype
+    qg = q[:, 0].reshape(b, nkv, nq // nkv, hd).to(dtype)
+    o, denom, _ = _chunk_sums(qg, cache["k"][:, :, :n_p], cache["v"][:, :, :n_p], valid, None,
+                              policy.model_group, dtype)
+    o = (o / denom).reshape(b, 1, nq * hd).to(x.dtype)
+    return _decode_out(o, p, x, policy, True), cache
+
+
 def _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len):
     """Decode against a read-only prefix and a small tail (the reference's
     ``_attn_decode_split``, ``attention.py:262-315``), each row masked to
@@ -388,13 +471,13 @@ def _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len):
     heads attend its kv heads; ``wo`` row-parallel) or by sequence
     (``prefix_by_sequence``): every rank takes every head, attends over its
     chunk of the prefix, and the group combines the chunks (the max, then
-    the rescaled sums and P.V); the replicated tail is counted once, after
-    the sum. ``wo`` is then fed this rank's heads of the combined output."""
+    the rescaled sums and P.V, ``_chunk_sums``); the replicated tail is
+    counted once, after the sum. ``wo`` is then fed this rank's heads of
+    the combined output."""
     b = x.shape[0]
     hd = cfg.head_dim_
     dev = x.device
     by_seq = prefix_by_sequence(cfg, policy)
-    group = policy.model_group
     s_loc = cache["k"].shape[2]
     plen, max_plen = rows_tensor(s_loc * policy.model_size() if prefix_len is None else prefix_len,
                                  b, dev)
@@ -411,38 +494,22 @@ def _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len):
     nq, nkv = q.shape[2], k.shape[2]
     qg = q[:, 0].reshape(b, nkv, nq // nkv, hd).to(kv_compute)
     scale = hd ** -0.5
-    kp, vp = cache["k"][:, :, :n_p], cache["v"][:, :, :n_p]
     tk, tv = cache["tk"], cache["tv"]
     # a product of two values of the compute dtype is exact in f32
-    lp = torch.einsum("bkgd,bksd->bkgs", qg.float(), kp.float()) * scale
-    if quant:
-        lp = lp * cache["k_scale"][:, :, None, :n_p].float()
-    valid = (lo + torch.arange(n_p, device=dev))[None, :] < plen[:, None]
-    lp = lp.masked_fill(~valid[:, None, None, :], NEG_INF)
     lt = torch.einsum("bkgd,bktd->bkgt", qg.to(tk.dtype).float(), tk.float()) * scale
     valid = torch.arange(tk.shape[2], device=dev)[None, :] <= slot[:, None]
     lt = lt.masked_fill(~valid[:, None, None, :], NEG_INF)
-    m = lt.amax(dim=-1, keepdim=True)
-    if n_p:
-        m = torch.maximum(m, lp.amax(dim=-1, keepdim=True))
-    if by_seq:
-        m = all_reduce_max(m, group)
-    wp, wt = torch.exp(lp - m), torch.exp(lt - m)
-    denom = wp.sum(dim=-1, keepdim=True)
-    if quant:
-        wp = wp * cache["v_scale"][:, :, None, :n_p].float()
-    o = torch.einsum("bkgs,bksd->bkgd", wp.to(kv_compute).float(), vp.float())
-    if by_seq:  # the chunks' sums over the group, then the tail's once
-        both = all_reduce_sum(torch.cat([o, denom], dim=-1), group)
-        o, denom = both[..., :hd], both[..., hd:]
+    scales = ({"k_scale": cache["k_scale"][:, :, :n_p], "v_scale": cache["v_scale"][:, :, :n_p]}
+              if quant else {})
+    valid = (lo + torch.arange(n_p, device=dev))[None, :] < plen[:, None]
+    o, denom, m = _chunk_sums(qg, cache["k"][:, :, :n_p], cache["v"][:, :, :n_p], valid,
+                              lt.amax(dim=-1, keepdim=True), policy.model_group if by_seq else None,
+                              kv_compute, **scales)
+    wt = torch.exp(lt - m)  # the tail's, once, after the chunks' sum
     o = o + torch.einsum("bkgt,bktd->bkgd", wt.to(tv.dtype).float(), tv.float())
     denom = denom + wt.sum(dim=-1, keepdim=True)
     o = (o / denom).reshape(b, 1, nq * hd).to(x.dtype)
-    if policy.model_size() == 1:
-        return o @ p["wo"].to(x.dtype), cache
-    if by_seq:  # this rank's heads: its rows of wo
-        o = scatter_to(o, -1, group)
-    return reduce_from(o @ p["wo"].to(x.dtype), group), cache
+    return _decode_out(o, p, x, policy, by_seq), cache
 
 
 def flush_tail(cache, prefix_valid, *, chunk=(0, 1)):

@@ -28,9 +28,9 @@ counterpart: the MoE takes its all-to-all wherever the reference's
 condition allows it (``models/moe.py``). Nor has its ``unroll_decode``:
 the port's decode step is already a Python loop over the layers, which
 holds no layer's cache in a loop carry. What the mesh
-does not run yet (the SSM and RG-LRU mixers and the encoder-decoder family
-spread over a model group of more than one rank) raises ``NOT_PORTED``
-where the model meets it (``check_mesh_arch``).
+does not run yet (the encoder-decoder family spread over a model group of
+more than one rank) raises ``NOT_PORTED`` where the model meets it
+(``check_mesh_arch``).
 """
 from __future__ import annotations
 

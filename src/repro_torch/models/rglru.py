@@ -18,12 +18,22 @@ agree to float32 rounding, not bitwise.
 
 The cache {"conv": [b, k, w] (the last k pre-conv inputs), "h": [b, w]} is
 float32; ``rglru_decode`` updates it in place.
+
+Over a model group the mixer is replicated, as the reference's specs keep
+it: every rank holds its leaves whole and runs it on the whole stream,
+with no collective and no ``copy_to`` (each rank's gradient is then the
+whole of it; a ``copy_to`` would count it P times). Under ``seq_shard``
+the recurrence needs the whole sequence: the ranks' slices are gathered
+(``gather_from``), every rank runs the mixer on all of it and keeps its
+slice of the output (``scatter_to``, whose backward gathers the whole
+cotangent back). Its decode cache is whole on every rank too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import gather_from, scatter_to
 from repro_torch.models import layers
 
 RGLRU_C = 8.0
@@ -76,11 +86,17 @@ def _rglru_scan(x, r, i, lam):
     return h
 
 
-def rglru_forward(params: dict, x, cfg, d_model: int, *, return_cache: bool = False):
+def rglru_forward(params: dict, x, cfg, d_model: int, *, return_cache: bool = False,
+                  seq_group=None):
     """x: [b, s, d] -> [b, s, d]; with ``return_cache`` also the decode
     cache {"conv": the last k pre-conv inputs (left-padded with zeros for a
     prompt shorter than k), "h": the last float32 state}, from this one
-    scan (the reference scans a second time for the same numbers)."""
+    scan (the reference scans a second time for the same numbers).
+    ``seq_group``: the model group when x is this rank's slice of the
+    sequence; the output is then this rank's slice too, the cache the
+    whole sequence's."""
+    if seq_group is not None:
+        x = gather_from(x, 1, seq_group)
     gate = F.gelu(x @ params["w_gate"].to(x.dtype), approximate="tanh")
     u = x @ params["w_x"].to(x.dtype)
     uf = layers.causal_conv(u, params["conv_w"], params["conv_b"]).float()
@@ -88,6 +104,8 @@ def rglru_forward(params: dict, x, cfg, d_model: int, *, return_cache: bool = Fa
     i = torch.sigmoid(uf @ params["w_i"] + params["b_i"])
     hseq = _rglru_scan(uf, r, i, params["lambda"])
     y = (hseq.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
+    if seq_group is not None:
+        y = scatter_to(y, 1, seq_group)
     if not return_cache:
         return y
     k = params["conv_w"].shape[0]

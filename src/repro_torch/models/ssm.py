@@ -16,6 +16,22 @@ contractions, so no [b, c, i, j, h, p] intermediate is formed. The gated
 RMSNorm runs through the port's RMSNorm kernel (its plain version for CPU
 tensors).
 
+Over a model group of P > 1 ranks (``group``) the mixer is
+tensor-parallel over its heads, with the reference's specs: a rank holds
+its d_inner/P columns of w_z, w_x, conv_x, conv_bx and norm_w and its rows
+of out_proj, and computes its H/P heads: z and x from its columns, B, C
+and dt from the whole w_B, w_C and w_dt (its heads' slice of dt, A_log, D
+and dt_bias). Each rank uses those whole leaves (``WHOLE_LEAVES``) on its
+own heads only, so they enter through ``copy_to``, which sums their
+gradient's parts over the group. The gated norm's mean of squares spans
+the whole d_inner: each rank sums the squares of its columns and the group
+sums those (``sum_copies``: every rank uses the total on its own columns,
+so the backward sums their cotangents too); the split norm runs in plain
+ops, so it launches no kernel. out_proj's partial products are summed over
+the group (``layers.tp_out``). The decode state is this rank's heads; the
+conv cache keeps the whole (x | B | C) pre-conv stream on every rank (the
+reference's ``cache_specs``), each step's x columns all-gathered into it.
+
 Shapes per Mamba-2: d_inner = expand * d_model, heads H = d_inner /
 head_dim, state N = d_state, B and C shared across heads (n_groups = 1).
 The projections are stored split (w_z, w_x, w_B, w_C, w_dt) as in the
@@ -29,7 +45,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import copy_to, gather_from, reduce_from, sum_copies
 from repro_torch.models import layers
+
+# the leaves a rank holds whole over a model group and uses on its own heads
+WHOLE_LEAVES = ("w_B", "w_C", "w_dt", "conv_B", "conv_C", "conv_bB", "conv_bC", "A_log", "D",
+                "dt_bias")
 
 
 def init_ssm_params(d_model: int, ssm, normal, const) -> dict:
@@ -113,14 +134,50 @@ def _project(params, x):
     return tuple(x @ params[name].to(dt) for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
-def ssm_forward(params: dict, x, d_model: int, ssm, *, return_cache: bool = False):
+def _on_rank(params: dict, group, head_dim: int) -> dict:
+    """The leaves as this rank uses them over a model group: its shards as
+    held, the whole leaves through ``copy_to``, and of the per-head ones
+    (w_dt's columns, A_log, D, dt_bias) its heads' slice."""
+    p = dict(params)
+    for name in WHOLE_LEAVES:
+        p[name] = copy_to(p[name], group)
+    n = p["w_x"].shape[-1] // head_dim
+    heads = slice(group.rank() * n, (group.rank() + 1) * n)
+    p["w_dt"] = p["w_dt"][:, heads]
+    for name in ("A_log", "D", "dt_bias"):
+        p[name] = p[name][heads]
+    return p
+
+
+def _gated_norm(g, w, width: int, group):
+    """RMSNorm of the gated output g [..., n] over the whole inner width:
+    through the RMSNorm kernel when g holds every column, else (g this
+    rank's columns over ``group``) in plain ops with the group's sum of
+    squares, f32 statistics as the kernel's."""
+    if group is None:
+        return layers.rms_norm(g, w)
+    gf = g.float()
+    ms = sum_copies(gf.square().sum(dim=-1, keepdim=True), group) / width
+    return (gf * torch.rsqrt(ms + 1e-6) * w.float()).to(g.dtype)
+
+
+def ssm_forward(params: dict, x, d_model: int, ssm, *, return_cache: bool = False, group=None,
+                seq_sharded: bool = False):
     """Full-sequence Mamba-2 mixer. x: [b, s, d] -> [b, s, d]; with
     ``return_cache`` also the decode cache {"conv": the last k pre-conv
     columns of (x | B | C), left-padded with zeros for a prompt shorter
-    than k, "state": the final SSD state}, both float32."""
+    than k, "state": the final SSD state}, both float32.
+
+    ``group``: the model group (P > 1) over which ``params`` are this
+    rank's shards; x is the residual stream as the block holds it (this
+    rank's slice of the sequence with ``seq_sharded``), and the state
+    returned holds this rank's heads."""
+    if group is not None:
+        params = _on_rank(params, group, ssm.head_dim)
+        x = layers.tp_in(x, group, seq_sharded)
     b, s, _ = x.shape
-    di = ssm.d_inner(d_model)
-    h = ssm.n_heads(d_model)
+    di = params["w_x"].shape[-1]  # this rank's inner columns
+    h = di // ssm.head_dim
     z, xs, b_mat, c_mat, dt = _project(params, x)
     pre = (xs, b_mat, c_mat)  # the pre-conv streams the decode's conv cache keeps
     xs = F.silu(layers.causal_conv(xs, params["conv_x"], params["conv_bx"]))
@@ -138,11 +195,15 @@ def ssm_forward(params: dict, x, d_model: int, ssm, *, return_cache: bool = Fals
     y, state = out if return_cache else (out, None)
     y = y[:, :s] + params["D"][None, None, :, None] * xs.reshape(b, s, h, ssm.head_dim).float()
     y = y.reshape(b, s, di).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
+    y = _gated_norm(y * F.silu(z), params["norm_w"], ssm.d_inner(d_model), group)
     y = y @ params["out_proj"].to(x.dtype)
+    if group is not None:
+        y = layers.tp_out(y, group, seq_sharded)
     if not return_cache:
         return y
     k = ssm.conv_kernel
+    if group is not None:  # the whole x stream: every rank's columns
+        pre = (gather_from(pre[0][:, -k:], -1, group),) + pre[1:]
     conv = torch.cat([F.pad(t[:, -k:], (0, 0, max(0, k - s), 0)) for t in pre], dim=-1)
     return y, {"conv": conv.float(), "state": state}
 
@@ -160,22 +221,33 @@ def cache_shapes(d_model: int, ssm, batch: int) -> dict:
             "state": (batch, h, ssm.d_state, ssm.head_dim)}
 
 
-def ssm_decode(params: dict, x, cache: dict, d_model: int, ssm):
+def ssm_decode(params: dict, x, cache: dict, d_model: int, ssm, *, group=None):
     """Single-token recurrent step for every row. x: [b, 1, d]; the cache
     is updated in place. As the reference: the rolling conv in float32
     with the float32 conv weights, the state update and readout in
-    float32. Returns (out [b, 1, d], cache)."""
+    float32. Returns (out [b, 1, d], cache).
+
+    ``group``: the model group (P > 1) over which ``params`` are this
+    rank's shards and the cache's state its heads; its conv cache is whole,
+    this step's x columns all-gathered into it."""
+    if group is not None:
+        params = _on_rank(params, group, ssm.head_dim)
     b = x.shape[0]
-    di = ssm.d_inner(d_model)
-    h = ssm.n_heads(d_model)
+    di = params["w_x"].shape[-1]  # this rank's inner columns
+    h = di // ssm.head_dim
     gn = ssm.n_groups * ssm.d_state
     z, xs, b_mat, c_mat, dt = _project(params, x[:, 0])
     # rolling conv state over the concatenated (x | B | C) pre-conv stream
-    new_col = torch.cat([xs, b_mat, c_mat], dim=-1)
+    xs_all = xs if group is None else gather_from(xs, -1, group)
+    new_col = torch.cat([xs_all, b_mat, c_mat], dim=-1)
     conv = torch.cat([cache["conv"][:, 1:], new_col[:, None].to(cache["conv"].dtype)], dim=1)
+    mine = conv
+    if group is not None:  # this rank's x columns, then B and C
+        lo, width = group.rank() * di, xs_all.shape[-1]
+        mine = torch.cat([conv[..., lo:lo + di], conv[..., width:]], dim=-1)
     conv_w = torch.cat([params["conv_x"], params["conv_B"], params["conv_C"]], dim=1)
     conv_b = torch.cat([params["conv_bx"], params["conv_bB"], params["conv_bC"]])
-    mixed = torch.einsum("bkc,kc->bc", conv.float(), conv_w.float()) + conv_b
+    mixed = torch.einsum("bkc,kc->bc", mine.float(), conv_w.float()) + conv_b
     mixed = F.silu(mixed).to(x.dtype)
     xs, b_mat, c_mat = torch.split(mixed, [di, gn, gn], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])  # [b, h]
@@ -186,7 +258,7 @@ def ssm_decode(params: dict, x, cache: dict, d_model: int, ssm):
     y = torch.einsum("bn,bhnp->bhp", c_mat.float(), state)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(b, di).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
+    y = _gated_norm(y * F.silu(z), params["norm_w"], ssm.d_inner(d_model), group)
     cache["conv"].copy_(conv)
     cache["state"].copy_(state)
-    return (y @ params["out_proj"].to(x.dtype))[:, None], cache
+    return reduce_from(y @ params["out_proj"].to(x.dtype), group)[:, None], cache

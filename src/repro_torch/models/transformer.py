@@ -70,17 +70,23 @@ down-projection whole on every rank). The
 residual stream is whole on every rank, or under ``seq_shard`` this
 rank's slice of the sequence, where the norms run on its rows (their
 weights' gradient then a part, summed over the group by ``copy_to``'s
-backward). So every rank's gradient of every leaf is the whole of it for
-the rows of its data rank: ``train.train_loop.reduce_grads`` averages it
-over the data group. SSM, RG-LRU and the hybrid family run on a data-only
-mesh (P = 1), not over a model group (``check_mesh_arch``).
+backward). The SSM mixer is tensor-parallel over its heads
+(``ssm.ssm_forward`` with a group: its gated norm's statistic summed over
+the group); the RG-LRU mixer is replicated (``rglru.rglru_forward``: the
+whole sequence gathered under ``seq_shard``), its MLPs and the hybrid's
+local attention tensor-parallel. So every rank's gradient of every leaf is
+the whole of it for the rows of its data rank:
+``train.train_loop.reduce_grads`` averages it over the data group.
 
 Serving under such a policy runs the same blocks without their backward:
 the prefill tensor-parallel as ``lm_hidden``, each attention layer writing
-this rank's part of its prefix; the decode step's attention over the
-split cache (``attention._attn_decode_split``: by kv heads, or by
-sequence with the softmax combined over the model group; MLA's absorbed
-``attention._mla_decode_split`` by sequence), the MoE's
+this rank's part of its prefix (a window's ring: this rank's slots of
+it); the decode step's attention over the split cache
+(``attention._attn_decode_split``: by kv heads, or by sequence with the
+softmax combined over the model group; MLA's absorbed
+``attention._mla_decode_split`` by sequence) or over the ring
+(``attention._ring_decode`` by sequence), the SSM state this rank's
+heads, the RG-LRU's cache whole, the MoE's
 experts split over the group where the all-to-all's condition fails
 (``moe._moe_together``), the vocab-split logits all-gathered.
 """
@@ -90,6 +96,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import NOT_PORTED
@@ -422,19 +429,24 @@ def gather_params(local: dict, cfg, policy: ParallelPolicy) -> dict:
 
 
 def check_mesh_arch(cfg, policy: ParallelPolicy) -> None:
-    """Raise for what a mesh policy does not run yet: the SSM and RG-LRU
-    mixers (and so the hybrid family) and the encoder-decoder family over
-    a model group of more than one rank; and for MLA heads that the model
-    group does not divide (its heads are not padded)."""
+    """Raise for what a mesh policy does not run yet: the encoder-decoder
+    family over a model group of more than one rank; and for what the
+    group cannot split: MLA heads (they are not padded) and SSM heads
+    (where the group does not divide them the reference replicates the
+    state, and a column split of w_x would cut a head). A window's ring
+    that the group does not divide is refused where it is allocated
+    (``_new_cache``)."""
     p = policy.model_size()
     if p == 1:
         return
-    what = ("the encoder-decoder family" if cfg.family == "encdec" else
-            f"the {cfg.family} family's mixers" if cfg.family in ("ssm", "hybrid") else None)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} over {p} model ranks: {NOT_PORTED}")
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family over {p} model ranks: "
+                                  f"{NOT_PORTED}")
     if cfg.mla is not None and cfg.n_heads % p:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} MLA heads do not split over {p} model ranks")
+    if cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % p:
+        raise ValueError(f"{cfg.name}: {cfg.ssm.n_heads(cfg.d_model)} SSM heads do not split over "
+                         f"{p} model ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -455,9 +467,8 @@ def _layer_cache_specs(cfg, policy: ParallelPolicy, kind: str) -> dict:
     if kind == "ssm":
         h = cfg.ssm.n_heads(cfg.d_model)
         return {"conv": (dp, None, None), "state": (dp, mx if h % p_size == 0 else None, None, None)}
-    if kind == "rec":
-        w = mx if cfg.rglru.width(cfg.d_model) % p_size == 0 else None
-        return {"conv": (dp, None, w), "h": (dp, w)}
+    if kind == "rec":  # whole, as the mixer's leaves (the reference cuts it by width)
+        return {"conv": (dp, None, None), "h": (dp, None)}
     if cfg.mla is not None:
         s = {"ckv": (dp, mx, None), "kr": (dp, mx, None)}
         if split:
@@ -486,8 +497,13 @@ def cache_specs(cfg, policy: ParallelPolicy) -> dict:
     chunk, the softmax combined over the group). The tail is whole beside
     a sequence-sharded prefix, as the reference's, and cut by kv heads
     beside a head-sharded one, where the reference replicates it: a rank's
-    decode attends over its kv heads alone. The SSM and RG-LRU caches as
-    the reference shards them."""
+    decode attends over its kv heads alone. The SSM cache as the reference
+    shards it (the state by heads, the conv whole). The RG-LRU's cache is
+    whole on every rank, where the reference cuts it by width wherever P
+    divides that while it replicates the mixer that fills it: with its
+    layout a decode step would need an all-gather of the mixer's input
+    and an all-reduce of its output in every rec layer, where the port's
+    costs no collective (2560 f32 a row at full width)."""
     def one(kind):
         return _layer_cache_specs(cfg, policy, kind)
 
@@ -550,15 +566,19 @@ def _embed_in(params, tokens, cfg, policy: ParallelPolicy = LOCAL, seq_sharded: 
     return scatter_to(x, 1, group) if seq_sharded else x
 
 
-def norms_per_forward(cfg) -> int:
-    """RMSNorm launches of one prefill or decode step: two per layer (ln1
-    and ln2, or an SSM layer's ln1 and its mixer's gated norm), the final
-    norm, q- and k-norm per layer with ``qk_norm``, and the latent's
-    kv_norm per layer under MLA. Under ``norm="ln"`` ln1, ln2 and the
-    final norm are LayerNorms, which launch no kernel."""
-    n = len(cfg.layer_kinds())
+def norms_per_forward(cfg, model_ranks: int = 1) -> int:
+    """RMSNorm launches of one prefill or decode step on a rank of a model
+    group of ``model_ranks``: two per layer (ln1 and ln2, or an SSM layer's
+    ln1 and its mixer's gated norm, which over a group of more than one
+    rank runs in plain ops and launches none), the final norm, q- and
+    k-norm per layer with ``qk_norm``, and the latent's kv_norm per layer
+    under MLA. Under ``norm="ln"`` ln1, ln2 and the final norm are
+    LayerNorms, which launch no kernel."""
+    kinds = cfg.layer_kinds()
+    n = len(kinds)
     layer_norms = 2 * n + 1 if cfg.norm == "rms" else 0
-    return layer_norms + (2 * n if cfg.qk_norm else 0) + (n if cfg.mla is not None else 0)
+    split = sum(kind == "ssm" for kind in kinds) if model_ranks > 1 else 0
+    return layer_norms - split + (2 * n if cfg.qk_norm else 0) + (n if cfg.mla is not None else 0)
 
 
 def attention_layers(cfg) -> int:
@@ -642,6 +662,11 @@ def _remat(body, policy):
     return lambda *args: checkpoint(body, *args, **kw)
 
 
+def _mixer_group(policy: ParallelPolicy):
+    """The model group an SSM mixer splits its heads over, or None."""
+    return policy.model_group if policy.model_size() > 1 else None
+
+
 def _apply_layer(x, aux, lp, kind, cfg, policy: ParallelPolicy = LOCAL, sp: bool = False):
     """One block of the training forward (the reference's
     ``_apply_layer``): returns (x, aux plus the block's load-balance loss).
@@ -651,9 +676,10 @@ def _apply_layer(x, aux, lp, kind, cfg, policy: ParallelPolicy = LOCAL, sp: bool
     part_of = policy.model_group if sp else None
     h = _norm(x, lp["ln1"], cfg, part_of)
     if kind == "ssm":
-        return x + ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm), aux
+        return x + ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm,
+                                       group=_mixer_group(policy), seq_sharded=sp), aux
     if kind == "rec":
-        x = x + rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model)
+        x = x + rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, seq_group=part_of)
     elif cfg.mla is not None:
         x = x + attn_lib.mla_forward(lp["attn"], h, cfg, policy, seq_sharded=sp)
     else:
@@ -747,20 +773,21 @@ def lm_loss(params, batch: dict, cfg, policy: ParallelPolicy = LOCAL):
     return xent + aux, {"xent": xent, "aux": aux}
 
 
-def train_launches(cfg, s: int) -> dict:
+def train_launches(cfg, s: int, model_ranks: int = 1) -> dict:
     """Kernel launches of one forward + backward of ``lm_loss`` with remat
-    on, on sequences of ``s`` tokens: each layer's norms and attention as
-    in a prefill (``norms_per_forward``, ``flash_per_prefill``), twice for
-    a layer that remat runs again in the backward, the final norm once;
-    the backward itself launches no kernel (the kernels' gradients are
-    their plain versions')."""
+    on, on sequences of ``s`` tokens, on a rank of a model group of
+    ``model_ranks``: each layer's norms and attention as in a prefill
+    (``norms_per_forward``, ``flash_per_prefill``), twice for a layer that
+    remat runs again in the backward, the final norm once; the backward
+    itself launches no kernel (the kernels' gradients are their plain
+    versions')."""
     layer_norms = ((2 if cfg.norm == "rms" else 0) + (2 if cfg.qk_norm else 0)
                    + (1 if cfg.mla is not None else 0))
     attends = cfg.window is None or s <= cfg.window
     out = {"rmsnorm": 1 if cfg.norm == "rms" else 0, "flash": 0}
     for kind, scanned in _train_layers(cfg):
         runs = 2 if scanned else 1
-        out["rmsnorm"] += runs * layer_norms
+        out["rmsnorm"] += runs * (layer_norms - (kind == "ssm" and model_ranks > 1))
         out["flash"] += runs * (attends and kind not in ("ssm", "rec"))
     return out
 
@@ -792,6 +819,10 @@ def _new_cache(cfg, batch: int, max_len: int, dtype, device, alloc,
     ``kv_quant``), recurrent ones (SSM, RG-LRU) float32, as the
     reference's."""
     split = use_split_cache(cfg, policy)
+    ring, p = min(max_len, cfg.window or max_len), policy.model_size()
+    if cfg.window is not None and attn_lib.prefix_by_sequence(cfg, policy) and ring % p:
+        raise ValueError(f"{cfg.name}: a local-attention ring of {ring} slots does not split over "
+                         f"{p} model ranks")
 
     def make(kind, lead):
         if kind == "ssm":
@@ -827,10 +858,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
     "tail"} with rings of min(max_len, window) positions (``dtype``) and
     the RG-LRU's conv and h (float32).
 
-    Under a mesh policy the attention caches are split (a prefix, int8
-    with scales under ``kv_quant``, and a ``TAIL_LEN`` tail) and this rank
-    holds its part of the tree (``cache_specs``): its data rank's
-    batch/D rows, and 1/P of each prefix, by kv heads or by sequence."""
+    Under a mesh policy the attention caches without a window are split (a
+    prefix, int8 with scales under ``kv_quant``, and a ``TAIL_LEN`` tail)
+    and this rank holds its part of the tree (``cache_specs``): its data
+    rank's batch/D rows, and 1/P of each prefix or ring, by kv heads or by
+    sequence; the SSM state by heads, the conv caches whole."""
     check_mesh_arch(cfg, policy)
     device = resolve_device(device)
     d = policy.dp_size()
@@ -859,6 +891,11 @@ def _leaves(tree, name=None):
 
 
 _TAILS = ("tk", "tckv")  # the leaf that marks a split cache (GQA's, MLA's)
+
+
+def has_tails(cache: dict) -> bool:
+    """Whether any layer of ``cache`` is a split cache (with a tail)."""
+    return any(name in _TAILS for name, _ in _leaves(cache))
 
 
 def _split_caches(cache: dict) -> list:
@@ -928,41 +965,48 @@ def _write_prefix(lc: dict, kt, vt, lo: int) -> None:
             lc[name].zero_()
 
 
+def _write_ring(lc: dict, kt, vt, lo: int, ring: int) -> None:
+    """Write a window's ring of ``ring`` slots whole from the prompt's k/v
+    [b, kvh, s, hd]: the prompt and zeros past it when it is shorter than
+    the ring, else its last ``ring`` positions, position t at slot t %
+    ring. ``lc`` holds slots lo .. (a rank's chunk of a ring sharded by
+    sequence, or all of it)."""
+    s, n = kt.shape[2], lc["k"].shape[2]
+    for name, t in (("k", kt), ("v", vt)):
+        whole = (F.pad(t, (0, 0, 0, ring - s)) if s < ring
+                 else torch.roll(t[:, :, s - ring:], s % ring, dims=2))
+        lc[name].copy_(whole[:, :, lo:lo + n])
+
+
 def _attn_prefill(p, h, cfg, positions, lc, policy: ParallelPolicy = LOCAL, sp: bool = False):
     """Causal self-attention over the prompt: through the flash kernel, or
     past a sliding window through ``_windowed_attention``. The prompt's k/v
     are written into the layer's cache ``lc`` {"k", "v", ...}: [b, kvh, S,
-    hd] (``_write_prefix``); under a window the ring is written whole: the
-    prompt and zeros past it when it is shorter than the ring, else its
-    last S positions, position t at slot t % S.
+    hd] (``_write_prefix``); under a window the ring is written whole
+    (``_write_ring``).
 
     Over a model group attention is ``attention._attn_tp``; this rank
-    writes its kv heads of the prefix, or under ``prefix_by_sequence`` its
-    chunk of the positions of every kv head."""
+    writes its kv heads of the prefix or ring, or under
+    ``prefix_by_sequence`` its chunk of the positions (of the ring's slots)
+    of every kv head."""
+    chunks, lo = 1, 0
     if policy.model_size() > 1:
         out, xin, k, v = attn_lib._attn_tp(p, h, cfg, policy, True, sp, with_kv=True)
-        lo = 0
         if attn_lib.prefix_by_sequence(cfg, policy):
             k, v = attn_lib.kv_all_heads(p, xin, cfg, policy, positions)
+            chunks = policy.model_size()
             lo = policy.model_rank() * lc["k"].shape[2]
-        _write_prefix(lc, k.transpose(1, 2), v.transpose(1, 2), lo)
-        return out
-    b, s, _ = h.shape
-    q, k, v = attn_lib._project_qkv(p, h, cfg, positions)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    o = attn_lib.attend(q.transpose(1, 2), kt, vt, cfg)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_)
-    if cfg.window is None:
-        _write_prefix(lc, kt, vt, 0)
     else:
-        w = lc["k"].shape[2]
-        for name, t in (("k", kt), ("v", vt)):
-            if s < w:
-                lc[name][:, :, :s] = t
-                lc[name][:, :, s:] = 0
-            else:
-                lc[name].copy_(torch.roll(t[:, :, s - w:], s % w, dims=2))
-    return o @ p["wo"].to(h.dtype)
+        b, s, _ = h.shape
+        q, k, v = attn_lib._project_qkv(p, h, cfg, positions)
+        o = attn_lib.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg)
+        out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim_) @ p["wo"].to(h.dtype)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if cfg.window is None:
+        _write_prefix(lc, kt, vt, lo)
+    else:
+        _write_ring(lc, kt, vt, lo, lc["k"].shape[2] * chunks)
+    return out
 
 
 def _mla_prefill(p, h, cfg, positions, lc, policy: ParallelPolicy = LOCAL, sp: bool = False):
@@ -990,11 +1034,13 @@ def _prefill_layer(x, lp, kind, cfg, positions, lc, policy: ParallelPolicy = LOC
                    sp: bool = False):
     h = _norm(x, lp["ln1"], cfg)
     if kind == "ssm":
-        y, new = ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm, return_cache=True)
+        y, new = ssm_lib.ssm_forward(lp["mixer"], h, cfg.d_model, cfg.ssm, return_cache=True,
+                                     group=_mixer_group(policy), seq_sharded=sp)
         _write(lc, new)
         return x + y
     if kind == "rec":
-        y, new = rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, return_cache=True)
+        y, new = rglru_lib.rglru_forward(lp["mixer"], h, cfg.rglru, cfg.d_model, return_cache=True,
+                                         seq_group=policy.model_group if sp else None)
         _write(lc, new)
     elif cfg.mla is not None:
         y = _mla_prefill(lp["attn"], h, cfg, positions, lc, policy, sp)
@@ -1067,7 +1113,8 @@ def lm_prefill(params, tokens, cfg, max_len: Optional[int] = None, *, cache=None
 def _decode_layer(x, lp, kind, lc, index, cfg, n_keys, policy, prefix_len):
     h = _norm(x, lp["ln1"], cfg)
     if kind == "ssm":
-        y, _ = ssm_lib.ssm_decode(lp["mixer"], h, lc, cfg.d_model, cfg.ssm)
+        y, _ = ssm_lib.ssm_decode(lp["mixer"], h, lc, cfg.d_model, cfg.ssm,
+                                  group=_mixer_group(policy))
         return x + y
     if kind == "rec":
         y, _ = rglru_lib.rglru_decode(lp["mixer"], h, lc, cfg.rglru, cfg.d_model)
@@ -1087,7 +1134,7 @@ def _check_tail_room(cfg, cache, policy, index, prefix_len, b: int) -> None:
     index within ``TAIL_LEN`` past its prefix length), where the host holds
     both (a tensor is not read back for it)."""
     room = _prefix_room(cfg, cache, policy)
-    if room is None or not any(name in _TAILS for name, _ in _leaves(cache)):
+    if room is None or not has_tails(cache):
         return
     rows = attn_lib.row_values(index, b)
     plen = attn_lib.row_values(room if prefix_len is None else prefix_len, b)

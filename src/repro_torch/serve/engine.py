@@ -29,8 +29,8 @@ tokens together with room for all of them on every expert, so it drops
 none for any number of slots, as the reference's one-token steps under
 ``vmap`` drop none.
 
-Under a mesh policy (``models/policy.py``; the dense and MoE families)
-every rank builds the runner alike with its own parameter shards
+Under a mesh policy (``models/policy.py``; every decoder family) every
+rank builds the runner alike with its own parameter shards
 (``shard_params``) and drives the same scheduler with the same requests.
 The slots' cache rows are split over the data group (the batch dim of
 ``cache_specs``), each data rank holding max_slots/D of them and 1/P of
@@ -38,10 +38,12 @@ their prefixes. A slot's prefill runs on the model group of the data rank
 that holds it (its policy's data group of one rank, ``model_only``) and
 its first token goes to every data rank; a decode step runs every data
 rank's rows at once, and the chosen tokens are all-gathered over the data
-group, so every rank's scheduler takes the same decisions. The caches are
-split (``attention.init_kv_cache``): each step writes a slot's tail, and a
-slot's tail is flushed into its prefix (``transformer.flush_tails``) at
-the start of the step that would overflow it, every ``TAIL_LEN`` steps.
+group, so every rank's scheduler takes the same decisions. The attention caches
+without a window are split (``attention.init_kv_cache``): each step
+writes a slot's tail, and a slot's tail is flushed into its prefix
+(``transformer.flush_tails``) at the start of the step that would
+overflow it, every ``TAIL_LEN`` steps. A window's ring and the recurrent
+states have no tail and are never flushed.
 The reference's engine never flushes its tail (and its split decode is
 right only for a prompt that fills the prefix, which its engine sizes to
 max_len): this schedule is the port's own.
@@ -108,7 +110,7 @@ class TransformerRunner:
         self._prefix = [0] * max_slots
         self.cache = tf_lib.init_cache(cfg, max_slots, max_len, cache_dtype, device=self.device,
                                        policy=policy)
-        self.split = tf_lib.use_split_cache(cfg, policy)
+        self.split = tf_lib.has_tails(self.cache)
         # the slots whose rows this rank holds: first .. first + rows - 1
         self.rows = max_slots // policy.dp_size()
         self.first = policy.data_rank() * self.rows

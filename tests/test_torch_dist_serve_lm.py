@@ -514,6 +514,21 @@ def _tail_by_heads(spec):
     return {k: _tail_by_heads(v) for k, v in spec.items()}
 
 
+def _rec_cache_whole(spec):
+    """The reference's cache spec tree with each RG-LRU cache ({"conv",
+    "h"}) whole over the model axis: the port's second difference. The
+    reference cuts that cache by width where P divides it while it
+    replicates the mixer that fills it; the port keeps it whole, as the
+    mixer's leaves, so that a decode step needs no collective for it."""
+    if isinstance(spec, list):
+        return [_rec_cache_whole(s) for s in spec]
+    if not isinstance(spec, dict):
+        return spec
+    if sorted(spec) == ["conv", "h"]:
+        return {k: tuple(None if e == "model" else e for e in v) for k, v in spec.items()}
+    return {k: _rec_cache_whole(v) for k, v in spec.items()}
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("model", [1, 2, 4, 16])
 def test_cache_specs_are_the_references_for_every_arch(model, quant):
@@ -521,35 +536,52 @@ def test_cache_specs_are_the_references_for_every_arch(model, quant):
     PartitionSpec as the tuple of its entries) through a stand-in mesh, at
     model axes that divide the kv heads and that do not, with and without
     ``kv_quant``, but for the tail beside a head-sharded prefix, which the
-    port cuts by kv heads (``_tail_by_heads``); and a one-device policy's
+    port cuts by kv heads (``_tail_by_heads``), and the RG-LRU's cache,
+    which it keeps whole (``_rec_cache_whole``); and a one-device policy's
     (no split) too."""
     jpol = JPolicy(mesh=types.SimpleNamespace(shape={"data": 1, "model": model}), kv_quant=quant)
     pol = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(model)},
                          kv_quant=quant)
     assert set(DECODER_IDS) <= set(JARCH_IDS)
     for arch in DECODER_IDS:
-        assert ttf.cache_specs(get_arch(arch), pol) == _tail_by_heads(_as_tuples(
-            jtf.cache_specs(jget_arch(arch), jpol))), arch
+        assert ttf.cache_specs(get_arch(arch), pol) == _rec_cache_whole(_tail_by_heads(
+            _as_tuples(jtf.cache_specs(jget_arch(arch), jpol)))), arch
         if model == 1:
-            assert ttf.cache_specs(get_arch(arch), LOCAL) == _as_tuples(
-                jtf.cache_specs(jget_arch(arch), JLOCAL)), arch
+            assert ttf.cache_specs(get_arch(arch), LOCAL) == _rec_cache_whole(_as_tuples(
+                jtf.cache_specs(jget_arch(arch), JLOCAL))), arch
 
 
 def test_serving_over_a_mesh_refuses_what_is_not_ported():
-    """The SSM mixer and the hybrid family over a model group of two ranks
-    raise ROADMAP's item at the serving entry points; MLA does not, and
-    takes its split cache on a data-only mesh too. MLA heads that the
-    model group does not divide, a split cache's prefix that it does not
-    divide, and slots that the data group does not, are refused by name."""
+    """The SSM and hybrid families are served over a model group: a rank's
+    cache holds its SSM heads' state, its chunk of the local attention's
+    ring and the RG-LRU's cache whole. The encoder-decoder family over a
+    model group still raises ROADMAP's item. SSM heads and a ring that
+    the model group does not divide, MLA heads that it does not divide, a
+    split cache's prefix that it does not divide, and slots that the data
+    group does not, are refused by name; MLA takes its split cache on a
+    data-only mesh too."""
     two = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(2)})
-    for arch in ("mamba2-370m", "recurrentgemma-2b"):
-        cfg = reduced(get_arch(arch))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-            init_cache(cfg, 2, 16, device="cpu", policy=two)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-            lm_prefill({}, torch.zeros(1, 4, dtype=torch.long), cfg, policy=two)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-            lm_decode_step({}, torch.zeros(1, 1, dtype=torch.long), {}, 0, cfg, policy=two)
+    ssm, hybrid = reduced(get_arch("mamba2-370m")), reduced(get_arch("recurrentgemma-2b"))
+    state = init_cache(ssm, 2, 16, device="cpu", policy=two)["layers"]["state"]
+    assert state.shape[2] == ssm.ssm.n_heads(ssm.d_model) // 2
+    cache = init_cache(hybrid, 2, 40, device="cpu", policy=two)["superblocks"]
+    assert cache["b2_attn"]["k"].shape[3] == hybrid.window // 2
+    assert cache["b0_rec"]["h"].shape[-1] == hybrid.rglru.width(hybrid.d_model)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
+        ttf.check_mesh_arch(reduced(get_arch("whisper-tiny")), two)
+    three = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(3)})
+    with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
+        init_cache(ssm, 2, 16, device="cpu", policy=three)
+    with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
+        lm_prefill({}, torch.zeros(1, 4, dtype=torch.long), ssm, policy=three)
+    with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
+        lm_decode_step({}, torch.zeros(1, 1, dtype=torch.long), {}, 0, ssm, policy=three)
+    with pytest.raises(ValueError, match="a local-attention ring of 15 slots does not split "
+                                         "over 2 model ranks"):
+        init_cache(hybrid, 2, 15, device="cpu", policy=two)
+    with pytest.raises(ValueError, match="a local-attention ring of 16 slots does not split "
+                                         "over 3 model ranks"):
+        init_cache(hybrid, 2, 40, device="cpu", policy=three)
     mla = reduced(get_arch("deepseek-v2-lite-16b"))
     assert "tckv" in init_cache(mla, 2, 16, device="cpu", policy=_one_rank())["layers"]
     assert "tckv" in init_cache(mla, 2, 16, device="cpu", policy=two)["layers"]

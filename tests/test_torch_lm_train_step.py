@@ -49,27 +49,30 @@ def test_remat_on_off_and_dots_give_the_same_gradients(arch):
 
 
 def test_a_policy_over_a_mesh_is_the_distributed_slice():
-    """A policy over process groups runs the dense and MoE decoders, MLA
-    among them (``tests/test_torch_dist_lm.py``), and serves them from
-    split caches, int8 ones with ``kv_quant`` (``tests/test_torch_dist_serve_lm.py``).
-    Over a model group of more than one rank, the SSM mixer, the hybrid
-    family's RG-LRU and the encoder-decoder family still raise ROADMAP's
-    item, and MLA heads that the group does not divide are refused; a mesh
-    without a group for an axis is refused."""
+    """A policy over process groups runs every decoder family: dense and
+    MoE, MLA among them (``tests/test_torch_dist_lm.py``), SSM and hybrid
+    (``tests/test_torch_dist_recurrent.py``), and serves them from split
+    caches, int8 ones with ``kv_quant`` (``tests/test_torch_dist_serve_lm.py``).
+    Over a model group of more than one rank the encoder-decoder family
+    still raises ROADMAP's item, and MLA and SSM heads that the group does
+    not divide are refused; a mesh without a group for an axis is
+    refused."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import whisper_loss
+    from repro_torch.models.transformer import check_mesh_arch
 
     mesh = {"data": StandInGroup(1), "model": StandInGroup(2)}
     policy = ParallelPolicy(mesh=mesh)
     assert policy.distributed and policy.model_size() == 2 and policy.dp_size() == 1
     for arch in ("mamba2-370m", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-            lm_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, reduced(get_arch(arch)),
-                    policy)
+        assert check_mesh_arch(reduced(get_arch(arch)), policy) is None
     three = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(3)})
     with pytest.raises(ValueError, match="MLA heads do not split over 3 model ranks"):
         lm_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                 reduced(get_arch("deepseek-v2-lite-16b")), three)
+    with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
+        lm_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                reduced(get_arch("mamba2-370m")), three)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
         whisper_loss({}, {}, reduced(get_arch("whisper-tiny")), policy)
     from repro_torch.models import init_cache

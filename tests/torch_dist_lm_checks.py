@@ -152,8 +152,11 @@ def _moe(groups, inp, cf: str, layout: str) -> dict:
             "layout": layout}
 
 
-def _lm(groups, inp, arch: str, sp: bool) -> dict:
-    cfg = lm_cfg(arch)
+def _lm(groups, inp, arch: str, sp: bool, cfg=None) -> dict:
+    """``lm_loss`` of ``arch`` (``cfg``, or its reduced f32 config) on this
+    rank's rows and shards: the data group's mean [loss, xent, aux] and
+    the gradients reduced by ``reduce_grads`` and gathered whole."""
+    cfg = cfg or lm_cfg(arch)
     pol = ParallelPolicy(mesh=groups, seq_shard=sp)
     whole = lm_params_from_numpy(inp[f"lm_params_{arch}"], device="cpu")
     local = shard_params(whole, cfg, pol)
