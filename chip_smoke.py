@@ -214,7 +214,26 @@ Phases, each failing hard:
      collectives' share, peak memory, tokens/s); both kernels by device
      time at the ranks' shard shapes beside bound, plain, SDPA and
      ``F.rms_norm``; then ``train --mode lm --arch deepseek-moe-16b
-     --devices 2`` through a fault against one rank.
+     --devices 2`` through a fault against one rank. Since slice 21 also
+     whisper-tiny at full width and depth (4 + 4 layers, batch 4 x 448,
+     1500 frames): the same gates against its serial run on the card (a
+     key bias's leaf at its query bias's scale), a run with the
+     cross-attention's sum over the group cut (on 2 x 2) and one with the
+     LayerNorms' ``copy_to`` cut (on 1 x 4 seq_shard) refused, 2 bf16 AdamW
+     steps timed, flash at its shard heads (bf16 and f32) timed;
+ 13. dist serve lm: LM serving over the 4 ranks (``Engine(policy=)``, the
+     decoder families; see ``phase_dist_serve_lm``), and since slice 21
+     whisper-tiny at full width (batch 4, 4-token prompts, 16 greedy steps)
+     on (1 x 4) seq_shard, (2 x 2) and (4 x 1): f32 weights and caches,
+     tokens equal to the serial run's on the card and logits within 1e-5
+     of max|ref|, launches exact; bf16 timed on (1 x 4); flash at its
+     decode step's cross-attention shard shapes timed. Every dist phase
+     prints its collectives' bytes on the wire by kind beside their time;
+ 14. dryrun: ``launch/dryrun.py --all`` (cells, and how many fit the
+     card), then its per-rank parameter and cache bytes held exactly
+     against what the ranks of phases dist, dist lm and dist serve lm held
+     (whisper-tiny on every layout, the Sleipner FNO's P = 4 shards), each
+     rank's ``max_memory_allocated`` beside them.
 
 One forward + backward through ``spectral_apply`` must launch its mix
 kernel twice (forward, dx), its weight-cotangent kernel once, and no other
@@ -245,7 +264,9 @@ the RMSNorm kernel (whisper's norms are LayerNorms). A training pass
 (``train_launches``); the backward, the plain versions' gradient, none.
 In phase dist lm every rank launches the same: a gate pass (remat off)
 RMSNorm 2 L + 1 times and flash once per attention layer, a timed step
-as a training pass, a Ulysses call flash once.
+as a training pass, a Ulysses call flash once; whisper on every rank of a
+model group as serially (``flash_per_loss``, ``flash_per_prefill`` and
+one a decoder layer a decode step).
 
 Prints each phase's seconds, the card's name and power limit, one
 ``{"kernels": [...]}`` line,
@@ -271,11 +292,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# rate outside the tensor cores. Bounds are computed against these.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
+# Published H100 SXM peaks (NVIDIA data sheet; ``repro_torch.common.constants``):
+# HBM3 bandwidth, the float32 rate outside the tensor cores, the dense bf16
+# tensor-core rate. Bounds are computed against these.
+from repro_torch.common.constants import (  # noqa: E402
+    HBM_BANDWIDTH as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S,
+    PEAK_FLOPS_F32 as FP32_FLOP_PER_S,
+)
 TOL_REL, TOL_ABS = 1e-4, 1e-6
 # LM kernels vs their plain versions, elementwise; both compute in f32 and
 # cast once. f32: |d| <= 1e-5 + 1e-5 |ref| (sums in another order). bf16:
@@ -2088,9 +2111,10 @@ def _block_split(local, x_local, cfg, group) -> dict:
     the fused kernel, the inverse transform and its all-to-all."""
     import torch
 
-    from repro_torch.core import dfft
+    from repro_torch.core import collectives, dfft
     from repro_torch.core.repartition import repartition
     from repro_torch.kernels.spectral_conv import spectral_apply_fused
+    from repro_torch.launch.comm_analysis import wire_line
 
     nx = cfg.grid[0]
     w = local["blocks"]["w_spec"][0]
@@ -2113,7 +2137,10 @@ def _block_split(local, x_local, cfg, group) -> dict:
             lambda: repartition(yf, dfft.YDIM, dfft.XDIM, group), iters=3, warmup=1)
     ms["FFTs, truncation and padding"] = (ms["forward transform"] + ms["inverse transform"]
                                          - ms["all_to_all x->y"] - ms["all_to_all y->x"])
-    return ms
+    with torch.inference_mode(), collectives.timed(sync=False) as count:
+        repartition(pre, dfft.XDIM, dfft.YDIM, group)
+        repartition(yf, dfft.YDIM, dfft.XDIM, group)
+    return ms, wire_line(count["ops"])
 
 
 def _block_split_2d(local, x_local, cfg, pair) -> dict:
@@ -2123,9 +2150,10 @@ def _block_split_2d(local, x_local, cfg, pair) -> dict:
     moves, the fused kernel and the inverse transform."""
     import torch
 
-    from repro_torch.core import dfft
+    from repro_torch.core import collectives, dfft
     from repro_torch.core.repartition import repartition
     from repro_torch.kernels.spectral_conv import spectral_apply_fused
+    from repro_torch.launch.comm_analysis import wire_line
 
     g_x, g_y = pair
     nx, mz, mt = cfg.grid[0], cfg.modes[2], cfg.modes[3]
@@ -2153,7 +2181,10 @@ def _block_split_2d(local, x_local, cfg, pair) -> dict:
     ms["FFTs, truncation and padding"] = (ms["forward transform"] + ms["inverse transform"]
                                          - 2 * ms["all_to_all y->z (my)"]
                                          - 2 * ms["all_to_all x->y (mx)"])
-    return ms
+    with torch.inference_mode(), collectives.timed(sync=False) as count:
+        dfft.dist_adjoint_2d(dfft.dist_forward_2d(h, cfg.modes, pair, trunc_x=False), cfg.grid,
+                             pair, pad_x=False)
+    return ms, wire_line(count["ops"])
 
 
 def _dist_setup(world_size: int, device) -> tuple:
@@ -2268,8 +2299,11 @@ def _dist_serve_part(layouts: dict, job: dict, device) -> dict:
             out[tag]["y"] = torch.from_numpy(np.stack([r.outputs[0] for r in served[0]]))
         del runner
         torch.cuda.empty_cache()
+        if name == "1d":  # for phase dryrun: the bytes of this rank's shards
+            out[tag]["param_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(local))
         split = _block_split if name == "1d" else _block_split_2d
-        out["split"][name] = split(local, x_local, cfg, model)
+        out["split"][name], out.setdefault("split_wire", {})[name] = split(local, x_local, cfg,
+                                                                            model)
         del local, x_local
         torch.cuda.empty_cache()
     return out
@@ -2964,7 +2998,8 @@ def phase_dist(gpu: str) -> dict:
     for r, res in enumerate(ranks):
         for name, split in res["serve"]["split"].items():
             parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
-            print(f"[dist] rank {r}: one {name} paper block at the served grid: {parts}; {gpu}")
+            print(f"[dist] rank {r}: one {name} paper block at the served grid: {parts}; its "
+                  f"all-to-alls' {res['serve']['split_wire'][name]}; {gpu}")
     t = time.perf_counter()
     _check_dist_ensemble(ranks, gpu)
     print(f"[dist2d_ensemble] checked in {time.perf_counter() - t:.1f}s")
@@ -3027,7 +3062,9 @@ def phase_dist(gpu: str) -> dict:
     print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s (the train runs' share of the "
           f"launch is printed by dist_train)")
     return {"timed": timed, "launches": counted[0],
-            "train_runs": [r["dist_train"] for r in ranks], "train_refs": train_refs}
+            "train_runs": [r["dist_train"] for r in ranks], "train_refs": train_refs,
+            "fno_p4": {"param_bytes": [r["serve"]["dist_paper"]["param_bytes"] for r in ranks],
+                       "peak_gib": [r["serve"]["dist_paper"]["peak_gib"] for r in ranks]}}
 
 
 def _check_dist_ensemble(ranks, gpu: str) -> None:
@@ -3110,10 +3147,12 @@ def _dist_train_run(rank, world_size, device, job) -> dict:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core import collectives
     from repro_torch.core.fno import (
         forward_and_specs, group_names, init_params, mse_loss, param_shapes,
     )
     from repro_torch.core.partition import shard_tree
+    from repro_torch.launch.comm_analysis import wire_line
     from repro_torch.data.loader import NdArraySource, ShardedDatasetLoader
     from repro_torch.launch.mesh import build_fno_groups
     from repro_torch.launch.train import synthetic_fno_data
@@ -3150,12 +3189,14 @@ def _dist_train_run(rank, world_size, device, job) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for i in range(job["steps"]):
             batch = loader.batch(i)
-            (params, opt, m), run = _counted(lambda: step(params, opt, batch))
+            with collectives.timed(sync=False) as count:  # counted, not waited on
+                (params, opt, m), run = _counted(lambda: step(params, opt, batch))
             # the step's split from its CUDA events (``_counted`` synchronised):
             # the gradient reduction and the sharded AdamW update, in seconds
             split = {"reduce_grads": events["backward"].elapsed_time(events["reduced"]) / 1e3,
                      "adamw_update": events["reduced"].elapsed_time(events["updated"]) / 1e3}
-            out["steps"].append({**{k: float(v) for k, v in m.items()}, **run, **split})
+            out["steps"].append({**{k: float(v) for k, v in m.items()}, **run, **split,
+                                 "wire": wire_line(count["ops"])})
     finally:
         loader.close()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -3268,7 +3309,8 @@ def phase_dist_train(gpu: str, dist_out: dict) -> dict:
                   + ", ".join(f"{res['steps'][i]['s']:.3f}s (gradient reduction "
                               f"{res['steps'][i]['reduce_grads']:.3f}s, AdamW "
                               f"{res['steps'][i]['adamw_update']:.3f}s)" for res in ranks)
-                  + f"; serial {want['s']:.3f}s; {gpu}")
+                  + f"; serial {want['s']:.3f}s; rank 0's collectives "
+                  f"{ranks[0]['steps'][i]['wire']}; {gpu}")
         for r, res in enumerate(ranks):
             for leaf, c in res["params"].items():
                 if not c["ok"]:
@@ -4732,9 +4774,10 @@ def _dist_lm_setup(world_size: int) -> dict:
     return {name: build_lm_groups(world_size, p) for name, p, _ in DIST_LM_LAYOUTS}
 
 
-def _dist_lm_local(cfg, pol, device) -> dict:
-    """This rank's shards of the seeded weights. The ranks draw the whole
-    tree in turns, so that one whole copy exists at a time."""
+def _shards_in_turns(draw, cfg, pol) -> dict:
+    """This rank's shards (``shard_params``) of the whole tree ``draw()``
+    makes. The ranks draw it in turns, so that one whole copy exists at a
+    time."""
     import torch
     import torch.distributed as dist
 
@@ -4743,10 +4786,15 @@ def _dist_lm_local(cfg, pol, device) -> dict:
     local = None
     for turn in range(dist.get_world_size()):
         if turn == dist.get_rank():
-            local = shard_params(_dist_lm_params(cfg, device), cfg, pol)
+            local = shard_params(draw(), cfg, pol)
             torch.cuda.empty_cache()
         dist.barrier()
     return local
+
+
+def _dist_lm_local(cfg, pol, device) -> dict:
+    """This rank's shards of the seeded weights."""
+    return _shards_in_turns(lambda: _dist_lm_params(cfg, device), cfg, pol)
 
 
 def _dist_lm_leaf_gate(g, ref, spec, pol, scale) -> dict:
@@ -4887,6 +4935,7 @@ def _dist_lm_step(arch: str, groups, device) -> dict:
 
     from repro_torch.core import collectives
     from repro_torch.core.partition import local_slice
+    from repro_torch.launch.comm_analysis import collective_stats
     from repro_torch.models import ParallelPolicy, lm_loss
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_loop import make_train_step
@@ -4920,6 +4969,7 @@ def _dist_lm_step(arch: str, groups, device) -> dict:
     return {"times": times, "losses": losses, "launches": launched,
             "counted_steps": DIST_LM_STEPS - 1, "timed_step_s": timed,
             "collectives_s": count["seconds"], "collectives_calls": count["calls"],
+            "wire": collective_stats(count["ops"]).to_dict(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -4970,8 +5020,14 @@ def _dist_lm_rank_work(rank, world_size, device, job):
     for arch in DIST_LM_STEP_ARCHS:
         out["step"][arch] = _dist_lm_step(arch, groups["1x4"], device)
         torch.cuda.empty_cache()
+    out["whisper"] = _dist_whisper_rank(groups, job, device)
+    torch.cuda.empty_cache()
     if rank == 0:
         out["times"] = _dist_lm_kernel_times(job["gpu"])
+        out["times"]["flash"].update(_whisper_flash_times(
+            {f"{layout} {name}": shape for layout, shapes in WHISPER_DIST_FLASH.items()
+             for name, shape in shapes.items()}, "dist lm", job["gpu"]))
+        _free_cuda()
     dist.barrier()
     return out
 
@@ -5082,13 +5138,14 @@ def _dist_lm_report_step(ranks, arch: str, gpu: str) -> dict:
         print(f"[dist lm] {arch} step rank {r}: {step_ms[r]:.1f} ms after the first "
               f"({st['times'][0] * 1e3:.1f} ms); collectives {st['collectives_s'] * 1e3:.1f} ms "
               f"({st['collectives_calls']} calls) of a {st['timed_step_s'] * 1e3:.1f} ms step with "
-              f"each one timed ({share[r]:.1%}); peak {st['peak_gib']:.2f} GiB; losses "
-              f"{[round(x, 6) for x in st['losses']]}")
+              f"each one timed ({share[r]:.1%}), {_wire_words(st['wire'])}; peak "
+              f"{st['peak_gib']:.2f} GiB; losses {[round(x, 6) for x in st['losses']]}")
     print(f"[dist lm] {arch} bf16 on 1 x 4 (seq_shard, remat, AdamW): "
           f"{tokens / (max(step_ms) / 1e3):.0f} tokens/s at the slowest rank's step "
           f"({max(step_ms):.1f} ms); launches a rank {steps[0]['launches']} over "
           f"{steps[0]['counted_steps']} steps (a pass {per}); {gpu}")
     return {"step_ms": step_ms, "collectives_share": share,
+            "wire_bytes": steps[0]["wire"]["total_bytes"],
             "peak_gib": [st["peak_gib"] for st in steps], "tokens_per_s": tokens / (max(step_ms) / 1e3),
             "launches": steps[0]["launches"]}
 
@@ -5206,6 +5263,396 @@ def _dist_lm_cli(gpu: str) -> dict:
     return dict(out, final_rel=final)
 
 
+# ---------------------------------------------------------------------------
+# whisper-tiny over the ranks in phase `dist lm`: full width and depth,
+# trained tensor-parallel by heads (6 padded to 8 at P = 4), its loss and
+# gradients against the serial run on the card, two cut sums refused, two
+# bf16 AdamW steps timed
+# ---------------------------------------------------------------------------
+
+WHISPER_DIST_BATCH, WHISPER_DIST_SEQ = 4, 448
+WHISPER_DIST_SEED = DIST_LM_SEED + 7
+# the cut runs, by layout: the cross-attention's row-parallel sum
+# (``layers.tp_out``) on (2 x 2), the cheaper pass; the LayerNorms'
+# ``copy_to``, which only a slice of the sequence needs, on (1 x 4) seq_shard
+WHISPER_DIST_CUTS = {"2x2": ("cross",), "1x4": ("layernorm",)}
+
+
+def _whisper_dist_cfg(dtype: str):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(WHISPER_ARCH), dtype=dtype)
+
+
+def _whisper_dist_params(cfg, device, serving: bool = False):
+    import torch
+
+    from repro_torch.models import init_whisper_params
+
+    return init_whisper_params(cfg, generator=torch.Generator(device=device).manual_seed(
+        WHISPER_DIST_SEED), device=device, serving=serving)
+
+
+def _whisper_dist_batch(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(WHISPER_DIST_SEED + 1)
+    frames = torch.randn((WHISPER_DIST_BATCH, cfg.encoder.frames, cfg.d_model), generator=gen,
+                         device=device)
+    toks = torch.randint(1, cfg.vocab, (WHISPER_DIST_BATCH, WHISPER_DIST_SEQ + 1), generator=gen,
+                         device=device)
+    return {"frames": frames, "tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _leaf_scales(grads) -> dict:
+    """Each leaf's max|ref|; a key bias's, whose exact gradient is zero (the
+    softmax cancels q . bk) and both runs' rounding noise, is its layer's
+    query bias's (``_grad_gate_faults``' rule)."""
+    scale = {name: float(g.abs().max()) for name, g, _ in _tree_pairs(grads, None)}
+    return {name: scale[name[:-2] + "bq"] if name.endswith(".bk") else s
+            for name, s in scale.items()}
+
+
+def _dist_whisper_serial(gpu: str, dev) -> dict:
+    """The serial f32 ``whisper_loss`` and its gradient on the card through
+    the flash kernel (exact launches), with each leaf's scale."""
+    import torch
+
+    from repro_torch.models import whisper_loss
+    from repro_torch.models.whisper import flash_per_loss
+    from repro_torch.train.train_loop import accumulate_grads, zeros_like_tree
+
+    cfg = _whisper_dist_cfg("float32")
+    params = _whisper_dist_params(cfg, dev)
+    batch = _whisper_dist_batch(cfg, dev)
+    grads = zeros_like_tree(params)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    loss, _ = accumulate_grads(lambda p, b: whisper_loss(p, b, cfg), params, batch, grads)
+    torch.cuda.synchronize()
+    launched, want = _kernel_counts(), {"rmsnorm": 0, "flash": flash_per_loss(cfg)}
+    if launched != want:
+        raise SystemExit(f"[dist lm] serial whisper: launches {launched}, want {want}")
+    print(f"[dist lm] serial {cfg.name} f32 ({cfg.encoder.n_layers} + {cfg.n_layers} layers, "
+          f"batch {WHISPER_DIST_BATCH} x {WHISPER_DIST_SEQ} tokens, {cfg.encoder.frames} frames): "
+          f"loss {float(loss):.6f} in {time.perf_counter() - t0:.2f}s, launches {launched}; {gpu}")
+    del params
+    return {"loss": float(loss), "grads": grads, "scale": _leaf_scales(grads)}
+
+
+@contextlib.contextmanager
+def cut_cross_reduce():
+    """Within the block the cross-attention's row-parallel output is not
+    summed over the model group: ``layers.tp_out`` is the identity (this
+    rank's slice under ``seq_shard``) inside an ``_attn_tp`` given
+    ``kv_x``. The loss moves: the gate must refuse the run."""
+    import repro_torch.models.attention as attn_lib
+    import repro_torch.models.layers as layers_lib
+    from repro_torch.core.collectives import scatter_to
+
+    saved = attn_lib._attn_tp
+
+    def cut(*args, kv_x=None, **kw):
+        if kv_x is None:
+            return saved(*args, **kw)
+        tp_out = layers_lib.tp_out
+        layers_lib.tp_out = lambda y, group, sp: scatter_to(y, 1, group) if sp else y
+        try:
+            return saved(*args, kv_x=kv_x, **kw)
+        finally:
+            layers_lib.tp_out = tp_out
+
+    attn_lib._attn_tp = cut
+    try:
+        yield
+    finally:
+        attn_lib._attn_tp = saved
+
+
+@contextlib.contextmanager
+def cut_layernorm_sum():
+    """Within the block the LayerNorms on a rank's slice of the sequence
+    take w and b without ``copy_to``: the loss is the same, each norm's
+    gradient a rank's part, which the gate must refuse."""
+    import repro_torch.models.whisper as wh
+
+    saved = wh._ln_of
+    wh._ln_of = lambda x, p, policy, sp: wh._ln(x, p)
+    try:
+        yield
+    finally:
+        wh._ln_of = saved
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _whisper_local(cfg, pol, device, serving: bool = False) -> dict:
+    """This rank's shards of the seeded weights, drawn in turns."""
+    return _shards_in_turns(lambda: _whisper_dist_params(cfg, device, serving), cfg, pol)
+
+
+def _whisper_layout(cfg, pol):
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models.transformer import param_parts
+    from repro_torch.train.optimizer import state_layout
+
+    from repro_torch.models import init_whisper_params
+
+    whole = init_whisper_params(cfg, generator=None, device="meta")  # shapes only
+    return state_layout(pol.mesh, param_parts(cfg, pol, whole),
+                        tree_map(lambda p: tuple(p.shape), whole), grads_complete=True)
+
+
+def _dist_whisper_gate(pol, serial: dict, device, cuts=()) -> dict:
+    """One f32 forward + backward of ``whisper_loss`` on this rank's shards
+    and rows, its gradients reduced by ``reduce_grads``'s LM rule and each
+    leaf gated against the serial gradient (``_dist_lm_leaf_gate``); the
+    same for each run of ``cuts``. The bytes of this rank's shards and its
+    peak memory, for phase ``dryrun``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.partition import local_slice
+    from repro_torch.models import whisper_loss
+    from repro_torch.models.transformer import tree_specs
+    from repro_torch.train.train_loop import accumulate_grads, reduce_grads, zeros_like_tree
+
+    cfg = _whisper_dist_cfg("float32")
+    torch.cuda.reset_peak_memory_stats()
+    local = _whisper_local(cfg, pol, device)
+    batch = {k: local_slice(v, 0, pol.data_group)
+             for k, v in _whisper_dist_batch(cfg, device).items()}
+    layout = _whisper_layout(cfg, pol)
+    specs = {name: spec for name, spec, _ in _tree_pairs(tree_specs(cfg, pol), None)}
+    refs = {name: ref for name, ref, _ in _tree_pairs(serial["grads"], None)}
+
+    def run(ctx):
+        grads = zeros_like_tree(local)
+        _zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            loss, _ = accumulate_grads(lambda p, b: whisper_loss(p, b, cfg, pol), local, batch,
+                                       grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _kernel_counts()
+        reduce_grads(grads, layout)
+        mean = loss.clone()
+        dist.all_reduce(mean, group=pol.data_group)
+        gates = {name: _dist_lm_leaf_gate(g, refs[name], specs[name], pol, serial["scale"][name])
+                 for name, g, _ in _tree_pairs(grads, None)}
+        for name, g in gates.items():
+            if name.endswith(".bk"):  # its exact gradient is zero: zeros are no wrong answer
+                g["passed_wrong"] = []
+        return {"loss": float(mean) / pol.dp_size(), "s": wall, "launches": launched,
+                "gates": gates}
+
+    out = run(contextlib.nullcontext())
+    out["param_bytes"] = _tree_bytes(local)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["cut"] = {what: run(cut_cross_reduce() if what == "cross" else cut_layernorm_sum())
+                  for what in cuts}
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_whisper_step(groups, device) -> dict:
+    """bf16 whisper-tiny training on (1 x 4) with seq_shard: ``DIST_LM_STEPS``
+    AdamW steps timed after the first, then one step with every collective
+    timed (its share of the step and its bytes on the wire)."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.core.partition import local_slice
+    from repro_torch.launch.comm_analysis import collective_stats
+    from repro_torch.models import ParallelPolicy, whisper_loss
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = _whisper_dist_cfg("bfloat16")
+    pol = ParallelPolicy(mesh=groups, seq_shard=True)
+    local = _whisper_local(cfg, pol, device)
+    layout = _whisper_layout(cfg, pol)
+    step = make_train_step(lambda p, b: whisper_loss(p, b, cfg, pol), AdamWConfig(lr=1e-4),
+                           layout=layout)
+    opt = init_opt_state(local, layout)
+    batch = {k: local_slice(v, 0, pol.data_group)
+             for k, v in _whisper_dist_batch(cfg, device).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(DIST_LM_STEPS):
+        if i == 1:
+            _zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launched = _kernel_counts()
+    with collectives.timed() as count:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+    return {"times": times, "losses": losses, "launches": launched,
+            "counted_steps": DIST_LM_STEPS - 1, "timed_step_s": timed,
+            "collectives_s": count["seconds"], "collectives_calls": count["calls"],
+            "wire": collective_stats(count["ops"]).to_dict(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _dist_whisper_rank(groups: dict, job: dict, device) -> dict:
+    """whisper-tiny's gates on every layout (with ``WHISPER_DIST_CUTS``),
+    then its timed bf16 steps."""
+    from repro_torch.models import ParallelPolicy
+
+    out = {"gates": {}}
+    for name, _, sp in DIST_LM_LAYOUTS:
+        pol = ParallelPolicy(mesh=groups[name], seq_shard=sp, remat=False)
+        out["gates"][name] = _dist_whisper_gate(pol, job["whisper"], device,
+                                                WHISPER_DIST_CUTS[name])
+    out["step"] = _dist_whisper_step(groups["1x4"], device)
+    return out
+
+
+def _wire_words(wire: dict) -> str:
+    kinds = ", ".join(f"{k} {v / 2**20:.1f} MiB ({wire['count_by_kind'][k]} calls)"
+                      for k, v in sorted(wire["bytes_by_kind"].items()))
+    return f"{wire['total_bytes'] / 2**20:.1f} MiB on the wire a rank ({kinds})"
+
+
+def _dist_whisper_check(ranks, serial: dict, gpu: str) -> dict:
+    """Every rank's whisper gates: the loss within ``DIST_LM_LOSS_RTOL``,
+    every leaf at the gradient gate with no wrong answer passing, flash's
+    launches exact and equal (``flash_per_loss``), each cut refused; then
+    the timed steps. Returns what is recorded."""
+    from repro_torch.models.whisper import flash_per_loss
+
+    cfg = _whisper_dist_cfg("float32")
+    want = {"rmsnorm": 0, "flash": flash_per_loss(cfg)}
+    out = {}
+    for name, _, sp in DIST_LM_LAYOUTS:
+        runs = [r["whisper"]["gates"][name] for r in ranks]
+        if any(run["launches"] != want for run in runs):
+            raise SystemExit(f"[dist lm] whisper {name}: launches per rank "
+                             f"{[run['launches'] for run in runs]}, want {want}")
+        rel = max(abs(run["loss"] - serial["loss"]) / abs(serial["loss"]) for run in runs)
+        faults, worst, wrong = [], (0.0, ""), []
+        for r, run in enumerate(runs):
+            for leaf, g in run["gates"].items():
+                if not g["ok"]:
+                    faults.append(f"rank {r} {leaf}: max|d| {g['max_d']:.3e} (max|ref| "
+                                  f"{g['max_ref']:.3e})")
+                worst = max(worst, (g["max_d"] / g["max_ref"] if g["max_ref"] else 0.0, leaf))
+                wrong += [f"rank {r} {leaf}: {w}" for w in g["passed_wrong"]]
+        print(f"[dist lm] {WHISPER_ARCH} on {name}{' seq_shard' if sp else ''}: loss "
+              f"{runs[0]['loss']:.6f} vs serial {serial['loss']:.6f} (max relative difference "
+              f"{rel:.3e}, gate {DIST_LM_LOSS_RTOL}); {len(runs[0]['gates'])} leaves a rank at rtol "
+              f"{DIST_LM_GRAD_RTOL}, atol {DIST_GRAD_LEAF_ATOL} x max|ref| (a key bias's of its "
+              f"query bias's): worst {worst[0]:.3e} ({worst[1]}); launches a rank "
+              f"{runs[0]['launches']} (exact, equal); forward + backward "
+              f"{max(run['s'] for run in runs):.2f}s; {gpu}")
+        if not rel <= DIST_LM_LOSS_RTOL or faults or wrong:
+            raise SystemExit(f"[dist lm] whisper on {name}: loss rel {rel:.3e}; "
+                             + "; ".join((faults + wrong)[:8]))
+        for what, _ in runs[0]["cut"].items():
+            cut = [run["cut"][what] for run in runs]
+            crel = max(abs(c["loss"] - serial["loss"]) / abs(serial["loss"]) for c in cut)
+            bad = sorted({leaf for c in cut for leaf, g in c["gates"].items() if not g["ok"]})
+            print(f"[dist lm] {WHISPER_ARCH} on {name} with "
+                  f"{'the cross-attention sum cut' if what == 'cross' else 'the LayerNorms copy_to cut'}: "
+                  f"loss {crel:.3e} from the serial one, {len(bad)} leaves refused ({bad[:3]})")
+            refused = (crel > DIST_LM_LOSS_RTOL or bad) if what == "cross" else \
+                any(".ln" in leaf or "final_ln" in leaf for leaf in bad)
+            if not refused:
+                raise SystemExit(f"[dist lm] whisper: the gate did not refuse the {what} cut")
+        out[name] = {"loss_rel": rel, "grad_worst": worst[0], "launches": runs[0]["launches"],
+                     "param_bytes": [run["param_bytes"] for run in runs],
+                     "peak_gib": [run["peak_gib"] for run in runs]}
+    steps = [r["whisper"]["step"] for r in ranks]
+    per = {"rmsnorm": 0, "flash": flash_per_loss(cfg)}
+    want = {k: steps[0]["counted_steps"] * v for k, v in per.items()}
+    if any(st["launches"] != want for st in steps) or not all(
+            np.isfinite(st["losses"]).all() for st in steps):
+        raise SystemExit(f"[dist lm] whisper step launches {[st['launches'] for st in steps]}, "
+                         f"want {want}; losses {[st['losses'] for st in steps]}")
+    step_ms = [float(np.mean(st["times"][1:]) * 1e3) for st in steps]
+    share = [st["collectives_s"] / st["timed_step_s"] for st in steps]
+    tokens = WHISPER_DIST_BATCH * WHISPER_DIST_SEQ
+    for r, st in enumerate(steps):
+        print(f"[dist lm] {WHISPER_ARCH} step rank {r}: {step_ms[r]:.1f} ms after the first "
+              f"({st['times'][0] * 1e3:.1f} ms); collectives {st['collectives_s'] * 1e3:.1f} ms "
+              f"({st['collectives_calls']} calls) of a {st['timed_step_s'] * 1e3:.1f} ms step with "
+              f"each one timed ({share[r]:.1%}), {_wire_words(st['wire'])}; peak "
+              f"{st['peak_gib']:.2f} GiB; losses {[round(x, 6) for x in st['losses']]}")
+    print(f"[dist lm] {WHISPER_ARCH} bf16 on 1 x 4 (seq_shard, AdamW): "
+          f"{tokens / (max(step_ms) / 1e3):.0f} decoder tokens/s at the slowest rank's step "
+          f"({max(step_ms):.1f} ms); launches a rank {steps[0]['launches']} over "
+          f"{steps[0]['counted_steps']} steps; {gpu}")
+    out["step"] = {"step_ms": step_ms, "collectives_share": share,
+                   "wire_bytes": steps[0]["wire"]["total_bytes"],
+                   "peak_gib": [st["peak_gib"] for st in steps], "launches": steps[0]["launches"],
+                   "tokens_per_s": tokens / (max(step_ms) / 1e3)}
+    return out
+
+
+# flash at whisper-tiny's shard shapes over the ranks (b, heads, kv heads,
+# sq, sk, causal): 6 heads padded to 8 at P = 4 (2 a rank, batch 4), 3 a
+# rank at P = 2 (2 rows a data rank)
+WHISPER_DIST_FLASH = {
+    "1x4": {"encoder": (4, 2, 2, 1500, 1500, False), "cross (loss)": (4, 2, 2, 448, 1500, False),
+            "self (loss, causal)": (4, 2, 2, 448, 448, True)},
+    "2x2": {"encoder": (2, 3, 3, 1500, 1500, False), "cross (loss)": (2, 3, 3, 448, 1500, False),
+            "self (loss, causal)": (2, 3, 3, 448, 448, True)},
+}
+WHISPER_DIST_DECODE_FLASH = {"1x4": (4, 2, 2, 1, 1500, False), "2x2": (2, 3, 3, 1, 1500, False)}
+
+
+def _whisper_flash_times(shapes: dict, tag: str, gpu: str) -> dict:
+    """Flash at whisper-tiny's shard shapes, bf16 and f32 (bf16 through
+    ``wgmma``, f32 on the FFMA kernel): held to the plain version, timed by
+    device time beside its bound and SDPA (masked only when causal)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(WHISPER_DIST_SEED + 2)
+    out = {}
+    for name, (b, h, kvh, sq, sk, causal) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, sq, h, 64), device=dev, generator=gen).to(dtype).transpose(1, 2)
+            k, v = (torch.randn((b, sk, kvh, 64), device=dev, generator=gen).to(dtype)
+                    .transpose(1, 2) for _ in range(2))
+            dn = str(dtype).split(".")[-1]
+            what = f"{name} (b {b}, {h} heads, sq {sq}, sk {sk}) {dn}"
+            err = _lm_check(f"{tag} flash whisper {what}", flash_attention(q, k, v, causal=causal),
+                            flash_attention_ref(q, k, v, causal=causal))
+            ms, by_ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), n=10)
+            plain, by_plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal), n=5)
+            mask = causal_lower_right(sq, sk) if causal else None
+            lib, by_lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                    n=10)
+            bound, by = _flash_bound_ms(b, h, kvh, sq, sk, 64, causal, q.element_size())
+            print(f"[{tag}] flash whisper {what}, device time: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, SDPA {lib:.4f} ms (kernel / SDPA {ms / lib:.2f}), bound "
+                  f"{bound * 1e3:.2f} us ({by}); {gpu}")
+            out[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by,
+                             timed_by={"ms": by_ms, "plain_ms": by_plain, "library_ms": by_lib})
+            del q, k, v
+    return out
+
+
 def phase_dist_lm(gpu: str) -> dict:
     """The distributed LM at full width (``DIST_LM_ARCHS``, depth cut) on
     ``DIST_RANKS`` gloo ranks sharing this card: the serial f32 loss and
@@ -5239,6 +5686,7 @@ def phase_dist_lm(gpu: str) -> dict:
         shared = None if moe else _dist_lm_serial(arch, None, gpu, dev)
         for name, p, _ in DIST_LM_LAYOUTS:
             serial[arch, name] = _dist_lm_serial(arch, (DIST_RANKS // p, p), gpu, dev) if moe else shared
+    whisper_serial = _dist_whisper_serial(gpu, dev)
     gen = torch.Generator(device=dev).manual_seed(DIST_LM_SEED + 3)
     b, s = DIST_LM_ULYSSES
     ulysses, ulysses_ref = {}, {}
@@ -5253,7 +5701,7 @@ def phase_dist_lm(gpu: str) -> dict:
     _free_cuda()  # the ranks need what the serial runs left reserved
     print(f"[dist lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
           f"{_memory_line()}")
-    job = {"serial": serial, "ulysses": ulysses, "gpu": gpu}
+    job = {"serial": serial, "ulysses": ulysses, "gpu": gpu, "whisper": whisper_serial}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         ranks = launch_ranks(_dist_lm_rank, DIST_RANKS, d, args=(job,),
@@ -5265,7 +5713,8 @@ def phase_dist_lm(gpu: str) -> dict:
     gates = _dist_lm_check_gates(ranks, serial, gpu)
     uly = _dist_lm_check_ulysses(ranks, {"ulysses_ref": ulysses_ref}, gpu)
     step = {arch: _dist_lm_report_step(ranks, arch, gpu) for arch in DIST_LM_STEP_ARCHS}
-    del job, serial, ulysses, ulysses_ref
+    whisper = _dist_whisper_check(ranks, whisper_serial, gpu)
+    del job, serial, ulysses, ulysses_ref, whisper_serial
     torch.cuda.ipc_collect()
     _free_cuda()
     times = ranks[0]["times"]
@@ -5273,11 +5722,13 @@ def phase_dist_lm(gpu: str) -> dict:
     launches = {
         "dist_lm": {k: sum(g["launches"][k] for g in gates.values())
                     + sum(st["launches"][k] for st in step.values()) for k in ("rmsnorm", "flash")},
+        "dist_lm_whisper": {k: sum(whisper[name]["launches"][k] for name, _, _ in DIST_LM_LAYOUTS)
+                            + whisper["step"]["launches"][k] for k in ("rmsnorm", "flash")},
         "dist_lm_ulysses": {k: sum(u["launches"][k] for u in uly.values())
                             for k in ("rmsnorm", "flash")},
         "dist_lm_cli": {"rmsnorm": cli["rmsnorm"], "flash": cli["flash"]}}
     return {"launches": launches, "gates": gates, "ulysses": uly, "step": step, "times": times,
-            "cli": cli}
+            "cli": cli, "whisper": whisper}
 
 
 # ---------------------------------------------------------------------------
@@ -5496,20 +5947,8 @@ def _dist_serve_serial(arch: str, p: int, gpu: str, dev, dtype: str = "float32",
 
 
 def _drawn_shards(cfg, pol, device) -> dict:
-    """This rank's shards of the seeded f32 weights, the ranks drawing the
-    whole tree in turns so that one whole copy exists at a time."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.models.transformer import shard_params
-
-    local = None
-    for turn in range(dist.get_world_size()):
-        if turn == dist.get_rank():
-            local = shard_params(_dist_serve_params(cfg, device), cfg, pol)
-            torch.cuda.empty_cache()
-        dist.barrier()
-    return local
+    """This rank's shards of the seeded f32 weights, drawn in turns."""
+    return _shards_in_turns(lambda: _dist_serve_params(cfg, device), cfg, pol)
 
 
 def _prefix_bytes(cache) -> int:
@@ -5687,6 +6126,7 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
 
     from repro_torch.core import collectives
     from repro_torch.core.partition import gather_dim
+    from repro_torch.launch.comm_analysis import collective_stats
     from repro_torch.models import ParallelPolicy
     from repro_torch.serve import Engine
 
@@ -5713,7 +6153,7 @@ def _dist_serve_timed(arch: str, groups, serial: dict, device) -> dict:
         runner = engine.runner
         if timed:
             out.update(collectives_s=count["seconds"], collectives_calls=count["calls"],
-                       timed_wall_s=wall)
+                       timed_wall_s=wall, wire=collective_stats(count["ops"]).to_dict())
         else:
             last = None
             if cfg.moe is not None:  # the last model rank's last rows: the prompts' last tokens
@@ -5858,8 +6298,13 @@ def _dist_serve_rank_work(rank, world_size, device, job):
     for arch in DIST_SERVE_ARCHS:
         out["timed"][arch] = _dist_serve_timed(arch, groups["1x4"], job["serial"][arch, "bf16"],
                                                device)
+    out["whisper"] = _dist_whisper_serve_rank(groups, job, device)
     if rank == 0:
         out["times"] = _dist_serve_kernel_times(job["gpu"])
+        out["times"]["flash"].update(_whisper_flash_times(
+            {f"{layout} decode-step cross": shape
+             for layout, shape in WHISPER_DIST_DECODE_FLASH.items()}, "dist serve lm", job["gpu"]))
+        _free_cuda()
     dist.barrier()
     return out
 
@@ -5981,8 +6426,8 @@ def _dist_serve_report_timed(ranks, gpu: str) -> dict:
                   f"{len(step)} steps after the first, {t['decode_s'][0] * 1e3:.1f} ms); "
                   f"{t['tokens'] / sum(t['decode_s']):.1f} decoded tok/s; collectives "
                   f"{t['collectives_s'] * 1e3:.1f} ms ({t['collectives_calls']} calls) of a "
-                  f"{t['timed_wall_s'] * 1e3:.1f} ms run with each one timed ({share:.1%}); peak "
-                  f"{t['peak_gib']:.2f} GiB; {gpu}")
+                  f"{t['timed_wall_s'] * 1e3:.1f} ms run with each one timed ({share:.1%}), "
+                  f"{_wire_words(t['wire'])}; peak {t['peak_gib']:.2f} GiB; {gpu}")
         for k in launches:
             launches[k] += runs[0]["launches"][k]
         t = runs[0]
@@ -5990,6 +6435,7 @@ def _dist_serve_report_timed(ranks, gpu: str) -> dict:
                      "decode_step_ms": float(np.mean(t["decode_s"][1:]) * 1e3),
                      "tokens_per_s": t["tokens"] / sum(t["decode_s"]),
                      "collectives_share": [r["collectives_s"] / r["timed_wall_s"] for r in runs],
+                     "wire_bytes": t["wire"]["total_bytes"],
                      "peak_gib": [r["peak_gib"] for r in runs], "prefix_bytes": t["prefix_bytes"],
                      "state_bytes": t["state_bytes"],
                      "prefill_rel": worst_p, "decode_rel": worst_d,
@@ -6012,6 +6458,214 @@ def _dist_serve_references(gpu: str, dev) -> dict:
         serial[arch, "bf16"] = _dist_serve_serial(arch, DIST_RANKS, gpu, dev, "bfloat16",
                                                   DIST_SERVE_TIMED_TOKENS)
     return serial
+
+
+# ---------------------------------------------------------------------------
+# whisper-tiny served over the ranks in phase `dist serve lm`: full width and
+# depth, its caches by the rank's padded heads; f32 against the serial run
+# on the card, bf16 timed on (1 x 4)
+# ---------------------------------------------------------------------------
+
+WHISPER_SERVE_PROMPT, WHISPER_SERVE_STEPS = 4, DIST_SERVE_TIMED_TOKENS
+WHISPER_SERVE_LAYOUTS = (("1x4", True), ("2x2", False), ("4x1", False))
+WHISPER_SERVE_F32 = 1e-5  # of max|ref|: served logits over the ranks against the serial run's
+
+
+def _whisper_serve_inputs(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(WHISPER_DIST_SEED + 3)
+    frames = torch.randn((WHISPER_DIST_BATCH, cfg.encoder.frames, cfg.d_model), generator=gen,
+                         device=device)
+    prompt = torch.randint(1, cfg.vocab, (WHISPER_DIST_BATCH, WHISPER_SERVE_PROMPT), generator=gen,
+                           device=device)
+    return frames, prompt
+
+
+def _whisper_greedy(params, frames, prompt, cfg, pol, cache_dtype, clock=None):
+    """A prefill and ``WHISPER_SERVE_STEPS`` greedy decode steps: the logits
+    of every step [steps + 1, b, V], the tokens [b, steps + 1], the cache;
+    with ``clock`` (a list) each call's wall time, ending in a read of the
+    chosen tokens."""
+    import torch
+
+    from repro_torch.models import whisper_decode_step, whisper_prefill
+
+    max_len = WHISPER_SERVE_PROMPT + WHISPER_SERVE_STEPS
+    t0 = time.perf_counter()
+    logits, cache = whisper_prefill(params, prompt, frames, cfg, max_len=max_len, policy=pol,
+                                    cache_dtype=cache_dtype)
+    tok = torch.argmax(logits, -1)[:, None]
+    outs, toks = [logits], [tok.cpu()]
+    if clock is not None:
+        clock.append(time.perf_counter() - t0)
+    for i in range(WHISPER_SERVE_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = whisper_decode_step(params, tok, cache, WHISPER_SERVE_PROMPT + i, cfg, pol)
+        tok = torch.argmax(logits, -1)[:, None]
+        toks.append(tok.cpu())
+        if clock is not None:
+            clock.append(time.perf_counter() - t0)
+        outs.append(logits)
+    return torch.stack(outs), torch.cat(toks, 1), cache
+
+
+def _dist_whisper_serve_serial(gpu: str, dev) -> dict:
+    """The serial f32 whisper-tiny run on the card (f32 weights, f32
+    caches): every step's logits and the tokens."""
+    import torch
+
+    from repro_torch.models import LOCAL
+
+    cfg = _whisper_dist_cfg("float32")
+    params = _whisper_dist_params(cfg, dev)
+    frames, prompt = _whisper_serve_inputs(cfg, dev)
+    with torch.inference_mode():
+        logits, toks, _ = _whisper_greedy(params, frames, prompt, cfg, LOCAL, torch.float32)
+    print(f"[dist serve lm] serial {cfg.name} f32: batch {WHISPER_DIST_BATCH}, "
+          f"{WHISPER_SERVE_PROMPT}-token prompts, {WHISPER_SERVE_STEPS} greedy steps; {gpu}")
+    return {"logits": logits.clone(), "tokens": toks.clone()}  # clones leave inference mode
+
+
+def _dist_whisper_serve(groups, sp: bool, serial: dict, device) -> dict:
+    """The f32 run over the ranks on ``serving_heads`` of this rank's
+    shards and its rows, f32 caches: the logits of its rows against the
+    serial run's, the tokens, flash's launches, the bytes of its shards
+    and cache, its peak memory."""
+    import torch
+
+    from repro_torch.models import ParallelPolicy
+    from repro_torch.models.whisper import serving_heads
+
+    cfg = _whisper_dist_cfg("float32")
+    pol = ParallelPolicy(mesh=groups, seq_shard=sp)
+    torch.cuda.reset_peak_memory_stats()
+    local = _whisper_local(cfg, pol, device)
+    rows = WHISPER_DIST_BATCH // pol.dp_size()
+    lo = pol.data_rank() * rows
+    frames, prompt = _whisper_serve_inputs(cfg, device)
+    with torch.inference_mode():
+        served = serving_heads(local, cfg, pol)
+        _zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, toks, cache = _whisper_greedy(served, frames[lo:lo + rows], prompt[lo:lo + rows],
+                                              cfg, pol, torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _kernel_counts()
+    ref = serial["logits"][:, lo:lo + rows]
+    out = {"rel": _rel(logits, ref), "tokens_equal": bool(torch.equal(toks, serial["tokens"][lo:lo + rows])),
+           "launches": launched, "wall_s": wall, "param_bytes": _tree_bytes(local),
+           "cache_bytes": _tree_bytes(cache), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "finite": _finite(logits)}
+    del local, served, cache
+    _free_cuda()
+    return out
+
+
+def _dist_whisper_serve_timed(groups, device) -> dict:
+    """bf16 serving on (1 x 4) with seq_shard (the serving draw's weights,
+    the reference's bf16 caches): each call's wall time, then the same
+    traffic with every collective timed (share, bytes on the wire); the
+    cache's bytes, the shards' bytes, peak memory."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.launch.comm_analysis import collective_stats
+    from repro_torch.models import ParallelPolicy
+    from repro_torch.models.whisper import serving_heads
+
+    cfg = _whisper_dist_cfg("bfloat16")
+    pol = ParallelPolicy(mesh=groups, seq_shard=True)
+    local = _whisper_local(cfg, pol, device, serving=True)
+    frames, prompt = _whisper_serve_inputs(cfg, device)
+    out = {"param_bytes": _tree_bytes(local)}
+    with torch.inference_mode():
+        served = serving_heads(local, cfg, pol)
+        _whisper_greedy(served, frames, prompt, cfg, pol, torch.bfloat16)  # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock = []
+        _zero_kernel_counts()
+        logits, toks, cache = _whisper_greedy(served, frames, prompt, cfg, pol, torch.bfloat16,
+                                              clock)
+        out.update(launches=_kernel_counts(), prefill_s=clock[0], decode_s=clock[1:],
+                   cache_bytes=_tree_bytes(cache), finite=_finite(logits),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del cache
+        with collectives.timed() as count:
+            t0 = time.perf_counter()
+            _whisper_greedy(served, frames, prompt, cfg, pol, torch.bfloat16)
+            torch.cuda.synchronize()
+            out.update(timed_wall_s=time.perf_counter() - t0, collectives_s=count["seconds"],
+                       collectives_calls=count["calls"],
+                       wire=collective_stats(count["ops"]).to_dict())
+    del local, served
+    _free_cuda()
+    return out
+
+
+def _dist_whisper_serve_rank(groups: dict, job: dict, device) -> dict:
+    out = {"gates": {layout: _dist_whisper_serve(groups[layout], sp, job["whisper"], device)
+                     for layout, sp in WHISPER_SERVE_LAYOUTS}}
+    out["timed"] = _dist_whisper_serve_timed(groups["1x4"], device)
+    return out
+
+
+def _dist_whisper_serve_check(ranks, gpu: str) -> dict:
+    """Every rank's f32 run: tokens equal to the serial run's, logits within
+    ``WHISPER_SERVE_F32`` of max|ref|, flash's launches exact (a prefill's
+    and a decode step's each); then the bf16 timing."""
+    from repro_torch.models.whisper import flash_per_prefill
+
+    cfg = _whisper_dist_cfg("float32")
+    want = {"rmsnorm": 0, "flash": flash_per_prefill(cfg) + WHISPER_SERVE_STEPS * cfg.n_layers}
+    out = {}
+    for layout, sp in WHISPER_SERVE_LAYOUTS:
+        runs = [r["whisper"]["gates"][layout] for r in ranks]
+        worst = max(g["rel"] for g in runs)
+        faults = [f"rank {r}: launches {g['launches']}, want {want}" for r, g in enumerate(runs)
+                  if g["launches"] != want]
+        faults += [f"rank {r}: tokens differ" for r, g in enumerate(runs) if not g["tokens_equal"]]
+        if not worst <= WHISPER_SERVE_F32 or not all(g["finite"] for g in runs):
+            faults.append(f"logits {worst:.3e} of max|ref| (gate {WHISPER_SERVE_F32})")
+        print(f"[dist serve lm] {WHISPER_ARCH} f32 on {layout}{' seq_shard' if sp else ''}: "
+              f"tokens equal on every rank, prefill and {WHISPER_SERVE_STEPS} decode steps' "
+              f"logits {worst:.3e} of max|ref| (gate {WHISPER_SERVE_F32}); launches per rank "
+              f"{runs[0]['launches']} (exact); a rank holds {runs[0]['cache_bytes'] / 2**20:.2f} "
+              f"MiB of f32 cache (its rows and padded heads) and {runs[0]['param_bytes'] / 2**20:.1f} "
+              f"MiB of shards; served in {max(g['wall_s'] for g in runs):.2f}s; {gpu}"
+              if not faults else f"[dist serve lm] {WHISPER_ARCH} on {layout}: {faults}")
+        if faults:
+            raise SystemExit(f"[dist serve lm] whisper on {layout}: " + "; ".join(faults[:8]))
+        out[layout] = {"rel": worst, "launches": runs[0]["launches"],
+                       "cache_bytes": [g["cache_bytes"] for g in runs],
+                       "param_bytes": [g["param_bytes"] for g in runs],
+                       "peak_gib": [g["peak_gib"] for g in runs]}
+    timed = [r["whisper"]["timed"] for r in ranks]
+    if any(t["launches"] != want or not t["finite"] for t in timed):
+        raise SystemExit(f"[dist serve lm] whisper bf16: launches {[t['launches'] for t in timed]}, "
+                         f"want {want}, or logits not finite")
+    for r, t in enumerate(timed):
+        step = [s * 1e3 for s in t["decode_s"][1:]]
+        share = t["collectives_s"] / t["timed_wall_s"]
+        print(f"[dist serve lm] {WHISPER_ARCH} bf16 on 1x4 seq_shard, rank {r}: prefill "
+              f"{t['prefill_s'] * 1e3:.1f} ms (batch {WHISPER_DIST_BATCH}, {cfg.encoder.frames} "
+              f"frames, {WHISPER_SERVE_PROMPT}-token prompts), decode step {np.mean(step):.2f} ms "
+              f"(median {np.median(step):.2f}, {len(step)} steps after the first); collectives "
+              f"{t['collectives_s'] * 1e3:.1f} ms ({t['collectives_calls']} calls) of a "
+              f"{t['timed_wall_s'] * 1e3:.1f} ms run with each one timed ({share:.1%}), "
+              f"{_wire_words(t['wire'])}; cache {t['cache_bytes'] / 2**20:.2f} MiB (bf16); peak "
+              f"{t['peak_gib']:.2f} GiB; {gpu}")
+    t = timed[0]
+    out["timed"] = {"prefill_ms": t["prefill_s"] * 1e3,
+                    "decode_step_ms": float(np.mean(t["decode_s"][1:]) * 1e3),
+                    "collectives_share": [x["collectives_s"] / x["timed_wall_s"] for x in timed],
+                    "wire_bytes": t["wire"]["total_bytes"], "cache_bytes": t["cache_bytes"],
+                    "param_bytes": [x["param_bytes"] for x in timed],
+                    "peak_gib": [x["peak_gib"] for x in timed], "launches": t["launches"]}
+    return out
 
 
 def phase_dist_serve_lm(gpu: str) -> dict:
@@ -6044,10 +6698,11 @@ def phase_dist_serve_lm(gpu: str) -> dict:
               f"{cfg.kv_heads} kv heads x {cfg.head_dim_}, d_model {cfg.d_model}, vocab {cfg.vocab})")
     t0 = time.perf_counter()
     serial = _dist_serve_references(gpu, dev)
+    whisper_serial = _dist_whisper_serve_serial(gpu, dev)
     _free_cuda()
     print(f"[dist serve lm] serial references on the card in {time.perf_counter() - t0:.1f}s; "
           f"{_memory_line()}")
-    job = {"serial": serial, "gpu": gpu}
+    job = {"serial": serial, "gpu": gpu, "whisper": whisper_serial}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         ranks = launch_ranks(_dist_serve_rank, DIST_RANKS, d, args=(job,),
@@ -6057,12 +6712,89 @@ def phase_dist_serve_lm(gpu: str) -> dict:
           f"{time.perf_counter() - t0:.1f}s for the launch")
     gates = _dist_serve_check(ranks, gpu)
     timed = _dist_serve_report_timed(ranks, gpu)
-    del job, serial
+    whisper = _dist_whisper_serve_check(ranks, gpu)
+    del job, serial, whisper_serial
     torch.cuda.ipc_collect()
     _free_cuda()
     launches = {k: gates["launches"][k] + timed["launches"][k] for k in ("rmsnorm", "flash")}
-    return {"launches": {"dist_serve_lm": launches}, "gates": gates["gates"],
-            "timed": timed["timed"], "times": ranks[0]["times"]}
+    whisper_launches = {k: sum(whisper[layout]["launches"][k] for layout, _ in WHISPER_SERVE_LAYOUTS)
+                        + whisper["timed"]["launches"][k] for k in ("rmsnorm", "flash")}
+    return {"launches": {"dist_serve_lm": launches, "dist_serve_whisper": whisper_launches},
+            "gates": gates["gates"], "timed": timed["timed"], "times": ranks[0]["times"],
+            "whisper": whisper}
+
+
+# ---------------------------------------------------------------------------
+# Phase `dryrun`: the dry-run tooling on the card's constants, and its
+# per-rank bytes against what the ranks of the dist phases held
+# ---------------------------------------------------------------------------
+
+def phase_dryrun(gpu: str, dist: dict, dist_lm: dict, dist_serve: dict) -> dict:
+    """``launch/dryrun.py --all`` (its artifacts in a temp dir; the card's
+    memory for the fit check): the number of cells and how many fit. Then
+    the dry-run's per-rank bytes against the bytes the ranks' tensors held,
+    exactly: whisper-tiny's shards on (1 x 4) and (2 x 2) in `dist lm`
+    (f32 masters), its shards and caches on every layout of `dist serve lm`
+    (f32 shards and caches; bf16 serving draw and caches on (1 x 4)), the
+    Sleipner FNO's shards on the P = 4 layout of phase `dist`; each rank's
+    ``max_memory_allocated`` beside them."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+        dryrun.main(["--all", "--out-dir", d])
+        n_files = len(os.listdir(d))
+    last = buf.getvalue().strip().splitlines()[-1]
+    m = re.search(r"(\d+) cells, (\d+) fit", last)
+    if m is None or int(m.group(1)) != n_files or n_files != 2 * len(list(dryrun.iter_cells())):
+        raise SystemExit(f"[dryrun] {last!r}: {n_files} artifacts")
+    print(f"[dryrun] launch/dryrun.py --all on meshes 16x16 and 2x16x16 (pod folded into data): "
+          f"{m.group(1)} cells, {m.group(2)} fit one card of "
+          f"{dryrun.device_memory_bytes() / 2**30:.2f} GiB (the card's total_memory); {gpu}")
+    w32, w16 = _whisper_dist_cfg("float32"), _whisper_dist_cfg("bfloat16")
+    max_len = WHISPER_SERVE_PROMPT + WHISPER_SERVE_STEPS
+    checks = []
+    for name, p, _ in DIST_LM_LAYOUTS:
+        run = dist_lm["whisper"][name]
+        checks.append((f"dist lm {WHISPER_ARCH} {name} shards (f32 masters)",
+                       dryrun.lm_param_bytes(w32, DIST_RANKS // p, p), run["param_bytes"],
+                       run["peak_gib"]))
+    for layout, _ in WHISPER_SERVE_LAYOUTS:
+        run = dist_serve["whisper"][layout]
+        d = int(layout.split("x")[0])
+        p = DIST_RANKS // d
+        checks.append((f"dist serve lm {WHISPER_ARCH} {layout} shards (f32)",
+                       dryrun.lm_param_bytes(w32, d, p, serving=True), run["param_bytes"],
+                       run["peak_gib"]))
+        checks.append((f"dist serve lm {WHISPER_ARCH} {layout} cache (f32, batch "
+                       f"{WHISPER_DIST_BATCH}, max_len {max_len})",
+                       dryrun.lm_cache_bytes(w32, d, p, WHISPER_DIST_BATCH, max_len, torch.float32),
+                       run["cache_bytes"], run["peak_gib"]))
+    timed = dist_serve["whisper"]["timed"]
+    checks.append((f"dist serve lm {WHISPER_ARCH} 1x4 shards (bf16 serving draw)",
+                   dryrun.lm_param_bytes(w16, 1, DIST_RANKS, serving=True), timed["param_bytes"],
+                   timed["peak_gib"]))
+    checks.append((f"dist serve lm {WHISPER_ARCH} 1x4 cache (bf16)",
+                   dryrun.lm_cache_bytes(w16, 1, DIST_RANKS, WHISPER_DIST_BATCH, max_len),
+                   [timed["cache_bytes"]] * DIST_RANKS, timed["peak_gib"]))
+    fno = dist["fno_p4"]
+    checks.append(("dist Sleipner FNO 1 x 4 shards (w_spec by k_y)",
+                   dryrun.fno_param_bytes(_serving_cfg(), {"model": DIST_RANKS}),
+                   fno["param_bytes"], fno["peak_gib"]))
+    out = {}
+    for what, want, held, peaks in checks:
+        print(f"[dryrun] {what}: the dry-run's {want} B a rank, the ranks held "
+              f"{sorted(set(held))} B ({'equal' if set(held) == {want} else 'NOT EQUAL'}); "
+              f"max_memory_allocated {[round(x, 2) for x in peaks]} GiB (activations and "
+              f"workspace included); {gpu}")
+        if set(held) != {want}:
+            raise SystemExit(f"[dryrun] {what}: the ranks held {held} B, the dry-run says {want}")
+        out[what] = {"bytes": want, "peak_gib": peaks}
+    return {"cells": int(m.group(1)), "fit": int(m.group(2)), "checks": out}
 
 
 def main() -> int:
@@ -6107,6 +6839,7 @@ def main() -> int:
     lm_train = phase("lm train", phase_lm_train, gpu)
     dist_lm = phase("dist lm", phase_dist_lm, gpu)
     dist_serve = phase("dist serve lm", phase_dist_serve_lm, gpu)
+    dry = phase("dryrun", phase_dryrun, gpu, dist, dist_lm, dist_serve)
     fused["launches"] = train["fused"]
     fused["launches_by_path"] = {
         **served, "train": train["fused"], "train_cli": train_cli["fused"],
@@ -6152,8 +6885,9 @@ def main() -> int:
             {path: n[key] for path, n in dist_serve["launches"].items()})
         record["dist_serve_shapes"] = dist_serve["times"][key]
     flash["lm_train"] = lm_train["stats"]
-    flash["dist_lm"] = {k: dist_lm[k] for k in ("gates", "ulysses", "step")}
-    flash["dist_serve_lm"] = {k: dist_serve[k] for k in ("gates", "timed")}
+    flash["dist_lm"] = {k: dist_lm[k] for k in ("gates", "ulysses", "step", "whisper")}
+    flash["dist_serve_lm"] = {k: dist_serve[k] for k in ("gates", "timed", "whisper")}
+    flash["dryrun"] = dry
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(gpu)
     print(json.dumps({"kernels": [fused, dw, flat, flat_dw, rms, flash]}))

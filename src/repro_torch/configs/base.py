@@ -8,8 +8,9 @@ defaults, so a config prints and compares like the reference's. The
 families: dense, MoE (DeepSeek's fine-grained experts, with MLA or plain
 attention), SSM (Mamba-2), hybrid (RecurrentGemma's RG-LRU and local
 attention) and encoder-decoder (Whisper, served through the ``whisper_*``
-entry points of ``models/whisper.py``). What the port still lacks (the
-distributed LM paths) raises with ``NOT_PORTED``.
+entry points of ``models/whisper.py``), serially and over (data x model)
+ranks; and the dry-run's shape grid (``ShapeConfig``, ``LM_SHAPES``,
+``get_shape``, ``cell_supported``, ``input_specs``), the reference's cells.
 """
 from __future__ import annotations
 
@@ -17,8 +18,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5d: the distributed LM paths)"
 
 # the families the port computes (every family of the reference)
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
@@ -125,6 +124,11 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if long_500k is feasible (SSM / hybrid with bounded window)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         if self.dtype not in _DTYPES:
             raise ValueError(f"activation dtype {self.dtype!r} is not one of {sorted(_DTYPES)}")
@@ -198,3 +202,55 @@ class ArchConfig:
         mo = self.moe
         inactive = (mo.n_experts - mo.top_k) * 3 * self.d_model * mo.d_expert
         return self.approx_params() - self.layer_kinds().count("moe") * inactive
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's shape grid (``launch/dryrun.py``): the reference's cells
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+LM_SHAPES = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_supported(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether this (arch x shape) dry-run cell runs, and why not if not:
+    the reference's rule, long_500k only for the families whose attention
+    is bounded (``ArchConfig.sub_quadratic``)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "full-attention arch: O(S^2) at 524k ctx — skipped per assignment"
+    return True, ""
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
+    """{name: (shape, dtype)} of every model input of this cell (the
+    reference's ``ShapeDtypeStruct`` stand-ins as shapes and torch
+    dtypes)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    frames = {"frames": ((b, arch.encoder.frames, arch.d_model), arch.activation_dtype)} \
+        if arch.family == "encdec" else {}
+    if shape.kind == "train":
+        return {"tokens": ((b, s), i32), "targets": ((b, s), i32), **frames}
+    if shape.kind == "prefill":
+        return {"tokens": ((b, s), i32), **frames}
+    # decode: one token per sequence + cache of length seq_len
+    return {"token": ((b, 1), i32), "index": ((), i32)}

@@ -30,7 +30,12 @@ sums its cotangents too (``sum_copies``).
 A group of one rank makes each of these the identity. gloo has no
 reduce-scatter, so one is an all-reduce and a slice. Within ``timed()``
 each call waits for the device before and after and adds its wall time
-to the block's count: the collectives' share of a step.
+to the block's count: the collectives' share of a step. The count also
+keeps each call's kind ("all-reduce", "all-gather", "all-to-all"), the
+bytes of its result and its group's size (``ops``), from which
+``launch.comm_analysis`` models the bytes on the wire. ``counted`` does
+the same for a collective issued elsewhere (``core.repartition``'s
+all-to-all, the trainer's gradient all-reduce).
 """
 from __future__ import annotations
 
@@ -45,12 +50,14 @@ _timed = None
 
 
 @contextlib.contextmanager
-def timed():
+def timed(sync: bool = True):
     """Within the block every collective of this process waits for the
     device before and after it and is counted: yields {"seconds",
-    "calls"}, their wall time and number."""
+    "calls", "ops"}, their wall time, their number and each one's (kind,
+    result bytes, group size). With ``sync=False`` the calls are counted
+    and recorded only (no wait, "seconds" stays 0)."""
     global _timed
-    count, outer = {"seconds": 0.0, "calls": 0}, _timed
+    count, outer = {"seconds": 0.0, "calls": 0, "ops": [], "sync": sync}, _timed
     _timed = count
     try:
         yield count
@@ -62,27 +69,38 @@ def size_of(group) -> int:
     return 1 if group is None else group.size()
 
 
-class _Timed:
-    def __init__(self, x):
-        self.cuda, self.count = x.is_cuda, _timed
+class counted:
+    """``with counted(kind, result, group):`` around one collective whose
+    result is the tensor ``result`` over ``group`` (None: the world):
+    within ``timed()`` it is timed between device syncs and recorded
+    (kind, result bytes, group size)."""
+
+    def __init__(self, kind: str, result, group):
+        self.cuda, self.count = result.is_cuda, _timed
+        if self.count is None:
+            return
+        g = dist.get_world_size() if group is None else group.size()  # None: the world
+        self.op = (kind, result.numel() * result.element_size(), g)
 
     def __enter__(self):
-        if self.count is not None:
+        if self.count is not None and self.count["sync"]:
             if self.cuda:
                 torch.cuda.synchronize()
             self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         if self.count is not None:
-            if self.cuda:
-                torch.cuda.synchronize()
-            self.count["seconds"] += time.perf_counter() - self.t0
+            if self.count["sync"]:
+                if self.cuda:
+                    torch.cuda.synchronize()
+                self.count["seconds"] += time.perf_counter() - self.t0
             self.count["calls"] += 1
+            self.count["ops"].append(self.op)
 
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
     out = x.contiguous().clone()
-    with _Timed(x):
+    with counted("all-reduce", out, group):
         dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -91,7 +109,7 @@ def _all_gather(x, dim, group):
     p = size_of(group)
     send = x.movedim(dim, 0).contiguous()
     recv = send.new_empty((p * send.shape[0],) + tuple(send.shape[1:]))
-    with _Timed(x):
+    with counted("all-gather", recv, group):
         dist.all_gather_into_tensor(recv, send, group=group)
     return recv.movedim(0, dim).contiguous()
 

@@ -25,6 +25,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.collectives import counted
+
 
 def _all_to_all(x: torch.Tensor, src: int, dst: int, group) -> torch.Tensor:
     p = dist.get_world_size(group)
@@ -33,7 +35,8 @@ def _all_to_all(x: torch.Tensor, src: int, dst: int, group) -> torch.Tensor:
     real = torch.view_as_real(x) if x.is_complex() else x
     send = real.movedim(dst, 0).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    with counted("all-to-all", recv, group):
+        dist.all_to_all_single(recv, send, group=group)
     # recv: [P (source rank), n_dst/P, *rest], src at index s of rest
     s = src if src < dst else src - 1
     recv = recv.view((p, send.shape[0] // p) + tuple(send.shape[1:]))

@@ -29,6 +29,7 @@ import subprocess
 import numpy as np
 import torch
 
+from repro_torch.common.constants import HBM_BANDWIDTH as HBM_BYTES_PER_S
 from repro_torch.kernels.build import CUDA_CFLAGS, KernelLibrary, build, build_variants
 from repro_torch.kernels.spectral_conv.build import LIBRARY
 from repro_torch.kernels.spectral_conv.ref import spectral_apply_ref
@@ -50,7 +51,6 @@ VARIANTS = {
 CI = CO = 40
 FULL = (48, 32, 16, 10)
 SHAPES = [("full b=2", 2, FULL), ("full b=1", 1, FULL), ("shard P=4 b=2", 2, (48, 8, 16, 10))]
-HBM_BYTES_PER_S = 3.35e12
 FIRST_THREADS, FIRST_CO_TILE = 128, 8  # the first version's block and channel tile
 
 

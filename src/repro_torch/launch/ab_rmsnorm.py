@@ -28,6 +28,7 @@ import subprocess
 import numpy as np
 import torch
 
+from repro_torch.common.constants import HBM_BANDWIDTH as HBM_BYTES_PER_S
 from repro_torch.kernels.build import KernelLibrary, build
 from repro_torch.kernels.rmsnorm import ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -38,7 +39,6 @@ WIDTHS = (512, 1024, 2048, 2560, 3072)
 # and a decode step of one 16-byte vector a row: the floor of a launch that
 # loads, reduces and stores
 SHAPES = [(1000, d) for d in WIDTHS] + [(4, d) for d in (8,) + WIDTHS]
-HBM_BYTES_PER_S = 3.35e12
 NV_CHOICES = (1, 2, 3, 4, 5, 6, 8)
 RPC_CHOICES = (1, 2, 4, 8, 16, 32)
 

@@ -24,7 +24,12 @@ all-gathers that weight and takes its heads' columns (its rows of wo):
 the gather's backward reduce-scatters, so two ranks reading one kv head
 both send it their gradient. A GQA config keeps its groups where the
 rank's q heads hold whole runs of a kv head or lie inside one
-(``core.ulysses.kv_heads_for``), else each q head gets its kv head.
+(``core.ulysses.kv_heads_for``), else each q head gets its kv head
+(``tp_heads``). ``_attn_tp`` also takes the k/v input apart from the q
+input (``kv_x``: the encoder-decoder's cross-attention, whose k/v come
+from the encoder's output), and ``pick_heads`` cuts a block's shards to
+the rank's heads once, for a serving loop that should gather no weight
+a step.
 
 Layouts as in the reference: residual stream [b, s, d]; heads [b, h, s,
 hd]; the cache {"k": [b, kvh, S, hd], "v": ...}; the MLA cache {"ckv":
@@ -59,6 +64,8 @@ a decode step combines the chunks as the split decode combines a
 prefix's (``_chunk_sums``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -141,15 +148,75 @@ def padded_heads(n_heads: int, p_size: int) -> int:
     return -(-n_heads // p_size) * p_size
 
 
+class TPHeads(NamedTuple):
+    """This rank's heads over the model group: ``n_loc`` padded q heads a
+    rank, the ``n_real`` of them that are real (``q_heads``, an index
+    tensor), the kv heads they attend with (``kv_heads``; with ``per_q``
+    one a q head, padded like them), and whether the rank's column shards
+    of the q and kv projections are those heads' columns (``q_aligned``,
+    ``kv_aligned``)."""
+    n_loc: int
+    n_real: int
+    q_heads: torch.Tensor
+    kv_heads: torch.Tensor
+    per_q: bool
+    q_aligned: bool
+    kv_aligned: bool
+
+    @property
+    def n_kv(self) -> int:
+        """The kv heads the rank attends with, padding included."""
+        return self.n_loc if self.per_q else self.kv_heads.numel()
+
+
+def tp_heads(cfg, policy, device=None) -> TPHeads:
+    """This rank's ``TPHeads`` (see the module's docstring): padded heads
+    m hp/P .. of the model group's rank m; an MHA config (or a GQA rank
+    with padded heads) takes one kv head a q head, a GQA one its q heads'
+    runs (``core.ulysses.kv_heads_for``)."""
+    size, rank = policy.model_size(), policy.model_rank()
+    h, kvh = cfg.n_heads, cfg.kv_heads
+    n_loc = padded_heads(h, size) // size
+    first = rank * n_loc
+    n_real = max(0, min(n_loc, h - first))
+    q_heads = torch.arange(first, first + n_real, device=device)
+    per_q = kvh == h or n_real < n_loc
+    if per_q:
+        kv_heads = q_heads if kvh == h else q_heads // (h // kvh)
+    else:
+        kv_heads = kv_heads_for(first, n_loc, h, kvh, device)
+    q_aligned = h % size == 0
+    return TPHeads(n_loc, n_real, q_heads, kv_heads, per_q, q_aligned,
+                   q_aligned and kvh % size == 0)
+
+
 def _columns(w, heads, hd: int, aligned: bool, group, dim: int = -1):
     """The columns (rows with ``dim=0``) of heads ``heads`` (a 1-D index
     tensor) of a weight the group shards along ``dim``: this rank's shard
-    itself when ``aligned``, else picked from the all-gathered weight."""
-    if aligned:
+    itself when ``aligned`` or when it holds exactly those heads already
+    (``pick_heads``), else picked from the all-gathered weight."""
+    if aligned or w.shape[dim] == heads.numel() * hd:
         return w
     full = all_gather(w, dim, group)
     cols = (heads[:, None] * hd + torch.arange(hd, device=w.device)).reshape(-1)
     return full.index_select(dim, cols)
+
+
+def pick_heads(p, cfg, policy) -> dict:
+    """An attention block's shards (one layer's, or stacked on a leading
+    layer dim) cut to this rank's heads once (one all-gather a leaf where
+    the shards are not the heads' columns): wq/bq the q heads' columns,
+    wk/bk/wv/bv the kv heads', wo the q heads' rows.
+    The tensor-parallel paths take such a block as is (``_columns``), so a
+    serving loop gathers no weight per step."""
+    hs, hd, group = tp_heads(cfg, policy, p["wq"].device), cfg.head_dim_, policy.model_group
+    out = dict(p)
+    for name in ("wq", "bq", "wk", "bk", "wv", "bv", "wo"):
+        if name in p:
+            heads, aligned = ((hs.q_heads, hs.q_aligned) if name[1] in "qo"
+                              else (hs.kv_heads, hs.kv_aligned))
+            out[name] = _columns(p[name], heads, hd, aligned, group, dim=-2 if name == "wo" else -1)
+    return out
 
 
 def _project(x, w, b, heads, hd, aligned, group):
@@ -160,46 +227,66 @@ def _project(x, w, b, heads, hd, aligned, group):
     return y.reshape(x.shape[0], x.shape[1], heads.numel(), hd)
 
 
-def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool, with_kv: bool = False):
-    """``attn_forward`` over the model group: see the module's docstring.
-    With ``with_kv`` also returns the whole sequence's x as the rank took
-    it in, and the k and v [b, s, n, hd] of the kv heads it attended with."""
-    group = policy.model_group
-    size, rank = group.size(), group.rank()
-    h, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
-    n_loc = padded_heads(h, size) // size
-    first = rank * n_loc
-    n_real = max(0, min(n_loc, h - first))
-    xin = layers.tp_in(x, group, seq_sharded)
-    b, s, _ = xin.shape
-    dev = x.device
-    q_heads = torch.arange(first, first + n_real, device=dev)
-    per_q = kvh == h or n_real < n_loc
-    if per_q:  # MHA, or a GQA rank with padded heads: one kv head per q head
-        kv_heads = q_heads if kvh == h else q_heads // (h // kvh)
-    else:
-        kv_heads = kv_heads_for(first, n_loc, h, kvh, dev)
-    q_aligned = h % size == 0
-    kv_aligned = q_aligned and kvh % size == 0
+def _tp_qkv(p, x, kv_x, cfg, policy, hs: TPHeads, positions, kv_positions):
+    """q [b, s, n_loc, hd] of this rank's heads from x, and k, v [b, s_kv,
+    n_kv, hd] of its kv heads from ``kv_x`` (x itself for self-attention),
+    each padded with zero heads to the rank's count; q/k-norm and RoPE at
+    the positions given."""
+    group, hd = policy.model_group, cfg.head_dim_
     bias = cfg.qkv_bias
-    q = _project(xin, p["wq"], p["bq"] if bias else None, q_heads, hd, q_aligned, group)
-    k = _project(xin, p["wk"], p["bk"] if bias else None, kv_heads, hd, kv_aligned, group)
-    v = _project(xin, p["wv"], p["bv"] if bias else None, kv_heads, hd, kv_aligned, group)
+    q = _project(x, p["wq"], p["bq"] if bias else None, hs.q_heads, hd, hs.q_aligned, group)
+    k = _project(kv_x, p["wk"], p["bk"] if bias else None, hs.kv_heads, hd, hs.kv_aligned, group)
+    v = _project(kv_x, p["wv"], p["bv"] if bias else None, hs.kv_heads, hd, hs.kv_aligned, group)
     if cfg.qk_norm:  # whole weights on this rank's heads: their gradient is a part
         q = layers.rms_norm(q, copy_to(p["q_norm"], group))
         k = layers.rms_norm(k, copy_to(p["k_norm"], group))
     if cfg.rope_fraction > 0:
-        positions = torch.arange(s, device=dev)
         q = layers.apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        k = layers.apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-    pad = n_loc - n_real
+        k = layers.apply_rope(k, kv_positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+    pad = hs.n_loc - hs.n_real
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg, causal=causal)
-    o = o[:, :n_real].transpose(1, 2).reshape(b, s, n_real * hd)
-    wo = _columns(p["wo"], q_heads, hd, q_aligned, group, dim=0)
-    out = layers.tp_out(o @ wo.to(x.dtype), group, seq_sharded)
-    return (out, xin, k[:, :, :len(kv_heads)], v[:, :, :len(kv_heads)]) if with_kv else out
+    return q, k, v
+
+
+def tp_heads_out(o, p, hs: TPHeads, cfg, policy, dtype, seq_sharded: bool = False):
+    """The attention output of this rank's padded heads o [b, n_loc, s,
+    hd] through its real heads' rows of ``wo``, the partial products summed
+    over the group (``layers.tp_out``): [b, s, d]."""
+    b, _, s, hd = o.shape
+    o = o[:, :hs.n_real].transpose(1, 2).reshape(b, s, hs.n_real * hd)
+    wo = _columns(p["wo"], hs.q_heads, hd, hs.q_aligned, policy.model_group, dim=0)
+    return layers.tp_out(o @ wo.to(dtype), policy.model_group, seq_sharded)
+
+
+def tp_q(p, x, cfg, policy, hs: TPHeads):
+    """q [b, n_loc, s, hd] of this rank's padded heads from x (no
+    position rotation: the encoder-decoder's cross-attention)."""
+    q = _project(x, p["wq"], p["bq"] if cfg.qkv_bias else None, hs.q_heads, cfg.head_dim_,
+                 hs.q_aligned, policy.model_group)
+    return F.pad(q, (0, 0, 0, hs.n_loc - hs.n_real)).transpose(1, 2)
+
+
+def _attn_tp(p, x, cfg, policy, causal: bool, seq_sharded: bool, with_kv: bool = False,
+             kv_x=None, attend_fn=None):
+    """``attn_forward`` over the model group: see the module's docstring.
+    ``kv_x`` (cross-attention): the k/v input [b, s_kv, d], whole on every
+    rank and already entered into the group (``copy_to``, or the
+    all-gather of a sequence-sharded one), apart from the q input x.
+    ``attend_fn(q, k, v, causal)`` replaces ``attend`` (a plain version).
+    With ``with_kv`` also returns the whole sequence's x as the rank took
+    it in, and the k and v [b, s, n_kv, hd] of the kv heads it attended
+    with, padding included."""
+    xin = layers.tp_in(x, policy.model_group, seq_sharded)
+    kin = xin if kv_x is None else kv_x
+    hs = tp_heads(cfg, policy, x.device)
+    q, k, v = _tp_qkv(p, xin, kin, cfg, policy, hs, torch.arange(xin.shape[1], device=x.device),
+                      torch.arange(kin.shape[1], device=x.device))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    o = (attend(qt, kt, vt, cfg, causal=causal) if attend_fn is None
+         else attend_fn(qt, kt, vt, causal))
+    out = tp_heads_out(o, p, hs, cfg, policy, x.dtype, seq_sharded)
+    return (out, xin, k, v) if with_kv else out
 
 
 def cache_leaves(cfg, batch: int, max_len: int, dtype, *, split: bool = False,
@@ -304,18 +391,25 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_le
 
     A split cache (a "tk" leaf) goes to ``_attn_decode_split``, with each
     row's valid prefix length ``prefix_len``; under a policy whose model
-    group has more than one rank every attention cache without a window is
-    split. A window's ring over such a group is held by kv heads (this
-    rank's q heads over its kv heads' ring, ``wo`` row-parallel) or by
-    sequence (``_ring_decode``)."""
+    group has more than one rank every LM attention cache without a window
+    is split. A window's ring over such a group is held by kv heads or by
+    sequence (``_ring_decode``); a plain cache over such a group (a ring
+    by kv heads, the encoder-decoder's self cache) holds this rank's kv
+    heads (``tp_heads``, padding included), which its q heads attend
+    over, ``wo`` row-parallel (``tp_heads_out``)."""
     if "tk" in cache:
         return _attn_decode_split(p, x, cache, index, cfg, policy, prefix_len)
-    if prefix_by_sequence(cfg, policy):
+    if cfg.window is not None and prefix_by_sequence(cfg, policy):
         return _ring_decode(p, x, cache, index, cfg, policy, n_keys)
     b = x.shape[0]
     hd = cfg.head_dim_
     s_max = cache["k"].shape[2]
-    q, k, v = _project_qkv(p, x, cfg, index[:, None])
+    tp = policy.model_size() > 1
+    if tp:
+        hs = tp_heads(cfg, policy, x.device)
+        q, k, v = _tp_qkv(p, x, x, cfg, policy, hs, index[:, None], index[:, None])
+    else:
+        q, k, v = _project_qkv(p, x, cfg, index[:, None])
     rows = torch.arange(b, device=x.device)
     slot = index % s_max if cfg.window is not None else index
     cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
@@ -326,8 +420,9 @@ def attn_decode(p, x, cache, index, cfg, n_keys=None, *, policy=LOCAL, prefix_le
     if cfg.window is not None:
         valid = valid | (index >= s_max)[:, None]
     o = decode_attention(q.transpose(1, 2), cache["k"][:, :, :n], cache["v"][:, :, :n], valid)
-    o = o.transpose(1, 2).reshape(b, 1, -1)
-    return reduce_from(o @ p["wo"].to(x.dtype), policy.model_group), cache
+    if tp:
+        return tp_heads_out(o, p, hs, cfg, policy, x.dtype), cache
+    return o.transpose(1, 2).reshape(b, 1, -1) @ p["wo"].to(x.dtype), cache
 
 
 def prefix_by_sequence(cfg, policy) -> bool:

@@ -27,10 +27,9 @@ dtype, as the reference's). The reference's ``moe_a2a`` has no
 counterpart: the MoE takes its all-to-all wherever the reference's
 condition allows it (``models/moe.py``). Nor has its ``unroll_decode``:
 the port's decode step is already a Python loop over the layers, which
-holds no layer's cache in a loop carry. What the mesh
-does not run yet (the encoder-decoder family spread over a model group of
-more than one rank) raises ``NOT_PORTED`` where the model meets it
-(``check_mesh_arch``).
+holds no layer's cache in a loop carry. What a model group cannot split
+is refused by name where the model meets it
+(``models.transformer.check_mesh_arch``).
 """
 from __future__ import annotations
 

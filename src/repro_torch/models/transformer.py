@@ -99,7 +99,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.device import resolve_device
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.core.collectives import copy_to, gather_from, scatter_to
 from repro_torch.core.partition import CartPartition, gather_dim, local_slice
 from repro_torch.core.repartition import repartition
@@ -373,6 +372,16 @@ def param_specs(cfg, policy: ParallelPolicy) -> dict:
     return specs
 
 
+def tree_specs(cfg, policy: ParallelPolicy) -> dict:
+    """The spec tree of ``cfg``'s parameters: ``param_specs``, or for the
+    encoder-decoder family ``whisper.whisper_param_specs``."""
+    if cfg.family == "encdec":
+        from repro_torch.models.whisper import whisper_param_specs  # it imports this module
+
+        return whisper_param_specs(cfg)
+    return param_specs(cfg, policy)
+
+
 def _walk(fn, params, specs):
     """``fn(leaf, spec)`` over a parameter tree beside its spec tree."""
     if params is None:
@@ -396,13 +405,14 @@ def param_parts(cfg, policy: ParallelPolicy, params: dict) -> dict:
             return None
         return CartPartition(tuple(spec) + (None,) * (leaf.dim() - len(spec)))
 
-    return _walk(part, params, param_specs(cfg, policy))
+    return _walk(part, params, tree_specs(cfg, policy))
 
 
 def shard_params(params: dict, cfg, policy: ParallelPolicy) -> dict:
     """This rank's shards of a whole (serial, or converted-from-JAX)
-    parameter tree: each leaf split by ``param_specs`` cut to this rank's
-    slice of its model-axis dim (a copy), the others as they are."""
+    parameter tree of any family (whisper's too): each leaf split by
+    ``tree_specs`` cut to this rank's slice of its model-axis dim (a
+    copy), the others as they are."""
     group = policy.model_group
 
     def cut(leaf, spec):
@@ -411,7 +421,7 @@ def shard_params(params: dict, cfg, policy: ParallelPolicy) -> dict:
             return leaf
         return local_slice(leaf, dim, group).clone()
 
-    return _walk(cut, params, param_specs(cfg, policy))
+    return _walk(cut, params, tree_specs(cfg, policy))
 
 
 def gather_params(local: dict, cfg, policy: ParallelPolicy) -> dict:
@@ -425,23 +435,32 @@ def gather_params(local: dict, cfg, policy: ParallelPolicy) -> dict:
             return leaf
         return gather_dim(leaf, dim, group)
 
-    return _walk(whole, local, param_specs(cfg, policy))
+    return _walk(whole, local, tree_specs(cfg, policy))
 
 
 def check_mesh_arch(cfg, policy: ParallelPolicy) -> None:
-    """Raise for what a mesh policy does not run yet: the encoder-decoder
-    family over a model group of more than one rank; and for what the
-    group cannot split: MLA heads (they are not padded) and SSM heads
-    (where the group does not divide them the reference replicates the
-    state, and a column split of w_x would cut a head). A window's ring
-    that the group does not divide is refused where it is allocated
+    """Raise for what a model group cannot split: MLA heads (they are not
+    padded) and SSM heads (where the group does not divide them the
+    reference replicates the state, and a column split of w_x would cut a
+    head); for the encoder-decoder family, columns of its attention or MLP
+    projections that the group does not divide (its specs cut them
+    evenly), and GQA heads that it does not divide (its ranks' caches
+    would hold different numbers of kv heads). A window's ring that the
+    group does not divide is refused where it is allocated
     (``_new_cache``)."""
     p = policy.model_size()
     if p == 1:
         return
     if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family over {p} model ranks: "
-                                  f"{NOT_PORTED}")
+        hd = cfg.head_dim_
+        for what, n in (("q projection", cfg.n_heads * hd), ("kv projections", cfg.kv_heads * hd),
+                        ("MLP", cfg.d_ff)):
+            if n % p:
+                raise ValueError(f"{cfg.name}: the {n} columns of the {what} do not split over "
+                                 f"{p} model ranks")
+        if cfg.kv_heads != cfg.n_heads and cfg.n_heads % p:
+            raise ValueError(f"{cfg.name}: {cfg.n_heads} heads over {cfg.kv_heads} kv heads do "
+                             f"not split over {p} model ranks")
     if cfg.mla is not None and cfg.n_heads % p:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} MLA heads do not split over {p} model ranks")
     if cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % p:

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.common.tree import STACKED_KEYS, chunks, tree_leaves, tree_leaves_like, tree_map
+from repro_torch.core.collectives import counted
 from repro_torch.train.optimizer import AdamWConfig, StateLayout, adamw_update
 
 
@@ -79,7 +80,8 @@ def _all_reduce(t: torch.Tensor, group) -> None:
     if group is not None and dist.get_world_size(group) == 1:
         return
     for c in chunks(torch.view_as_real(t) if t.is_complex() else t):
-        dist.all_reduce(c, group=group)
+        with counted("all-reduce", c, group):
+            dist.all_reduce(c, group=group)
 
 
 @torch.no_grad()

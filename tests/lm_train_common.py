@@ -20,6 +20,7 @@ holds the served MoE logits the same way on the card). Every gradient
 gate refuses a leaf that is all zeros or that the port left without a
 gradient where the reference's is not zero.
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -292,3 +293,22 @@ class StandInGroup:
 
     def rank(self) -> int:
         return 0
+
+
+@contextlib.contextmanager
+def one_process_model_group(n: int):
+    """A model group of ``n`` ranks in this one process, for a check that a
+    distributed path runs to its end: torch's ``fake`` process group
+    (collectives that move nothing; the results are not the ranks' sums),
+    rank 0 of ``n``, taken down on leaving the block. Yields a mesh
+    {"data": one rank, "model": the group}."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.models.policy import ONE_RANK
+
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    try:
+        yield {"data": ONE_RANK, "model": dist.new_group(list(range(n)))}
+    finally:
+        dist.destroy_process_group()

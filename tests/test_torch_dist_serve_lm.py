@@ -46,7 +46,8 @@ from repro.models.policy import ParallelPolicy as JPolicy
 from repro_torch.configs import ARCH_IDS, ENCDEC_IDS, get_arch, reduced
 from repro_torch.launch.mesh import launch_ranks
 from repro_torch.models import (
-    LOCAL, ParallelPolicy, init_cache, lm_decode_step, lm_params_from_numpy, lm_prefill,
+    LOCAL, ParallelPolicy, init_cache, init_whisper_cache, lm_decode_step, lm_params_from_numpy,
+    lm_prefill,
 )
 from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
@@ -554,8 +555,9 @@ def test_cache_specs_are_the_references_for_every_arch(model, quant):
 def test_serving_over_a_mesh_refuses_what_is_not_ported():
     """The SSM and hybrid families are served over a model group: a rank's
     cache holds its SSM heads' state, its chunk of the local attention's
-    ring and the RG-LRU's cache whole. The encoder-decoder family over a
-    model group still raises ROADMAP's item. SSM heads and a ring that
+    ring and the RG-LRU's cache whole. The encoder-decoder family is
+    served over a model group too: a rank's caches hold its kv heads
+    (``tests/test_torch_dist_whisper.py`` serves it). SSM heads and a ring that
     the model group does not divide, MLA heads that it does not divide, a
     split cache's prefix that it does not divide, and slots that the data
     group does not, are refused by name; MLA takes its split cache on a
@@ -567,8 +569,10 @@ def test_serving_over_a_mesh_refuses_what_is_not_ported():
     cache = init_cache(hybrid, 2, 40, device="cpu", policy=two)["superblocks"]
     assert cache["b2_attn"]["k"].shape[3] == hybrid.window // 2
     assert cache["b0_rec"]["h"].shape[-1] == hybrid.rglru.width(hybrid.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-        ttf.check_mesh_arch(reduced(get_arch("whisper-tiny")), two)
+    whisper = reduced(get_arch("whisper-tiny"))
+    assert ttf.check_mesh_arch(whisper, two) is None
+    assert init_whisper_cache(whisper, 2, 16, device="cpu", policy=two)["cross_k"].shape == (
+        whisper.n_layers, 2, 1, whisper.encoder.frames, whisper.head_dim_)
     three = ParallelPolicy(mesh={"data": StandInGroup(1), "model": StandInGroup(3)})
     with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
         init_cache(ssm, 2, 16, device="cpu", policy=three)

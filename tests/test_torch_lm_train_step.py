@@ -26,7 +26,7 @@ from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step, zeros_like_tree
 from lm_train_common import (
     DECODER_IDS, SEQ, StandInGroup, _batch, _jbatch, _leaf_pairs, _lm_tree, _np_tree,
-    _port_loss_and_grads, _tbatch, cfgs,
+    _port_loss_and_grads, _tbatch, cfgs, one_process_model_group,
 )
 
 
@@ -54,12 +54,13 @@ def test_a_policy_over_a_mesh_is_the_distributed_slice():
     (``tests/test_torch_dist_recurrent.py``), and serves them from split
     caches, int8 ones with ``kv_quant`` (``tests/test_torch_dist_serve_lm.py``).
     Over a model group of more than one rank the encoder-decoder family
-    still raises ROADMAP's item, and MLA and SSM heads that the group does
-    not divide are refused; a mesh without a group for an axis is
-    refused."""
+    runs (``whisper_loss`` on a rank's shards of a model group of 2, taken
+    to its end in one process; ``tests/test_torch_dist_whisper.py`` holds
+    its values), and MLA and SSM heads that the group does not divide are
+    refused; a mesh without a group for an axis is refused."""
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.models import whisper_loss
-    from repro_torch.models.transformer import check_mesh_arch
+    from repro_torch.models import init_whisper_params, whisper_loss
+    from repro_torch.models.transformer import check_mesh_arch, shard_params
 
     mesh = {"data": StandInGroup(1), "model": StandInGroup(2)}
     policy = ParallelPolicy(mesh=mesh)
@@ -73,8 +74,17 @@ def test_a_policy_over_a_mesh_is_the_distributed_slice():
     with pytest.raises(ValueError, match="8 SSM heads do not split over 3 model ranks"):
         lm_loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                 reduced(get_arch("mamba2-370m")), three)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
-        whisper_loss({}, {}, reduced(get_arch("whisper-tiny")), policy)
+    whisper = dataclasses.replace(reduced(get_arch("whisper-tiny")), dtype="float32")
+    assert check_mesh_arch(whisper, policy) is None
+    with one_process_model_group(2) as group_mesh:
+        two = ParallelPolicy(mesh=group_mesh)
+        whole = init_whisper_params(whisper, generator=torch.Generator().manual_seed(0),
+                                    device="cpu")
+        f, d = whisper.encoder.frames, whisper.d_model
+        batch = {"frames": torch.randn(2, f, d), "tokens": torch.ones(2, 4, dtype=torch.long),
+                 "targets": torch.ones(2, 4, dtype=torch.long)}
+        xent, _ = whisper_loss(shard_params(whole, whisper, two), batch, whisper, two)
+        assert xent.shape == () and torch.isfinite(xent)
     from repro_torch.models import init_cache
 
     quant = ParallelPolicy(mesh=mesh, kv_quant=True)
